@@ -1,37 +1,48 @@
 // Fused IRLS statistics for one Gauss-Newton iteration of the dense tracker.
 //
-// Replaces the TPU kernel dvo_slam_tpu/ops/pallas_kernels.py::fused_stats_pallas
-// (kernel body _kernel2).  Per pixel: photometric and geometric residuals, the
-// Kinect-sigma occlusion gate, the t-distribution weight from the previous
-// precision (unit weights on the first iteration) and the 12 Jacobian
-// entries; over all pixels: the 16x16 Gram matrix of
-//   U = [sqrt(w) J_I (6); sqrt(w) J_Z (6); sqrt(w) r_I; sqrt(w) r_Z; mask; 0],
-// then the new 2x2 precision from the Gram's scale terms and
-// sum log1p(r^T P_new r / dof) over the valid pixels.
+// Replaces two TPU kernels of dvo_slam_tpu/ops/pallas_kernels.py:
+//  * fused_stats_pallas (kernel body _kernel2), entry point dvo_fused_stats:
+//    per pixel the photometric and geometric residuals, the Kinect-sigma
+//    occlusion gate, the t-distribution weight from the previous precision
+//    (unit weights on the first iteration) and the 12 Jacobian entries; over
+//    all pixels the 16x16 Gram matrix of
+//      U = [sqrt(w) J_I (6); sqrt(w) J_Z (6); sqrt(w) r_I; sqrt(w) r_Z; mask; 0],
+//    then the new 2x2 precision from the Gram's scale terms and
+//    sum log1p(r^T P_new r / dof) over the valid pixels.
+//  * fused_partials_pallas (kernel body _kernel), entry point
+//    dvo_fused_partials: the same per-pixel chain and Gram in one pass, plus
+//    the per-pixel rows rw [4, N] = (r_I, r_Z, w, mask), channel-major, for a
+//    caller that finishes the log-likelihood itself (the pixel-sharded
+//    alignment, which needs the precision of the Gram summed over all shards).
 //
 // What bounds it on the card: device-memory bandwidth.  Each pass reads the
 // 64 bytes of sampled + refpack per pixel (the log-likelihood pass reads 28 of
-// them); the maths is elementwise plus a 16-wide Gram, far below the card's
-// arithmetic rate.  At 640x480 level 1 (76,800 pixels) one pass moves ~5 MB,
-// which sits in the 50 MB L2 cache between the passes.
+// them), and fused_partials writes 16 bytes of rw per pixel on top; the maths
+// is elementwise plus a 16-wide Gram, far below the card's arithmetic rate.
+// At 640x480 level 1 (76,800 pixels) one pass moves ~5 MB, which sits in the
+// 50 MB L2 cache between the passes.
 //
 // Design, re-thought for Hopper rather than carried over from the TPU grid:
-//  * The TPU kernel carries its sums across a sequential grid and stashes
-//    (r_I, r_Z, mask) in VMEM between its two passes.  Here blocks run in no
-//    order, so each block writes its own partial Gram (launch A), one block
-//    reduces the partials in a fixed order and computes the new precision on
-//    the device (launch B), each block then RECOMPUTES r_I, r_Z and the mask
-//    from the inputs instead of storing them and sums its log1p terms
-//    (launch C), and one block sums those partials in a fixed order
-//    (launch D).  There are no float atomics, so two runs are bit-identical.
+//  * The TPU kernels carry their sums across a sequential grid; fused_stats
+//    also stashes (r_I, r_Z, mask) in VMEM between its two passes.  Here
+//    blocks run in no order, so each block writes its own partial Gram
+//    (launch A), one block reduces the partials in a fixed order (launch B;
+//    for fused_stats it also computes the new precision on the device).
+//    fused_stats then RECOMPUTES r_I, r_Z and the mask from the inputs
+//    instead of storing them and sums its log1p terms per block (launch C),
+//    and one block sums those partials in a fixed order (launch D).
+//    fused_partials is launches A and B only, with A writing rw as it goes
+//    (a compile-time flag: fused_stats's launches compute what they did
+//    before it existed).  There are no float atomics, so two runs are
+//    bit-identical.
 //  * The Gram runs in double: a product of two float32 entries is exact in
 //    double and every sum is a double sum, so the result is the exact Gram
 //    of the float32 rows up to double rounding, rounded once to float32.
 //    (The plain twin sums in float32; the two differ by the twin's error.)
 //  * The per-pixel chain is float32 and the file is built with -fmad=false
 //    so that every product and sum rounds as in the plain PyTorch twin (no
-//    contraction into fused multiply-adds).  The in-kernel precision thus
-//    rounds exactly as the host-side one.
+//    contraction into fused multiply-adds): rw is bit-equal to the twin's
+//    rows, and the in-kernel precision rounds exactly as the host-side one.
 //  * The precision never leaves the device: params (fx, fy, dof, first,
 //    P00, P01, P11, 0) is a device tensor that the wrapper builds with torch
 //    ops, so no value is read back to launch the kernel.
@@ -106,17 +117,18 @@ __device__ __forceinline__ float mahalanobis(float r_i, float r_z, float p00,
   return r_i * (p00 * r_i + p01 * r_z) + r_z * (p01 * r_i + p11 * r_z);
 }
 
-// The 16 rows of U for one pixel (_pixel_math + _gram_rows).
+// The 16 rows of U for one pixel (_pixel_math + _gram_rows); also hands the
+// pixel's r_I, r_Z, weight and mask back to the caller (the rw rows).
 __device__ __forceinline__ void gram_rows(const float* __restrict__ sampled,
                                           const float* __restrict__ refpack,
                                           int n, int p, const Params& P,
-                                          float u[kRows]) {
-  float r_i, r_z, maskf;
+                                          float u[kRows], float& r_i,
+                                          float& r_z, float& w, float& maskf) {
   residuals(sampled, refpack, n, p, r_i, r_z, maskf);
 
   const float d2 = mahalanobis(r_i, r_z, P.p00, P.p01, P.p11);
   const float w_t = (P.dof + 2.0f) / (P.dof + d2);
-  const float w = P.first > 0.0f ? maskf : w_t * maskf;
+  w = P.first > 0.0f ? maskf : w_t * maskf;
 
   const float idx_r = refpack[2 * n + p];
   const float idy_r = refpack[3 * n + p];
@@ -169,11 +181,15 @@ __device__ __forceinline__ void pair_of(int t, int& a, int& b) {
 }
 
 // Launch A: one block per kTile pixels -> its partial Gram [kPairs] (double).
+// With kWriteRw (fused_partials) each thread also writes its pixel's
+// (r_I, r_Z, w, mask) into rw [4, n]: neighbouring threads, neighbouring
+// addresses, one coalesced store per row.
+template <bool kWriteRw>
 __global__ void __launch_bounds__(kThreads)
 gram_partials_kernel(const float* __restrict__ sampled,
                      const float* __restrict__ refpack,
                      const float* __restrict__ params, int n,
-                     double* __restrict__ partials) {
+                     double* __restrict__ partials, float* __restrict__ rw) {
   __shared__ float us[kRows * kStride];
   const Params P = load_params(params);
   const int tid = threadIdx.x;
@@ -185,7 +201,14 @@ gram_partials_kernel(const float* __restrict__ sampled,
     const int p = blockIdx.x * kTile + s * kSubTile + tid;
     float u[kRows];
     if (p < n) {
-      gram_rows(sampled, refpack, n, p, P, u);
+      float r_i, r_z, w, maskf;
+      gram_rows(sampled, refpack, n, p, P, u, r_i, r_z, w, maskf);
+      if constexpr (kWriteRw) {
+        rw[0 * (size_t)n + p] = r_i;
+        rw[1 * (size_t)n + p] = r_z;
+        rw[2 * (size_t)n + p] = w;
+        rw[3 * (size_t)n + p] = maskf;
+      }
     } else {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) u[r] = 0.0f;
@@ -204,8 +227,9 @@ gram_partials_kernel(const float* __restrict__ sampled,
 }
 
 // Launch B: one block.  Fixed-order sum of the block partials into the full
-// symmetric Gram [16, 16] (float32), then the new precision
-// (_precision_from_scale_sums) into prec[3].
+// symmetric Gram [16, 16] (float32); with kPrecision (fused_stats) then the
+// new precision (_precision_from_scale_sums) into prec[3].
+template <bool kPrecision>
 __global__ void gram_reduce_kernel(const double* __restrict__ partials,
                                    int num_blocks, float* __restrict__ gram,
                                    float* __restrict__ prec) {
@@ -222,7 +246,7 @@ __global__ void gram_reduce_kernel(const double* __restrict__ partials,
     g[tid] = v;
   }
   __syncthreads();
-  if (tid == 0) {
+  if (kPrecision && tid == 0) {
     // upper-triangle index of (a, b), a <= b
     auto at = [](int a, int b) { return a * kRows - a * (a - 1) / 2 + (b - a); };
     const float s00 = g[at(12, 12)];
@@ -301,12 +325,28 @@ int dvo_fused_stats(const float* sampled, const float* refpack,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (n + kTile - 1) / kTile;
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  gram_partials_kernel<<<blocks, kThreads, 0, st>>>(sampled, refpack, params, n,
-                                                    gram_partials);
-  gram_reduce_kernel<<<1, 160, 0, st>>>(gram_partials, blocks, gram, prec);
+  gram_partials_kernel<false><<<blocks, kThreads, 0, st>>>(
+      sampled, refpack, params, n, gram_partials, nullptr);
+  gram_reduce_kernel<true><<<1, 160, 0, st>>>(gram_partials, blocks, gram, prec);
   loglik_partials_kernel<<<blocks, kThreads, 0, st>>>(sampled, refpack, params,
                                                       prec, n, ll_partials);
   loglik_reduce_kernel<<<1, 1, 0, st>>>(ll_partials, blocks, log_sum);
+  return (int)cudaGetLastError();
+}
+
+// Inputs and params as for dvo_fused_stats.
+// gram_partials: [ceil(n / tile), 136] float64 scratch.
+// gram: [16, 16] float32 out.  rw: [4, n] float32 out (r_I, r_Z, w, mask).
+// Returns cudaGetLastError() after the two launches on `stream`.
+int dvo_fused_partials(const float* sampled, const float* refpack,
+                       const float* params, int n, double* gram_partials,
+                       float* gram, float* rw, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (n + kTile - 1) / kTile;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  gram_partials_kernel<true><<<blocks, kThreads, 0, st>>>(
+      sampled, refpack, params, n, gram_partials, rw);
+  gram_reduce_kernel<false><<<1, 160, 0, st>>>(gram_partials, blocks, gram, nullptr);
   return (int)cudaGetLastError();
 }
 

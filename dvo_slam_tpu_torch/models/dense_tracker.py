@@ -180,13 +180,11 @@ def _match_level(
     device = sel_mask.device
     _resolve_backend(cfg, device)
     dof = cfg.influence_function_param
-    dtype = x0.dtype
     level_shape = tuple(sel_mask.shape)
     first_flags = (
         torch.zeros((), dtype=torch.int32, device=device),
         torch.ones((), dtype=torch.int32, device=device),
     )
-    eye6 = torch.eye(6, dtype=dtype, device=device)
 
     def evaluate(T, P_prev, first: bool):
         """Warp gather, then the fused statistics (kernel or twin by
@@ -212,6 +210,28 @@ def _match_level(
         ll = 0.5 * stats.num_valid * logdet - 0.5 * (dof + 2.0) * stats.log_sum
         A, b = fused_kernels.assemble_normal_equations(stats, precision_new)
         return n, precision_new, ll, A, b
+
+    carry, iterations, trace = _irls_level(
+        cfg, evaluate, x0, T0, initial0, precision0, collect_stats
+    )
+    stats = LevelStats(
+        valid_pixels=sel_mask.sum(dtype=torch.int32),
+        valid_constraints=carry.n,
+        iterations=iterations,
+        termination=carry.termination,
+    )
+    return carry, stats, trace
+
+
+def _irls_level(
+    cfg: TrackerConfig, evaluate, x0, T0, initial0, precision0, collect_stats: bool = False
+):
+    """The IRLS loop of one level around ``evaluate(T, P_prev, first) ->
+    (n, precision_new, ll, A, b)``: apply the increment, evaluate, accept
+    or revert, smooth toward the prior, solve, test termination.  Returns
+    (final carry, iterations, iteration trace or None)."""
+    dtype, device = x0.dtype, x0.device
+    eye6 = torch.eye(6, dtype=dtype, device=device)
 
     def step(c: _Carry, iteration: int):
         inc = se3.exp_se3(c.x)
@@ -311,13 +331,7 @@ def _match_level(
         # the one host read-back per iteration
         if bool(carry.done):
             break
-    stats = LevelStats(
-        valid_pixels=sel_mask.sum(dtype=torch.int32),
-        valid_constraints=carry.n,
-        iterations=iteration,
-        termination=carry.termination,
-    )
-    return carry, stats, trace
+    return carry, iteration, trace
 
 
 class PreparedFrame(NamedTuple):

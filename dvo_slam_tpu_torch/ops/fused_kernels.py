@@ -10,12 +10,19 @@ which holds every precision-independent sum of the normal equations
 numerator and n).  A second pass takes the new precision from those sums
 and reduces sum log1p(r^T P_new r / dof) over the valid pixels.
 
-Two implementations, one result:
-  * ``fused_stats_plain`` — plain PyTorch, the CPU path and the kernel's
-    oracle (the reference's ``fused_stats_xla``);
-  * ``fused_stats_cuda`` — the hand-written CUDA kernel for Hopper
-    (``csrc/fused_stats.cu``, replacing ``fused_stats_pallas``).
-``fused_stats`` picks one by the tensors' device.
+The single-pass form, ``fused_partials``, stops after the Gram and hands
+back the per-pixel residuals and weights instead, for a caller that
+reduces the Gram over several ranks before it can take the precision (the
+pixel-sharded alignment).
+
+Two implementations of each, one result:
+  * ``fused_stats_plain`` / ``fused_partials_plain`` — plain PyTorch, the
+    CPU path and the kernels' oracle (the reference's ``fused_stats_xla`` /
+    ``fused_partials_xla``);
+  * ``fused_stats_cuda`` / ``fused_partials_cuda`` — the hand-written CUDA
+    kernels for Hopper (``csrc/fused_stats.cu``, replacing
+    ``fused_stats_pallas`` / ``fused_partials_pallas``).
+``fused_stats`` / ``fused_partials`` pick one by the tensors' device.
 
 Inputs are channel-major [8, N]:
   refpack: i, z, idx, idy, x, y, sel, 0
@@ -218,23 +225,50 @@ def _kernel_library():
         ptr, ptr, ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr,
     ]
     lib.dvo_fused_stats.restype = ctypes.c_int
+    lib.dvo_fused_partials.argtypes = [ptr, ptr, ptr, ctypes.c_int, ptr, ptr, ptr, ptr]
+    lib.dvo_fused_partials.restype = ctypes.c_int
     for name in ("dvo_fused_stats_tile", "dvo_fused_stats_pairs"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def _check_pack(name, t, n=None):
-    if not isinstance(t, torch.Tensor) or not t.is_cuda:
-        raise ValueError(f"fused_stats_cuda: {name} must be a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise ValueError(f"fused_stats_cuda: {name} must be float32, got {t.dtype}")
-    if t.dim() != 2 or t.shape[0] != 8 or (n is not None and t.shape[1] != n):
-        raise ValueError(
-            f"fused_stats_cuda: {name} must be [8, N] with one N, got {tuple(t.shape)}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"fused_stats_cuda: {name} must be contiguous")
+def _check_packs(who, sampled, refpack):
+    """The kernels take two float32, contiguous [8, N] CUDA packs with one N
+    on one device; raise on anything else."""
+    for name, t in (("sampled", sampled), ("refpack", refpack)):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{who}: {name} must be a CUDA tensor")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{who}: {name} must be float32, got {t.dtype}")
+        if t.dim() != 2 or t.shape[0] != 8 or t.shape[1] != sampled.shape[-1]:
+            raise ValueError(f"{who}: {name} must be [8, N] with one N, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+    if refpack.device != sampled.device:
+        raise ValueError(f"{who}: sampled and refpack on different devices")
+
+
+def _kernel_params(intrinsics: Intrinsics, dof, first_iter, precision3, device):
+    """The kernels' params [8] = (fx, fy, dof, first, P00, P01, P11, 0),
+    built on the device with torch ops: launching reads no value back."""
+    f32 = torch.float32
+    return torch.cat(
+        [
+            torch.tensor([intrinsics.fx, intrinsics.fy, dof], dtype=f32, device=device),
+            torch.as_tensor(first_iter, device=device).to(f32).reshape(1),
+            precision3.to(device=device, dtype=f32).reshape(3),
+            torch.zeros(1, dtype=f32, device=device),
+        ]
+    )
+
+
+def _gram_partials_scratch(lib, n, device):
+    """The kernels' per-block float64 Gram partials [ceil(n / tile), 136]."""
+    blocks = -(-n // lib.dvo_fused_stats_tile())
+    return torch.empty(
+        (blocks, lib.dvo_fused_stats_pairs()), dtype=torch.float64, device=device
+    )
 
 
 def fused_stats_cuda(
@@ -243,29 +277,15 @@ def fused_stats_cuda(
     """The CUDA kernel (``csrc/fused_stats.cu``): four launches on the
     current stream, no host synchronisation.  ``fused_stats_cuda.launches``
     counts the calls that launched it."""
-    _check_pack("sampled", sampled)
+    _check_packs("fused_stats_cuda", sampled, refpack)
     n = sampled.shape[1]
-    _check_pack("refpack", refpack, n)
     device = sampled.device
-    if refpack.device != device:
-        raise ValueError("fused_stats_cuda: sampled and refpack on different devices")
     lib = _kernel_library()
 
     f32 = torch.float32
-    params = torch.cat(
-        [
-            torch.tensor([intrinsics.fx, intrinsics.fy, dof], dtype=f32, device=device),
-            torch.as_tensor(first_iter, device=device).to(f32).reshape(1),
-            precision3.to(device=device, dtype=f32).reshape(3),
-            torch.zeros(1, dtype=f32, device=device),
-        ]
-    )
-    tile = lib.dvo_fused_stats_tile()
-    blocks = -(-n // tile)
-    gram_partials = torch.empty(
-        (blocks, lib.dvo_fused_stats_pairs()), dtype=torch.float64, device=device
-    )
-    ll_partials = torch.empty(blocks, dtype=torch.float64, device=device)
+    params = _kernel_params(intrinsics, dof, first_iter, precision3, device)
+    gram_partials = _gram_partials_scratch(lib, n, device)
+    ll_partials = torch.empty(gram_partials.shape[0], dtype=torch.float64, device=device)
     gram = torch.empty((16, 16), dtype=f32, device=device)
     prec = torch.empty(3, dtype=f32, device=device)
     log_sum = torch.empty(1, dtype=f32, device=device)
@@ -299,6 +319,70 @@ def fused_stats(
     if kind == "cuda":
         return fused_stats_cuda(sampled, refpack, precision3, first_iter, intrinsics, dof)
     raise ValueError(f"fused_stats: no implementation for device {sampled.device}")
+
+
+def fused_partials_rows_cuda(
+    sampled, refpack, precision3, first_iter, intrinsics: Intrinsics, dof: float = 5.0
+):
+    """The CUDA single-pass kernel (``csrc/fused_stats.cu``,
+    ``dvo_fused_partials``): two launches on the current stream, no host
+    synchronisation.  Returns the Gram [16, 16] and the per-pixel rows
+    rw [4, N] = (r_I, r_Z, w, mask).  Each call adds one to
+    ``fused_partials_cuda.launches``."""
+    _check_packs("fused_partials_cuda", sampled, refpack)
+    n = sampled.shape[1]
+    device = sampled.device
+    lib = _kernel_library()
+    params = _kernel_params(intrinsics, dof, first_iter, precision3, device)
+    gram_partials = _gram_partials_scratch(lib, n, device)
+    gram = torch.empty((16, 16), dtype=torch.float32, device=device)
+    rw = torch.empty((4, n), dtype=torch.float32, device=device)
+    err = lib.dvo_fused_partials(
+        sampled.data_ptr(), refpack.data_ptr(), params.data_ptr(), n,
+        gram_partials.data_ptr(), gram.data_ptr(), rw.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_partials_cuda: kernel launch failed, CUDA error {err}")
+    fused_partials_cuda.launches += 1
+    return gram, rw
+
+
+def fused_partials_cuda(
+    sampled, refpack, precision3, first_iter, intrinsics: Intrinsics, dof: float = 5.0
+) -> FusedPartials:
+    """The CUDA single-pass kernel as ``FusedPartials``: ``residuals`` and
+    ``weights`` are views of the kernel's rw rows.
+    ``fused_partials_cuda.launches`` counts the calls that launched it."""
+    return partials_from_rows(
+        *fused_partials_rows_cuda(sampled, refpack, precision3, first_iter, intrinsics, dof)
+    )
+
+
+def partials_from_rows(gram, rw) -> FusedPartials:
+    """The kernel's Gram [16, 16] and rows rw [4, N] as ``FusedPartials``
+    (residuals and weights are views of rw)."""
+    m00, m01, m11, v, scale_sum, num_valid = _unpack_gram(gram)
+    return FusedPartials(
+        m00=m00, m01=m01, m11=m11, v=v, scale_sum=scale_sum, num_valid=num_valid,
+        residuals=rw[:2], weights=rw[2],
+    )
+
+
+fused_partials_cuda.launches = 0
+
+
+def fused_partials(
+    sampled, refpack, precision3, first_iter, intrinsics: Intrinsics, dof: float = 5.0
+) -> FusedPartials:
+    """Dispatch on the tensors' device: CPU tensors take the plain twin,
+    CUDA tensors the kernel; any other device raises."""
+    kind = sampled.device.type
+    if kind == "cpu":
+        return fused_partials_plain(sampled, refpack, precision3, first_iter, intrinsics, dof)
+    if kind == "cuda":
+        return fused_partials_cuda(sampled, refpack, precision3, first_iter, intrinsics, dof)
+    raise ValueError(f"fused_partials: no implementation for device {sampled.device}")
 
 
 def assemble_normal_equations(partials, precision):

@@ -1,0 +1,243 @@
+"""Sharded dense alignment on ``torch.distributed`` (port of
+``dvo_slam_tpu.parallel.sharded_alignment``).
+
+  * **Pixel-parallel**: ONE alignment sharded over the reference pixels.
+    Every rank holds both pyramids and the current frame's quad table; the
+    refpack is zero-padded to a multiple of the world size and each rank
+    takes its contiguous column block.  Per iteration each rank warps and
+    samples its shard and runs the single-pass fused partials on it (the
+    CUDA kernel on the card, the plain twin on the CPU), then:
+      1. one all-reduce of the 136 packed float32 Gram sums (M00, M01,
+         M11, the four J^T r vectors, the scale numerator, n);
+      2. the new precision, replicated on every rank;
+      3. the shard's sum of log1p(r^T P r / dof) over weights > 0, in
+         plain torch, and a second all-reduce of that scalar;
+      4. the log-likelihood, normal equations, smoothing, 6x6 solve,
+         termination and revert, replicated.
+    So two collectives and one host read-back (``done``) per iteration.
+    (The reference's docstring says one psum; its code psums seven
+    arrays.)
+  * **Pair-parallel**: a wave of B frame pairs; each rank runs
+    ``match_pyramids`` on its contiguous B / world pairs and the results
+    are all-gathered into one batched ``TrackingResult``.
+
+The pixel-sharded path mirrors the reference's, including where the
+reference's sharded path differs from its own single path:
+  (a) every level restarts the prior at the identity (``initial =
+      identity``): with mu > 0 the smoothing pulls toward the level's start,
+      not toward the caller's guess as ``match_prepared`` does;
+  (b) ``neg_log_likelihood`` is -ll, with no prior term;
+  (c) the sample is always depth-buffered (``depth_buffered_sampling`` is
+      not read);
+  (d) ``kernel_backend`` is not read (the partials go by the device), and
+      the log-determinant floor is 1e-30 where the single path's is 1e-38.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from ..config import TrackerConfig
+from ..models import dense_tracker as dt
+from ..models.dense_tracker import LevelStats, TrackingResult, match_pyramids
+from ..ops import fused_kernels, robust, se3
+from ..ops.camera import Intrinsics
+from ..ops.interp import build_quad_table_cm
+from ..ops.pyramid import PyramidLevel, build_acceleration_cm, selection_mask
+from ..ops.residuals import warp_and_sample_cm
+from .mesh import BATCH_AXIS, Mesh, local_block, shard_leading_axis
+
+# the 136 float32 sums of one all-reduce: m00, m01, m11 [6, 6], v [4, 6],
+# scale_sum [3], num_valid [1]
+_PACKED = (("m00", (6, 6)), ("m01", (6, 6)), ("m11", (6, 6)), ("v", (4, 6)),
+           ("scale_sum", (3,)), ("num_valid", ()))
+
+
+def _pack(parts) -> torch.Tensor:
+    return torch.cat([getattr(parts, name).reshape(-1) for name, _ in _PACKED])
+
+
+def _unpack(packed: torch.Tensor) -> dict:
+    out, start = {}, 0
+    for name, shape in _PACKED:
+        size = int(torch.Size(shape).numel())
+        out[name] = packed[start : start + size].reshape(shape)
+        start += size
+    return out
+
+
+def _check_mesh(mesh: Mesh, axis: str):
+    if axis != mesh.axis:
+        raise ValueError(f"mesh axis is {mesh.axis!r}, not {axis!r}")
+
+
+def _match_level_sharded(cfg, intrinsics, mesh: Mesh, refpack, quad, shape, x0, T0, precision0):
+    """One pyramid level of the pixel-sharded IRLS solve: ``refpack`` is
+    this rank's pixel shard [8, N_local], ``quad`` the whole table.
+    Returns (final carry, iterations)."""
+    device = refpack.device
+    dof = cfg.influence_function_param
+    first_flags = (
+        torch.zeros((), dtype=torch.int32, device=device),
+        torch.ones((), dtype=torch.int32, device=device),
+    )
+
+    def evaluate(T, P_prev, first: bool):
+        sampled = warp_and_sample_cm(refpack, quad, shape, intrinsics, T)  # (c)
+        p3 = torch.stack([P_prev[0, 0], P_prev[0, 1], P_prev[1, 1]])
+        parts = fused_kernels.fused_partials(  # (d)
+            sampled, refpack, p3, first_flags[int(first)], intrinsics, dof
+        )
+        # collective 1: every precision-independent sum at once
+        packed = _pack(parts)
+        dist.all_reduce(packed, group=mesh.group)
+        full = parts._replace(**_unpack(packed))
+        n_total = full.num_valid
+        precision_new = robust.precision_from_scale(
+            fused_kernels.scale_matrix(full) / torch.clamp(n_total - 3.0, min=1.0)
+        )
+
+        # the shard's log1p sum, then collective 2
+        r_i, r_z = parts.residuals[0], parts.residuals[1]
+        p00, p01, p11 = precision_new[0, 0], precision_new[0, 1], precision_new[1, 1]
+        d2 = r_i * (p00 * r_i + p01 * r_z) + r_z * (p01 * r_i + p11 * r_z)
+        log_sum = torch.sum(
+            torch.where(parts.weights > 0, torch.log1p(d2 / dof), torch.zeros_like(d2))
+        ).reshape(1)
+        dist.all_reduce(log_sum, group=mesh.group)
+        det = (
+            precision_new[0, 0] * precision_new[1, 1]
+            - precision_new[0, 1] * precision_new[1, 0]
+        )
+        ll = 0.5 * n_total * torch.log(torch.clamp(det, min=1e-30)) - 0.5 * (
+            dof + 2.0
+        ) * log_sum[0]
+        A, b = fused_kernels.assemble_normal_equations(full, precision_new)
+        return n_total.to(torch.int32), precision_new, ll, A, b
+
+    identity = se3.identity(x0.dtype, device)  # (a)
+    carry, iterations, _ = dt._irls_level(cfg, evaluate, x0, T0, identity, precision0)
+    return carry, iterations
+
+
+def _solve_pixel_sharded(cfg, intrinsics, mesh: Mesh, ref_levels, cur_levels, initial):
+    """The coarse-to-fine pixel-sharded solve -> (``TrackingResult``, the
+    last level's final carry)."""
+    device = ref_levels[cfg.first_level].intensity.device
+    if device != mesh.device:
+        raise ValueError(f"pyramids on {device}, the mesh's rank runs on {mesh.device}")
+    f32 = torch.float32
+    guess = se3.inverse(torch.as_tensor(initial, device=device).to(f32))
+    x = se3.log_se3(guess)
+    T = se3.identity(f32, device)
+    precision = torch.eye(2, dtype=f32, device=device)
+    level_stats = []
+    final = None
+    for level in range(cfg.first_level, cfg.last_level - 1, -1):
+        ref_level, cur_level = ref_levels[level], cur_levels[level]
+        k_level = intrinsics.at_level(level)
+        sel = selection_mask(
+            ref_level, cfg.intensity_derivative_threshold, cfg.depth_derivative_threshold
+        )
+        quad = build_quad_table_cm(build_acceleration_cm(cur_level), cur_level.intensity.shape[1])
+        refpack = local_block(dt._build_refpack(ref_level, sel, k_level), mesh, dim=1)
+        final, iterations = _match_level_sharded(
+            cfg, k_level, mesh, refpack, quad, tuple(ref_level.intensity.shape), x, T, precision
+        )
+        T = final.T
+        x = se3.log_se3(final.inc_applied)
+        precision = final.precision
+        level_stats.append(
+            LevelStats(
+                valid_pixels=sel.sum(dtype=torch.int32),
+                valid_constraints=final.n,
+                iterations=iterations,
+                termination=final.termination,
+            )
+        )
+    result = TrackingResult(
+        transformation=se3.inverse(final.T),
+        information=final.A * dt.INFORMATION_SCALE,
+        neg_log_likelihood=-final.ll,  # (b)
+        level_stats=tuple(level_stats),
+    )
+    return result, final
+
+
+def make_pixel_sharded_matcher(
+    cfg: TrackerConfig, intrinsics: Intrinsics, mesh: Mesh, axis: str = BATCH_AXIS
+):
+    """ONE dense alignment sharded over pixels across the mesh's ranks.
+    Returns ``run(ref_levels, cur_levels, initial) -> TrackingResult``; every
+    rank calls it with the same pyramids (on ``mesh.device``) and the same
+    result-space initial pose [4, 4], and gets the same result."""
+    _check_mesh(mesh, axis)
+
+    def run(ref_levels, cur_levels, initial) -> TrackingResult:
+        return _solve_pixel_sharded(cfg, intrinsics, mesh, ref_levels, cur_levels, initial)[0]
+
+    return run
+
+
+def _pair(stack, b: int):
+    """Pair ``b`` of a batched pyramid (a tuple of ``PyramidLevel`` with a
+    leading batch axis, ``None`` levels kept)."""
+    return tuple(None if lv is None else PyramidLevel(*(f[b] for f in lv)) for lv in stack)
+
+
+def _all_gather(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    parts = [torch.empty_like(local) for _ in range(mesh.size)]
+    dist.all_gather(parts, local, group=mesh.group)
+    return torch.cat(parts)
+
+
+def make_pair_parallel_matcher(
+    cfg: TrackerConfig, intrinsics: Intrinsics, mesh: Mesh, axis: str = BATCH_AXIS
+):
+    """A wave of frame pairs sharded over the mesh's ranks.  Returns
+    ``run(ref_stack, cur_stack, inits) -> TrackingResult`` with batched
+    fields: transformation [B, 4, 4], information [B, 6, 6],
+    neg_log_likelihood [B], and per level ``LevelStats`` of [B] int32
+    tensors.  Every rank passes the whole wave (B divisible by the world
+    size), runs ``match_pyramids`` on its contiguous B / world pairs, and
+    gets the whole wave's results (two all-gathers)."""
+    _check_mesh(mesh, axis)
+
+    def run(ref_stack, cur_stack, inits) -> TrackingResult:
+        batch = inits.shape[0]
+        ref_local, cur_local, inits_local = shard_leading_axis(
+            (ref_stack, cur_stack, inits), mesh, axis
+        )
+        floats, ints = [], []
+        for b in range(inits_local.shape[0]):
+            r = match_pyramids(
+                cfg, intrinsics, _pair(ref_local, b), _pair(cur_local, b), inits_local[b]
+            )
+            floats.append(torch.cat([
+                r.transformation.reshape(-1), r.information.reshape(-1),
+                r.neg_log_likelihood.reshape(1),
+            ]))
+            ints.append(torch.stack([
+                torch.stack([
+                    s.valid_pixels, s.valid_constraints,
+                    torch.full_like(s.termination, s.iterations), s.termination,
+                ])
+                for s in r.level_stats
+            ]))
+        f = _all_gather(torch.stack(floats), mesh)  # [B, 53]
+        i = _all_gather(torch.stack(ints), mesh)  # [B, levels, 4]
+        return TrackingResult(
+            transformation=f[:, :16].reshape(batch, 4, 4),
+            information=f[:, 16:52].reshape(batch, 6, 6),
+            neg_log_likelihood=f[:, 52],
+            level_stats=tuple(
+                LevelStats(
+                    valid_pixels=i[:, lv, 0], valid_constraints=i[:, lv, 1],
+                    iterations=i[:, lv, 2], termination=i[:, lv, 3],
+                )
+                for lv in range(i.shape[1])
+            ),
+        )
+
+    return run

@@ -1,13 +1,16 @@
-"""The fused-stats kernel held against its plain twin on real inputs.
+"""The fused kernels held against their plain twins on real inputs.
 
 Shared by ``chip_smoke.py`` (phase 3), the ``tests_cuda`` tier and
 ``tools/profile_odometry.py``.  The inputs are what the tracker feeds the
-kernel: the reference frame's refpack and the current frame sampled
+kernels: the reference frame's refpack and the current frame sampled
 through a warp, at every solved pyramid level.
 
-Two Gram checks: against the float32 twin, each entry within 1e-4 of
-sqrt(G_aa G_bb) (``compare_fused_stats``); and element-wise, rtol 1e-6,
-against the float64 Gram of the same float32 rows (``compare_exact_gram``).
+Two Gram checks, for both kernels: against the float32 twin, each entry
+within 1e-4 of sqrt(G_aa G_bb) (``compare_gram``); and element-wise, rtol
+1e-6, against the float64 Gram of the same float32 rows
+(``compare_exact_gram``).  ``fused_stats`` adds its log-likelihood sum
+(``compare_fused_stats``); ``fused_partials`` its per-pixel rows
+(``compare_fused_partials``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ LOG_SUM_RTOL = 1e-5
 # the kernel sums its Gram in double: element-wise against the float64 Gram
 # of the same float32 rows (see compare_exact_gram)
 EXACT_GRAM_RTOL = 1e-6
+# fused_partials' per-pixel rows against the twin's: the reference's own
+# tolerances for its Pallas kernel against the XLA twin (tests/test_pallas.py)
+RESIDUAL_ATOL = 1e-6
+WEIGHT_RTOL = 1e-5
+WEIGHT_ATOL = 1e-8
 GRAM_FIELDS = ("m00", "m01", "m11", "v", "scale_sum")
 # a small warp with rotation and translation in every axis, so that the
 # residuals at each level are those of a real mid-solve iteration
@@ -97,10 +105,10 @@ def compare_exact_gram(kernel, exact):
     return float((err[nonzero] / np.abs(exact[nonzero])).max())
 
 
-def compare_fused_stats(kernel, twin):
-    """Kernel vs twin ``FusedStats`` -> (max abs error, max scaled error);
-    raises outside the tolerances: ``num_valid`` equal, ``log_sum`` rtol
-    1e-5, and every Gram entry G_ab within rtol 1e-4 of sqrt(G_aa G_bb).
+def compare_gram(kernel, twin):
+    """Kernel vs twin Gram blocks (``FusedStats`` or ``FusedPartials``) ->
+    (max abs error, max scaled error); raises unless ``num_valid`` is equal
+    and every Gram entry G_ab is within rtol 1e-4 of sqrt(G_aa G_bb).
 
     That bound is the entry's own magnitude on the diagonal and wherever
     the sum does not cancel.  Off the diagonal a float32 dot product's
@@ -121,15 +129,54 @@ def compare_fused_stats(kernel, twin):
     require(scaled.max() <= GRAM_RTOL,
             f"Gram entry {worst}: kernel {float(a[worst])!r} vs twin {float(b[worst])!r}, "
             f"error {scaled.max():.3g} of sqrt(G_aa G_bb) > {GRAM_RTOL}")
+    return float(err.max()), float(scaled.max())
+
+
+def compare_fused_stats(kernel, twin):
+    """Kernel vs twin ``FusedStats`` -> (max abs error, max scaled error):
+    the Gram as ``compare_gram`` holds it, and ``log_sum`` within rtol
+    1e-5."""
+    abs_err, scaled_err = compare_gram(kernel, twin)
     ls_k, ls_t = float(kernel.log_sum), float(twin.log_sum)
     require(abs(ls_k - ls_t) <= LOG_SUM_RTOL * abs(ls_t),
             f"log_sum kernel {ls_k!r} vs twin {ls_t!r} beyond rtol {LOG_SUM_RTOL}")
-    return max(float(err.max()), abs(ls_k - ls_t)), float(scaled.max())
+    return max(abs_err, abs(ls_k - ls_t)), scaled_err
+
+
+def twin_rows(sampled, refpack, precision3, first_iter, intrinsics, dof=5.0):
+    """The plain twin's per-pixel rows [4, N] = (r_I, r_Z, w, mask): what
+    the partials kernel writes as rw."""
+    r_i, r_z, w, maskf, _, _ = fused_kernels._pixel_math(
+        refpack, sampled, precision3, first_iter, intrinsics.fx, intrinsics.fy, dof
+    )
+    return torch.stack([r_i, r_z, w, maskf])
+
+
+def compare_fused_partials(kernel, kernel_rw, twin, twin_rw):
+    """Kernel vs twin ``FusedPartials`` with their rows rw [4, N] -> (max
+    abs error, max scaled Gram error, number of rw entries that are not
+    bit-equal); raises outside the tolerances: the Gram as ``compare_gram``
+    holds it, the mask row equal, r_I and r_Z within atol 1e-6, w within
+    rtol 1e-5 (atol 1e-8).  The kernel's rows are built with -fmad=false
+    from the same float32 operations, so 0 entries differ as a rule."""
+    abs_err, scaled_err = compare_gram(kernel, twin)
+    k, t = kernel_rw.detach().cpu(), twin_rw.detach().cpu()
+    require(k.shape == t.shape, f"rw shape {tuple(k.shape)} != {tuple(t.shape)}")
+    require(torch.equal(k[3], t[3]),
+            f"mask row: {int((k[3] != t[3]).sum())} pixels differ")
+    r_err = float((k[:2] - t[:2]).abs().max())
+    require(r_err <= RESIDUAL_ATOL, f"residuals differ by {r_err!r} > atol {RESIDUAL_ATOL}")
+    w_err = (k[2] - t[2]).abs()
+    w_bound = WEIGHT_ATOL + WEIGHT_RTOL * t[2].abs()
+    require(bool((w_err <= w_bound).all()),
+            f"weights differ by up to {float(w_err.max())!r} beyond rtol {WEIGHT_RTOL}")
+    not_bit_equal = int((k.view(torch.int32) != t.view(torch.int32)).sum())
+    return max(abs_err, r_err, float(w_err.max())), scaled_err, not_bit_equal
 
 
 def assert_bit_identical(a, b):
     """Two kernel runs on the same inputs give the same bits (the kernel
-    reduces in a fixed order, with no float atomics)."""
-    for field in a._fields:
-        require(torch.equal(getattr(a, field), getattr(b, field)),
-                f"two kernel runs differ in {field}")
+    reduces in a fixed order, with no float atomics).  ``a`` and ``b`` are
+    named tuples of tensors or plain tuples of tensors."""
+    for field, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+        require(torch.equal(x, y), f"two kernel runs differ in {field}")

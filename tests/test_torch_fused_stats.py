@@ -235,3 +235,80 @@ def test_exact_gram_check(scene, first_iter):
     bad_v[1, 3] *= 1.0 + 2e-5  # v01[3] = G[3, 13]
     with pytest.raises(RuntimeError, match=r"Gram entry \(3, 13\)"):
         fused_check.compare_exact_gram(rounded._replace(v=bad_v), exact)
+
+
+def _partials_args(sampled, refpack, first_iter):
+    return (
+        torch.from_numpy(sampled), torch.from_numpy(refpack), torch.from_numpy(P3),
+        torch.tensor(first_iter, dtype=torch.int32), TK,
+    )
+
+
+def _pallas_partials(sampled, refpack, first_iter):
+    return pallas_kernels.fused_partials_pallas(
+        jnp.asarray(sampled), jnp.asarray(refpack), jnp.asarray(P3),
+        jnp.asarray(first_iter, jnp.int32), K, interpret=True,
+    )
+
+
+@pytest.mark.parametrize("first_iter", [0, 1])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_partials_twin_matches_pallas_interpret(scene, first_iter):
+    """fused_partials_plain against the reference's Pallas kernel in
+    interpret mode, at the reference's tolerances for that kernel against
+    its XLA twin (tests/test_pallas.py::test_pallas_interpret_matches_xla_twin)."""
+    sampled, refpack = _level_pair(*SCENES[scene])
+    ref = _pallas_partials(sampled, refpack, first_iter)
+    port = fused_kernels.fused_partials_plain(*_partials_args(sampled, refpack, first_iter))
+    _assert_matches(port, ref)
+    np.testing.assert_allclose(port.residuals.numpy(), np.asarray(ref.residuals), atol=1e-6)
+    np.testing.assert_allclose(port.weights.numpy(), np.asarray(ref.weights), rtol=1e-5, atol=1e-8)
+
+
+def test_partials_dispatch_by_device():
+    """A CPU tensor takes the plain twin (bit-equal to it, no launch); the
+    kernel wrapper refuses CPU tensors."""
+    sampled, refpack = _level_pair(*SCENES["seed4"])
+    args = _partials_args(sampled, refpack, 1)
+    before = fused_kernels.fused_partials_cuda.launches
+    got = fused_kernels.fused_partials(*args)
+    want = fused_kernels.fused_partials_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert fused_kernels.fused_partials_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_kernels.fused_partials_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_kernels.fused_partials_rows_cuda(*args)
+
+
+def test_partials_check_against_pallas_interpret():
+    """The card's partials check (``fused_check.compare_fused_partials``),
+    run on the CPU with the reference's Pallas kernel (interpret mode) in
+    the CUDA kernel's place: it passes, and it fails once the mask row,
+    a residual or a weight moves past its tolerance."""
+    sampled, refpack = _level_pair(*SCENES["seed3"])
+    args = _partials_args(sampled, refpack, 0)
+    ref = _pallas_partials(sampled, refpack, 0)
+    mask = torch.from_numpy(np.asarray(fused_check.twin_rows(*args)[3]))
+    ref_rw = torch.cat([torch.from_numpy(np.array(ref.residuals)),
+                        torch.from_numpy(np.array(ref.weights))[None], mask[None]])
+    gram = torch.zeros((16, 16))
+    g14 = torch.from_numpy(fused_check.gram14(
+        fused_kernels.FusedPartials(*(torch.from_numpy(np.array(f)) for f in ref))))
+    gram[:14, :14] = g14
+    gram[14, 14] = float(ref.num_valid)
+    kernel = fused_kernels.partials_from_rows(gram, ref_rw)
+    twin = fused_kernels.fused_partials_plain(*args)
+    twin_rw = fused_check.twin_rows(*args)
+    abs_err, scaled_err, not_bit_equal = fused_check.compare_fused_partials(
+        kernel, ref_rw, twin, twin_rw
+    )
+    assert scaled_err <= fused_check.GRAM_RTOL and 0 <= not_bit_equal <= ref_rw.numel()
+    valid = int(torch.nonzero(mask)[0])
+    for row, delta, message in ((3, -1.0, "mask row"), (1, 2e-6, "residuals"),
+                                (2, 1e-4, "weights")):
+        bad = ref_rw.clone()
+        bad[row, valid] += delta * (1.0 if row != 2 else float(bad[2, valid]))
+        with pytest.raises(RuntimeError, match=message):
+            fused_check.compare_fused_partials(kernel, bad, twin, twin_rw)

@@ -1,6 +1,7 @@
 """The port never imports JAX: with ``sys.modules["jax"]`` set to None (so
-that importing it raises), every module of ``dvo_slam_tpu_torch`` and
-``chip_smoke.py`` import and a tiny CPU ``match_pyramids`` runs.  Of the
+that importing it raises), every module of ``dvo_slam_tpu_torch`` (the
+``parallel`` modules included) and ``chip_smoke.py`` import, and a tiny
+CPU ``match_pyramids`` and a one-rank gloo pixel-sharded match run.  Of the
 JAX package the port loads only its plain modules, ``dvo_slam_tpu.config``
 and ``dvo_slam_tpu.utils.trajectory``."""
 
@@ -19,6 +20,8 @@ names = [m.name for m in pkgutil.walk_packages(dvo_slam_tpu_torch.__path__, "dvo
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # the card's smoke run imports no JAX either
+parallel = {"dvo_slam_tpu_torch.parallel." + m for m in ("mesh", "distributed", "sharded_alignment")}
+assert parallel <= set(names), sorted(parallel - set(names))
 
 from dvo_slam_tpu_torch.config import TrackerConfig
 from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
@@ -35,6 +38,16 @@ for pose in (np.eye(4), synthetic.circular_trajectory(50)[1]):
                                 torch.from_numpy(v), cfg.num_levels))
 result = match_pyramids(cfg, K, levels[0], levels[1])
 assert torch.isfinite(result.transformation).all()
+
+import tempfile
+from dvo_slam_tpu_torch.parallel import distributed, mesh, sharded_alignment
+with tempfile.TemporaryDirectory() as store:
+    distributed.initialize(init_method=f"file://{store}/store", world_size=1, rank=0,
+                           backend="gloo")
+    run = sharded_alignment.make_pixel_sharded_matcher(cfg, K, mesh.make_mesh(1))
+    sharded = run(levels[0], levels[1], torch.eye(4))
+    distributed.shutdown()
+assert torch.isfinite(sharded.transformation).all()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
