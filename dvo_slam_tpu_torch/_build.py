@@ -5,7 +5,8 @@ Each ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into a shared
 library with a plain C interface, inside the package's ``build/``
 directory (listed in ``.gitignore``).  The library name carries a hash of
 the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  Nothing is built or imported at module import
+one is loaded as it is.  ``load_libraries`` starts one ``nvcc`` per
+source, all at once.  Nothing is built or imported at module import
 time: the CPU tests import every module of the package.
 """
 
@@ -63,31 +64,55 @@ def find_nvcc() -> str:
     )
 
 
-def load_library(name: str) -> KernelLibrary:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+def _library_path(name: str):
+    """(source, library path) of ``csrc/<name>.cu``."""
+    source = os.path.join(CSRC_DIR, name + ".cu")
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return source, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def load_libraries(names) -> Dict[str, KernelLibrary]:
+    """Build (where needed) and load ``csrc/<name>.cu`` for every name; cached
+    per process.  The sources that need a build are compiled at once, one
+    ``nvcc`` each, all started together; a library's ``build_seconds`` runs
+    from that start to when its build was collected.  Raises, after every
+    build has ended, if any failed."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        source = os.path.join(CSRC_DIR, name + ".cu")
-        with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-        path = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
-        seconds, log = 0.0, ""
-        if not os.path.exists(path):
+        pending = {}
+        for name in names:
+            if name in _loaded or name in pending:
+                continue
+            source, path = _library_path(name)
+            if os.path.exists(path):
+                _loaded[name] = KernelLibrary(ctypes.CDLL(path), path, 0.0, "")
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
+            log = tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR)
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)
+            pending[name] = (source, path, tmp, log, proc)
+        t0 = time.perf_counter()
+        failures = []
+        for name, (source, path, tmp, log, proc) in pending.items():
+            returncode = proc.wait()
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {source}:\n{log}"
-                )
+                failures.append(f"nvcc failed ({returncode}) building {source}:\n{text}")
+                continue
             os.replace(tmp, path)
-        loaded = KernelLibrary(ctypes.CDLL(path), path, seconds, log)
-        _loaded[name] = loaded
-        return loaded
+            _loaded[name] = KernelLibrary(ctypes.CDLL(path), path, seconds, text)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        return {name: _loaded[name] for name in names}
+
+
+def load_library(name: str) -> KernelLibrary:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    return load_libraries([name])[name]

@@ -9,6 +9,14 @@
 //      U = [sqrt(w) J_I (6); sqrt(w) J_Z (6); sqrt(w) r_I; sqrt(w) r_Z; mask; 0],
 //    then the new 2x2 precision from the Gram's scale terms and
 //    sum log1p(r^T P_new r / dof) over the valid pixels.
+//    Entry point dvo_fused_stats_batched runs the same four launches for B
+//    streams at once (the lockstep multi-stream tracker, where the reference
+//    vmaps fused_stats_pallas into a grid-batched pallas_call): launches A
+//    and C take a grid (blocks per stream, B), B and D one block per stream,
+//    and each block offsets its pointers by its stream index.  A stream's
+//    tile partition and fixed-order reduces are those of dvo_fused_stats on
+//    that stream's packs, so its outputs are bit-equal to a single-stream
+//    call; one call replaces B x 4 launches with 4.
 //  * fused_partials_pallas (kernel body _kernel), entry point
 //    dvo_fused_partials: the same per-pixel chain and Gram in one pass, plus
 //    the per-pixel rows rw [4, N] = (r_I, r_Z, w, mask), channel-major, for a
@@ -183,7 +191,9 @@ __device__ __forceinline__ void pair_of(int t, int& a, int& b) {
 // Launch A: one block per kTile pixels -> its partial Gram [kPairs] (double).
 // With kWriteRw (fused_partials) each thread also writes its pixel's
 // (r_I, r_Z, w, mask) into rw [4, n]: neighbouring threads, neighbouring
-// addresses, one coalesced store per row.
+// addresses, one coalesced store per row.  blockIdx.y is the stream of a
+// batched launch (0 for one stream): inputs [B, 8, n], params [B, 8],
+// partials [B, gridDim.x, kPairs], rw [B, 4, n].
 template <bool kWriteRw>
 __global__ void __launch_bounds__(kThreads)
 gram_partials_kernel(const float* __restrict__ sampled,
@@ -191,6 +201,12 @@ gram_partials_kernel(const float* __restrict__ sampled,
                      const float* __restrict__ params, int n,
                      double* __restrict__ partials, float* __restrict__ rw) {
   __shared__ float us[kRows * kStride];
+  const size_t stream = blockIdx.y;
+  sampled += stream * 8 * (size_t)n;
+  refpack += stream * 8 * (size_t)n;
+  params += stream * 8;
+  partials += stream * gridDim.x * kPairs;
+  if constexpr (kWriteRw) rw += stream * 4 * (size_t)n;
   const Params P = load_params(params);
   const int tid = threadIdx.x;
   int a = 0, b = 0;
@@ -226,14 +242,19 @@ gram_partials_kernel(const float* __restrict__ sampled,
   if (tid < kPairs) partials[(size_t)blockIdx.x * kPairs + tid] = acc;
 }
 
-// Launch B: one block.  Fixed-order sum of the block partials into the full
-// symmetric Gram [16, 16] (float32); with kPrecision (fused_stats) then the
-// new precision (_precision_from_scale_sums) into prec[3].
+// Launch B: one block per stream (blockIdx.x).  Fixed-order sum of the block
+// partials into the full symmetric Gram [16, 16] (float32); with kPrecision
+// (fused_stats) then the new precision (_precision_from_scale_sums) into
+// prec[3].
 template <bool kPrecision>
 __global__ void gram_reduce_kernel(const double* __restrict__ partials,
                                    int num_blocks, float* __restrict__ gram,
                                    float* __restrict__ prec) {
   __shared__ float g[kPairs];
+  const size_t stream = blockIdx.x;
+  partials += stream * num_blocks * kPairs;
+  gram += stream * kRows * kRows;
+  if constexpr (kPrecision) prec += stream * 3;
   const int tid = threadIdx.x;
   if (tid < kPairs) {
     double s = 0.0;
@@ -266,6 +287,7 @@ __global__ void gram_reduce_kernel(const double* __restrict__ partials,
 
 // Launch C: per block, recompute r_I, r_Z and the mask of its pixels and sum
 // log1p(r^T P_new r / dof) over the valid ones (fixed-order tree).
+// blockIdx.y is the stream, as in launch A.
 __global__ void __launch_bounds__(kThreads)
 loglik_partials_kernel(const float* __restrict__ sampled,
                        const float* __restrict__ refpack,
@@ -273,6 +295,12 @@ loglik_partials_kernel(const float* __restrict__ sampled,
                        const float* __restrict__ prec, int n,
                        double* __restrict__ partials) {
   __shared__ double red[kThreads];
+  const size_t stream = blockIdx.y;
+  sampled += stream * 8 * (size_t)n;
+  refpack += stream * 8 * (size_t)n;
+  params += stream * 8;
+  prec += stream * 3;
+  partials += stream * gridDim.x;
   const int tid = threadIdx.x;
   const float dof = params[2];
   const float p00 = prec[0], p01 = prec[1], p11 = prec[2];
@@ -295,9 +323,13 @@ loglik_partials_kernel(const float* __restrict__ sampled,
   if (tid == 0) partials[blockIdx.x] = red[0];
 }
 
-// Launch D: one thread, fixed-order sum of the log-likelihood partials.
+// Launch D: one thread per stream (blockIdx.x), fixed-order sum of the
+// log-likelihood partials.
 __global__ void loglik_reduce_kernel(const double* __restrict__ partials,
                                      int num_blocks, float* __restrict__ log_sum) {
+  const size_t stream = blockIdx.x;
+  partials += stream * num_blocks;
+  log_sum += stream;
   double s = 0.0;
   for (int blk = 0; blk < num_blocks; ++blk) s += partials[blk];
   log_sum[0] = (float)s;
@@ -312,26 +344,39 @@ extern "C" {
 int dvo_fused_stats_tile() { return kTile; }
 int dvo_fused_stats_pairs() { return kPairs; }
 
-// sampled, refpack: [8, n] float32, channel-major, contiguous.
-// params: [8] float32 (fx, fy, dof, first, P00, P01, P11, 0).
-// gram_partials: [ceil(n / tile), 136] float64 scratch.
-// gram: [16, 16] float32 out.  prec: [3] float32 out (the new precision).
-// ll_partials: [ceil(n / tile)] float64 scratch.  log_sum: [1] float32 out.
-// Returns cudaGetLastError() after the four launches on `stream`.
+// B streams at once.  sampled, refpack: [B, 8, n] float32, channel-major,
+// contiguous.  params: [B, 8] float32, per stream (fx, fy, dof, first, P00,
+// P01, P11, 0).  gram_partials: [B, ceil(n / tile), 136] float64 scratch.
+// gram: [B, 16, 16] float32 out.  prec: [B, 3] float32 out (the new
+// precisions).  ll_partials: [B, ceil(n / tile)] float64 scratch.  log_sum:
+// [B] float32 out.  Returns cudaGetLastError() after the four launches on
+// `stream`.
+int dvo_fused_stats_batched(const float* sampled, const float* refpack,
+                            const float* params, int n, int batch,
+                            double* gram_partials, float* gram, float* prec,
+                            double* ll_partials, float* log_sum, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (n + kTile - 1) / kTile;
+  if (n <= 0 || batch <= 0 || batch > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks, batch);
+  gram_partials_kernel<false><<<grid, kThreads, 0, st>>>(
+      sampled, refpack, params, n, gram_partials, nullptr);
+  gram_reduce_kernel<true><<<batch, 160, 0, st>>>(gram_partials, blocks, gram, prec);
+  loglik_partials_kernel<<<grid, kThreads, 0, st>>>(sampled, refpack, params,
+                                                    prec, n, ll_partials);
+  loglik_reduce_kernel<<<batch, 1, 0, st>>>(ll_partials, blocks, log_sum);
+  return (int)cudaGetLastError();
+}
+
+// One stream: the batched entry point at B = 1, the same four launches.
+// sampled, refpack: [8, n]; params: [8]; gram_partials: [ceil(n / tile), 136];
+// gram: [16, 16]; prec: [3]; ll_partials: [ceil(n / tile)]; log_sum: [1].
 int dvo_fused_stats(const float* sampled, const float* refpack,
                     const float* params, int n, double* gram_partials,
                     float* gram, float* prec, double* ll_partials,
                     float* log_sum, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (n + kTile - 1) / kTile;
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  gram_partials_kernel<false><<<blocks, kThreads, 0, st>>>(
-      sampled, refpack, params, n, gram_partials, nullptr);
-  gram_reduce_kernel<true><<<1, 160, 0, st>>>(gram_partials, blocks, gram, prec);
-  loglik_partials_kernel<<<blocks, kThreads, 0, st>>>(sampled, refpack, params,
-                                                      prec, n, ll_partials);
-  loglik_reduce_kernel<<<1, 1, 0, st>>>(ll_partials, blocks, log_sum);
-  return (int)cudaGetLastError();
+  return dvo_fused_stats_batched(sampled, refpack, params, n, 1, gram_partials,
+                                 gram, prec, ll_partials, log_sum, stream);
 }
 
 // Inputs and params as for dvo_fused_stats.

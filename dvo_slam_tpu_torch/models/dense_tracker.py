@@ -14,6 +14,15 @@ The reference's ``lax.while_loop`` is a Python loop here that reads the
 on the tensors' device.  Iteration counts and termination codes are
 therefore those of the reference.  The accept/revert logic keeps the
 reference's form: a rejected step keeps the previous carry.
+
+Lockstep batching: prepared frames whose artifacts carry a leading stream
+axis [B, ...] (``prepare_frame`` on batched pyramids) align B independent
+pairs at once.  Each iteration runs every op once on [B, ...] tensors and
+reads back one [B] ``done`` mask (``done.all()``); a stream's carry
+freezes as soon as that stream is done, which is what the reference's
+``lax.while_loop`` does under ``vmap`` with a batched predicate (the
+body's output is selected away for finished elements).  So each stream's
+iterations, termination and estimate are those of its single-stream solve.
 """
 
 from __future__ import annotations
@@ -46,8 +55,9 @@ INFORMATION_SCALE = 0.008 * 0.008
 
 
 class LevelStats(NamedTuple):
-    """Per-level statistics.  ``iterations`` is a Python int: the loop that
-    counts them runs on the host."""
+    """Per-level statistics.  One stream: ``iterations`` is a Python int
+    (the loop that counts them runs on the host).  B streams in lockstep:
+    every field is a [B] int32 tensor."""
 
     valid_pixels: torch.Tensor  # [] int32, selected reference points
     valid_constraints: torch.Tensor  # [] int32, constraints of the last accepted iteration
@@ -57,7 +67,8 @@ class LevelStats(NamedTuple):
 
 class IterationStats(NamedTuple):
     """Per-iteration solver telemetry, one [max_iterations, ...] row per
-    executed iteration; rows past ``LevelStats.iterations`` are zero."""
+    executed iteration; rows past ``LevelStats.iterations`` are zero.  In
+    lockstep every field has a leading [B]."""
 
     valid_constraints: torch.Tensor  # [I]
     log_likelihood: torch.Tensor  # [I]
@@ -86,6 +97,8 @@ class TrackingResult(NamedTuple):
 
 
 class _Carry(NamedTuple):
+    """The IRLS loop state of one level; [B, ...] in lockstep."""
+
     x: torch.Tensor  # [6] increment to apply next iteration
     T: torch.Tensor  # [4, 4] current warp estimate
     initial: torch.Tensor  # [4, 4] remaining prior offset
@@ -135,14 +148,15 @@ def _resolve_backend(cfg: TrackerConfig, device: torch.device) -> str:
 
 
 def _build_refpack(ref_level: PyramidLevel, sel_mask, intrinsics: Intrinsics):
-    """Reference-side channel pack, channel-major [8, N]:
+    """Reference-side channel pack, channel-major [..., 8, N]:
     (intensity, depth, idx, idy, x, y, selected, 0).  Rows 4/5 cache the
     unprojected x/y so the per-iteration warp never re-unprojects."""
-    h, w = ref_level.intensity.shape
+    h, w = ref_level.intensity.shape[-2:]
     n = h * w
+    flat = ref_level.intensity.shape[:-2] + (n,)
     dtype = ref_level.intensity.dtype
     device = ref_level.intensity.device
-    z = ref_level.depth.reshape(n)
+    z = ref_level.depth.reshape(flat)
     iota = torch.arange(n, dtype=dtype, device=device)
     col = iota % w
     row = iota // w
@@ -150,15 +164,16 @@ def _build_refpack(ref_level: PyramidLevel, sel_mask, intrinsics: Intrinsics):
     y = (row - intrinsics.oy) / intrinsics.fy * z
     return torch.stack(
         [
-            ref_level.intensity.reshape(n),
+            ref_level.intensity.reshape(flat),
             z,
-            ref_level.idx.reshape(n),
-            ref_level.idy.reshape(n),
+            ref_level.idx.reshape(flat),
+            ref_level.idy.reshape(flat),
             x,
             y,
-            sel_mask.reshape(n).to(dtype),
-            torch.zeros(n, dtype=dtype, device=device),
-        ]
+            sel_mask.reshape(flat).to(dtype),
+            torch.zeros(flat, dtype=dtype, device=device),
+        ],
+        dim=-2,
     )
 
 
@@ -176,11 +191,12 @@ def _match_level(
 ):
     """Run the IRLS Gauss-Newton iteration on one pyramid level, from the
     level's prepared artifacts (see :func:`prepare_frame`): the reference
-    frame's selection mask and refpack, the current frame's quad table."""
+    frame's selection mask and refpack, the current frame's quad table.
+    With a leading stream axis on every input, B levels solve in lockstep."""
     device = sel_mask.device
     _resolve_backend(cfg, device)
     dof = cfg.influence_function_param
-    level_shape = tuple(sel_mask.shape)
+    level_shape = tuple(sel_mask.shape[-2:])
     first_flags = (
         torch.zeros((), dtype=torch.int32, device=device),
         torch.ones((), dtype=torch.int32, device=device),
@@ -193,18 +209,18 @@ def _match_level(
             refpack, quad, level_shape, intrinsics, T,
             depth_buffered=cfg.depth_buffered_sampling,
         )
-        p3 = torch.stack([P_prev[0, 0], P_prev[0, 1], P_prev[1, 1]])
+        p3 = torch.stack([P_prev[..., 0, 0], P_prev[..., 0, 1], P_prev[..., 1, 1]], dim=-1)
         stats = fused_kernels.fused_stats(
             sampled, refpack, p3, first_flags[int(first)], intrinsics, dof
         )
         n = stats.num_valid.to(torch.int32)
         denom = torch.clamp(stats.num_valid - 3.0, min=1.0)
         precision_new = robust.precision_from_scale(
-            fused_kernels.scale_matrix(stats) / denom
+            fused_kernels.scale_matrix(stats) / denom[..., None, None]
         )
         det = (
-            precision_new[0, 0] * precision_new[1, 1]
-            - precision_new[0, 1] * precision_new[1, 0]
+            precision_new[..., 0, 0] * precision_new[..., 1, 1]
+            - precision_new[..., 0, 1] * precision_new[..., 1, 0]
         )
         logdet = torch.log(torch.clamp(det, min=1e-38))
         ll = 0.5 * stats.num_valid * logdet - 0.5 * (dof + 2.0) * stats.log_sum
@@ -215,12 +231,18 @@ def _match_level(
         cfg, evaluate, x0, T0, initial0, precision0, collect_stats
     )
     stats = LevelStats(
-        valid_pixels=sel_mask.sum(dtype=torch.int32),
+        valid_pixels=sel_mask.sum(dim=(-2, -1), dtype=torch.int32),
         valid_constraints=carry.n,
         iterations=iterations,
         termination=carry.termination,
     )
     return carry, stats, trace
+
+
+def _where(cond, new, old):
+    """``torch.where`` with ``cond`` [...] broadcast over the trailing
+    dimensions of ``new`` / ``old`` [..., *]."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim())), new, old)
 
 
 def _irls_level(
@@ -229,8 +251,15 @@ def _irls_level(
     """The IRLS loop of one level around ``evaluate(T, P_prev, first) ->
     (n, precision_new, ll, A, b)``: apply the increment, evaluate, accept
     or revert, smooth toward the prior, solve, test termination.  Returns
-    (final carry, iterations, iteration trace or None)."""
+    (final carry, iterations, iteration trace or None).
+
+    One stream: ``x0`` [6], the loop stops when ``done``; ``iterations`` is
+    a Python int.  B streams in lockstep: ``x0`` [B, 6], the loop stops
+    when every stream is done, a finished stream's carry is frozen (its
+    evaluation still runs with the batch, and is discarded); ``iterations``
+    is a [B] int32 tensor."""
     dtype, device = x0.dtype, x0.device
+    batch = tuple(x0.shape[:-1])
     eye6 = torch.eye(6, dtype=dtype, device=device)
 
     def step(c: _Carry, iteration: int):
@@ -251,7 +280,7 @@ def _irls_level(
             b = b + cfg.mu * se3.log_se3(initial_new)
         x_new = least_squares.solve_ldlt(A, b)
 
-        converged = torch.max(torch.abs(x_new)) <= cfg.precision
+        converged = torch.amax(torch.abs(x_new), dim=-1) <= cfg.precision
         exceeded = iteration + 1 >= cfg.max_iterations_per_level
 
         code = lambda k: torch.full((), k, dtype=torch.int32, device=device)  # noqa: E731
@@ -272,7 +301,7 @@ def _irls_level(
         # on reject keep the previous estimate and the previous accepted
         # statistics; the loop then stops
         def keep(new, old):
-            return torch.where(reject, old, new)
+            return _where(reject, old, new)
 
         new_c = _Carry(
             x=keep(x_new, c.x),
@@ -303,17 +332,17 @@ def _irls_level(
         initial=initial0,
         inc_applied=se3.exp_se3(x0),
         precision=precision0,
-        error=torch.full((), float("inf"), dtype=dtype, device=device),
-        A=eye6,
-        ll=torch.full((), float("-inf"), dtype=dtype, device=device),
-        n=torch.zeros((), dtype=torch.int32, device=device),
-        termination=torch.full((), TERM_NONE, dtype=torch.int32, device=device),
-        done=torch.zeros((), dtype=torch.bool, device=device),
+        error=torch.full(batch, float("inf"), dtype=dtype, device=device),
+        A=eye6.expand(batch + (6, 6)),
+        ll=torch.full(batch, float("-inf"), dtype=dtype, device=device),
+        n=torch.zeros(batch, dtype=torch.int32, device=device),
+        termination=torch.full(batch, TERM_NONE, dtype=torch.int32, device=device),
+        done=torch.zeros(batch, dtype=torch.bool, device=device),
     )
     trace = None
     if collect_stats:
         max_it = cfg.max_iterations_per_level
-        zeros = lambda *s: torch.zeros((max_it,) + s, dtype=dtype, device=device)  # noqa: E731
+        zeros = lambda *s: torch.zeros((max_it,) + batch + s, dtype=dtype, device=device)  # noqa: E731
         trace = IterationStats(
             valid_constraints=zeros(),
             log_likelihood=zeros(),
@@ -321,17 +350,30 @@ def _irls_level(
             increment=zeros(6),
             information=zeros(6, 6),
         )
+    iterations = torch.zeros(batch, dtype=torch.int32, device=device) if batch else 0
     iteration = 0
     while True:
-        carry, row = step(carry, iteration)
+        stepped, row = step(carry, iteration)
+        if batch:
+            # freeze the streams that were already done
+            active = ~carry.done
+            carry = _Carry(*(_where(active, new, old) for new, old in zip(stepped, carry)))
+            if trace is not None:
+                row = IterationStats(*(_where(active, r, torch.zeros_like(r)) for r in row))
+            iterations = iterations + active.to(torch.int32)
+        else:
+            carry = stepped
+            iterations += 1
         if trace is not None:
             for buf, value in zip(trace, row):
                 buf[iteration] = value
         iteration += 1
         # the one host read-back per iteration
-        if bool(carry.done):
+        if bool(carry.done.all() if batch else carry.done):
             break
-    return carry, iteration, trace
+    if trace is not None and batch:
+        trace = IterationStats(*(buf.movedim(0, len(batch)) for buf in trace))
+    return carry, iterations, trace
 
 
 class PreparedFrame(NamedTuple):
@@ -350,7 +392,8 @@ def prepare_frame(
     cfg: TrackerConfig, intrinsics: Intrinsics, levels: Sequence[PyramidLevel]
 ) -> PreparedFrame:
     """Precompute both roles' per-level artifacts for the solve range:
-    selection mask and refpack [8, N], quad table [32, N]."""
+    selection mask and refpack [8, N], quad table [32, N] (each with a
+    leading [B] for batched pyramids)."""
     _resolve_backend(cfg, levels[cfg.first_level].intensity.device)
     n = len(levels)
     sel = [None] * n
@@ -363,7 +406,7 @@ def prepare_frame(
         )
         refpack[level] = _build_refpack(lv, sel[level], intrinsics.at_level(level))
         quad[level] = build_quad_table_cm(
-            build_acceleration_cm(lv), lv.intensity.shape[1]
+            build_acceleration_cm(lv), lv.intensity.shape[-1]
         )
     return PreparedFrame(sel=tuple(sel), refpack=tuple(refpack), quad=tuple(quad))
 
@@ -385,11 +428,19 @@ def match_prepared(
     collect_iteration_stats: bool = False,
 ) -> TrackingResult:
     """Align two prepared frames: the cached-artifact core of
-    :func:`match_pyramids`."""
+    :func:`match_pyramids`.
+
+    With artifacts of B streams ([B, 8, N] refpacks, [B, 32, N] quad
+    tables) and ``initial_transformation`` [B, 4, 4] (or None), the B
+    alignments run in lockstep (the reference's ``vmap`` of this function):
+    the result's transformation is [B, 4, 4], information [B, 6, 6],
+    neg_log_likelihood [B], and each ``LevelStats`` holds [B] int32
+    tensors."""
     refpack0 = ref.refpack[cfg.first_level]
     dtype, device = refpack0.dtype, refpack0.device
+    batch = tuple(refpack0.shape[:-2])
     if initial_transformation is None:
-        guess = torch.eye(4, dtype=dtype, device=device)
+        guess = torch.eye(4, dtype=dtype, device=device).expand(batch + (4, 4))
     else:
         # result space is estimate^{-1}; the first increment is the estimate
         guess = se3.inverse(
@@ -397,9 +448,9 @@ def match_prepared(
         )
 
     x = se3.log_se3(guess)
-    T = se3.identity(dtype, device)
+    T = se3.identity(dtype, device).expand(batch + (4, 4))
     initial = guess
-    precision = torch.eye(2, dtype=dtype, device=device)
+    precision = torch.eye(2, dtype=dtype, device=device).expand(batch + (2, 2))
 
     level_stats = []
     iteration_stats = []
@@ -427,9 +478,9 @@ def match_prepared(
         precision = final.precision
 
     if cfg.use_estimate_smoothing:
-        prior = cfg.mu * torch.sum(se3.log_se3(final.initial) ** 2)
+        prior = cfg.mu * torch.sum(se3.log_se3(final.initial) ** 2, dim=-1)
     else:
-        prior = torch.zeros((), dtype=dtype, device=device)
+        prior = torch.zeros(batch, dtype=dtype, device=device)
     return TrackingResult(
         transformation=se3.inverse(final.T),
         information=final.A * INFORMATION_SCALE,

@@ -6,6 +6,11 @@ on CUDA every tensor op is one launch, so a column loop costs ~90
 launches where the reference's scalar unroll would cost ~150.  The sums
 inside a column are dot products here and sequential scalar sums in the
 reference; the two agree to float32 rounding (rtol 1e-5 in the tests).
+
+Systems batch over leading dimensions: ``A [..., 6, 6]``, ``b [..., 6]``.
+A batch of B systems (the lockstep multi-stream solve) takes the same
+chain of launches as one system; one system [6, 6] takes exactly the
+operations it took before batching existed.
 """
 
 from __future__ import annotations
@@ -15,33 +20,48 @@ import torch
 _PIVOT_FLOOR = 1e-20
 
 
+def _matvec(M, v):
+    """M [..., m, k] @ v [..., k] -> [..., m]."""
+    if v.dim() == 1:
+        return M @ v
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _dot(a, b):
+    """Dot product over the last axis of a [..., k] and b [..., k] -> [...]."""
+    if a.dim() == 1:
+        return a @ b
+    return (a.unsqueeze(-2) @ b.unsqueeze(-1))[..., 0, 0]
+
+
 def _cholesky_solve_unrolled(A, b, n: int = 6):
-    """Cholesky solve of a tiny SPD system.  Diagonal pivots are floored at
-    1e-20, so a singular system yields large but finite steps."""
+    """Cholesky solve of a tiny SPD system (or a batch of them).  Diagonal
+    pivots are floored at 1e-20, so a singular system yields large but
+    finite steps."""
     L = torch.zeros_like(A)
     for j in range(n):
-        s = A[j:, j] - L[j:, :j] @ L[j, :j]
-        pivot = torch.sqrt(torch.clamp(s[0], min=_PIVOT_FLOOR))
-        L[j, j] = pivot
-        L[j + 1 :, j] = s[1:] / pivot
+        s = A[..., j:, j] - _matvec(L[..., j:, :j], L[..., j, :j])
+        pivot = torch.sqrt(torch.clamp(s[..., 0], min=_PIVOT_FLOOR))
+        L[..., j, j] = pivot
+        L[..., j + 1 :, j] = s[..., 1:] / pivot.unsqueeze(-1)
     # forward substitution L y = b
     y = torch.zeros_like(b)
     for i in range(n):
-        y[i] = (b[i] - L[i, :i] @ y[:i]) / L[i, i]
+        y[..., i] = (b[..., i] - _dot(L[..., i, :i], y[..., :i])) / L[..., i, i]
     # back substitution L^T x = y
     x = torch.zeros_like(b)
     for i in reversed(range(n)):
-        x[i] = (y[i] - L[i + 1 :, i] @ x[i + 1 :]) / L[i, i]
+        x[..., i] = (y[..., i] - _dot(L[..., i + 1 :, i], x[..., i + 1 :])) / L[..., i, i]
     return x
 
 
 def solve_ldlt(A, b):
-    """Solve the 6x6 system with symmetric Jacobi pre-scaling:
-    D^-1/2 A D^-1/2 y = D^-1/2 b, x = D^-1/2 y (equilibration recovers the
-    conditioning the original buys with a float64 LDLT)."""
-    d = torch.sqrt(torch.clamp(torch.diagonal(A), min=_PIVOT_FLOOR))
+    """Solve the 6x6 system (or a batch [..., 6, 6]) with symmetric Jacobi
+    pre-scaling: D^-1/2 A D^-1/2 y = D^-1/2 b, x = D^-1/2 y (equilibration
+    recovers the conditioning the original buys with a float64 LDLT)."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1), min=_PIVOT_FLOOR))
     d_inv = 1.0 / d
-    A_s = A * d_inv[:, None] * d_inv[None, :]
+    A_s = A * d_inv[..., :, None] * d_inv[..., None, :]
     b_s = b * d_inv
     y = _cholesky_solve_unrolled(A_s, b_s)
     return y * d_inv

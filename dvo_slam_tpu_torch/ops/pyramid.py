@@ -7,6 +7,9 @@ slicing is slow on the TPU.  The mean keeps the reference's rounding
 order, ``0.5*a + 0.5*b`` along rows and then along columns, so levels
 built from u8/u16 input are bit-equal to the reference's.
 
+Every function batches over leading dimensions: frames [..., H, W] (the
+lockstep multi-stream tracker builds B streams' pyramids at once).
+
 Channel layout of the acceleration pack (reference order i, z, idx, idy,
 zdx, zdy):
   0: intensity            4: depth x-derivative
@@ -27,7 +30,8 @@ class PyramidLevel(NamedTuple):
 
     ``intensity`` is 0..255 float grayscale; ``depth`` is meters with 0.0
     at invalid pixels; ``valid`` marks valid depth; ``zvalid`` also
-    requires both depth derivatives valid.
+    requires both depth derivatives valid.  Every field is [H, W], or
+    [B, H, W] for B streams' levels at once.
     """
 
     intensity: torch.Tensor  # [H, W] float32
@@ -41,7 +45,7 @@ class PyramidLevel(NamedTuple):
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return tuple(self.intensity.shape)
+        return tuple(self.intensity.shape[-2:])
 
 
 def convert_raw_depth(raw_depth_u16, depth_scale: float = 5000.0):
@@ -60,23 +64,24 @@ def convert_raw_depth(raw_depth_u16, depth_scale: float = 5000.0):
 
 
 def _edge_pad(img, axis):
-    """Clamp-to-edge pad of one pixel on both sides of ``axis`` (0 or 1)."""
+    """Clamp-to-edge pad of one pixel on both sides of ``axis`` (0: rows,
+    1: columns of the trailing [H, W])."""
     if axis == 1:
-        return torch.cat([img[:, :1], img, img[:, -1:]], dim=1)
-    return torch.cat([img[:1], img, img[-1:]], dim=0)
+        return torch.cat([img[..., :1], img, img[..., -1:]], dim=-1)
+    return torch.cat([img[..., :1, :], img, img[..., -1:, :]], dim=-2)
 
 
 def central_diff_x(img):
     """d(img)/dx by central differences with clamped borders:
     0.5 * (img[y, min(x+1, W-1)] - img[y, max(x-1, 0)])."""
     padded = _edge_pad(img, 1)
-    return 0.5 * (padded[:, 2:] - padded[:, :-2])
+    return 0.5 * (padded[..., 2:] - padded[..., :-2])
 
 
 def central_diff_y(img):
     """d(img)/dy, same scheme as :func:`central_diff_x` along rows."""
     padded = _edge_pad(img, 0)
-    return 0.5 * (padded[2:, :] - padded[:-2, :])
+    return 0.5 * (padded[..., 2:, :] - padded[..., :-2, :])
 
 
 # A depth central difference above this (meters per pixel) spans a depth
@@ -90,12 +95,12 @@ def _masked_central_diff(depth, valid, max_derivative=MAX_DEPTH_DERIVATIVE_M):
     valid and the difference spans no discontinuity (0 disables the gate)."""
     px = _edge_pad(depth, 1)
     vx = _edge_pad(valid, 1)
-    zdx = 0.5 * (px[:, 2:] - px[:, :-2])
-    zdx_valid = vx[:, 2:] & vx[:, :-2]
+    zdx = 0.5 * (px[..., 2:] - px[..., :-2])
+    zdx_valid = vx[..., 2:] & vx[..., :-2]
     py = _edge_pad(depth, 0)
     vy = _edge_pad(valid, 0)
-    zdy = 0.5 * (py[2:, :] - py[:-2, :])
-    zdy_valid = vy[2:, :] & vy[:-2, :]
+    zdy = 0.5 * (py[..., 2:, :] - py[..., :-2, :])
+    zdy_valid = vy[..., 2:, :] & vy[..., :-2, :]
     if max_derivative > 0:
         zdx_valid = zdx_valid & (zdx.abs() <= max_derivative)
         zdy_valid = zdy_valid & (zdy.abs() <= max_derivative)
@@ -108,20 +113,20 @@ def _masked_central_diff(depth, valid, max_derivative=MAX_DEPTH_DERIVATIVE_M):
 def downsample_intensity(img):
     """2x2 mean downsample to floor(h/2) x floor(w/2): rows first, then
     columns, each as 0.5*a + 0.5*b (the reference's rounding order)."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     h2, w2 = h // 2, w // 2
-    rows = 0.5 * img[0 : 2 * h2 : 2] + 0.5 * img[1 : 2 * h2 : 2]
-    return 0.5 * rows[:, 0 : 2 * w2 : 2] + 0.5 * rows[:, 1 : 2 * w2 : 2]
+    rows = 0.5 * img[..., 0 : 2 * h2 : 2, :] + 0.5 * img[..., 1 : 2 * h2 : 2, :]
+    return 0.5 * rows[..., 0 : 2 * w2 : 2] + 0.5 * rows[..., 1 : 2 * w2 : 2]
 
 
 def downsample_depth(depth, valid):
     """Keep every second pixel (no averaging across surfaces); output is
     floor(h/2) x floor(w/2), like the mean downsampler."""
-    h, w = depth.shape
+    h, w = depth.shape[-2:]
     h2, w2 = h // 2, w // 2
     return (
-        depth[0 : 2 * h2 : 2, 0 : 2 * w2 : 2].contiguous(),
-        valid[0 : 2 * h2 : 2, 0 : 2 * w2 : 2].contiguous(),
+        depth[..., 0 : 2 * h2 : 2, 0 : 2 * w2 : 2].contiguous(),
+        valid[..., 0 : 2 * h2 : 2, 0 : 2 * w2 : 2].contiguous(),
     )
 
 
@@ -159,19 +164,21 @@ def build_pyramid(
 
 
 def build_acceleration_cm(level: PyramidLevel):
-    """Channel-major acceleration pack [8, H*W] for the fused solver path."""
-    n = level.intensity.numel()
+    """Channel-major acceleration pack [..., 8, H*W] for the fused solver
+    path."""
+    flat = level.intensity.shape[:-2] + (level.intensity.shape[-2] * level.intensity.shape[-1],)
     return torch.stack(
         [
-            level.intensity.reshape(n),
-            level.depth.reshape(n),
-            level.idx.reshape(n),
-            level.idy.reshape(n),
-            level.zdx.reshape(n),
-            level.zdy.reshape(n),
-            level.zvalid.to(level.intensity.dtype).reshape(n),
-            torch.zeros(n, dtype=level.intensity.dtype, device=level.intensity.device),
-        ]
+            level.intensity.reshape(flat),
+            level.depth.reshape(flat),
+            level.idx.reshape(flat),
+            level.idy.reshape(flat),
+            level.zdx.reshape(flat),
+            level.zdy.reshape(flat),
+            level.zvalid.to(level.intensity.dtype).reshape(flat),
+            torch.zeros(flat, dtype=level.intensity.dtype, device=level.intensity.device),
+        ],
+        dim=-2,
     )
 
 

@@ -20,15 +20,17 @@ SIGMA_FLOOR_DEPTH = 1e-4**2
 
 
 def precision_from_scale(sigma):
-    """Invert the 2x2 scale matrix with variance floors, by the explicit
-    adjugate formula."""
-    s00 = sigma[0, 0] + SIGMA_FLOOR_INTENSITY
-    s01 = sigma[0, 1]
-    s10 = sigma[1, 0]
-    s11 = sigma[1, 1] + SIGMA_FLOOR_DEPTH
+    """Invert the 2x2 scale matrix (or a batch [..., 2, 2]) with variance
+    floors, by the explicit adjugate formula."""
+    s00 = sigma[..., 0, 0] + SIGMA_FLOOR_INTENSITY
+    s01 = sigma[..., 0, 1]
+    s10 = sigma[..., 1, 0]
+    s11 = sigma[..., 1, 1] + SIGMA_FLOOR_DEPTH
     det = torch.clamp(s00 * s11 - s01 * s10, min=1e-30)
-    inv = torch.stack([torch.stack([s11, -s01]), torch.stack([-s10, s00])])
-    return inv / det
+    inv = torch.stack(
+        [torch.stack([s11, -s01], dim=-1), torch.stack([-s10, s00], dim=-1)], dim=-2
+    )
+    return inv / det[..., None, None]
 
 
 def mahalanobis_sq(residuals, precision):

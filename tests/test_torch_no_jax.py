@@ -1,7 +1,9 @@
 """The port never imports JAX: with ``sys.modules["jax"]`` set to None (so
 that importing it raises), every module of ``dvo_slam_tpu_torch`` (the
-``parallel`` modules included) and ``chip_smoke.py`` import, and a tiny
-CPU ``match_pyramids`` and a one-rank gloo pixel-sharded match run.  Of the
+``parallel`` modules and the tools included) and ``chip_smoke.py`` import,
+and a tiny CPU ``match_pyramids``, a one-rank gloo pixel-sharded match,
+both multi-stream schedules, the temporal tracker and the gather probe's
+check run.  Of the
 JAX package the port loads only its plain modules, ``dvo_slam_tpu.config``
 and ``dvo_slam_tpu.utils.trajectory``."""
 
@@ -20,8 +22,11 @@ names = [m.name for m in pkgutil.walk_packages(dvo_slam_tpu_torch.__path__, "dvo
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # the card's smoke run imports no JAX either
-parallel = {"dvo_slam_tpu_torch.parallel." + m for m in ("mesh", "distributed", "sharded_alignment")}
-assert parallel <= set(names), sorted(parallel - set(names))
+parallel = {"dvo_slam_tpu_torch.parallel." + m
+            for m in ("mesh", "distributed", "sharded_alignment", "multistream", "temporal")}
+tools = {"dvo_slam_tpu_torch.tools." + m for m in ("gather_probe", "multistream_bench")}
+ops = {"dvo_slam_tpu_torch.ops.table_copy"}
+assert parallel | tools | ops <= set(names), sorted((parallel | tools | ops) - set(names))
 
 from dvo_slam_tpu_torch.config import TrackerConfig
 from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
@@ -48,6 +53,21 @@ with tempfile.TemporaryDirectory() as store:
     sharded = run(levels[0], levels[1], torch.eye(4))
     distributed.shutdown()
 assert torch.isfinite(sharded.transformation).all()
+
+from dvo_slam_tpu_torch.parallel import multistream, temporal
+from dvo_slam_tpu_torch.tools import gather_probe
+frames = []
+for pose in synthetic.circular_trajectory(3, radius=0.02):
+    i, d, v = synthetic.render_frame(pose, K, (24, 32))
+    frames.append((np.clip(i, 0, 255).astype(np.uint8), np.where(v, d * 5000.0, 0).astype(np.uint16)))
+iu = np.stack([np.stack([f[0] for f in frames])] * 2)
+du = np.stack([np.stack([f[1] for f in frames])] * 2)
+for schedule in ("lockstep", "sequential"):
+    tracks = multistream.make_multistream_tracker(cfg, K, schedule=schedule).tracks(iu, du)
+    assert tracks.poses.shape == (2, 2, 4, 4) and torch.isfinite(tracks.poses).all()
+chain = temporal.make_temporal_tracker(cfg, K, num_chunks=2)(iu[0], du[0])
+assert chain.shape == (2, 4, 4) and np.isfinite(chain).all()
+gather_probe.check_variants(gather_probe.make_inputs(2, 6, 8))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
