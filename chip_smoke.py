@@ -10,31 +10,46 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: a CUDA card is required (there is no CPU fallback).  Prints
    its name and ``nvidia-smi``'s name and power limit.
 2. Build: ``nvcc`` builds ``dvo_slam_tpu_torch/csrc/fused_stats.cu`` (the
-   fused-stats, batched fused-stats and partials entry points) and
+   folded, sampled-input, batched and partials entry points) and
    ``csrc/table_copy.cu`` from the checkout, both at once; prints the build
    seconds and the compiler's report.
-3. Kernels vs plain twins on the card: the real ``sampled``/``refpack``
-   of a rendered 640x480 pair at levels 3, 2 and 1, with ``first_iter`` 0
-   and 1.  For both kernels: ``num_valid`` equal; the Gram blocks
-   (M00/M01/M11/v/scale_sum) element-wise within rtol 1e-6 of the float64
-   Gram of the same float32 rows, and each entry G_ab within 1e-4 of
-   sqrt(G_aa G_bb) of the float32 twin's; two kernel runs bit-identical;
-   times of kernel and twin at ``first_iter`` 0 (CUDA events, median of 30
-   runs after 5 warm-up runs).  ``fused_stats``: ``log_sum`` within rtol
-   1e-5.  ``fused_partials``: the mask row equal, r_I and r_Z within atol
-   1e-6, w within rtol 1e-5 of the twin's rows, and the count of rw
-   entries that are not bit-equal (0 expected).
+3. Kernels vs plain versions on the card, on a rendered 640x480 sequence
+   at levels 3, 2 and 1.  The folded kernel (``dvo_warp_fused_stats``, the
+   tracker's evaluation) against ``warp_fused_stats_plain`` on the first
+   pair warped by a small twist, with ``first`` 0/1 and depth-buffered
+   sampling on/off: the stash (r_I, r_Z, mask) bit-equal to the plain
+   version's (the count of differing entries printed, held to the mask
+   equal and atol 1e-6); the Gram element-wise within rtol 1e-6 of the
+   float64 Gram of the plain float32 rows; n equal, the precision, ll, A
+   and b as ``fused_check.compare_warp_fused_stats`` holds them (rtol 1e-5
+   of each quantity's rounding scale, A's entries within 1e-4 of
+   sqrt(A_aa A_bb)); two runs bit-identical.  Then B = 8 pairs in one call
+   bit-equal per stream to one-stream calls and held to the plain version
+   the same way.  Times (CUDA events, median of 30 after 5 warm-ups, in
+   turns with the plain version) and device times (the same events with
+   the card spinning first, so they bracket the kernels and not the
+   host's enqueue) at first = 0, depth-buffered, beside the unfolded pair
+   ``warp_and_sample_cm`` + ``fused_stats_cuda``.  The sampled-input
+   kernels on the same pair's sampled packs: ``num_valid`` equal; the Gram
+   blocks within rtol 1e-6 of the float64 Gram and within 1e-4 of
+   sqrt(G_aa G_bb) of the float32 twin's; two runs bit-identical.
+   ``fused_stats``: ``log_sum`` within rtol 1e-5.  ``fused_partials``: the
+   mask row equal, r_I and r_Z within atol 1e-6, w within rtol 1e-5 of the
+   twin's rows, and the count of rw entries that are not bit-equal.
 4. Odometry: 100 frames at 640x480 (``TUM_FR1``), frame to frame with a
    constant-velocity warm start at ``benchmark_config().tracker``, from
    u8/u16 frames through ``convert_raw_depth`` -> ``build_pyramid`` ->
-   ``match_pyramids``.  The kernel launch count must equal the number of
-   solver iterations.  Prints ATE-RMSE and tracked frames/s.
-5. Hard scene: the occluded scene under a 30 cm loop; ATE-RMSE < 10 mm.
+   ``match_pyramids``.  The folded kernel's launch count must equal the
+   number of solver iterations; the sampled-input kernels and
+   ``warp_and_sample_cm`` run 0 times.  Prints ATE-RMSE and tracked
+   frames/s.
+5. Hard scene: the occluded scene under a 30 cm loop; ATE-RMSE < 10 mm;
+   the same counts as phase 4.
 6. Sharded paths: a one-rank NCCL process group (``file://`` rendezvous
    in a temporary directory) and its mesh.  The pixel-sharded matcher on
    the first 20 easy pairs from the identity: each pair within 5e-3 of
    the ground truth (max |log(T_gt^-1 T)|), the partials kernel launched
-   once per solver iteration and the fused-stats kernel not at all.  With
+   once per solver iteration and the statistics kernels not at all.  With
    mu = 0, where the sharded and single paths coincide, one pair against
    ``match_pyramids``: per-level iterations and terminations equal,
    estimate within 1e-4, information within rtol 2e-3 / atol 1e-3.  The
@@ -43,13 +58,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    of ``match_pyramids`` on the same 20 pairs.
 7. Lockstep multi-stream odometry: 8 streams x 50 frames at 640x480
    (``tools/multistream_bench.render_streams``) through
-   ``make_multistream_tracker``.  The batched kernel
-   (``dvo_fused_stats_batched``) first, against the single-stream kernel
-   on each stream's packs at levels 3, 2, 1 with ``first_iter`` 0, 1 and
+   ``make_multistream_tracker``.  The batched sampled-input kernel
+   (``dvo_fused_stats_batched``) first, against the single-stream one on
+   each stream's packs at levels 3, 2, 1 with ``first_iter`` 0, 1 and
    per-stream flags: every output bit-equal per stream; against the plain
    twin per stream as phase 3 holds it; times of kernel and twin at L1.
-   Then the run: batched launches equal to the lockstep loop iterations,
-   no single-stream launch, every stream's ATE-RMSE < 10 mm.  Prints
+   Then the run: batched folded launches equal to the lockstep loop
+   iterations, no one-stream or sampled-input launch and no
+   ``warp_and_sample_cm`` call, every stream's ATE-RMSE < 10 mm.  Prints
    aggregate frames/s, ms per lockstep iteration, the max-over-streams
    iterations per level and the device's busy share (``torch.profiler``
    over 6 frames; null where the profiler records no device event).
@@ -62,17 +78,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``make_temporal_tracker``): every pose within 1e-3 of phase 4's.
    Prints the ATE-RMSE.
 10. Copy kernel and gather probe: ``dvo_table_copy`` bit-equal to
-   ``clone()`` on [32, 76800], on a ragged [7, 1001] and on a table that is
-   not 16-byte aligned; kernel and ``clone()`` times with GB/s (CUDA events
-   around the call, and device time under ``torch.profiler``, null where
-   the profiler records no device event).  Then the
-   gather probe (``tools/gather_probe.py``) at L1, B = 8: every variant
-   bit-equal to ``batched``, ms and device ms per iteration each; its
-   ``pcopy`` tables are the copy kernel's main path.
+   ``clone()`` on [32, 76800], on ragged shapes (one straddles the bulk
+   copy's 8 KB chunks), on a table of more than the 50 MB L2 cache and on
+   a table that is not 16-byte aligned; kernel and ``clone()`` times on
+   [32, 76800], in turns: on the device cold (a 256 MB buffer written
+   before each call) and warm (the table in L2 from the call before), at
+   the wrapper, and under ``torch.profiler`` (null where the profiler
+   records no device event), beside the HBM bound.  Then the gather probe
+   (``tools/gather_probe.py``) at L1, B = 8: every variant bit-equal to
+   ``batched``, ms and device ms per iteration each; its ``pcopy`` tables
+   are the copy kernel's main path.
 
 The last three lines of standard output are one JSON object describing
-the kernels, ``nvidia-smi``'s name and power limit, then ``{"ok": true,
-"device": {...}}``.
+the kernels (per kernel: launches on its main path, errors against the
+plain version, kernel and plain ms at L1, the bound from this run's
+tensor sizes at the card's 3.35 TB/s and 67 TFLOP/s, and the one PyTorch
+call that computes the same function where there is one),
+``nvidia-smi``'s name and power limit, then ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -109,7 +132,22 @@ BUSY_FRAMES = 6
 BATCHED_REPLACES = "dvo_slam_tpu/ops/pallas_kernels.py:413"  # vmapped (multistream.py:217-227)
 COPY_SOURCE = "dvo_slam_tpu_torch/csrc/table_copy.cu"
 COPY_REPLACES = "tools/gather_probe.py:382"
-COPY_SHAPES = {"l1_table": (32, 76800), "ragged": (7, 1001)}
+COPY_SHAPES = {"l1_table": (32, 76800), "ragged": (7, 1001), "chunk_straddle": (3, 2731),
+               "beyond_l2": (32, 460800)}
+# about 10 ms of the card's clock ahead of a device-timed call: longer than
+# the host takes to enqueue the slowest timed call (the plain version's
+# ~120 ops), so the events bracket device work only
+SPIN_CYCLES = 20_000_000
+COLD_FLUSH_BYTES = 256 * 2**20  # written between cold copy runs: more than the 50 MB L2
+CHECK_P_PREV = ((4000.0, 10.0), (10.0, 1.5e5))  # fused_check.CHECK_PRECISION as a matrix
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s,
+# and float32 (outside the tensor cores) and FP64 tensor-core FLOP/s, both 67 T
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = 67e12
+# operations per pixel: about 200 float32 operations of the warp, sample and
+# residual chain (about 130 from a sampled pack), and the Gram's three
+# distinct 8x8 tiles of 16 rows, 192 float64 multiply-adds
+CHAIN_FLOPS, SAMPLED_CHAIN_FLOPS, GRAM_FLOPS = 200, 130, 384
 
 
 def median_ms(fn, reps=TIMING_REPS, warmup=TIMING_WARMUP):
@@ -130,19 +168,106 @@ def median_ms(fn, reps=TIMING_REPS, warmup=TIMING_WARMUP):
     return float(np.median(times))
 
 
-def _timed(row, kernel_fn, plain_fn):
-    """Kernel and twin times into ``row``: one card, in turns (twin, kernel,
-    kernel, twin), the better of each pair."""
-    t_plain = [median_ms(plain_fn)]
-    t_kernel = [median_ms(kernel_fn), median_ms(kernel_fn)]
-    t_plain.append(median_ms(plain_fn))
-    row["ms"] = min(t_kernel)
-    row["plain_ms"] = min(t_plain)
+def device_ms(fn, reps=TIMING_REPS, warmup=TIMING_WARMUP):
+    """Median device time of ``fn`` in ms, without the profiler: the card
+    first spins for about 10 ms (``torch.cuda._sleep``), longer than the
+    host takes to enqueue the call, so the CUDA events around it bracket
+    its kernels and the gaps between them, not the host's work.  (A
+    profiler session early in the script would stay attached to every later
+    launch.)"""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def cold_ms(fn, flush, reps=TIMING_REPS, warmup=TIMING_WARMUP):
+    """Median device time of ``fn`` in ms with a cold L2 cache: ``flush``
+    (more bytes than the L2 holds) is written before each run, outside the
+    CUDA events around the run."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for i in range(reps):
+        flush.fill_(float(i))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _timed(row, kernel_fn, plain_fn, timer=None, prefix=""):
+    """Kernel and twin times into ``row`` (keys ``prefix + "ms"``,
+    ``prefix + "plain_ms"``): one card, in turns (twin, kernel, kernel,
+    twin), the better of each pair; ``timer`` is ``median_ms`` unless
+    given."""
+    timer = timer or median_ms
+    t_plain = [timer(plain_fn)]
+    t_kernel = [timer(kernel_fn), timer(kernel_fn)]
+    t_plain.append(timer(plain_fn))
+    row[prefix + "ms"] = min(t_kernel)
+    row[prefix + "plain_ms"] = min(t_plain)
+
+
+def _bytes(*tensors):
+    """Bytes of the tensors, each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _rows_bytes(pack, rows):
+    """Bytes of the first ``rows`` channels of a [..., C, N] pack: what a
+    kernel that reads only those channels moves."""
+    return pack.numel() // pack.shape[-2] * rows * pack.element_size()
+
+
+def _quad_bytes(refpack, quad, shape, intrinsics, T):
+    """Bytes of the quad table [..., 32, N] that the folded warp reads on
+    this run's data: channels 0-6 of the four neighbours (28 of 32 rows) in
+    each distinct column, per stream, that a pixel's sample lands on."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops.interp import quad_index
+
+    x, y, z = refpack[..., 4, :], refpack[..., 5, :], refpack[..., 1, :]
+    R, t = T[..., :3, :3].unsqueeze(-1), T[..., :3, 3].unsqueeze(-1)
+    p = [R[..., r, 0, :] * x + R[..., r, 1, :] * y + R[..., r, 2, :] * z + t[..., r, :]
+         for r in range(3)]
+    z_safe = torch.where(p[2] > 1e-12, p[2], torch.full_like(p[2], 1e-12))
+    u = p[0] / z_safe * intrinsics.fx + intrinsics.ox
+    v = p[1] / z_safe * intrinsics.fy + intrinsics.oy
+    idx = quad_index(shape, u, v).idx.reshape(-1, u.shape[-1])
+    idx = idx + quad.shape[-1] * torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return int(torch.unique(idx).numel()) * 28 * quad.element_size()
+
+
+def _bound(moved_bytes, flops=0.0):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the operations over its peak rate."""
+    by_bytes = 1e3 * moved_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_FLOPS
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def check_kernels(cfg, intrinsics, ref_levels, cur_levels):
-    """Phase 3: both kernels vs their plain twins at every solved level,
-    first_iter 0 and 1.  Returns {kernel name: (rows, worst errors)}: the
+    """Phase 3b: the sampled-input kernels vs their plain twins at every
+    solved level, first_iter 0 and 1.  Returns {kernel name: (rows, worst errors)}: the
     worst absolute error, the worst error scaled by sqrt(G_aa G_bb)
     (``compare_gram``), the worst relative error against the float64 Gram
     (``compare_exact_gram``) and, for the partials, the most rw entries
@@ -184,6 +309,10 @@ def check_kernels(cfg, intrinsics, ref_levels, cur_levels):
             if first == 0:
                 _timed(row, lambda: fused_kernels.fused_stats_cuda(*args),
                        lambda: fused_kernels.fused_stats_plain(*args))
+                n = sampled.shape[1]
+                row["bound_ms"], row["bound_by"] = _bound(
+                    _bytes(sampled, p3, flag) + _rows_bytes(refpack, 7) + 4 * (256 + 1),
+                    n * (SAMPLED_CHAIN_FLOPS + GRAM_FLOPS))
             out["fused_stats"][0].append(row)
             print("phase 3:", json.dumps(row), flush=True)
 
@@ -206,9 +335,155 @@ def check_kernels(cfg, intrinsics, ref_levels, cur_levels):
             if first == 0:
                 _timed(row, lambda: fused_kernels.fused_partials_cuda(*args),
                        lambda: fused_kernels.fused_partials_plain(*args))
+                n = sampled.shape[1]
+                row["bound_ms"], row["bound_by"] = _bound(
+                    _bytes(sampled, p3, flag, rw) + _rows_bytes(refpack, 7) + 4 * 256,
+                    n * (SAMPLED_CHAIN_FLOPS + GRAM_FLOPS))
             out["fused_partials"][0].append(row)
             print("phase 3:", json.dumps(row), flush=True)
     return out
+
+
+def _stream(stats, b):
+    """Stream b of a batched named tuple of tensors."""
+    return type(stats)(*(f[b] for f in stats))
+
+
+def _bits_differ(a, b):
+    """Entries whose bits differ between two tuples of equal-shape tensors."""
+    import torch
+
+    return sum(int((x.reshape(-1).view(torch.int32) != y.reshape(-1).view(torch.int32)).sum())
+               for x, y in zip(a, b))
+
+
+def check_folded(cfg, intrinsics, frames):
+    """Phase 3a: the folded kernel against its plain version at every solved
+    level, first 0 and 1, depth-buffered on and off (pair 0 of ``frames``),
+    then B = STREAMS pairs in one call against one-stream calls (pairs b,
+    b + 1).  Returns (one-stream rows, their worst errors, batched rows,
+    their worst errors)."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops import fused_kernels
+    from dvo_slam_tpu_torch.ops.residuals import warp_and_sample_cm
+    from dvo_slam_tpu_torch.tools import fused_check
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    dof = cfg.influence_function_param
+    per_pair = [fused_check.warp_level_inputs(cfg, intrinsics, frames[b], frames[b + 1])
+                for b in range(STREAMS)]
+    rows, worst, batched_rows, batched_worst = [], {}, [], {}
+
+    def note(table, **errors):
+        for key, value in errors.items():
+            table[key] = max(table.get(key, 0), value)
+
+    def held(kernel, stats, stash, plain, args, exact_args):
+        """The checks shared by one stream and B streams -> the row's errors."""
+        r_err, not_bit_equal = fused_check.compare_stash(stash, fused_check.twin_stash(*args))
+        exact_err = max(
+            fused_check.compare_exact_gram(
+                _stream(stats, b) if stats.m00.dim() == 3 else stats,
+                fused_check.warp_exact_gram(*one_args))
+            for b, one_args in enumerate(exact_args))
+        scaled = fused_check.compare_warp_fused_stats(kernel, plain)
+        abs_err = max(float((x.double() - y.double()).abs().max()) for x, y in zip(kernel, plain))
+        return {"n": kernel.n.reshape(-1).tolist(), "stash_not_bit_equal": not_bit_equal,
+                "stash_max_abs_err": r_err, "max_rel_err_f64": exact_err,
+                "max_abs_err": max(abs_err, r_err),
+                **{"max_scaled_err_" + k: v for k, v in scaled.items()}}
+
+    for level in range(cfg.first_level, cfg.last_level - 1, -1):
+        inputs = per_pair[0][level]
+        device = inputs.refpack.device
+        P = torch.tensor(CHECK_P_PREV, dtype=torch.float32, device=device)
+        for first in (0, 1):
+            for buffered in (True, False):
+                args = (*inputs, P, bool(first), dof, buffered)
+                kernel, stats, stash = fused_kernels.warp_fused_stats_rows_cuda(*args)
+                again = fused_kernels.warp_fused_stats_rows_cuda(*args)
+                plain = fused_kernels.warp_fused_stats_plain(*args)
+                torch.cuda.synchronize(device)
+                fused_check.assert_bit_identical((*kernel, *stats, stash),
+                                                 (*again[0], *again[1], again[2]))
+                errors = held(kernel, stats, stash, plain, args, [args])
+                note(worst, **{k: v for k, v in errors.items() if k != "n"})
+                row = {"level": level, "pixels": inputs.refpack.shape[1], "first": first,
+                       "depth_buffered": buffered, "kernel": "warp_fused_stats", **errors}
+                if first == 0 and buffered:
+                    p3 = torch.tensor(fused_check.CHECK_PRECISION, dtype=torch.float32, device=device)
+                    flag = torch.zeros((), dtype=torch.int32, device=device)
+
+                    def unfolded():
+                        sampled = warp_and_sample_cm(inputs.refpack, inputs.quad, inputs.shape,
+                                                     inputs.intrinsics, inputs.T)
+                        return fused_kernels.fused_stats_cuda(sampled, inputs.refpack, p3, flag,
+                                                              inputs.intrinsics, dof)
+
+                    def folded():
+                        return fused_kernels.warp_fused_stats_cuda(*args)
+
+                    def folded_plain():
+                        return fused_kernels.warp_fused_stats_plain(*args)
+
+                    _timed(row, folded, folded_plain)
+                    row["unfolded_pair_ms"] = median_ms(unfolded)
+                    row["device_ms"] = device_ms(folded)
+                    row["plain_device_ms"] = device_ms(folded_plain)
+                    row["unfolded_pair_device_ms"] = device_ms(unfolded)
+                    row["bound_ms"], row["bound_by"] = _bound(
+                        _rows_bytes(inputs.refpack, 7) + _quad_bytes(*inputs) + _bytes(inputs.T, P, *kernel),
+                        inputs.refpack.shape[1] * (CHAIN_FLOPS + GRAM_FLOPS))
+                rows.append(row)
+                print("phase 3:", json.dumps(row), flush=True)
+
+        # B pairs in one call, depth-buffered (the benchmark's sampling)
+        Ps = torch.stack([P * (1.0 + 0.1 * b) for b in range(STREAMS)])
+        stack = lambda field: torch.stack(  # noqa: E731
+            [getattr(pp[level], field) for pp in per_pair]).contiguous()  # noqa: B023
+        for first in (0, 1):
+            bargs = (stack("refpack"), stack("quad"), inputs.shape, inputs.intrinsics, stack("T"),
+                     Ps, bool(first), dof, True)
+            one_args = [(*per_pair[b][level], Ps[b], bool(first), dof, True) for b in range(STREAMS)]
+            kernel, stats, stash = fused_kernels.warp_fused_stats_rows_cuda(*bargs)
+            again = fused_kernels.warp_fused_stats_rows_cuda(*bargs)
+            plain = fused_kernels.warp_fused_stats_plain(*bargs)
+            torch.cuda.synchronize(device)
+            fused_check.assert_bit_identical((*kernel, *stats, stash),
+                                             (*again[0], *again[1], again[2]))
+            not_bit_equal = 0
+            for b in range(STREAMS):
+                one, one_stats, one_stash = fused_kernels.warp_fused_stats_rows_cuda(*one_args[b])
+                not_bit_equal += _bits_differ(
+                    (*_stream(kernel, b), *_stream(stats, b), stash[b]), (*one, *one_stats, one_stash))
+            require(not_bit_equal == 0,
+                    f"batched folded kernel: {not_bit_equal} outputs differ from one-stream calls "
+                    f"(level {level}, first {first})")
+            errors = held(kernel, stats, stash, plain, bargs, one_args)
+            note(batched_worst, not_bit_equal_to_single=not_bit_equal,
+                 **{k: v for k, v in errors.items() if k != "n"})
+            row = {"level": level, "streams": STREAMS, "pixels": inputs.refpack.shape[1],
+                   "first": first, "kernel": "warp_fused_stats_batched",
+                   "not_bit_equal_to_single": not_bit_equal, **errors}
+            if level == cfg.last_level and first == 0:
+                def batched():
+                    return fused_kernels.warp_fused_stats_batched_cuda(*bargs)  # noqa: B023
+
+                def batched_plain():
+                    return fused_kernels.warp_fused_stats_plain(*bargs)  # noqa: B023
+
+                _timed(row, batched, batched_plain)
+                row["single_kernel_x_streams_ms"] = median_ms(lambda: [
+                    fused_kernels.warp_fused_stats_cuda(*a) for a in one_args])  # noqa: B023
+                row["device_ms"] = device_ms(batched)
+                row["plain_device_ms"] = device_ms(batched_plain)
+                row["bound_ms"], row["bound_by"] = _bound(
+                    _rows_bytes(bargs[0], 7) + _quad_bytes(*bargs[:5]) + _bytes(bargs[4], Ps, *kernel),
+                    STREAMS * inputs.refpack.shape[1] * (CHAIN_FLOPS + GRAM_FLOPS))
+            batched_rows.append(row)
+            print("phase 3:", json.dumps(row), flush=True)
+    return rows, worst, batched_rows, batched_worst
 
 
 def _pose_errors(a, b):
@@ -268,11 +543,14 @@ def check_sharded(cfg, intrinsics, frames, poses):
             _reset_counts()
             results, sharded_s = _synchronized_seconds(lambda: [run(r, c, eye) for r, c in pairs])
             partials_launches = fused_kernels.fused_partials_cuda.launches
-            stats_launches = fused_kernels.fused_stats_cuda.launches
+            stats_launches = _launches()
+            for name in ("fused_partials", "table_copy", "warp_and_sample_cm_calls"):
+                del stats_launches[name]
             iterations = sum(s.iterations for r in results for s in r.level_stats)
             require(partials_launches == iterations > 0,
                     f"partials launches {partials_launches} != solver iterations {iterations}")
-            require(stats_launches == 0, f"fused_stats launched {stats_launches} times")
+            require(not any(stats_launches.values()),
+                    f"statistics kernels launched on the sharded path: {stats_launches}")
             errors = [
                 _pose_error(np.linalg.inv(poses[k]) @ poses[k + 1], r.transformation)
                 for k, r in enumerate(results)
@@ -352,17 +630,12 @@ def _device_busy(fn):
     measured) where the profiler recorded no device event."""
     from dvo_slam_tpu_torch.tools.gather_probe import device_time
 
-    device_ms, wall_ms = device_time(fn, calls=1)
-    return _per(device_ms, wall_ms), wall_ms / 1000.0
-
-
-def _stream(stats, b):
-    """Stream b of a batched ``FusedStats``."""
-    return type(stats)(*(f[b] for f in stats))
+    busy_ms, wall_ms = device_time(fn, calls=1)
+    return _per(busy_ms, wall_ms), wall_ms / 1000.0
 
 
 def check_batched_kernel(cfg, intrinsics, pairs):
-    """Phase 7a: the batched fused-stats kernel on B streams' packs (each
+    """Phase 7a: the batched sampled-input kernel on B streams' packs (each
     stream's first pair, at every solved level) against the single-stream
     kernel on each stream's packs (bit-equal) and against the plain twin
     (as phase 3 holds it).  Returns (rows, worst errors)."""
@@ -400,10 +673,7 @@ def check_batched_kernel(cfg, intrinsics, pairs):
                 single_args = (sampled[b], refpack[b], p3[b], flag, k, dof)
                 single = fused_kernels.fused_stats_cuda(*single_args)
                 mine = _stream(kernel, b)
-                not_bit_equal += sum(
-                    int((x.reshape(-1).view(torch.int32) != y.reshape(-1).view(torch.int32)).sum())
-                    for x, y in zip(mine, single)
-                )
+                not_bit_equal += _bits_differ(mine, single)
                 a, s = fused_check.compare_fused_stats(mine, _stream(twin, b))
                 e = fused_check.compare_exact_gram(mine, fused_check.exact_gram(*single_args))
                 abs_err, scaled_err, exact_err = max(abs_err, a), max(scaled_err, s), max(exact_err, e)
@@ -419,6 +689,9 @@ def check_batched_kernel(cfg, intrinsics, pairs):
             if first == "0":
                 _timed(row, lambda: fused_kernels.fused_stats_batched_cuda(*args),
                        lambda: fused_kernels.fused_stats_plain(*args))
+                row["bound_ms"], row["bound_by"] = _bound(
+                    _bytes(sampled, p3, flags) + _rows_bytes(refpack, 7) + batch * 4 * (256 + 1),
+                    batch * sampled.shape[2] * (SAMPLED_CHAIN_FLOPS + GRAM_FLOPS))
                 row["single_kernel_x_streams_ms"] = median_ms(lambda: [
                     fused_kernels.fused_stats_cuda(sampled[b], refpack[b], p3[b], flags, k, dof)
                     for b in range(batch)
@@ -428,19 +701,52 @@ def check_batched_kernel(cfg, intrinsics, pairs):
     return rows, worst
 
 
-def _reset_counts():
-    """Every kernel's launch count to 0."""
+def _wrappers():
+    """{name: wrapper} of every kernel's launch count."""
     from dvo_slam_tpu_torch.ops import fused_kernels, table_copy
 
-    for wrapper in (fused_kernels.fused_stats_cuda, fused_kernels.fused_stats_batched_cuda,
-                    fused_kernels.fused_partials_cuda, table_copy.table_copy_cuda):
+    return {
+        "warp_fused_stats": fused_kernels.warp_fused_stats_cuda,
+        "warp_fused_stats_batched": fused_kernels.warp_fused_stats_batched_cuda,
+        "fused_stats": fused_kernels.fused_stats_cuda,
+        "fused_stats_batched": fused_kernels.fused_stats_batched_cuda,
+        "fused_partials": fused_kernels.fused_partials_cuda,
+        "table_copy": table_copy.table_copy_cuda,
+    }
+
+
+def _reset_counts():
+    """Every kernel's launch count, and warp_and_sample_cm's call count, to 0."""
+    from dvo_slam_tpu_torch.ops import residuals
+
+    for wrapper in _wrappers().values():
         wrapper.launches = 0
+    residuals.warp_and_sample_cm.calls = 0
+
+
+def _launches():
+    """{name: launches} since the last reset, with warp_and_sample_cm's calls."""
+    from dvo_slam_tpu_torch.ops import residuals
+
+    counts = {name: wrapper.launches for name, wrapper in _wrappers().items()}
+    counts["warp_and_sample_cm_calls"] = residuals.warp_and_sample_cm.calls
+    return counts
+
+
+def _require_only(counts, name, expected, what):
+    """The tracker path went through kernel ``name`` ``expected`` times and
+    through no other statistics kernel, nor ``warp_and_sample_cm``."""
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    require(counts[name] == expected > 0,
+            f"{what}: {name} launches {counts[name]} != solver iterations {expected}")
+    others = {k: v for k, v in counts.items() if k not in (name, "table_copy") and v}
+    require(not others, f"{what}: other statistics kernels or warp_and_sample_cm ran: {others}")
 
 
 def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
-    """Phase 7b: B streams in lockstep.  Returns the batched kernel's
-    launches and the phase's summary."""
-    from dvo_slam_tpu_torch.ops import fused_kernels
+    """Phase 7b: B streams in lockstep.  Returns the batched folded
+    kernel's launches and the phase's summary."""
     from dvo_slam_tpu_torch.parallel.multistream import make_multistream_tracker
     from dvo_slam_tpu_torch.tools.fused_check import require
     from dvo_slam_tpu_torch.tools.multistream_bench import stream_ates
@@ -450,11 +756,9 @@ def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
 
     _reset_counts()
     tracks, seconds = _synchronized_seconds(lambda: run.tracks(d_i, d_d))
-    batched = fused_kernels.fused_stats_batched_cuda.launches
-    single = fused_kernels.fused_stats_cuda.launches
-    require(batched == tracks.loop_iterations > 0,
-            f"batched kernel launches {batched} != lockstep iterations {tracks.loop_iterations}")
-    require(single == 0, f"the single-stream kernel launched {single} times in lockstep")
+    counts = _launches()
+    batched = counts["warp_fused_stats_batched"]
+    _require_only(counts, "warp_fused_stats_batched", tracks.loop_iterations, "lockstep")
     ates = stream_ates(tracks.poses.cpu().numpy(), gt)
     require(np.isfinite(ates).all() and max(ates) < STREAM_ATE_GATE_M,
             f"stream ATE-RMSE {ates} (gate {STREAM_ATE_GATE_M} m)")
@@ -465,8 +769,7 @@ def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
     summary = {
         "streams": streams, "frames": frames, "seconds": seconds,
         "aggregate_frames_per_s": fps, "single_stream_frames_per_s_phase4": single_fps,
-        "lockstep_iterations": tracks.loop_iterations, "batched_launches": batched,
-        "single_stream_launches": single,
+        "lockstep_iterations": tracks.loop_iterations, "launches": counts,
         "ms_per_lockstep_iteration": 1000.0 * seconds / tracks.loop_iterations,
         "levels": list(range(cfg.first_level, cfg.last_level - 1, -1)),
         "max_over_streams_iterations_per_level": iterations.max(axis=0).sum(axis=0).tolist(),
@@ -566,19 +869,37 @@ def check_copy_and_probe():
                 f"copy kernel: {name} not bit-equal to clone()")
         worst = max(worst, float((out - want).abs().max()))
     full = tables["l1_table"]
+    del tables
+    moved = 2 * _bytes(full)
     row = {"name": "table_copy", "route": "cuda", "source": COPY_SOURCE, "replaces": COPY_REPLACES,
            "max_abs_err": worst}
-    _timed(row, lambda: table_copy.table_copy_cuda(full), lambda: table_copy.table_copy_plain(full))
-    device_ms, _ = gather_probe.device_time(lambda: table_copy.table_copy_cuda(full))
-    plain_device_ms, _ = gather_probe.device_time(lambda: table_copy.table_copy_plain(full))
-    moved = 2 * full.numel() * full.element_size()
+
+    def kernel():
+        return table_copy.table_copy_cuda(full)
+
+    def plain():
+        return table_copy.table_copy_plain(full)
+
+    # cold: the main path copies out of a stack larger than the L2 cache
+    flush = torch.empty(COLD_FLUSH_BYTES // 4, device="cuda")
+    _timed(row, kernel, plain, timer=lambda fn: cold_ms(fn, flush))
+    del flush
+    _timed(row, kernel, plain, timer=device_ms, prefix="warm_")
+    _timed(row, kernel, plain, prefix="wrapper_")
+    row["bound_ms"], row["bound_by"] = _bound(moved)
+    row["library_ms"] = row["plain_ms"]  # clone(): one PyTorch call, the same function
+    profiled_ms, _ = gather_probe.device_time(kernel)
+    profiled_plain_ms, _ = gather_probe.device_time(plain)
     print("phase 10:", json.dumps({
-        "copy_checked": {k: list(v.shape) for k, v in tables.items()}, "bit_equal": True,
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "gb_per_s": moved / row["ms"] / 1e6, "plain_gb_per_s": moved / row["plain_ms"] / 1e6,
-        "device_ms": device_ms, "plain_device_ms": plain_device_ms,
-        "device_gb_per_s": _per(moved / 1e6, device_ms),
-        "plain_device_gb_per_s": _per(moved / 1e6, plain_device_ms),
+        "copy_checked": {k: list(v) for k, v in COPY_SHAPES.items()}, "unaligned": [c, n],
+        "bit_equal": True, "cold_ms": row["ms"], "cold_plain_ms": row["plain_ms"],
+        "warm_ms": row["warm_ms"], "warm_plain_ms": row["warm_plain_ms"],
+        "wrapper_ms": row["wrapper_ms"], "wrapper_plain_ms": row["wrapper_plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "cold_gb_per_s": moved / row["ms"] / 1e6, "cold_plain_gb_per_s": moved / row["plain_ms"] / 1e6,
+        "warm_gb_per_s": moved / row["warm_ms"] / 1e6,
+        "warm_plain_gb_per_s": moved / row["warm_plain_ms"] / 1e6,
+        "profiler_device_ms": profiled_ms, "profiler_plain_device_ms": profiled_plain_ms,
     }), flush=True)
 
     _reset_counts()
@@ -606,7 +927,6 @@ def main() -> int:
         track_sequence,
         upload_sequence,
     )
-    from dvo_slam_tpu_torch.ops import fused_kernels
     from dvo_slam_tpu_torch.ops.camera import TUM_FR1
     from dvo_slam_tpu_torch.parallel.multistream import as_frames
     from dvo_slam_tpu_torch.tools.fused_check import require
@@ -630,7 +950,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = _build.load_libraries(["fused_stats", "table_copy"])
     for name, entries in (
-        ("fused_stats", ("dvo_fused_stats", "dvo_fused_stats_batched", "dvo_fused_partials")),
+        ("fused_stats", ("dvo_warp_fused_stats", "dvo_fused_stats", "dvo_fused_stats_batched",
+                         "dvo_fused_partials")),
         ("table_copy", ("dvo_table_copy",)),
     ):
         for entry in entries:
@@ -643,30 +964,31 @@ def main() -> int:
 
     cfg = benchmark_config().tracker
 
-    # phase 3: kernels vs twins on a rendered 640x480 pair
+    # phase 3: kernels vs plain versions on a rendered 640x480 sequence
     easy_poses = synthetic.circular_trajectory(NUM_FRAMES, radius=0.05, rot_amplitude=0.02)
     t0 = time.perf_counter()
     easy_i, easy_d = render_sequence(easy_poses, SHAPE, TUM_FR1, seed0=0)
     print(f"phase 3: rendered {NUM_FRAMES} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
     d_i, d_d = upload_sequence(easy_i, easy_d, device)
-    pair = [build_frame(cfg, d_i[k], d_d[k]) for k in (0, 1)]
-    checks = check_kernels(cfg, TUM_FR1, pair[0], pair[1])
+    frames = [build_frame(cfg, d_i[k], d_d[k]) for k in range(STREAMS + 1)]
+    folded = check_folded(cfg, TUM_FR1, frames)
+    checks = check_kernels(cfg, TUM_FR1, frames[0], frames[1])
 
-    # phase 4: 100-frame odometry through the kernel
+    # phase 4: 100-frame odometry through the folded kernel
     track_sequence(cfg, TUM_FR1, d_i[:3], d_d[:3])  # warm-up, not counted
     _reset_counts()
     est, iterations, seconds = track_sequence(cfg, TUM_FR1, d_i, d_d)
-    launches = fused_kernels.fused_stats_cuda.launches
-    require(launches == iterations > 0,
-            f"kernel launches {launches} != solver iterations {iterations}")
+    counts = _launches()
+    launches = counts["warp_fused_stats"]
+    _require_only(counts, "warp_fused_stats", iterations, "phase 4")
     stamps = np.arange(NUM_FRAMES) / 30.0
     ate = trajectory.ate_rmse(stamps, est, stamps, easy_poses)
     fps = (NUM_FRAMES - 1) / seconds
     require(np.isfinite(est).all() and np.isfinite(ate), "non-finite odometry")
     print("phase 4:", json.dumps({
         "frames": NUM_FRAMES, "ate_rmse_m": ate, "tracked_frames_per_s": fps,
-        "seconds": seconds, "solver_iterations": iterations, "kernel_launches": launches,
+        "seconds": seconds, "solver_iterations": iterations, "launches": counts,
         "ms_per_iteration": 1000.0 * seconds / iterations,
     }), flush=True)
 
@@ -678,22 +1000,22 @@ def main() -> int:
         hard_poses, SHAPE, TUM_FR1, scene=synthetic.occluded_scene(), seed0=1000
     )
     h_i, h_d = upload_sequence(hard_i, hard_d, device)
-    before = fused_kernels.fused_stats_cuda.launches
+    _reset_counts()
     hard_est, hard_iterations, hard_seconds = track_sequence(cfg, TUM_FR1, h_i, h_d)
-    hard_launches = fused_kernels.fused_stats_cuda.launches - before
-    require(hard_launches == hard_iterations > 0,
-            f"kernel launches {hard_launches} != solver iterations {hard_iterations}")
+    hard_counts = _launches()
+    hard_launches = hard_counts["warp_fused_stats"]
+    _require_only(hard_counts, "warp_fused_stats", hard_iterations, "phase 5")
     hard_ate = trajectory.ate_rmse(stamps, hard_est, stamps, hard_poses)
     print("phase 5:", json.dumps({
         "frames": NUM_FRAMES, "ate_rmse_m": hard_ate,
         "tracked_frames_per_s": (NUM_FRAMES - 1) / hard_seconds,
         "seconds": hard_seconds, "solver_iterations": hard_iterations,
-        "kernel_launches": hard_launches,
+        "launches": hard_counts,
     }), flush=True)
     require(hard_ate < HARD_ATE_GATE_M, f"hard-scene ATE {hard_ate} m >= {HARD_ATE_GATE_M} m")
 
     # phase 6: the sharded paths on a one-rank process group
-    frames = [build_frame(cfg, d_i[k], d_d[k]) for k in range(SHARDED_PAIRS + 1)]
+    frames += [build_frame(cfg, d_i[k], d_d[k]) for k in range(len(frames), SHARDED_PAIRS + 1)]
     partials_launches, _ = check_sharded(cfg, TUM_FR1, frames, easy_poses)
 
     # phase 7: B streams in lockstep, the batched kernel first
@@ -714,21 +1036,42 @@ def main() -> int:
     copy_row = check_copy_and_probe()
 
     kernels = []
-    for name, replaces, main_launches in (
-        ("fused_stats", STATS_REPLACES, launches + hard_launches),
-        ("fused_partials", PARTIALS_REPLACES, partials_launches),
+    folded_rows, folded_worst, folded_batched_rows, folded_batched_worst = folded
+    l1 = next(r for r in folded_rows
+              if r["level"] == cfg.last_level and r["first"] == 0 and r["depth_buffered"])
+    l1_batched = next(r for r in folded_batched_rows
+                      if r["level"] == cfg.last_level and r["first"] == 0)
+    sampled_rows, sampled_worst = checks["fused_stats"]
+    sampled_l1 = next(r for r in sampled_rows if r["level"] == cfg.last_level and r["first_iter"] == 0)
+    batched_l1 = next(r for r in batched_rows
+                      if r["level"] == cfg.last_level and r["first_iter"] == "0")
+    timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    # kernels #1 and #1b: the two launches of csrc/fused_stats.cu, whose main
+    # path enters them through the folded entry point; the sampled-input
+    # entry point (the same launches, another prologue) is checked in phases
+    # 3 and 7 and runs on no tracker path
+    for name, replaces, main_launches, row, worst, sampled_entry, sampled_row, sampled_errors in (
+        ("fused_stats", STATS_REPLACES, launches + hard_launches, l1, folded_worst,
+         "dvo_fused_stats", sampled_l1, sampled_worst),
+        ("fused_stats_batched", BATCHED_REPLACES, batched_launches, l1_batched,
+         folded_batched_worst, "dvo_fused_stats_batched", batched_l1, batched_worst),
     ):
-        rows, worst = checks[name]
-        l1 = next(r for r in rows if r["level"] == cfg.last_level and r["first_iter"] == 0)
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
-            "launches": main_launches, **worst, "ms": l1["ms"], "plain_ms": l1["plain_ms"],
+            "entry": "dvo_warp_fused_stats", "launches": main_launches,
+            "max_abs_err": worst["max_abs_err"], **{k: row[k] for k in timing_keys},
+            "library_ms": None, **{k: v for k, v in worst.items() if k != "max_abs_err"},
+            **{k: row[k] for k in row if k.endswith("device_ms") or k.endswith("x_streams_ms")
+               or k == "unfolded_pair_ms"},
+            "sampled_entry": {"entry": sampled_entry, "main_path_launches": 0,
+                              **{k: sampled_row[k] for k in timing_keys}, **sampled_errors},
         })
-    l1 = next(r for r in batched_rows if r["level"] == cfg.last_level and r["first_iter"] == "0")
+    rows, worst = checks["fused_partials"]
+    l1 = next(r for r in rows if r["level"] == cfg.last_level and r["first_iter"] == 0)
     kernels.append({
-        "name": "fused_stats_batched", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": BATCHED_REPLACES, "launches": batched_launches, **batched_worst,
-        "ms": l1["ms"], "plain_ms": l1["plain_ms"],
+        "name": "fused_partials", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": PARTIALS_REPLACES, "launches": partials_launches, **worst,
+        **{k: l1[k] for k in timing_keys}, "library_ms": None,
     })
     kernels.append(copy_row)
     print(json.dumps({"kernels": kernels}))

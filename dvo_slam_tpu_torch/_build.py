@@ -1,5 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` at first use and load them
-with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc`` at first use, load them
+with ``ctypes``, and hand the wrappers PyTorch's current stream.
 
 Each ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into a shared
 library with a plain C interface, inside the package's ``build/``
@@ -21,6 +21,8 @@ import tempfile
 import threading
 import time
 from typing import Dict, NamedTuple
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -116,3 +118,15 @@ def load_libraries(names) -> Dict[str, KernelLibrary]:
 def load_library(name: str) -> KernelLibrary:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     return load_libraries([name])[name]
+
+
+# PyTorch's current raw CUDA stream, without building a Stream object per call
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current CUDA stream on ``device``, which
+    the kernels launch on."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,19 +1,24 @@
 """Carry state between the reference and the port.
 
-The system has no learned weights: its state is pyramids, prepared
-frames and tracking results.  These helpers take the reference's
+The system has no learned weights: its state is configs, pyramids,
+prepared frames and tracking results.  These helpers take the reference's
 NamedTuples (any array that ``numpy.asarray`` accepts, JAX arrays
 included) and return the port's, or bring a port result back to NumPy.
-They import nothing of JAX: conversion goes through NumPy.
+The configs move both ways by field name and enum member name.  Nothing
+here imports JAX or the reference package: conversion goes through NumPy,
+and the caller hands ``config_to_reference`` the reference's config module.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from . import config as _config
 from .models.dense_tracker import (
     IterationStats,
     LevelStats,
@@ -21,6 +26,33 @@ from .models.dense_tracker import (
     TrackingResult,
 )
 from .ops.pyramid import PyramidLevel
+
+
+def _convert_config(value, module):
+    """A config dataclass (nested ones included) or enum member rebuilt from
+    the same-named classes of ``module``; other values as they are.  A field
+    or member that ``module`` lacks raises."""
+    if dataclasses.is_dataclass(value):
+        cls = getattr(module, type(value).__name__)
+        return cls(**{
+            f.name: _convert_config(getattr(value, f.name), module)
+            for f in dataclasses.fields(value)
+        })
+    if isinstance(value, enum.Enum):
+        return getattr(module, type(value).__name__)[value.name]
+    return value
+
+
+def config_to_reference(cfg, reference_config):
+    """The port's ``TrackerConfig``/``KeyframeConfig``/``GraphConfig``/
+    ``SlamConfig`` as the classes of ``reference_config``, the reference's
+    config module."""
+    return _convert_config(cfg, reference_config)
+
+
+def config_from_reference(cfg):
+    """A reference config (any of the four classes) as the port's."""
+    return _convert_config(cfg, _config)
 
 
 def _to_tensor(a, device) -> Optional[torch.Tensor]:

@@ -1,11 +1,13 @@
 """Dense RGB-D tracker: coarse-to-fine IRLS Gauss-Newton on SE(3)
 (port of ``dvo_slam_tpu.models.dense_tracker``, fused path).
 
-Per pyramid level: iterate { apply the increment; warp and sample; fused
-statistics (CUDA kernel on the card, plain twin on the CPU) with IRLS
-weights from the previous precision; re-estimate the 2x2 t-distribution
-precision; accept if the negative log-likelihood decreased, else revert
-and stop; assemble and solve the 6x6 normal equations } until the
+Per pyramid level: iterate { apply the increment; evaluate: warp and
+sample, fused statistics with IRLS weights from the previous precision,
+the re-estimated 2x2 t-distribution precision, the log-likelihood and the
+6x6 normal equations, all in one call (``fused_kernels.warp_fused_stats``:
+the folded CUDA kernel on the card, the plain version on the CPU); accept
+if the negative log-likelihood decreased, else revert and stop; solve the
+normal equations } until the
 increment's infinity norm drops below ``cfg.precision`` or the iteration
 cap is hit.
 
@@ -32,7 +34,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..config import InfluenceFunction, ScaleEstimator, TrackerConfig
-from ..ops import fused_kernels, least_squares, robust, se3
+from ..ops import fused_kernels, least_squares, se3
 from ..ops.camera import Intrinsics
 from ..ops.interp import build_quad_table_cm
 from ..ops.pyramid import (
@@ -41,7 +43,6 @@ from ..ops.pyramid import (
     build_pyramid,
     selection_mask,
 )
-from ..ops.residuals import warp_and_sample_cm
 
 # Termination criteria (reference: dense_tracking.h TerminationCriteria).
 TERM_NONE = 0
@@ -193,39 +194,18 @@ def _match_level(
     level's prepared artifacts (see :func:`prepare_frame`): the reference
     frame's selection mask and refpack, the current frame's quad table.
     With a leading stream axis on every input, B levels solve in lockstep."""
-    device = sel_mask.device
-    _resolve_backend(cfg, device)
+    _resolve_backend(cfg, sel_mask.device)
     dof = cfg.influence_function_param
     level_shape = tuple(sel_mask.shape[-2:])
-    first_flags = (
-        torch.zeros((), dtype=torch.int32, device=device),
-        torch.ones((), dtype=torch.int32, device=device),
-    )
 
     def evaluate(T, P_prev, first: bool):
-        """Warp gather, then the fused statistics (kernel or twin by
-        device): Gram partials and the log1p sum in one call."""
-        sampled = warp_and_sample_cm(
-            refpack, quad, level_shape, intrinsics, T,
-            depth_buffered=cfg.depth_buffered_sampling,
+        """One IRLS evaluation in one call (the folded kernel on the card,
+        the plain version on the CPU): warp and sample, statistics, new
+        precision, log-likelihood and normal equations."""
+        return fused_kernels.warp_fused_stats(
+            refpack, quad, level_shape, intrinsics, T, P_prev, first, dof,
+            cfg.depth_buffered_sampling,
         )
-        p3 = torch.stack([P_prev[..., 0, 0], P_prev[..., 0, 1], P_prev[..., 1, 1]], dim=-1)
-        stats = fused_kernels.fused_stats(
-            sampled, refpack, p3, first_flags[int(first)], intrinsics, dof
-        )
-        n = stats.num_valid.to(torch.int32)
-        denom = torch.clamp(stats.num_valid - 3.0, min=1.0)
-        precision_new = robust.precision_from_scale(
-            fused_kernels.scale_matrix(stats) / denom[..., None, None]
-        )
-        det = (
-            precision_new[..., 0, 0] * precision_new[..., 1, 1]
-            - precision_new[..., 0, 1] * precision_new[..., 1, 0]
-        )
-        logdet = torch.log(torch.clamp(det, min=1e-38))
-        ll = 0.5 * stats.num_valid * logdet - 0.5 * (dof + 2.0) * stats.log_sum
-        A, b = fused_kernels.assemble_normal_equations(stats, precision_new)
-        return n, precision_new, ll, A, b
 
     carry, iterations, trace = _irls_level(
         cfg, evaluate, x0, T0, initial0, precision0, collect_stats

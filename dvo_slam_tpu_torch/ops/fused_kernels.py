@@ -1,5 +1,6 @@
 """Fused IRLS statistics of the dense-tracking inner loop (counterpart of
-``dvo_slam_tpu.ops.pallas_kernels``).
+``dvo_slam_tpu.ops.pallas_kernels`` and of the reference tracker's
+``evaluate_fused``).
 
 One pass over the pixels of a level computes, per pixel, the residual
 pair, the t-distribution weight from the previous precision and the 12
@@ -10,28 +11,37 @@ which holds every precision-independent sum of the normal equations
 numerator and n).  A second pass takes the new precision from those sums
 and reduces sum log1p(r^T P_new r / dof) over the valid pixels.
 
-The single-pass form, ``fused_partials``, stops after the Gram and hands
-back the per-pixel residuals and weights instead, for a caller that
-reduces the Gram over several ranks before it can take the precision (the
-pixel-sharded alignment).
+Three forms of it:
+  * ``warp_fused_stats``: one whole IRLS evaluation of the tracker, from
+    the warp T on: warp and depth-buffered sample of the current frame's
+    quad table, the statistics, and the iteration's tail (new precision,
+    log-likelihood, normal equations, constraint count) ->
+    ``WarpFusedStats``;
+  * ``fused_stats_*``: the statistics from an already sampled pack;
+  * ``fused_partials``: the Gram plus the per-pixel residuals and weights,
+    for a caller that reduces the Gram over several ranks before it can
+    take the precision (the pixel-sharded alignment).
 
 Two implementations of each, one result:
-  * ``fused_stats_plain`` / ``fused_partials_plain`` — plain PyTorch, the
-    CPU path and the kernels' oracle (the reference's ``fused_stats_xla`` /
-    ``fused_partials_xla``);
-  * ``fused_stats_cuda`` / ``fused_partials_cuda`` — the hand-written CUDA
-    kernels for Hopper (``csrc/fused_stats.cu``, replacing
-    ``fused_stats_pallas`` / ``fused_partials_pallas``), and
-    ``fused_stats_batched_cuda``, B streams' statistics in one call (the
-    lockstep multi-stream tracker, where the reference vmaps
-    ``fused_stats_pallas``).
-``fused_stats`` / ``fused_partials`` pick one by the tensors' device (and
-``fused_stats`` the batched entry point for [B, 8, N] packs).  The plain
+  * ``warp_fused_stats_plain`` / ``fused_stats_plain`` /
+    ``fused_partials_plain`` — plain PyTorch, the CPU path and the
+    kernels' oracle (the reference's ``warp_and_sample_cm`` +
+    ``fused_stats_xla`` + tail, ``fused_stats_xla``, ``fused_partials_xla``);
+  * the hand-written CUDA kernels for Hopper in ``csrc/fused_stats.cu``
+    (replacing ``fused_stats_pallas`` / ``fused_partials_pallas``):
+    ``warp_fused_stats_cuda`` and ``warp_fused_stats_batched_cuda`` (B
+    streams in lockstep in one call, where the reference vmaps the
+    kernel), ``fused_stats_cuda`` / ``fused_stats_batched_cuda`` (the same
+    two launches loading a sampled pack) and ``fused_partials_cuda``.
+``warp_fused_stats`` and ``fused_partials`` pick one by the tensors'
+device; the sampled-input kernels are called directly (phases 3 and 7 of
+``chip_smoke.py`` hold them to ``fused_stats_plain``).  The plain
 versions take a leading stream axis as they are.
 
 Inputs are channel-major [8, N] (or [B, 8, N]):
   refpack: i, z, idx, idy, x, y, sel, 0
   sampled: i_c, z_c, idx_c, idy_c, zdx_c, zdy_c, valid, z_t
+and the quad table [32, N] (or [B, 32, N]) of ``ops.interp``.
 """
 
 from __future__ import annotations
@@ -42,7 +52,10 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _build
+from . import robust
 from .camera import Intrinsics
+from .residuals import warp_and_sample_cm
 
 
 class FusedPartials(NamedTuple):
@@ -67,6 +80,17 @@ class FusedStats(NamedTuple):
     scale_sum: torch.Tensor  # [3]
     num_valid: torch.Tensor  # []
     log_sum: torch.Tensor  # [] sum of log1p(r^T P_new r / dof) over valid pixels
+
+
+class WarpFusedStats(NamedTuple):
+    """One IRLS evaluation (what the tracker's ``evaluate`` returns); every
+    field has a leading [B] for B streams."""
+
+    n: torch.Tensor  # [] int32 valid constraints
+    precision: torch.Tensor  # [2, 2] the new precision
+    ll: torch.Tensor  # [] log-likelihood
+    A: torch.Tensor  # [6, 6] normal-equation matrix
+    b: torch.Tensor  # [6] normal-equation right-hand side
 
 
 def _pixel_math(ref, cur, precision, first_iter, fx, fy, dof):
@@ -227,34 +251,116 @@ def fused_stats_plain(
     )
 
 
+def warp_fused_stats_plain(
+    refpack,  # [..., 8, N]
+    quad,  # [..., 32, N] the current frame's quad table
+    shape,  # (H, W) of the level
+    intrinsics: Intrinsics,
+    T,  # [..., 4, 4]
+    P_prev,  # [..., 2, 2]
+    first: bool,
+    dof: float = 5.0,
+    depth_buffered: bool = True,
+) -> WarpFusedStats:
+    """One IRLS evaluation in plain PyTorch: the CPU path and the folded
+    kernel's oracle.  The warp and sample (``warp_and_sample_cm``), the
+    fused statistics (``fused_stats_plain``) and the tail of the
+    reference's ``evaluate_fused``: the new precision from the scale sums,
+    the log-likelihood, the normal equations and the constraint count."""
+    sampled = warp_and_sample_cm(
+        refpack, quad, shape, intrinsics, T, depth_buffered=depth_buffered
+    )
+    p3 = torch.stack([P_prev[..., 0, 0], P_prev[..., 0, 1], P_prev[..., 1, 1]], dim=-1)
+    first_flag = torch.tensor(int(bool(first)), dtype=torch.int32, device=refpack.device)
+    stats = fused_stats_plain(sampled, refpack, p3, first_flag, intrinsics, dof)
+    n = stats.num_valid.to(torch.int32)
+    denom = torch.clamp(stats.num_valid - 3.0, min=1.0)
+    precision_new = robust.precision_from_scale(scale_matrix(stats) / denom[..., None, None])
+    det = (
+        precision_new[..., 0, 0] * precision_new[..., 1, 1]
+        - precision_new[..., 0, 1] * precision_new[..., 1, 0]
+    )
+    logdet = torch.log(torch.clamp(det, min=1e-38))
+    ll = 0.5 * stats.num_valid * logdet - 0.5 * (dof + 2.0) * stats.log_sum
+    A, b = assemble_normal_equations(stats, precision_new)
+    return WarpFusedStats(n=n, precision=precision_new, ll=ll, A=A, b=b)
+
+
+# The packed output of one stream (csrc/fused_stats.cu), in float32 words:
+# the Gram [16, 16], the new precision [2, 2], A [6, 6], b [6], ll, the
+# log-likelihood sum, and n as int32 bits.
+OUT_STRIDE = 320
+_OUT_GRAM, _OUT_PREC, _OUT_A, _OUT_B, _OUT_LL, _OUT_LOG_SUM, _OUT_N = 0, 256, 260, 296, 302, 303, 304
+_LAYOUT = (OUT_STRIDE, _OUT_GRAM, _OUT_PREC, _OUT_A, _OUT_B, _OUT_LL, _OUT_LOG_SUM, _OUT_N)
+_STASH_ROWS = 3  # (r_I, r_Z, mask) per pixel, between the two launches
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_library():
-    """The built fused-stats library with its C signature declared (built
-    by nvcc at the first call in a process)."""
-    from .. import _build
-
+    """The built fused-stats library with its C signatures declared (built
+    by nvcc at the first call in a process); raises if its packed-output
+    layout is not this module's."""
     lib = _build.load_library("fused_stats").lib
-    ptr = ctypes.c_void_p
-    lib.dvo_fused_stats.argtypes = [
-        ptr, ptr, ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr,
-    ]
-    lib.dvo_fused_stats.restype = ctypes.c_int
-    lib.dvo_fused_stats_batched.argtypes = [
-        ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr,
-    ]
-    lib.dvo_fused_stats_batched.restype = ctypes.c_int
-    lib.dvo_fused_partials.argtypes = [ptr, ptr, ptr, ctypes.c_int, ptr, ptr, ptr, ptr]
-    lib.dvo_fused_partials.restype = ctypes.c_int
-    for name in ("dvo_fused_stats_tile", "dvo_fused_stats_pairs"):
-        getattr(lib, name).argtypes = []
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        "dvo_warp_fused_stats": [p] * 4 + [i] * 6 + [f] * 9 + [p] * 4,
+        "dvo_fused_stats_batched": [p] * 4 + [i] * 2 + [f] * 7 + [p] * 4,
+        "dvo_fused_stats": [p] * 4 + [i] + [f] * 7 + [p] * 4,
+        "dvo_fused_partials": [p] * 4 + [i] + [f] * 6 + [p] * 5,
+    }
+    for name, argtypes in signatures.items():
+        getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
+    lib.dvo_fused_stats_workspace_bytes.argtypes = [i, i, i]
+    lib.dvo_fused_stats_workspace_bytes.restype = ctypes.c_longlong
+    lib.dvo_fused_stats_layout.argtypes = [p]
+    lib.dvo_fused_stats_layout.restype = None
+    fields = (ctypes.c_int * len(_LAYOUT))()
+    lib.dvo_fused_stats_layout(fields)
+    if tuple(fields) != _LAYOUT:
+        raise RuntimeError(f"fused_stats library layout {tuple(fields)} != {_LAYOUT}")
     return lib
 
 
+_tickets = {}
+
+
+def _ticket_buffer(device, stream, batch):
+    """The kernels' per-stream tickets (int32, zero between launches; each
+    launch's last block resets its own): one buffer per device and CUDA
+    stream, allocated once and grown for a call with more streams."""
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < batch:
+        buf = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
+
+
+def _scalars(intrinsics: Intrinsics, dof):
+    """(fx, fy, fx / 255, fy / 255, dof, dof + 2, (dof + 2) / 2): the
+    Python numbers the plain version computes with, which ctypes rounds to
+    float32 as PyTorch rounds a scalar operand."""
+    return (intrinsics.fx, intrinsics.fy, intrinsics.fx / 255.0, intrinsics.fy / 255.0,
+            dof, dof + 2.0, 0.5 * (dof + 2.0))
+
+
+def _check_cuda(who, name, t, shape):
+    """``t`` must be a float32, contiguous CUDA tensor of ``shape``."""
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{who}: {name} must be a CUDA tensor")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{who}: {name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{who}: {name} must be {list(shape)}, got {list(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{who}: {name} must be contiguous")
+
+
 def _check_packs(who, sampled, refpack, batched=False):
-    """The kernels take two float32, contiguous CUDA packs of one shape on
-    one device: [8, N], or [B, 8, N] for the batched entry point; raise on
-    anything else."""
+    """The sampled-input kernels take two float32, contiguous CUDA packs of
+    one shape on one device: [8, N], or [B, 8, N] for the batched entry
+    point; raise on anything else."""
     want = "[B, 8, N]" if batched else "[8, N]"
     for name, t in (("sampled", sampled), ("refpack", refpack)):
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
@@ -273,73 +379,204 @@ def _check_packs(who, sampled, refpack, batched=False):
         raise ValueError(f"{who}: sampled and refpack on different devices")
 
 
-def _kernel_params(intrinsics: Intrinsics, dof, first_iter, precision3, device):
-    """The kernels' params [..., 8] = (fx, fy, dof, first, P00, P01, P11, 0),
-    one row per stream for ``precision3`` [..., 3], built on the device with
-    torch ops: launching reads no value back.  ``first_iter`` is one flag
-    for every stream or one per stream."""
-    f32 = torch.float32
-    precision3 = precision3.to(device=device, dtype=f32)
-    batch = precision3.shape[:-1]
-    first = torch.as_tensor(first_iter, device=device).to(f32)
-    return torch.cat(
-        [
-            torch.tensor([intrinsics.fx, intrinsics.fy, dof], dtype=f32, device=device)
-            .expand(batch + (3,)),
-            first.expand(batch).unsqueeze(-1),
-            precision3,
-            torch.zeros(batch + (1,), dtype=f32, device=device),
-        ],
-        dim=-1,
-    )
-
-
-def _gram_partials_scratch(lib, n, device, batch=()):
-    """The kernels' per-block float64 Gram partials [..., ceil(n / tile), 136]."""
-    blocks = -(-n // lib.dvo_fused_stats_tile())
+def _workspace(lib, n, batch, rows, device):
     return torch.empty(
-        tuple(batch) + (blocks, lib.dvo_fused_stats_pairs()), dtype=torch.float64, device=device
+        lib.dvo_fused_stats_workspace_bytes(n, batch, rows), dtype=torch.uint8, device=device
     )
 
 
-def _launch_fused_stats(sampled, refpack, precision3, first_iter, intrinsics, dof, batch):
-    """Allocate the outputs and scratch and launch one call: ``batch`` ()
-    runs ``dvo_fused_stats`` on [8, N] packs, (B,) ``dvo_fused_stats_batched``
-    on [B, 8, N].  Every field of the result has the leading ``batch``."""
+def _stash(workspace, batch, n):
+    """The stash (r_I, r_Z, mask) [..., 3, N] at the head of a workspace."""
+    count = _STASH_ROWS * n * (batch[0] if batch else 1)
+    return workspace[: 4 * count].view(torch.float32).view(tuple(batch) + (_STASH_ROWS, n))
+
+
+def _unpack_out(out) -> WarpFusedStats:
+    """Views of the packed output [..., 320] as ``WarpFusedStats``."""
+    batch = tuple(out.shape[:-1])
+    return WarpFusedStats(
+        n=out.view(torch.int32)[..., _OUT_N],
+        precision=out[..., _OUT_PREC:_OUT_PREC + 4].view(batch + (2, 2)),
+        ll=out[..., _OUT_LL],
+        A=out[..., _OUT_A:_OUT_A + 36].view(batch + (6, 6)),
+        b=out[..., _OUT_B:_OUT_B + 6],
+    )
+
+
+def packed_stats(out) -> FusedStats:
+    """The Gram blocks and the log-likelihood sum of a kernel's packed
+    output [..., 320] as ``FusedStats``."""
+    gram = out[..., _OUT_GRAM:_OUT_GRAM + 256].view(tuple(out.shape[:-1]) + (16, 16))
+    m00, m01, m11, v, scale_sum, num_valid = _unpack_gram(gram)
+    return FusedStats(m00=m00, m01=m01, m11=m11, v=v, scale_sum=scale_sum,
+                      num_valid=num_valid, log_sum=out[..., _OUT_LOG_SUM])
+
+
+def _launch_warp(who, refpack, quad, shape, intrinsics, T, P_prev, first, dof, depth_buffered):
+    """Check the inputs and launch ``dvo_warp_fused_stats`` once -> (the
+    packed output [..., 320], the workspace whose head is the stash)."""
+    batch = tuple(refpack.shape[:-2])
+    n = refpack.shape[-1]
+    height, width = shape
+    if height * width != n:
+        raise ValueError(f"{who}: level shape {tuple(shape)} does not hold N = {n} pixels")
+    T = T.contiguous() if isinstance(T, torch.Tensor) else T
+    P_prev = P_prev.contiguous() if isinstance(P_prev, torch.Tensor) else P_prev
+    _check_cuda(who, "refpack", refpack, batch + (8, n))
+    _check_cuda(who, "quad", quad, batch + (32, n))
+    _check_cuda(who, "T", T, batch + (4, 4))
+    _check_cuda(who, "P_prev", P_prev, batch + (2, 2))
+    device = refpack.device
+    if any(t.device != device for t in (quad, T, P_prev)):
+        raise ValueError(f"{who}: inputs on different devices")
+    lib = _kernel_library()
+    streams = batch[0] if batch else 1
+    stream = _build.current_stream(device)
+    workspace = _workspace(lib, n, streams, _STASH_ROWS, device)
+    out = torch.empty(batch + (OUT_STRIDE,), dtype=torch.float32, device=device)
+    fx, fy, gx, gy, dof_, dof_plus_2, ll_scale = _scalars(intrinsics, dof)
+    err = lib.dvo_warp_fused_stats(
+        refpack.data_ptr(), quad.data_ptr(), T.data_ptr(), P_prev.data_ptr(),
+        n, height, width, streams, int(bool(first)), int(bool(depth_buffered)),
+        fx, fy, intrinsics.ox, intrinsics.oy, gx, gy, dof_, dof_plus_2, ll_scale,
+        workspace.data_ptr(), _ticket_buffer(device, stream, streams).data_ptr(),
+        out.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{who}: kernel launch failed, CUDA error {err}")
+    (warp_fused_stats_batched_cuda if batch else warp_fused_stats_cuda).launches += 1
+    return out, workspace
+
+
+def _require_dim(who, refpack, dims):
+    if not isinstance(refpack, torch.Tensor) or refpack.dim() not in dims:
+        shapes = " or ".join(("[8, N]", "[B, 8, N]")[d - 2] for d in dims)
+        raise ValueError(f"{who}: refpack must be a {shapes} CUDA tensor")
+
+
+def warp_fused_stats_rows_cuda(
+    refpack, quad, shape, intrinsics: Intrinsics, T, P_prev, first: bool, dof: float = 5.0,
+    depth_buffered: bool = True,
+):
+    """The folded kernel (``csrc/fused_stats.cu``, ``dvo_warp_fused_stats``)
+    with everything it computes, for the checks: two launches on the
+    current stream, no host synchronisation, nothing read from the host.
+    ``refpack`` [8, N] / [B, 8, N], ``quad`` [32, N] / [B, 32, N], ``T``
+    [..., 4, 4], ``P_prev`` [..., 2, 2], float32 CUDA tensors.  Returns
+    (``WarpFusedStats``, the Gram blocks and log sum as ``FusedStats``, the
+    stash (r_I, r_Z, mask) [..., 3, N]), all views of the call's own
+    buffers.  Each call adds one to ``warp_fused_stats_batched_cuda.launches``
+    for [B, ...] inputs, else to ``warp_fused_stats_cuda.launches``."""
+    who = "warp_fused_stats_rows_cuda"
+    _require_dim(who, refpack, (2, 3))
+    out, workspace = _launch_warp(
+        who, refpack, quad, shape, intrinsics, T, P_prev, first, dof, depth_buffered
+    )
+    stash = _stash(workspace, tuple(refpack.shape[:-2]), refpack.shape[-1])
+    return _unpack_out(out), packed_stats(out), stash
+
+
+def warp_fused_stats_cuda(
+    refpack, quad, shape, intrinsics: Intrinsics, T, P_prev, first: bool, dof: float = 5.0,
+    depth_buffered: bool = True,
+) -> WarpFusedStats:
+    """One stream's IRLS evaluation by the folded kernel (the tracker's
+    call): ``refpack`` [8, N], ``quad`` [32, N], ``T`` [4, 4], ``P_prev``
+    [2, 2] CUDA tensors.  Each call adds one to
+    ``warp_fused_stats_cuda.launches``."""
+    who = "warp_fused_stats_cuda"
+    _require_dim(who, refpack, (2,))
+    return _unpack_out(_launch_warp(
+        who, refpack, quad, shape, intrinsics, T, P_prev, first, dof, depth_buffered
+    )[0])
+
+
+warp_fused_stats_cuda.launches = 0
+
+
+def warp_fused_stats_batched_cuda(
+    refpack, quad, shape, intrinsics: Intrinsics, T, P_prev, first: bool, dof: float = 5.0,
+    depth_buffered: bool = True,
+) -> WarpFusedStats:
+    """B streams' IRLS evaluations by the folded kernel in one call of two
+    launches: ``refpack`` [B, 8, N], ``quad`` [B, 32, N], ``T`` [B, 4, 4],
+    ``P_prev`` [B, 2, 2]; stream b's outputs bit-equal to
+    ``warp_fused_stats_cuda`` on its inputs.  Each call adds one to
+    ``warp_fused_stats_batched_cuda.launches``."""
+    who = "warp_fused_stats_batched_cuda"
+    _require_dim(who, refpack, (3,))
+    return _unpack_out(_launch_warp(
+        who, refpack, quad, shape, intrinsics, T, P_prev, first, dof, depth_buffered
+    )[0])
+
+
+warp_fused_stats_batched_cuda.launches = 0
+
+
+def warp_fused_stats(
+    refpack, quad, shape, intrinsics: Intrinsics, T, P_prev, first: bool, dof: float = 5.0,
+    depth_buffered: bool = True,
+) -> WarpFusedStats:
+    """One IRLS evaluation of the tracker, dispatched on the tensors'
+    device: CPU tensors take the plain version, CUDA tensors the folded
+    kernel (the batched entry point for [B, 8, N] refpacks); any other
+    device raises."""
+    kind = refpack.device.type
+    args = (refpack, quad, shape, intrinsics, T, P_prev, first, dof, depth_buffered)
+    if kind == "cpu":
+        return warp_fused_stats_plain(*args)
+    if kind == "cuda":
+        kernel = warp_fused_stats_batched_cuda if refpack.dim() == 3 else warp_fused_stats_cuda
+        return kernel(*args)
+    raise ValueError(f"warp_fused_stats: no implementation for device {refpack.device}")
+
+
+def _sampled_inputs(who, sampled, refpack, precision3, first_iter, batched):
+    """(batch, precision3 [B, 3], first flags [B] int32) on the packs'
+    device, for the sampled-input entry points."""
+    _check_packs(who, sampled, refpack, batched)
+    batch = tuple(sampled.shape[:-2])
+    if tuple(precision3.shape) != batch + (3,):
+        raise ValueError(f"{who}: precision3 must be {list(batch + (3,))}, got {list(precision3.shape)}")
+    device = sampled.device
+    p3 = precision3.to(device=device, dtype=torch.float32).contiguous()
+    flags = torch.as_tensor(first_iter, device=device).to(torch.int32).expand(batch or (1,))
+    return batch, p3, flags.contiguous()
+
+
+def _launch_fused_stats(who, sampled, refpack, precision3, first_iter, intrinsics, dof, batched):
+    """One call of ``dvo_fused_stats`` ([8, N] packs) or
+    ``dvo_fused_stats_batched`` ([B, 8, N]) -> ``FusedStats`` with the
+    leading batch, views of the call's packed output."""
+    batch, p3, flags = _sampled_inputs(who, sampled, refpack, precision3, first_iter, batched)
     n = sampled.shape[-1]
     device = sampled.device
     lib = _kernel_library()
-    f32 = torch.float32
-    params = _kernel_params(intrinsics, dof, first_iter, precision3, device).contiguous()
-    gram_partials = _gram_partials_scratch(lib, n, device, batch)
-    ll_partials = torch.empty(gram_partials.shape[:-1], dtype=torch.float64, device=device)
-    gram = torch.empty(batch + (16, 16), dtype=f32, device=device)
-    prec = torch.empty(batch + (3,), dtype=f32, device=device)
-    log_sum = torch.empty(batch or (1,), dtype=f32, device=device)
-    head = (sampled.data_ptr(), refpack.data_ptr(), params.data_ptr(), n)
-    tail = (gram_partials.data_ptr(), gram.data_ptr(), prec.data_ptr(), ll_partials.data_ptr(),
-            log_sum.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    if batch:
-        err = lib.dvo_fused_stats_batched(*head, batch[0], *tail)
+    streams = batch[0] if batch else 1
+    stream = _build.current_stream(device)
+    workspace = _workspace(lib, n, streams, _STASH_ROWS, device)
+    out = torch.empty(batch + (OUT_STRIDE,), dtype=torch.float32, device=device)
+    head = (sampled.data_ptr(), refpack.data_ptr(), p3.data_ptr(), flags.data_ptr(), n)
+    tail = (*_scalars(intrinsics, dof), workspace.data_ptr(),
+            _ticket_buffer(device, stream, streams).data_ptr(), out.data_ptr(), stream)
+    if batched:
+        err = lib.dvo_fused_stats_batched(*head, streams, *tail)
     else:
         err = lib.dvo_fused_stats(*head, *tail)
     if err != 0:
-        raise RuntimeError(f"fused_stats kernel launch failed, CUDA error {err}")
-    m00, m01, m11, v, scale_sum, num_valid = _unpack_gram(gram)
-    return FusedStats(
-        m00=m00, m01=m01, m11=m11, v=v, scale_sum=scale_sum,
-        num_valid=num_valid, log_sum=log_sum if batch else log_sum[0],
-    )
+        raise RuntimeError(f"{who}: kernel launch failed, CUDA error {err}")
+    return packed_stats(out)
 
 
 def fused_stats_cuda(
     sampled, refpack, precision3, first_iter, intrinsics: Intrinsics, dof: float = 5.0
 ) -> FusedStats:
-    """The CUDA kernel (``csrc/fused_stats.cu``, ``dvo_fused_stats``): four
-    launches on the current stream, no host synchronisation.
-    ``fused_stats_cuda.launches`` counts the calls that launched it."""
-    _check_packs("fused_stats_cuda", sampled, refpack)
-    stats = _launch_fused_stats(sampled, refpack, precision3, first_iter, intrinsics, dof, ())
+    """The statistics kernel from a sampled pack (``csrc/fused_stats.cu``,
+    ``dvo_fused_stats``, the counterpart of ``fused_stats_pallas``): the
+    folded kernel's two launches with the sampled values loaded instead of
+    warped and gathered.  ``fused_stats_cuda.launches`` counts the calls."""
+    stats = _launch_fused_stats("fused_stats_cuda", sampled, refpack, precision3, first_iter,
+                                intrinsics, dof, batched=False)
     fused_stats_cuda.launches += 1
     return stats
 
@@ -350,20 +587,14 @@ fused_stats_cuda.launches = 0
 def fused_stats_batched_cuda(
     sampled, refpack, precision3, first_iter, intrinsics: Intrinsics, dof: float = 5.0
 ) -> FusedStats:
-    """The batched CUDA entry point (``csrc/fused_stats.cu``,
-    ``dvo_fused_stats_batched``): B streams' statistics in four launches on
-    the current stream, no host synchronisation.  ``sampled``/``refpack``
-    [B, 8, N], ``precision3`` [B, 3], ``first_iter`` [] or [B]; every field
-    of the result has a leading [B], stream b's bit-equal to
-    ``fused_stats_cuda`` on stream b's packs.  Each call adds one to
+    """The batched statistics kernel from sampled packs
+    (``dvo_fused_stats_batched``): ``sampled``/``refpack`` [B, 8, N],
+    ``precision3`` [B, 3], ``first_iter`` [] or [B]; every field of the
+    result has a leading [B], stream b's bit-equal to ``fused_stats_cuda``
+    on stream b's packs.  Each call adds one to
     ``fused_stats_batched_cuda.launches``."""
-    _check_packs("fused_stats_batched_cuda", sampled, refpack, batched=True)
-    batch = sampled.shape[0]
-    if tuple(precision3.shape) != (batch, 3):
-        raise ValueError(
-            f"fused_stats_batched_cuda: precision3 must be [{batch}, 3], got {tuple(precision3.shape)}"
-        )
-    stats = _launch_fused_stats(sampled, refpack, precision3, first_iter, intrinsics, dof, (batch,))
+    stats = _launch_fused_stats("fused_stats_batched_cuda", sampled, refpack, precision3,
+                                first_iter, intrinsics, dof, batched=True)
     fused_stats_batched_cuda.launches += 1
     return stats
 
@@ -371,46 +602,32 @@ def fused_stats_batched_cuda(
 fused_stats_batched_cuda.launches = 0
 
 
-def fused_stats(
-    sampled, refpack, precision3, first_iter, intrinsics: Intrinsics, dof: float = 5.0
-) -> FusedStats:
-    """Dispatch on the tensors' device: CPU tensors take the plain twin,
-    CUDA tensors the kernel (the batched entry point for [B, 8, N] packs);
-    any other device raises."""
-    kind = sampled.device.type
-    if kind == "cpu":
-        return fused_stats_plain(sampled, refpack, precision3, first_iter, intrinsics, dof)
-    if kind == "cuda":
-        kernel = fused_stats_batched_cuda if sampled.dim() == 3 else fused_stats_cuda
-        return kernel(sampled, refpack, precision3, first_iter, intrinsics, dof)
-    raise ValueError(f"fused_stats: no implementation for device {sampled.device}")
-
-
 def fused_partials_rows_cuda(
     sampled, refpack, precision3, first_iter, intrinsics: Intrinsics, dof: float = 5.0
 ):
     """The CUDA single-pass kernel (``csrc/fused_stats.cu``,
-    ``dvo_fused_partials``): two launches on the current stream, no host
+    ``dvo_fused_partials``): one launch on the current stream, no host
     synchronisation.  Returns the Gram [16, 16] and the per-pixel rows
     rw [4, N] = (r_I, r_Z, w, mask).  Each call adds one to
     ``fused_partials_cuda.launches``."""
-    _check_packs("fused_partials_cuda", sampled, refpack)
+    _, p3, flags = _sampled_inputs("fused_partials_cuda", sampled, refpack, precision3,
+                                   first_iter, batched=False)
     n = sampled.shape[1]
     device = sampled.device
     lib = _kernel_library()
-    params = _kernel_params(intrinsics, dof, first_iter, precision3, device)
-    gram_partials = _gram_partials_scratch(lib, n, device)
-    gram = torch.empty((16, 16), dtype=torch.float32, device=device)
+    stream = _build.current_stream(device)
+    workspace = _workspace(lib, n, 1, 0, device)
+    out = torch.empty((OUT_STRIDE,), dtype=torch.float32, device=device)
     rw = torch.empty((4, n), dtype=torch.float32, device=device)
     err = lib.dvo_fused_partials(
-        sampled.data_ptr(), refpack.data_ptr(), params.data_ptr(), n,
-        gram_partials.data_ptr(), gram.data_ptr(), rw.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        sampled.data_ptr(), refpack.data_ptr(), p3.data_ptr(), flags.data_ptr(), n,
+        *_scalars(intrinsics, dof)[:6], workspace.data_ptr(),
+        _ticket_buffer(device, stream, 1).data_ptr(), out.data_ptr(), rw.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_partials_cuda: kernel launch failed, CUDA error {err}")
     fused_partials_cuda.launches += 1
-    return gram, rw
+    return out[_OUT_GRAM:_OUT_GRAM + 256].view(16, 16), rw
 
 
 def fused_partials_cuda(

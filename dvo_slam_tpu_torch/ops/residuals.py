@@ -4,8 +4,9 @@
 Reference points come from the refpack (x, y in rows 4/5, z = depth in
 row 1, unprojected once per frame); each is transformed by T, projected,
 and the current frame's quad table is sampled there.  This is plain
-PyTorch, as it is XLA code in the reference; the fused kernel consumes
-its output.  It batches over a leading stream axis (the lockstep
+PyTorch, as it is XLA code in the reference: the CPU path and the oracle
+of the folded kernel (``fused_kernels.warp_fused_stats``), which does the
+same per pixel on the card.  It batches over a leading stream axis (the lockstep
 multi-stream solve: each stream its own T, refpack and quad table).
 """
 
@@ -30,7 +31,10 @@ def warp_and_sample_cm(
     combined bounds/neighbour validity, channel 7 the transformed depth z'.
     The sample is depth-buffered against z' unless ``depth_buffered`` is
     off.  One stream: [8, N], [32, N], [4, 4]; B streams: [B, 8, N],
-    [B, 32, N], [B, 4, 4] (the reference's ``stream_index`` lockstep)."""
+    [B, 32, N], [B, 4, 4] (the reference's ``stream_index`` lockstep).
+    Each call adds one to ``warp_and_sample_cm.calls`` (the tracker's
+    evaluation on the card folds this into its kernel and never calls it)."""
+    warp_and_sample_cm.calls += 1
     x, y, z = refpack_cm[..., 4, :], refpack_cm[..., 5, :], refpack_cm[..., 1, :]
     R = T[..., :3, :3].to(refpack_cm.dtype).unsqueeze(-1)  # [..., 3, 3, 1]
     t = T[..., :3, 3].to(refpack_cm.dtype).unsqueeze(-1)  # [..., 3, 1]
@@ -47,3 +51,6 @@ def warp_and_sample_cm(
     sampled[..., 6, :] = validity.to(sampled.dtype)
     sampled[..., 7, :] = z_t
     return sampled
+
+
+warp_and_sample_cm.calls = 0

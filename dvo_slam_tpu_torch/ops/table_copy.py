@@ -7,7 +7,8 @@ allocation of its own.  Two implementations, one result:
   * ``table_copy_plain`` — ``x.clone()``: the CPU path, the kernel's oracle
     and the time it is compared with;
   * ``table_copy_cuda`` — the hand-written CUDA kernel
-    (``csrc/table_copy.cu``, ``dvo_table_copy``): a float4 grid-stride copy.
+    (``csrc/table_copy.cu``, ``dvo_table_copy``): a bulk-TMA copy through
+    shared-memory stages, one persistent block per SM.
 ``table_copy`` picks one by the tensor's device.
 """
 
@@ -18,6 +19,8 @@ import functools
 
 import torch
 
+from .. import _build
+
 
 def table_copy_plain(x: torch.Tensor) -> torch.Tensor:
     """The plain version: a new buffer holding ``x``."""
@@ -25,21 +28,21 @@ def table_copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_library():
-    from .._build import load_library
-
-    lib = load_library("table_copy").lib
-    lib.dvo_table_copy.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    lib.dvo_table_copy.restype = ctypes.c_int
-    return lib
+def _kernel():
+    """The library's ``dvo_table_copy`` with its C signature declared (built
+    by nvcc at the first call in a process)."""
+    fn = _build.load_library("table_copy").lib.dvo_table_copy
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def table_copy_cuda(x: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel: ``x`` [C, n] float32, contiguous, on a card -> a new
     [C, n] buffer with the same bits; one launch on the current stream, no
-    host synchronisation.  Each call adds one to ``table_copy_cuda.launches``."""
+    host synchronisation.  Each call adds one to ``table_copy_cuda.launches``.
+    The library is looked up once; a call checks its input, allocates the
+    output and goes straight to ctypes."""
     if not isinstance(x, torch.Tensor) or not x.is_cuda:
         raise ValueError("table_copy_cuda: x must be a CUDA tensor")
     if x.dtype != torch.float32:
@@ -48,11 +51,8 @@ def table_copy_cuda(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"table_copy_cuda: x must be a non-empty [C, n] table, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("table_copy_cuda: x must be contiguous")
-    lib = _kernel_library()
     out = torch.empty_like(x)
-    err = lib.dvo_table_copy(
-        x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream
-    )
+    err = _kernel()(x.data_ptr(), out.data_ptr(), x.numel(), _build.current_stream(x.device))
     if err != 0:
         raise RuntimeError(f"table_copy_cuda: kernel launch failed, CUDA error {err}")
     table_copy_cuda.launches += 1

@@ -1,19 +1,24 @@
 """The fused kernels held against their plain twins on real inputs.
 
-Shared by ``chip_smoke.py`` (phase 3), the ``tests_cuda`` tier and
-``tools/profile_odometry.py``.  The inputs are what the tracker feeds the
-kernels: the reference frame's refpack and the current frame sampled
-through a warp, at every solved pyramid level.
+Shared by ``chip_smoke.py`` (phase 3), the ``tests_cuda`` tier, the CPU
+tests and ``tools/profile_odometry.py``.  The inputs are what the tracker
+feeds the kernels: the reference frame's refpack and the current frame's
+quad table, or the current frame sampled through a warp, at every solved
+pyramid level.
 
-Two Gram checks, for both kernels: against the float32 twin, each entry
+Two Gram checks, for every kernel: against the float32 twin, each entry
 within 1e-4 of sqrt(G_aa G_bb) (``compare_gram``); and element-wise, rtol
 1e-6, against the float64 Gram of the same float32 rows
 (``compare_exact_gram``).  ``fused_stats`` adds its log-likelihood sum
 (``compare_fused_stats``); ``fused_partials`` its per-pixel rows
-(``compare_fused_partials``).
+(``compare_fused_partials``).  The folded call (``warp_fused_stats``) adds
+its stash of per-pixel residuals and mask (``compare_stash``) and the
+iteration's tail (``compare_warp_fused_stats``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +44,9 @@ GRAM_FIELDS = ("m00", "m01", "m11", "v", "scale_sum")
 # residuals at each level are those of a real mid-solve iteration
 CHECK_TWIST = (0.003, -0.002, 0.004, 0.001, 0.002, -0.001)
 CHECK_PRECISION = (4000.0, 10.0, 1.5e5)
+# the folded call's tail against the plain version's, each quantity relative
+# to the scale its float32 rounding follows (see compare_warp_fused_stats)
+EVAL_RTOL = 1e-5
 
 
 def require(condition, message):
@@ -65,6 +73,111 @@ def level_inputs(cfg, intrinsics, ref_levels, cur_levels, twist=CHECK_TWIST):
     return out
 
 
+class WarpInputs(NamedTuple):
+    """One level's inputs of the folded call, besides P_prev and the flag."""
+
+    refpack: torch.Tensor  # [8, N]
+    quad: torch.Tensor  # [32, N]
+    shape: Tuple[int, int]  # (H, W)
+    intrinsics: object  # the level's Intrinsics
+    T: torch.Tensor  # [4, 4]
+
+
+def warp_level_inputs(cfg, intrinsics, ref_levels, cur_levels, twist=CHECK_TWIST):
+    """{level: WarpInputs} for every solved level, with the warp exp(twist)."""
+    ref = prepare_frame(cfg, intrinsics, ref_levels)
+    cur = prepare_frame(cfg, intrinsics, cur_levels)
+    device = ref.refpack[cfg.first_level].device
+    T = se3.exp_se3(torch.tensor(twist, dtype=torch.float32, device=device))
+    return {
+        level: WarpInputs(ref.refpack[level], cur.quad[level], tuple(ref.sel[level].shape),
+                          intrinsics.at_level(level), T)
+        for level in range(cfg.first_level, cfg.last_level - 1, -1)
+    }
+
+
+def _p3(P):
+    return torch.stack([P[..., 0, 0], P[..., 0, 1], P[..., 1, 1]], dim=-1)
+
+
+def twin_stash(refpack, quad, shape, intrinsics, T, P_prev, first, dof=5.0, depth_buffered=True):
+    """The plain version's per-pixel (r_I, r_Z, mask) [..., 3, N]: what the
+    folded kernel stashes between its launches."""
+    sampled = warp_and_sample_cm(refpack, quad, shape, intrinsics, T, depth_buffered=depth_buffered)
+    r_i, r_z, _, maskf, _, _ = fused_kernels._pixel_math(
+        refpack, sampled, _p3(P_prev), int(bool(first)), intrinsics.fx, intrinsics.fy, dof
+    )
+    return torch.stack([r_i, r_z, maskf], dim=-2)
+
+
+def warp_exact_gram(refpack, quad, shape, intrinsics, T, P_prev, first, dof=5.0,
+                    depth_buffered=True):
+    """``exact_gram`` of the folded call's inputs (one stream): the float64
+    Gram of the plain version's float32 rows."""
+    sampled = warp_and_sample_cm(refpack, quad, shape, intrinsics, T, depth_buffered=depth_buffered)
+    return exact_gram(sampled, refpack, _p3(P_prev), int(bool(first)), intrinsics, dof)
+
+
+def compare_stash(kernel_rows, twin_rows):
+    """The folded kernel's stash against ``twin_stash`` -> (the worst
+    residual error, the number of entries that are not bit-equal); raises
+    unless the mask rows are equal and r_I, r_Z agree within atol 1e-6.
+    Both are the same float32 operations (the kernel built with
+    -fmad=false), so 0 entries differ as a rule."""
+    k, t = kernel_rows.detach().cpu(), twin_rows.detach().cpu()
+    require(k.shape == t.shape, f"stash shape {tuple(k.shape)} != {tuple(t.shape)}")
+    require(torch.equal(k[..., 2, :], t[..., 2, :]),
+            f"stash mask: {int((k[..., 2, :] != t[..., 2, :]).sum())} pixels differ")
+    r_err = float((k[..., :2, :] - t[..., :2, :]).abs().max())
+    require(r_err <= RESIDUAL_ATOL, f"stashed residuals differ by {r_err!r} > atol {RESIDUAL_ATOL}")
+    return r_err, int((k.view(torch.int32) != t.view(torch.int32)).sum())
+
+
+def compare_warp_fused_stats(kernel, twin):
+    """Two ``WarpFusedStats`` of the same inputs (one stream or a leading
+    [B]) -> {field: worst scaled error}; raises unless ``n`` is equal and
+    each quantity is within ``EVAL_RTOL`` of the scale its float32 rounding
+    follows: the precision's diagonal element-wise and P01 relative to
+    sqrt(P00 P11); ll relative to |0.5 n logdet| + |0.5 (dof + 2) log_sum|
+    (the two terms it is the difference of); A's diagonal element-wise and
+    every entry within 1e-4 of sqrt(A_aa A_bb), as ``compare_gram`` holds
+    the Gram; b_a relative to sqrt(2 n A_aa), its Cauchy-Schwarz bound
+    (sum w r^T P_new r <= 2 n by the precision's own construction).
+    Element-wise relative errors are no measure of the off-diagonal and
+    right-hand-side entries, which cancel."""
+    def f64(t, *shape):
+        t = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+        return np.asarray(t, np.float64).reshape(-1, *shape)
+
+    n_k, n_t = f64(kernel.n), f64(twin.n)
+    require(np.array_equal(n_k, n_t), f"n: kernel {n_k.tolist()} vs plain {n_t.tolist()}")
+    P_k, P_t = f64(kernel.precision, 2, 2), f64(twin.precision, 2, 2)
+    A_k, A_t = f64(kernel.A, 6, 6), f64(twin.A, 6, 6)
+    b_k, b_t = f64(kernel.b, 6), f64(twin.b, 6)
+    ll_k, ll_t = f64(kernel.ll), f64(twin.ll)
+    worst = {}
+
+    def check(name, err, scale):
+        scaled = np.divide(err, scale, out=np.where(err > 0, np.inf, 0.0), where=scale > 0)
+        worst[name] = float(scaled.max())
+        require(worst[name] <= (GRAM_RTOL if name == "A_entries" else EVAL_RTOL),
+                f"{name}: worst error {worst[name]:.3g} of its scale")
+
+    p_diag = np.stack([P_t[:, 0, 0], P_t[:, 1, 1]], axis=-1)
+    check("precision_diagonal", np.abs(np.stack([P_k[:, 0, 0], P_k[:, 1, 1]], -1) - p_diag),
+          np.abs(p_diag))
+    check("precision_offdiagonal", np.abs(P_k[:, 0, 1] - P_t[:, 0, 1]),
+          np.sqrt(np.abs(P_t[:, 0, 0] * P_t[:, 1, 1])))
+    det = P_t[:, 0, 0] * P_t[:, 1, 1] - P_t[:, 0, 1] * P_t[:, 1, 0]
+    term = 0.5 * n_t * np.log(np.maximum(det, 1e-38))
+    check("ll", np.abs(ll_k - ll_t), np.abs(term) + np.abs(term - ll_t))
+    a_diag = np.diagonal(A_t, axis1=-2, axis2=-1)
+    check("A_diagonal", np.abs(np.diagonal(A_k, axis1=-2, axis2=-1) - a_diag), np.abs(a_diag))
+    check("A_entries", np.abs(A_k - A_t), np.sqrt(np.abs(a_diag[:, :, None] * a_diag[:, None, :])))
+    check("b", np.abs(b_k - b_t), np.sqrt(2.0 * np.abs(n_t[:, None] * a_diag)))
+    return worst
+
+
 def gram14(stats):
     """The Gram blocks of a ``FusedStats`` as the symmetric [14, 14] float64
     Gram of the rows (sqrt(w) J_I, sqrt(w) J_Z, sqrt(w) r_I, sqrt(w) r_Z)."""
@@ -81,13 +194,13 @@ def gram14(stats):
 
 
 def exact_gram(sampled, refpack, precision3, first_iter, intrinsics, dof=5.0):
-    """The float64 Gram [14, 14] of the twin's float32 rows U: each product
+    """The float64 Gram [..., 14, 14] of the twin's float32 rows U: each product
     and sum in double, which is what the kernel computes before it rounds
     the Gram once to float32."""
     rows = fused_kernels._gram_rows(*fused_kernels._pixel_math(
         refpack, sampled, precision3, first_iter, intrinsics.fx, intrinsics.fy, dof
-    ))[:14].double()
-    return (rows @ rows.T).cpu().numpy()
+    ))[..., :14, :].double()
+    return (rows @ rows.transpose(-1, -2)).cpu().numpy()
 
 
 def compare_exact_gram(kernel, exact):

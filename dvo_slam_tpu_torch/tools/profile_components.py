@@ -12,6 +12,11 @@ distinct rendered frames cycled), and printed as one JSON object per line:
   pyramid      raw u8/u16 -> the pyramid (``build_frame``)
   accel+quad   acceleration pack + quad table, per level
   gather       ``warp_and_sample_cm``, per level
+  evaluate     one IRLS evaluation, per level: the folded kernel
+               (``warp_fused_stats_cuda``, the tracker's call), its plain
+               version, and the unfolded pair the tracker ran before it
+               (``warp_and_sample_cm`` + ``fused_stats_cuda``); with the
+               device time per call of the folded kernel and of the pair
   partials     the fused-partials CUDA kernel and its plain twin, per level;
                also their device time per call under ``torch.profiler``
                (every kernel and copy the call puts on the card)
@@ -114,6 +119,29 @@ def profile(reps: int):
                                       depth_buffered=cfg.depth_buffered_sampling)
 
         row["gather_ms"] = median_ms(gather, reps)
+        P = torch.tensor([[PRECISION[0], PRECISION[1]], [PRECISION[1], PRECISION[2]]], device="cuda")
+
+        def evaluate_args(i):
+            ref, cur = prepared[i % FRAMES], prepared[(i + 1) % FRAMES]
+            return (ref.refpack[level], cur.quad[level], shape, k, T, P, False, dof,
+                    cfg.depth_buffered_sampling)
+
+        def unfolded(i):
+            ref = prepared[i % FRAMES]
+            return fused_kernels.fused_stats_cuda(gather(i), ref.refpack[level], p3, first, k, dof)
+
+        # one card, in turns: plain, folded, folded, plain
+        folded_plain = [median_ms(lambda i: fused_kernels.warp_fused_stats_plain(*evaluate_args(i)),
+                                  reps)]
+        folded = [median_ms(lambda i: fused_kernels.warp_fused_stats_cuda(*evaluate_args(i)), reps)
+                  for _ in range(2)]
+        folded_plain.append(median_ms(
+            lambda i: fused_kernels.warp_fused_stats_plain(*evaluate_args(i)), reps))
+        row["evaluate_folded_ms"], row["evaluate_plain_ms"] = min(folded), min(folded_plain)
+        row["evaluate_unfolded_pair_ms"] = median_ms(unfolded, reps)
+        row["evaluate_folded_device_ms"] = device_ms(
+            lambda i: fused_kernels.warp_fused_stats_cuda(*evaluate_args(i)), reps)
+        row["evaluate_unfolded_pair_device_ms"] = device_ms(unfolded, reps)
         sampled = [gather(i) for i in range(FRAMES)]
         refpacks = [prepared[i].refpack[level] for i in range(FRAMES)]
         args = lambda i: (sampled[i % FRAMES], refpacks[i % FRAMES], p3, first, k, dof)  # noqa: E731
@@ -147,6 +175,12 @@ def table(rows) -> str:
     ]
     levels = [r for r in rows if r["stage"] == "level"]
     for key, label in (("accel_quad_ms", "accel + quad"), ("gather_ms", "gather"),
+                       ("evaluate_folded_ms", "evaluate, folded kernel"),
+                       ("evaluate_plain_ms", "evaluate, plain version"),
+                       ("evaluate_unfolded_pair_ms", "evaluate, gather + fused_stats kernel"),
+                       ("evaluate_folded_device_ms", "evaluate, folded kernel, device"),
+                       ("evaluate_unfolded_pair_device_ms",
+                        "evaluate, gather + fused_stats kernel, device"),
                        ("partials_kernel_ms", "partials, CUDA kernel"),
                        ("partials_plain_ms", "partials, plain twin"),
                        ("partials_kernel_device_ms", "partials, CUDA kernel, device"),

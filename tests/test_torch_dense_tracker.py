@@ -34,8 +34,12 @@ from dvo_slam_tpu.ops.pyramid import build_pyramid as j_build_pyramid
 from dvo_slam_tpu.ops.pyramid import convert_raw_depth as j_convert_raw_depth
 from dvo_slam_tpu.utils import synthetic as j_syn
 
-from dvo_slam_tpu_torch.convert import levels_from_numpy, prepared_from_numpy, result_to_numpy
-from dvo_slam_tpu_torch import config as t_config
+from dvo_slam_tpu_torch.convert import (
+    config_from_reference,
+    levels_from_numpy,
+    prepared_from_numpy,
+    result_to_numpy,
+)
 from dvo_slam_tpu_torch import odometry
 from dvo_slam_tpu_torch.models import dense_tracker as t_dt
 from dvo_slam_tpu_torch.ops.camera import Intrinsics as TIntrinsics
@@ -45,10 +49,15 @@ torch.set_num_threads(1)  # Tier-1 runs several xdist workers
 
 K = (160.0, 160.0, 79.5, 59.5)  # tests/test_dense_tracker.py
 SHAPE = (120, 160)
+
+def _both(cfg):
+    """A reference config and the port's, built from it by convert.py."""
+    return cfg, config_from_reference(cfg)
+
+
 # each config twice, the reference's and the port's (equal field by field)
-CFG_KW = dict(first_level=2, last_level=0, max_iterations_per_level=50)
-CFG = (j_config.TrackerConfig(**CFG_KW), t_config.TrackerConfig(**CFG_KW))
-BENCH = (j_config.benchmark_config().tracker, t_config.benchmark_config().tracker)
+CFG = _both(j_config.TrackerConfig(first_level=2, last_level=0, max_iterations_per_level=50))
+BENCH = _both(j_config.benchmark_config().tracker)
 NOISE = dict(depth_noise=0.002, intensity_noise=1.0)
 
 # (config, twist of the current camera, initial guess, render noise)
@@ -221,7 +230,7 @@ def test_odometry_matches_compiled_reference():
     """8 frames of 120x160 u8/u16 odometry, frame to frame with a
     constant-velocity warm start (the port's odometry driver, on the CPU): the
     trajectory agrees with the compiled reference within 1e-4 m."""
-    cfg, t_cfg = (dataclasses.replace(c, first_level=2, last_level=0) for c in BENCH)
+    cfg, t_cfg = _both(dataclasses.replace(BENCH[0], first_level=2, last_level=0))
     poses = j_syn.circular_trajectory(100, radius=0.05, rot_amplitude=0.02)[:8]
     intensity_u8, depth_u16 = odometry.render_sequence(poses, SHAPE, TIntrinsics(*K))
 

@@ -143,21 +143,24 @@ def test_normal_equations_and_scale_matrix():
 
 
 def test_dispatch_by_device():
-    """A CPU tensor takes the plain twin (bit-equal to it, no launch); the
-    kernel wrapper refuses CPU tensors."""
+    """A CPU tensor takes the plain twin; the kernel wrappers, single and
+    batched, refuse CPU tensors and count no launch."""
     sampled, refpack = _level_pair(*SCENES["seed3"])
     args = (
         torch.from_numpy(sampled), torch.from_numpy(refpack), torch.from_numpy(P3),
         torch.tensor(0, dtype=torch.int32), TK,
     )
-    before = fused_kernels.fused_stats_cuda.launches
-    got = fused_kernels.fused_stats(*args)
+    before = (fused_kernels.fused_stats_cuda.launches,
+              fused_kernels.fused_stats_batched_cuda.launches)
     want = fused_kernels.fused_stats_plain(*args)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert fused_kernels.fused_stats_cuda.launches == before
+    assert torch.isfinite(want.log_sum) and float(want.num_valid) > 0
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_kernels.fused_stats_cuda(*args)
+    batched = (args[0][None], args[1][None], args[2][None], *args[3:])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_kernels.fused_stats_batched_cuda(*batched)
+    assert (fused_kernels.fused_stats_cuda.launches,
+            fused_kernels.fused_stats_batched_cuda.launches) == before
 
 
 def test_backend_resolution():

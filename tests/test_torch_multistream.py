@@ -45,6 +45,7 @@ from dvo_slam_tpu.parallel import temporal as j_temporal
 from dvo_slam_tpu.parallel.multistream import make_multistream_tracker as j_multistream
 from dvo_slam_tpu.utils import synthetic
 
+from dvo_slam_tpu_torch.convert import config_from_reference
 from dvo_slam_tpu_torch.models.dense_tracker import match_prepared, prepare_frame
 from dvo_slam_tpu_torch.odometry import build_frame
 from dvo_slam_tpu_torch.ops import fused_kernels as t_fk
@@ -70,6 +71,12 @@ BASE_CFG = dict(first_level=1, last_level=0, max_iterations_per_level=15, precis
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _cfgs(**kw):
+    """The reference's TrackerConfig and the port's, built from it."""
+    cfg = TrackerConfig(**kw)
+    return cfg, config_from_reference(cfg)
 
 
 def _streams(streams, frames, noise):
@@ -99,12 +106,12 @@ def tracker_runs():
     the reference's lockstep poses."""
     out = {}
     for name, (cfg_kw, streams, noise) in TRACKER_SCENES.items():
-        cfg = TrackerConfig(**cfg_kw)
+        cfg, t_cfg = _cfgs(**cfg_kw)
         iu, du = _streams(streams, 4, noise)
         out[name] = dict(
-            iu=iu, du=du, cfg=cfg,
-            lockstep=t_ms.make_multistream_tracker(cfg, K).tracks(iu, du),
-            sequential=t_ms.make_multistream_tracker(cfg, K, schedule="sequential").tracks(iu, du),
+            iu=iu, du=du, cfg=t_cfg,
+            lockstep=t_ms.make_multistream_tracker(t_cfg, K).tracks(iu, du),
+            sequential=t_ms.make_multistream_tracker(t_cfg, K, schedule="sequential").tracks(iu, du),
             reference=np.asarray(j_multistream(cfg, K)(jnp.asarray(iu), jnp.asarray(du))),
         )
     return out
@@ -150,7 +157,7 @@ def test_sample_quad_batched_and_reference_tuple_sampler(buffered):
     (bit-equal) and against the reference's tuple-of-tables sampler under
     vmap with ``lockstep_stream_indices`` (validity equal, values atol
     1e-5: the compiled reference contracts the bilinear blend)."""
-    cfg = TrackerConfig(**BASE_CFG)
+    cfg = _cfgs(**BASE_CFG)[1]
     _, cur = _prepared_streams(cfg)
     quad = cur.quad[0]  # [B, 32, N]
     h, w = SHAPE
@@ -183,7 +190,7 @@ def test_warp_and_sample_batched_and_reference(buffered):
     bit-equal to each stream's warp; against the reference's
     ``stream_index`` lockstep under vmap, the validity channel equal and
     the rest within atol 1e-4 (the compiled warp moves u, v by an ulp)."""
-    cfg = TrackerConfig(**BASE_CFG)
+    cfg = _cfgs(**BASE_CFG)[1]
     ref, cur = _prepared_streams(cfg)
     twists = np.array([[0.004 * (b - 1), 0.002, -0.001, 0.001, -0.002 * b, 0.003]
                        for b in range(B)], np.float32)
@@ -212,7 +219,7 @@ def test_fused_stats_plain_batched_and_reference(first):
     ``fused_stats_xla`` under vmap (num_valid equal; the Gram entries
     within rtol 1e-4 of sqrt(G_aa G_bb), log_sum rtol 1e-5: the
     tolerances of ``tools/fused_check.py``)."""
-    cfg = TrackerConfig(**BASE_CFG)
+    cfg = _cfgs(**BASE_CFG)[1]
     ref, cur = _prepared_streams(cfg)
     T = t_se3.exp_se3(_t(np.array([[0.003, -0.002, 0.004, 0.001, 0.002, -0.001]] * B, np.float32)))
     sampled = t_res.warp_and_sample_cm(ref.refpack[0], cur.quad[0], SHAPE, K, T)
@@ -241,7 +248,7 @@ def test_match_prepared_batched_returns_batched_stats():
     """B pairs in lockstep: [B]-batched result fields, and per stream the
     single-stream solve's level statistics and iteration trace (a finished
     stream's trace rows stay zero while the others iterate)."""
-    cfg = TrackerConfig(**BASE_CFG)
+    cfg = _cfgs(**BASE_CFG)[1]
     ref, cur = _prepared_streams(cfg)
     result = match_prepared(cfg, K, ref, cur, collect_iteration_stats=True)
     assert result.transformation.shape == (B, 4, 4)
@@ -309,7 +316,7 @@ def test_unbuffered_mode_tracks_like_buffered(tracker_runs):
     """tests/test_parallel.py:443-455: the unbuffered lockstep tracks the
     clean scene to within 5e-3 of the buffered run."""
     run = tracker_runs["unbuffered"]
-    cfg = TrackerConfig(**BASE_CFG)
+    cfg = _cfgs(**BASE_CFG)[1]
     buffered = t_ms.make_multistream_tracker(cfg, K)(run["iu"], run["du"]).numpy()
     for b in range(2):
         for t in range(3):
@@ -318,12 +325,12 @@ def test_unbuffered_mode_tracks_like_buffered(tracker_runs):
 
 def test_unknown_schedule_and_mesh_axis():
     with pytest.raises(ValueError, match="unknown schedule"):
-        t_ms.make_multistream_tracker(TrackerConfig(), K, schedule="interleaved")
+        t_ms.make_multistream_tracker(_cfgs()[1], K, schedule="interleaved")
     from dvo_slam_tpu_torch.parallel.mesh import Mesh
 
     mesh = Mesh(None, "streams", 0, 1, torch.device("cpu"))
     with pytest.raises(ValueError, match="mesh axis"):
-        t_ms.make_multistream_tracker(TrackerConfig(), K, mesh)
+        t_ms.make_multistream_tracker(_cfgs()[1], K, mesh)
 
 
 def test_as_frames_widens_u16():
@@ -386,12 +393,12 @@ def temporal_scene():
 
 def test_temporal_tracker_matches_reference(temporal_scene):
     iu, du, poses = temporal_scene
-    cfg = TrackerConfig(first_level=1, last_level=0, max_iterations_per_level=15)
+    cfg, t_cfg = _cfgs(first_level=1, last_level=0, max_iterations_per_level=15)
     ref = j_temporal.make_temporal_tracker(cfg, K, None, num_chunks=4)(jnp.asarray(iu), jnp.asarray(du))
-    mine = t_temporal.make_temporal_tracker(cfg, K, num_chunks=4)(iu, du)
+    mine = t_temporal.make_temporal_tracker(t_cfg, K, num_chunks=4)(iu, du)
     assert mine.shape == (8, 4, 4) and mine.dtype == np.float64
     np.testing.assert_allclose(mine, ref, atol=1e-4)
-    seq = t_ms.make_multistream_tracker(cfg, K)(iu[None], du[None])[0].numpy()
+    seq = t_ms.make_multistream_tracker(t_cfg, K)(iu[None], du[None])[0].numpy()
     for t in range(8):
         assert _pose_err(seq[t], mine[t]) < 1e-3  # tests/test_parallel.py:251
         assert _pose_err(poses[t + 1], mine[t]) < 8e-3
@@ -467,7 +474,7 @@ def two_ranks(tmp_path_factory, temporal_scene):
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-    return (iu, du, TrackerConfig(**cfg), (t_iu, t_du),
+    return (iu, du, _cfgs(**cfg)[1], (t_iu, t_du),
             [np.load(work / f"out_r{rank}.npz") for rank in range(2)])
 
 

@@ -1,12 +1,14 @@
-"""The port never imports JAX: with ``sys.modules["jax"]`` set to None (so
-that importing it raises), every module of ``dvo_slam_tpu_torch`` (the
-``parallel`` modules and the tools included) and ``chip_smoke.py`` import,
-and a tiny CPU ``match_pyramids``, a one-rank gloo pixel-sharded match,
-both multi-stream schedules, the temporal tracker and the gather probe's
-check run.  Of the
-JAX package the port loads only its plain modules, ``dvo_slam_tpu.config``
-and ``dvo_slam_tpu.utils.trajectory``."""
+"""The port never imports JAX nor the JAX package: with ``sys.modules["jax"]``
+and ``sys.modules["dvo_slam_tpu"]`` set to None (so that importing either
+raises), every module of ``dvo_slam_tpu_torch`` (the ``parallel`` modules
+and the tools included) and ``chip_smoke.py`` import, and a tiny CPU
+``match_pyramids``, a one-rank gloo pixel-sharded match, both multi-stream
+schedules, the temporal tracker, the gather probe's check and the ATE
+metric run.  Afterwards no ``jax`` and no ``dvo_slam_tpu`` module is
+loaded.  No source file of the port names either package in an import, a
+dynamic one included."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -14,6 +16,7 @@ import sys
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["dvo_slam_tpu"] = None
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -68,12 +71,16 @@ for schedule in ("lockstep", "sequential"):
 chain = temporal.make_temporal_tracker(cfg, K, num_chunks=2)(iu[0], du[0])
 assert chain.shape == (2, 4, 4) and np.isfinite(chain).all()
 gather_probe.check_variants(gather_probe.make_inputs(2, 6, 8))
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+from dvo_slam_tpu_torch.utils import trajectory
+stamps = np.arange(3) / 30.0
+assert trajectory.ate_rmse(stamps, np.tile(np.eye(4), (3, 1, 1)), stamps,
+                           np.tile(np.eye(4), (3, 1, 1))) == 0.0
+from dvo_slam_tpu_torch import benchmark_config, config as t_config, convert
+assert convert.config_to_reference(benchmark_config(), t_config) == benchmark_config()
+assert convert.config_from_reference(benchmark_config()) == benchmark_config()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dvo_slam_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
-reference = sorted(m for m in sys.modules if m.split(".")[0] == "dvo_slam_tpu")
-assert reference == ["dvo_slam_tpu", "dvo_slam_tpu.config", "dvo_slam_tpu.utils",
-                     "dvo_slam_tpu.utils.trajectory"], reference
 print("modules", len(names), "ok")
 """
 
@@ -88,3 +95,37 @@ def test_port_imports_and_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ok" in proc.stdout
+
+
+def _imported_roots(tree):
+    """Top-level package names that a module imports, statically or through
+    ``importlib.import_module`` / ``__import__`` with a literal name."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", None)
+            if name in ("import_module", "__import__") and node.args:
+                arg = node.args[0]
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    yield arg.value.split(".")[0]
+                else:
+                    yield "<dynamic>"
+
+
+def test_port_sources_name_no_reference_import():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = [os.path.join(repo, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(repo, "dvo_slam_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = {}
+    for path in files:
+        with open(path) as f:
+            roots = set(_imported_roots(ast.parse(f.read(), path)))
+        hit = roots & {"jax", "jaxlib", "dvo_slam_tpu", "<dynamic>"}
+        if hit:
+            bad[os.path.relpath(path, repo)] = sorted(hit)
+    assert len(files) > 20 and not bad, bad

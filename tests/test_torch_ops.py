@@ -6,6 +6,8 @@ float32 operations in the same order on both sides and must be
 bit-equal; the rest agree within the tolerances stated per test.
 """
 
+import enum
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -254,15 +256,112 @@ def test_unproject_project_bit_equal():
 
 
 def test_config_and_trajectory_metric_are_the_references():
-    """The port re-exports the reference's plain modules: one definition of
-    the configs, the benchmark operating point and the ATE metric."""
+    """The port's own copies of the configs, the benchmark operating point
+    and the ATE metric equal the reference's: the same class and enum names,
+    the benchmark config field by field through convert.py in both
+    directions, and the metric on a random trajectory."""
     from dvo_slam_tpu import config as j_config
     from dvo_slam_tpu.utils import trajectory as j_traj
     from dvo_slam_tpu_torch import benchmark_config, config as t_config
+    from dvo_slam_tpu_torch.convert import config_from_reference, config_to_reference
     from dvo_slam_tpu_torch.utils import trajectory as t_traj
 
     for name in t_config.__all__:
-        assert getattr(t_config, name) is getattr(j_config, name)
-    assert benchmark_config() == j_config.benchmark_config()
+        assert getattr(t_config, name) is not getattr(j_config, name)
+        assert getattr(t_config, name).__name__ == getattr(j_config, name).__name__
+    assert config_to_reference(benchmark_config(), j_config) == j_config.benchmark_config()
+    assert config_from_reference(j_config.benchmark_config()) == benchmark_config()
     for name in t_traj.__all__:
-        assert getattr(t_traj, name) is getattr(j_traj, name)
+        assert getattr(t_traj, name) is not getattr(j_traj, name)
+    rng = np.random.default_rng(11)
+    poses = np.tile(np.eye(4), (20, 1, 1))
+    poses[:, :3, 3] = np.cumsum(rng.normal(0.0, 0.01, (20, 3)), axis=0)
+    est = poses.copy()
+    est[:, :3, 3] += rng.normal(0.0, 1e-3, (20, 3))
+    stamps = np.arange(20) / 30.0
+    assert t_traj.ate_rmse(stamps, est, stamps, poses) == j_traj.ate_rmse(stamps, est, stamps, poses)
+
+
+_CONFIG_CLASSES = ("TrackerConfig", "KeyframeConfig", "GraphConfig", "SlamConfig")
+
+
+@pytest.mark.parametrize("name", _CONFIG_CLASSES)
+def test_config_copy_equals_reference_field_by_field(name):
+    """Each copied config class has the reference's fields, in order, with
+    equal defaults; its enums have the reference's members and values; a
+    non-default config survives the round trip through convert.py."""
+    import dataclasses
+
+    from dvo_slam_tpu import config as j_config
+    from dvo_slam_tpu_torch import config as t_config
+    from dvo_slam_tpu_torch.convert import config_from_reference, config_to_reference
+
+    t_cls, j_cls = getattr(t_config, name), getattr(j_config, name)
+    t_fields, j_fields = dataclasses.fields(t_cls), dataclasses.fields(j_cls)
+    assert [f.name for f in t_fields] == [f.name for f in j_fields]
+    assert config_to_reference(t_cls(), j_config) == j_cls()
+    assert config_from_reference(j_cls()) == t_cls()
+    for enum_name in ("InfluenceFunction", "ScaleEstimator"):
+        t_enum, j_enum = getattr(t_config, enum_name), getattr(j_config, enum_name)
+        assert [(m.name, m.value) for m in t_enum] == [(m.name, m.value) for m in j_enum]
+    j_bench = getattr(j_config.benchmark_config(), name.replace("Config", "").lower(), None)
+    j_cfg = j_config.benchmark_config() if j_bench is None else j_bench
+    t_cfg = config_from_reference(j_cfg)
+    assert type(t_cfg) is t_cls
+    for f in j_fields:
+        mine, theirs = getattr(t_cfg, f.name), getattr(j_cfg, f.name)
+        if isinstance(mine, enum.Enum):
+            assert (type(mine).__name__, mine.name) == (type(theirs).__name__, theirs.name)
+        elif dataclasses.is_dataclass(mine):
+            assert config_to_reference(mine, j_config) == theirs, f.name
+        else:
+            assert type(mine) is type(theirs) and mine == theirs, f.name
+    assert config_to_reference(t_cfg, j_config) == j_cfg
+
+
+def test_config_enums_convert_by_member_name():
+    """The reference compares enums by identity: a converted config carries
+    each package's own members."""
+    import dataclasses
+
+    from dvo_slam_tpu import config as j_config
+    from dvo_slam_tpu_torch import config as t_config
+    from dvo_slam_tpu_torch.convert import config_from_reference, config_to_reference
+
+    j_cfg = j_config.TrackerConfig(influence_function=j_config.InfluenceFunction.HUBER,
+                                   scale_estimator=j_config.ScaleEstimator.MAD, mu=0.3)
+    t_cfg = config_from_reference(j_cfg)
+    assert t_cfg.influence_function is t_config.InfluenceFunction.HUBER
+    assert t_cfg.scale_estimator is t_config.ScaleEstimator.MAD
+    back = config_to_reference(dataclasses.replace(t_cfg, depth_buffered_sampling=False), j_config)
+    assert back.influence_function is j_config.InfluenceFunction.HUBER
+    assert back == dataclasses.replace(j_cfg, depth_buffered_sampling=False)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_trajectory_metrics_equal_reference(seed):
+    """associate_trajectories, umeyama_alignment and ate_rmse of the port's
+    copy against the reference's on random trajectories (with a timestamp
+    jitter and an unmatched tail): bit-equal."""
+    from dvo_slam_tpu.utils import trajectory as j_traj
+    from dvo_slam_tpu_torch.utils import trajectory as t_traj
+
+    rng = np.random.default_rng(seed)
+    frames = 40
+    gt = np.tile(np.eye(4), (frames, 1, 1))
+    gt[:, :3, 3] = np.cumsum(rng.normal(0.0, 0.02, (frames, 3)), axis=0)
+    twist = rng.normal(0.0, 0.05, 6).astype(np.float32)
+    offset = np.asarray(j_se3.exp_se3(jnp.asarray(twist)), np.float64)
+    est = offset[None] @ gt
+    est[:, :3, 3] += rng.normal(0.0, 2e-3, (frames, 3))
+    gt_stamps = np.arange(frames) / 30.0
+    est_stamps = gt_stamps + rng.uniform(-0.005, 0.005, frames)
+    est_stamps[-5:] += 1.0  # no ground truth within max_dt
+    for a, b in zip(t_traj.associate_trajectories(est_stamps, gt_stamps),
+                    j_traj.associate_trajectories(est_stamps, gt_stamps)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(t_traj.umeyama_alignment(est[:, :3, 3], gt[:, :3, 3]),
+                                  j_traj.umeyama_alignment(est[:, :3, 3], gt[:, :3, 3]))
+    ate = t_traj.ate_rmse(est_stamps, est, gt_stamps, gt)
+    assert ate == j_traj.ate_rmse(est_stamps, est, gt_stamps, gt) and 0.0 < ate < 0.01
+    assert np.isnan(t_traj.ate_rmse(est_stamps[:1], est[:1], gt_stamps, gt))

@@ -388,3 +388,23 @@ def test_no_mesh_or_rendezvous_without_setup(monkeypatch):
     monkeypatch.delenv("MASTER_PORT", raising=False)
     with pytest.raises(ValueError, match="MASTER_ADDR"):
         t_distributed.initialize()
+
+
+def test_sharded_bench_runs_on_cpu():
+    """``tools/sharded_bench`` (phase 6's timing, alone in its process) on
+    one pair and one round, on the CPU over gloo: both paths solve and
+    report a time per iteration."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import json, torch; torch.set_num_threads(1)\n"
+        "from dvo_slam_tpu_torch.tools import sharded_bench\n"
+        "print(json.dumps(sharded_bench.bench(1, 1, device='cpu')))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    (one,) = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert one["pairs"] == 1 and one["sharded_iterations"] > 0 and one["single_iterations"] > 0
+    assert 0.0 < one["sharded_ms_per_iteration"] < 1e4 and 0.0 < one["single_ms_per_iteration"] < 1e4

@@ -71,18 +71,6 @@ def test_batched_kernel_bit_equal_per_stream(batched_inputs, level, first):
         fused_check.compare_fused_stats(mine, _stream(twin, b))
 
 
-def test_dispatch_takes_the_batched_kernel(batched_inputs):
-    sampled, refpack, k = batched_inputs[1]
-    p3 = torch.tensor(fused_check.CHECK_PRECISION, device="cuda").expand(STREAMS, 3)
-    flag = torch.tensor(0, dtype=torch.int32, device="cuda")
-    before = fused_kernels.fused_stats_batched_cuda.launches
-    single_before = fused_kernels.fused_stats_cuda.launches
-    stats = fused_kernels.fused_stats(sampled, refpack, p3, flag, k)
-    assert fused_kernels.fused_stats_batched_cuda.launches == before + 1
-    assert fused_kernels.fused_stats_cuda.launches == single_before
-    assert stats.log_sum.shape == (STREAMS,) and np.isfinite(stats.log_sum.cpu().numpy()).all()
-
-
 def test_batched_wrapper_rejects_bad_inputs(batched_inputs):
     sampled, refpack, k = batched_inputs[2]
     p3 = torch.tensor(fused_check.CHECK_PRECISION, device="cuda").expand(STREAMS, 3)

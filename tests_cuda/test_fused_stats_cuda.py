@@ -54,15 +54,6 @@ def test_kernel_matches_plain_twin(level_inputs, level, first_iter):
     assert float(kernel.num_valid) > 0.5 * sampled.shape[1]
 
 
-def test_dispatch_takes_the_kernel_on_cuda(level_inputs):
-    sampled, refpack, k = level_inputs[1]
-    p3 = torch.tensor(fused_check.CHECK_PRECISION, dtype=torch.float32, device="cuda")
-    flag = torch.tensor(0, dtype=torch.int32, device="cuda")
-    before = fused_kernels.fused_stats_cuda.launches
-    fused_kernels.fused_stats(sampled, refpack, p3, flag, k)
-    assert fused_kernels.fused_stats_cuda.launches == before + 1
-
-
 def test_wrapper_rejects_bad_inputs(level_inputs):
     sampled, refpack, k = level_inputs[2]
     p3 = torch.tensor(fused_check.CHECK_PRECISION, dtype=torch.float32, device="cuda")

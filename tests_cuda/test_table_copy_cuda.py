@@ -1,7 +1,10 @@
 """The copy kernel (``dvo_table_copy``) on the card: bit-equal to
 ``clone()`` into a buffer of its own, at the L1 quad-table shape, at
-ragged element counts (not a multiple of 4: the scalar tail) and from a
-table that is not 16-byte aligned (the scalar loop)."""
+ragged element counts (not a multiple of 4: the scalar tail; and counts
+that straddle the bulk copy's 8 KB chunks, so the last chunk is short), a
+table of more than the 50 MB L2 cache (each SM walks many chunks through
+its ring of stages), and from a table that is not 16-byte aligned (the
+scalar loop)."""
 
 import pytest
 import torch
@@ -15,7 +18,8 @@ def _bits(x):
     return x.contiguous().view(torch.int32)
 
 
-@pytest.mark.parametrize("shape", [(32, 76800), (7, 1001), (1, 3), (32, 4800)])
+@pytest.mark.parametrize("shape", [(32, 76800), (7, 1001), (1, 3), (32, 4800), (1, 2049),
+                                   (3, 2731), (32, 460800)])
 def test_copy_bit_equal_to_clone(shape):
     gen = torch.Generator(device="cuda").manual_seed(sum(shape))
     x = torch.randn(shape, device="cuda", generator=gen)
