@@ -36,6 +36,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``fused_stats``: ``log_sum`` within rtol 1e-5.  ``fused_partials``: the
    mask row equal, r_I and r_Z within atol 1e-6, w within rtol 1e-5 of the
    twin's rows, and the count of rw entries that are not bit-equal.
+   The pixel-sharded evaluation's three launches
+   (``dvo_warp_fused_partials``, ``dvo_sharded_loglik``,
+   ``dvo_sharded_tail``) against their plain versions, on the whole frame
+   and on every rank's block of 4 and of 7 ranks (7 pads the last block),
+   with the blocks' sums added on the card in rank order where the ranks
+   all-reduce, ``first`` 0/1:
+   each block's stash (r_I, r_Z, gate) against the plain version's (the
+   gate equal, atol 1e-6, the count of entries that differ printed), its
+   136 sums within rtol 1e-6 of the float64 Gram, the tail as
+   ``compare_warp_fused_stats`` holds it, every rank's result the same
+   bits, two runs bit-identical.  At L1 for N, N/2 and N/4 pixels: wrapper
+   ms and device ms of the three launches beside the plain version and the
+   unfolded trio (``warp_and_sample_cm`` + ``dvo_fused_partials`` + the
+   PyTorch tail), each launch's device ms alone, and the bound.
 4. Odometry: 100 frames at 640x480 (``TUM_FR1``), frame to frame with a
    constant-velocity warm start at ``benchmark_config().tracker``, from
    u8/u16 frames through ``convert_raw_depth`` -> ``build_pyramid`` ->
@@ -48,14 +62,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. Sharded paths: a one-rank NCCL process group (``file://`` rendezvous
    in a temporary directory) and its mesh.  The pixel-sharded matcher on
    the first 20 easy pairs from the identity: each pair within 5e-3 of
-   the ground truth (max |log(T_gt^-1 T)|), the partials kernel launched
-   once per solver iteration and the statistics kernels not at all.  With
+   the ground truth (max |log(T_gt^-1 T)|), each of the sharded
+   evaluation's three kernels launched once per solver iteration, and
+   ``dvo_fused_partials``, the statistics kernels and
+   ``warp_and_sample_cm`` not at all.  With
    mu = 0, where the sharded and single paths coincide, one pair against
    ``match_pyramids``: per-level iterations and terminations equal,
    estimate within 1e-4, information within rtol 2e-3 / atol 1e-3.  The
    pair-parallel matcher on 8 pairs, bit-equal to ``match_pyramids`` pair
    by pair.  Prints ms per iteration and pairs/s of the sharded path and
-   of ``match_pyramids`` on the same 20 pairs.
+   of ``match_pyramids`` on the same 20 pairs; after phase 10 (so that no
+   profiler is attached to the timed phases) the device kernels per
+   iteration of both under ``torch.profiler``
+   (``tools/sharded_bench.kernels_per_iteration``).
 7. Lockstep multi-stream odometry: 8 streams x 50 frames at 640x480
    (``tools/multistream_bench.render_streams``) through
    ``make_multistream_tracker``.  The batched sampled-input kernel
@@ -101,6 +120,7 @@ call that computes the same function where there is one),
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -110,12 +130,16 @@ import numpy as np
 SHAPE = (480, 640)
 NUM_FRAMES = 100
 HARD_ATE_GATE_M = 0.01  # the reference's hard-scene gate (bench.py)
+RENDER_WORKERS = min(8, os.cpu_count() or 1)  # host threads rendering the sequences' frames
 TIMING_REPS = 30
 TIMING_WARMUP = 5
 KERNEL_SOURCE = "dvo_slam_tpu_torch/csrc/fused_stats.cu"
 STATS_REPLACES = "dvo_slam_tpu/ops/pallas_kernels.py:413"
 PARTIALS_REPLACES = "dvo_slam_tpu/ops/pallas_kernels.py:252"
 SHARDED_PAIRS = 20
+SHARD_WORLDS = (1, 4, 7)  # phase 3: the whole frame, and every block of 4 and of 7 ranks
+SHARD_TIMED = (1, 2, 4)  # phase 3: N, N/2 and N/4 pixels of L1, block 0 of as many ranks
+PROFILED_PAIRS = 3
 WAVE_PAIRS = 8
 POSE_GATE = 5e-3  # tests/test_parallel.py: max |log(T_gt^-1 T)| against the ground truth
 MU0_POSE_GATE = 1e-4  # tests/test_parallel.py: sharded vs single at mu = 0
@@ -486,6 +510,114 @@ def check_folded(cfg, intrinsics, frames):
     return rows, worst, batched_rows, batched_worst
 
 
+def check_sharded_kernels(cfg, intrinsics, frames):
+    """Phase 3c: the pixel-sharded evaluation's three launches against their
+    plain versions at every solved level, first 0 and 1, on the blocks of
+    ``SHARD_WORLDS`` ranks (pair 0 of ``frames``); timings at the last
+    level.  Returns (rows, worst errors, the timing rows by pixel count)."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops import fused_kernels
+    from dvo_slam_tpu_torch.ops.residuals import warp_and_sample_cm
+    from dvo_slam_tpu_torch.tools import fused_check
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    dof = cfg.influence_function_param
+    cuda_steps = (fused_kernels.warp_fused_partials_cuda, fused_kernels.sharded_loglik_cuda,
+                  fused_kernels.sharded_tail_cuda)
+    plain_steps = (fused_kernels.warp_fused_partials_plain, fused_kernels.sharded_loglik_plain,
+                   fused_kernels.sharded_tail_plain)
+    levels = fused_check.warp_level_inputs(cfg, intrinsics, frames[0], frames[1])
+    rows, worst, timed = [], {}, []
+    for level in range(cfg.first_level, cfg.last_level - 1, -1):
+        inputs = levels[level]
+        device = inputs.refpack.device
+        P = torch.tensor(CHECK_P_PREV, dtype=torch.float32, device=device)
+        common = (inputs.quad, inputs.shape, inputs.intrinsics, inputs.T, P)
+        for first in (0, 1):
+            for world in SHARD_WORLDS:
+                blocks = fused_check.shard_blocks(inputs.refpack, world)
+                plain, _, plain_own, _ = fused_check.sharded_on_one_device(
+                    plain_steps, blocks, *common, bool(first), dof)
+                twins = [fused_check.twin_sharded_stash(b, *common, bool(first), dof) for b in blocks]
+                exact = [fused_check.warp_exact_gram(b, *common, bool(first), dof) for b in blocks]
+                runs = [fused_check.sharded_on_one_device(cuda_steps, blocks, *common, bool(first), dof)
+                        for _ in range(2)]
+                torch.cuda.synchronize(device)
+                (results, evaluations, own, total), again = runs
+                stashes = [fused_kernels.sharded_stash(e) for e in evaluations]
+                fused_check.assert_bit_identical(
+                    (*results[0], own, total, *stashes),
+                    (*again[0][0], again[2], again[3],
+                     *(fused_kernels.sharded_stash(e) for e in again[1])))
+                r_err, not_bit_equal, exact_err = 0.0, 0, 0.0
+                for rank in range(world):
+                    err, differ = fused_check.compare_stash(stashes[rank], twins[rank], gate="gate")
+                    r_err, not_bit_equal = max(r_err, err), not_bit_equal + differ
+                    if float(plain_own[rank][135]) > 0:
+                        exact_err = max(exact_err, fused_check.compare_packed_sums(
+                            own[rank], exact[rank], plain_own[rank][135]))
+                    require(_bits_differ(results[rank], results[0]) == 0,
+                            f"sharded evaluation: rank {rank} of {world} differs from rank 0")
+                scaled = fused_check.compare_warp_fused_stats(results[0], plain[0])
+                abs_err = max(float((x.double() - y.double()).abs().max())
+                              for x, y in zip(results[0], plain[0]))
+                errors = {"stash_not_bit_equal": not_bit_equal, "stash_max_abs_err": r_err,
+                          "max_rel_err_f64": exact_err, "max_abs_err": max(abs_err, r_err),
+                          **{"max_scaled_err_" + k: v for k, v in scaled.items()}}
+                for key, value in errors.items():
+                    worst[key] = max(worst.get(key, 0), value)
+                row = {"level": level, "pixels": inputs.refpack.shape[1], "first": first,
+                       "ranks": world, "pixels_per_rank": blocks[0].shape[1],
+                       "kernel": "warp_fused_partials", "n": int(plain[0].n), **errors}
+                rows.append(row)
+                print("phase 3:", json.dumps(row), flush=True)
+
+        if level != cfg.last_level:
+            continue
+        # times at the last level, first = 0: block 0 of 1, 2 and 4 ranks
+        p3 = torch.tensor(fused_check.CHECK_PRECISION, dtype=torch.float32, device=device)
+        flag = torch.zeros((), dtype=torch.int32, device=device)
+        for world in SHARD_TIMED:
+            block = fused_check.shard_blocks(inputs.refpack, world)[0]
+
+            def folded():
+                return fused_check.sharded_on_one_device(cuda_steps, [block], *common, False, dof)[0]  # noqa: B023
+
+            def folded_plain():
+                return fused_check.sharded_on_one_device(plain_steps, [block], *common, False, dof)[0]  # noqa: B023
+
+            def unfolded():
+                sampled = warp_and_sample_cm(block, inputs.quad, inputs.shape, inputs.intrinsics,  # noqa: B023
+                                             inputs.T)
+                parts = fused_kernels.fused_partials_cuda(sampled, block, p3, flag,  # noqa: B023
+                                                          inputs.intrinsics, dof)
+                evaluation = fused_kernels.ShardedEvaluation(
+                    fused_kernels.pack_sums(parts), None, (parts, dof))
+                return fused_kernels.sharded_tail_plain(fused_kernels.sharded_loglik_plain(evaluation))
+
+            row = {"level": level, "ranks": world, "pixels_per_rank": block.shape[1],
+                   "kernel": "warp_fused_partials", "first": 0}
+            _timed(row, folded, folded_plain)
+            row["unfolded_trio_ms"] = median_ms(unfolded)
+            row["device_ms"] = device_ms(folded)
+            row["plain_device_ms"] = device_ms(folded_plain)
+            row["unfolded_trio_device_ms"] = device_ms(unfolded)
+            row["launch1_device_ms"] = device_ms(
+                lambda: fused_kernels.warp_fused_partials_cuda(block, *common, False, dof))  # noqa: B023
+            evaluation = fused_kernels.warp_fused_partials_cuda(block, *common, False, dof)
+            row["launch2_device_ms"] = device_ms(lambda: fused_kernels.sharded_loglik_cuda(evaluation))  # noqa: B023
+            row["launch3_device_ms"] = device_ms(lambda: fused_kernels.sharded_tail_cuda(evaluation))  # noqa: B023
+            result = folded()[0]
+            row["bound_ms"], row["bound_by"] = _bound(
+                _rows_bytes(block, 7) + _quad_bytes(block, *common[:4]) + 12 * block.shape[1]
+                + _bytes(inputs.T, P, *result),
+                block.shape[1] * (CHAIN_FLOPS + GRAM_FLOPS))
+            timed.append(row)
+            print("phase 3:", json.dumps(row), flush=True)
+    return rows, worst, timed
+
+
 def _pose_errors(a, b):
     """max |log(a^-1 b)| per pose, for [..., 4, 4] poses (float64 on the host)."""
     import torch
@@ -515,8 +647,8 @@ def _synchronized_seconds(fn):
 
 def check_sharded(cfg, intrinsics, frames, poses):
     """Phase 6: the pixel-sharded and pair-parallel matchers on a one-rank
-    NCCL process group.  Returns the sharded run's partials launches and
-    the phase's summary."""
+    NCCL process group.  Returns the sharded run's launches of the folded
+    partials kernel and the phase's summary."""
     import dataclasses
     import tempfile
 
@@ -536,21 +668,23 @@ def check_sharded(cfg, intrinsics, frames, poses):
                                rank=0, backend="nccl")
         try:
             mesh = mesh_lib.make_mesh(1)
+            require(mesh.device.type == "cuda", f"the mesh's rank runs on {mesh.device}")
             run = sharded_alignment.make_pixel_sharded_matcher(cfg, intrinsics, mesh)
             run(*pairs[0], eye)  # warm-up (the communicator), not counted
 
             # the sharded path, with every kernel count at 0
             _reset_counts()
             results, sharded_s = _synchronized_seconds(lambda: [run(r, c, eye) for r, c in pairs])
-            partials_launches = fused_kernels.fused_partials_cuda.launches
+            partials_launches = fused_kernels.warp_fused_partials_cuda.launches
             stats_launches = _launches()
-            for name in ("fused_partials", "table_copy", "warp_and_sample_cm_calls"):
-                del stats_launches[name]
+            sharded_launches = {name: stats_launches.pop(name) for name in SHARDED_KERNELS}
+            del stats_launches["table_copy"]
             iterations = sum(s.iterations for r in results for s in r.level_stats)
-            require(partials_launches == iterations > 0,
-                    f"partials launches {partials_launches} != solver iterations {iterations}")
+            require(all(count == iterations > 0 for count in sharded_launches.values()),
+                    f"sharded launches {sharded_launches} != solver iterations {iterations}")
             require(not any(stats_launches.values()),
-                    f"statistics kernels launched on the sharded path: {stats_launches}")
+                    "the sampled-input partials kernel, a statistics kernel or "
+                    f"warp_and_sample_cm ran on the sharded path: {stats_launches}")
             errors = [
                 _pose_error(np.linalg.inv(poses[k]) @ poses[k + 1], r.transformation)
                 for k, r in enumerate(results)
@@ -605,8 +739,8 @@ def check_sharded(cfg, intrinsics, frames, poses):
             distributed.shutdown()
     summary = {
         "pairs": SHARDED_PAIRS, "max_pose_err": max(errors),
-        "solver_iterations": iterations, "partials_launches": partials_launches,
-        "fused_stats_launches": stats_launches,
+        "solver_iterations": iterations, "sharded_launches": sharded_launches,
+        "other_launches": stats_launches,
         "sharded_ms_per_iteration": 1000.0 * sharded_s / iterations,
         "sharded_pairs_per_s": SHARDED_PAIRS / sharded_s,
         "single_ms_per_iteration": 1000.0 * single_s / single_iterations,
@@ -617,6 +751,40 @@ def check_sharded(cfg, intrinsics, frames, poses):
     }
     print("phase 6:", json.dumps(summary), flush=True)
     return partials_launches, summary
+
+
+def count_sharded_kernels(cfg, intrinsics, frames):
+    """Phase 6, after the timed phases: device kernels per solver iteration
+    of the pixel-sharded matcher and of ``match_pyramids`` on the first
+    pairs, under ``torch.profiler`` (None where it records no device
+    event)."""
+    import tempfile
+
+    import torch
+
+    from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
+    from dvo_slam_tpu_torch.parallel import distributed, mesh as mesh_lib, sharded_alignment
+    from dvo_slam_tpu_torch.tools import sharded_bench
+
+    eye = torch.eye(4, dtype=torch.float32, device=frames[0][cfg.first_level].intensity.device)
+    pairs = [(frames[k], frames[k + 1]) for k in range(PROFILED_PAIRS)]
+    with tempfile.TemporaryDirectory() as store:
+        distributed.initialize(init_method=f"file://{store}/rendezvous", world_size=1,
+                               rank=0, backend="nccl")
+        try:
+            run = sharded_alignment.make_pixel_sharded_matcher(cfg, intrinsics, mesh_lib.make_mesh(1))
+            run(*pairs[0], eye)
+            summary = {
+                "pairs": PROFILED_PAIRS,
+                "sharded": sharded_bench.kernels_per_iteration(
+                    lambda: [run(r, c, eye) for r, c in pairs]),
+                "single": sharded_bench.kernels_per_iteration(
+                    lambda: [match_pyramids(cfg, intrinsics, r, c, eye) for r, c in pairs]),
+            }
+        finally:
+            distributed.shutdown()
+    print("phase 6:", json.dumps(summary), flush=True)
+    return summary
 
 
 def _per(numerator, ms):
@@ -701,11 +869,17 @@ def check_batched_kernel(cfg, intrinsics, pairs):
     return rows, worst
 
 
+SHARDED_KERNELS = ("warp_fused_partials", "sharded_loglik", "sharded_tail")
+
+
 def _wrappers():
     """{name: wrapper} of every kernel's launch count."""
     from dvo_slam_tpu_torch.ops import fused_kernels, table_copy
 
     return {
+        "warp_fused_partials": fused_kernels.warp_fused_partials_cuda,
+        "sharded_loglik": fused_kernels.sharded_loglik_cuda,
+        "sharded_tail": fused_kernels.sharded_tail_cuda,
         "warp_fused_stats": fused_kernels.warp_fused_stats_cuda,
         "warp_fused_stats_batched": fused_kernels.warp_fused_stats_batched_cuda,
         "fused_stats": fused_kernels.fused_stats_cuda,
@@ -938,6 +1112,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    started = time.perf_counter()
+
+    def elapsed(phases):
+        print(f"{phases}: done {time.perf_counter() - started:.1f} s after the start", flush=True)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -951,7 +1130,8 @@ def main() -> int:
     libraries = _build.load_libraries(["fused_stats", "table_copy"])
     for name, entries in (
         ("fused_stats", ("dvo_warp_fused_stats", "dvo_fused_stats", "dvo_fused_stats_batched",
-                         "dvo_fused_partials")),
+                         "dvo_fused_partials", "dvo_warp_fused_partials", "dvo_sharded_loglik",
+                         "dvo_sharded_tail")),
         ("table_copy", ("dvo_table_copy",)),
     ):
         for entry in entries:
@@ -967,13 +1147,15 @@ def main() -> int:
     # phase 3: kernels vs plain versions on a rendered 640x480 sequence
     easy_poses = synthetic.circular_trajectory(NUM_FRAMES, radius=0.05, rot_amplitude=0.02)
     t0 = time.perf_counter()
-    easy_i, easy_d = render_sequence(easy_poses, SHAPE, TUM_FR1, seed0=0)
+    easy_i, easy_d = render_sequence(easy_poses, SHAPE, TUM_FR1, seed0=0, workers=RENDER_WORKERS)
     print(f"phase 3: rendered {NUM_FRAMES} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
     d_i, d_d = upload_sequence(easy_i, easy_d, device)
     frames = [build_frame(cfg, d_i[k], d_d[k]) for k in range(STREAMS + 1)]
     folded = check_folded(cfg, TUM_FR1, frames)
+    _, sharded_worst, sharded_timed = check_sharded_kernels(cfg, TUM_FR1, frames)
     checks = check_kernels(cfg, TUM_FR1, frames[0], frames[1])
+    elapsed("phases 1-3")
 
     # phase 4: 100-frame odometry through the folded kernel
     track_sequence(cfg, TUM_FR1, d_i[:3], d_d[:3])  # warm-up, not counted
@@ -997,7 +1179,8 @@ def main() -> int:
         NUM_FRAMES, radius=0.15, rot_amplitude=0.12, z_amplitude=0.05
     )
     hard_i, hard_d = render_sequence(
-        hard_poses, SHAPE, TUM_FR1, scene=synthetic.occluded_scene(), seed0=1000
+        hard_poses, SHAPE, TUM_FR1, scene=synthetic.occluded_scene(), seed0=1000,
+        workers=RENDER_WORKERS,
     )
     h_i, h_d = upload_sequence(hard_i, hard_d, device)
     _reset_counts()
@@ -1013,13 +1196,16 @@ def main() -> int:
         "launches": hard_counts,
     }), flush=True)
     require(hard_ate < HARD_ATE_GATE_M, f"hard-scene ATE {hard_ate} m >= {HARD_ATE_GATE_M} m")
+    elapsed("phases 4-5")
 
     # phase 6: the sharded paths on a one-rank process group
     frames += [build_frame(cfg, d_i[k], d_d[k]) for k in range(len(frames), SHARDED_PAIRS + 1)]
     partials_launches, _ = check_sharded(cfg, TUM_FR1, frames, easy_poses)
+    elapsed("phase 6")
 
     # phase 7: B streams in lockstep, the batched kernel first
-    intensity, depth, stream_gt = render_streams(STREAMS, STREAM_FRAMES, SHAPE, TUM_FR1)
+    intensity, depth, stream_gt = render_streams(STREAMS, STREAM_FRAMES, SHAPE, TUM_FR1,
+                                                 workers=RENDER_WORKERS)
     s_i, s_d = as_frames(intensity, depth, device)
     first_pairs = [
         (build_frame(cfg, s_i[b, 0], s_d[b, 0]), build_frame(cfg, s_i[b, 1], s_d[b, 1]))
@@ -1027,13 +1213,17 @@ def main() -> int:
     ]
     batched_rows, batched_worst = check_batched_kernel(cfg, TUM_FR1, first_pairs)
     batched_launches, _ = check_lockstep(cfg, TUM_FR1, s_i, s_d, stream_gt, fps)
+    elapsed("phase 7")
 
     # phase 8: schedules; phase 9: temporal chunks of phase 4's sequence
     check_schedules(cfg, TUM_FR1, s_i, s_d)
     check_temporal(cfg, TUM_FR1, d_i, d_d, est, easy_poses)
+    elapsed("phases 8-9")
 
     # phase 10: the copy kernel and the gather probe
     copy_row = check_copy_and_probe()
+    sharded_kernel_counts = count_sharded_kernels(cfg, TUM_FR1, frames)
+    elapsed("phase 10 and the kernel counts")
 
     kernels = []
     folded_rows, folded_worst, folded_batched_rows, folded_batched_worst = folded
@@ -1061,17 +1251,29 @@ def main() -> int:
             "entry": "dvo_warp_fused_stats", "launches": main_launches,
             "max_abs_err": worst["max_abs_err"], **{k: row[k] for k in timing_keys},
             "library_ms": None, **{k: v for k, v in worst.items() if k != "max_abs_err"},
-            **{k: row[k] for k in row if k.endswith("device_ms") or k.endswith("x_streams_ms")
+            **{k: row[k] for k in row if "device_ms" in k or k.endswith("x_streams_ms")
                or k == "unfolded_pair_ms"},
             "sampled_entry": {"entry": sampled_entry, "main_path_launches": 0,
                               **{k: sampled_row[k] for k in timing_keys}, **sampled_errors},
         })
+    # kernel #2: the sharded evaluation's three launches (the folded entry
+    # point, phase 6's path); the sampled-input entry point is checked in
+    # phase 3 and runs on no main path
     rows, worst = checks["fused_partials"]
     l1 = next(r for r in rows if r["level"] == cfg.last_level and r["first_iter"] == 0)
+    whole, half, quarter = sharded_timed
     kernels.append({
         "name": "fused_partials", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": PARTIALS_REPLACES, "launches": partials_launches, **worst,
-        **{k: l1[k] for k in timing_keys}, "library_ms": None,
+        "replaces": PARTIALS_REPLACES, "entry": "dvo_warp_fused_partials",
+        "launches": partials_launches, "max_abs_err": sharded_worst["max_abs_err"],
+        **{k: whole[k] for k in timing_keys}, "library_ms": None,
+        **{k: v for k, v in sharded_worst.items() if k != "max_abs_err"},
+        **{k: v for k, v in whole.items() if "device_ms" in k or k == "unfolded_trio_ms"},
+        "half_frame": {k: v for k, v in half.items() if "ms" in k or k == "pixels_per_rank"},
+        "quarter_frame": {k: v for k, v in quarter.items() if "ms" in k or k == "pixels_per_rank"},
+        "device_kernels_per_iteration": sharded_kernel_counts,
+        "sampled_entry": {"entry": "dvo_fused_partials", "main_path_launches": 0,
+                          **{k: l1[k] for k in timing_keys}, **worst},
     })
     kernels.append(copy_row)
     print(json.dumps({"kernels": kernels}))

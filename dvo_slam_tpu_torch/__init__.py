@@ -13,8 +13,15 @@ Every Pallas kernel of the reference is a CUDA C++ kernel for Hopper
 first use; each has a plain-PyTorch version, the CPU path and the kernel's
 oracle.
 
+Its entry points run on the card: a function that puts data on a device
+takes a ``device`` argument whose default is the card, and raises where
+there is none; the CPU (the parity tests' device) is asked for by name,
+``device="cpu"``.
+
 This package imports ``torch`` and never ``jax``.
 """
+
+import torch
 
 from .config import (
     InfluenceFunction,
@@ -26,10 +33,28 @@ from .config import (
 
 __version__ = "0.1.0"
 
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point puts its data on: ``device`` where the
+    caller names one (``"cpu"`` is how the CPU is asked for), else the
+    current card.  Raises where no card is visible: nothing falls back
+    to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible: the port runs on the card by default; "
+            'pass device="cpu" to run on the CPU'
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 __all__ = [
     "InfluenceFunction",
     "ScaleEstimator",
     "SlamConfig",
     "TrackerConfig",
     "benchmark_config",
+    "default_device",
 ]

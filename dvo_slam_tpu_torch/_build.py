@@ -42,7 +42,7 @@ class KernelLibrary(NamedTuple):
     lib: ctypes.CDLL
     path: str
     build_seconds: float  # 0.0 when an existing build was loaded
-    compiler_log: str  # nvcc's output (ptxas registers / shared memory)
+    compiler_log: str  # nvcc's output (ptxas registers / shared memory), kept beside the library
 
 
 _lock = threading.Lock()
@@ -67,11 +67,24 @@ def find_nvcc() -> str:
 
 
 def _library_path(name: str):
-    """(source, library path) of ``csrc/<name>.cu``."""
-    source = os.path.join(CSRC_DIR, name + ".cu")
+    """(source, library path, extra flags) of ``csrc/<name>.cu``, or of its
+    variant ``<name>+MACRO`` built with ``-DMACRO`` (a diagnostic build,
+    e.g. ``fused_stats+DVO_STAMPS``)."""
+    stem, *macros = name.split("+")
+    flags = tuple("-D" + macro for macro in macros)
+    source = os.path.join(CSRC_DIR, stem + ".cu")
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return source, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS + flags).encode())
+    return source, os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so"), flags
+
+
+def _read_log(path: str) -> str:
+    """The compiler's output kept beside a built library ("" if none)."""
+    try:
+        with open(path + ".log") as f:
+            return f.read()
+    except OSError:
+        return ""
 
 
 def load_libraries(names) -> Dict[str, KernelLibrary]:
@@ -85,15 +98,15 @@ def load_libraries(names) -> Dict[str, KernelLibrary]:
         for name in names:
             if name in _loaded or name in pending:
                 continue
-            source, path = _library_path(name)
+            source, path, flags = _library_path(name)
             if os.path.exists(path):
-                _loaded[name] = KernelLibrary(ctypes.CDLL(path), path, 0.0, "")
+                _loaded[name] = KernelLibrary(ctypes.CDLL(path), path, 0.0, _read_log(path))
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             log = tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR)
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
+            cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, source]
             proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)
             pending[name] = (source, path, tmp, log, proc)
         t0 = time.perf_counter()
@@ -108,6 +121,8 @@ def load_libraries(names) -> Dict[str, KernelLibrary]:
                 os.unlink(tmp)
                 failures.append(f"nvcc failed ({returncode}) building {source}:\n{text}")
                 continue
+            with open(path + ".log", "w") as f:
+                f.write(text)
             os.replace(tmp, path)
             _loaded[name] = KernelLibrary(ctypes.CDLL(path), path, seconds, text)
         if failures:

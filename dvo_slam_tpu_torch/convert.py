@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import config as _config
+from . import default_device
 from .models.dense_tracker import (
     IterationStats,
     LevelStats,
@@ -67,18 +68,22 @@ def _to_numpy(a):
     return np.asarray(a)
 
 
-def levels_from_numpy(levels: Sequence, device="cpu"):
-    """Reference ``PyramidLevel`` tuple (None entries kept) -> the port's."""
+def levels_from_numpy(levels: Sequence, device=None):
+    """Reference ``PyramidLevel`` tuple (None entries kept) -> the port's,
+    on the card unless ``device`` names another (``default_device``)."""
+    device = default_device(device)
     return tuple(
         None if lv is None else PyramidLevel(*(_to_tensor(f, device) for f in lv))
         for lv in levels
     )
 
 
-def prepared_from_numpy(prepared, device="cpu") -> PreparedFrame:
+def prepared_from_numpy(prepared, device=None) -> PreparedFrame:
     """Reference ``PreparedFrame`` -> the port's: the fused path's
     selection masks, refpacks and quad tables (the reference's levels and
-    acceleration tensors are not carried: the fused path never reads them)."""
+    acceleration tensors are not carried: the fused path never reads them),
+    on the card unless ``device`` names another (``default_device``)."""
+    device = default_device(device)
     tensors = lambda entries: tuple(_to_tensor(a, device) for a in entries)  # noqa: E731
     return PreparedFrame(
         sel=tensors(prepared.sel),

@@ -21,11 +21,30 @@
 //    Entry points dvo_fused_stats / dvo_fused_stats_batched are the same two
 //    launches with the prologue "load the sampled pack" in place of "warp and
 //    gather": the direct counterpart of fused_stats_pallas(sampled, ...).
-//  * fused_partials_pallas (kernel body _kernel), entry point
-//    dvo_fused_partials: the first launch with the "load the sampled pack"
-//    prologue, storing the per-pixel rows rw [4, N] = (r_I, r_Z, w, mask) for
-//    a caller that finishes the log-likelihood itself (the pixel-sharded
-//    alignment, which needs the Gram summed over all shards first).
+//  * fused_partials_pallas (kernel body _kernel) together with the rest of
+//    the reference's pixel-sharded evaluate
+//    (dvo_slam_tpu/parallel/sharded_alignment.py:98-139): three launches
+//    around the two all-reduces that the sharded semantics need,
+//      1. dvo_warp_fused_partials: one rank's refpack shard [8, n_local]
+//         against the WHOLE quad table [32, n].  Per pixel the warp, the
+//         depth-buffered sample (always: the sharded path does not read the
+//         switch) and the residual/weight/Jacobian chain, in registers; the
+//         stash (r_I, r_Z, gate); the shard's Gram, whose 136 sums the last
+//         block writes in the layout of the all-reduce (m00, m01, m11, v,
+//         scale_sum, n).  The caller all-reduces those 136 floats.
+//      2. dvo_sharded_loglik: every block takes the new precision from the
+//         reduced sums and sums log1p(r^T P_new r / dof) over its gated
+//         stash entries; the last block writes the shard's sum and the
+//         precision.  The caller all-reduces that one float.
+//      3. dvo_sharded_tail (one block): ll with the sharded path's 1e-30
+//         log-determinant floor, A, b and n into the packed output.
+//    So an iteration of the sharded path is three launches, two collectives
+//    and one host read-back (the solver's `done`), and nothing of the
+//    evaluation is read from the host.
+//    Entry point dvo_fused_partials is the first launch with the "load the
+//    sampled pack" prologue, storing the per-pixel rows rw [4, N] = (r_I,
+//    r_Z, w, mask): the direct counterpart of fused_partials_pallas(sampled,
+//    ...), on no main path.
 //
 // What bounds it on the card: device-memory bandwidth.  The folded call must
 // read channels 0-6 of the refpack and, at each pixel's sample, channels 0-6
@@ -35,30 +54,70 @@
 // (chip_smoke.py counts the distinct columns).  It also writes and reads back a 12-byte
 // stash per pixel (0.9 MB per stream, which stays in the 50 MB L2).  The maths
 // is elementwise plus a 16-wide Gram, far below the card's arithmetic rate.
+// The folded partials move the same 28 + at most 112 bytes per pixel and
+// write the 12-byte stash once: at most 152 bytes per pixel of the shard.
 // In the tracker loop, though, the host bounds it: the two launches stand
 // in for ~90 small PyTorch ops of warp and sample and ~30 of tail, which is
 // why the whole evaluation is folded and not the statistics alone.
 //
 // Design, re-thought for Hopper rather than carried over from the TPU grid:
-//  * Two launches per call, whatever B, and nothing read from the host: T,
-//    the previous precision and the outputs are device tensors, the scalars
+//  * Two launches per call of the tracker's evaluation (three for a rank of
+//    the sharded one), whatever B, and nothing read from the host: T, the
+//    previous precision and the outputs are device tensors, the scalars
 //    (intrinsics, dof, the first-iteration flag) are launch arguments, so a
 //    later CUDA graph can capture the call as it is.
-//  * Launch 1, one block per 512 pixels: the per-pixel chain in registers
+//  * The tile (pixels per block) is a template parameter (Shape), fixed per
+//    entry point when the file is compiled.  The sharded entry
+//    (dvo_warp_fused_partials, dvo_sharded_loglik) takes 256 pixels on 256
+//    threads, one pixel a thread, in clusters of 8 blocks (Sharded): a block
+//    of 512 pixels left a 320x240 level at 150 blocks for 132 SMs, and a
+//    rank's quarter of it at 38, each thread working through two pixels' 70
+//    loads in turn.  With the smaller tile (29 KB of shared memory; three
+//    blocks share an SM)
+//        n = 76,800 (320x240)   300 blocks, 38 clusters
+//        n = 38,400 (a half)    150 blocks, 19 clusters
+//        n = 19,200 (a quarter)  75 blocks, 10 clusters
+//        n =  4,800 (80x60)      19 blocks,  3 clusters; a quarter 5 / 1
+//    The tracker's evaluation and the sampled-input entries keep 512 pixels
+//    on 256 threads without clusters (Wide): on the card the smaller tile
+//    was faster for one stream and slower for eight, and a stream of a
+//    B-stream call must sum in the order of its one-stream call, so the
+//    shape cannot go by B.  (A tile of 128 pixels on 128 threads was
+//    measured as well: its rows are staged sooner, but its 600 blocks leave
+//    twice the partials.  A choice by the pixel count was not kept either:
+//    no path solves a level large enough to sit on its other side.)
+//  * More blocks mean more partial Grams for the last block to sum alone,
+//    and one SM reads them from the L2 cache at some 50 GB/s (1 KB a
+//    partial).  A cluster of 8 blocks therefore gathers its 8 Grams through
+//    distributed shared memory: each block stores its 136 sums into the
+//    first block's shared memory, one cluster barrier, and the first block
+//    adds them in rank order and writes one partial.  (Each block arrives at
+//    the cluster's barrier when it starts and waits only when its sums are
+//    ready, by when every block of the cluster runs and may be written to.)
+//    (The other candidate, no clusters and the last block summing every
+//    block's partial, lost: it summed 300 partials in 9 us where the
+//    clusters' 38 take 2.)
+//  * Launch 1, one block per tile: the per-pixel chain in registers
 //    (sampled values never reach device memory), the 16 rows of U staged in
 //    shared memory, the block's Gram on the FP64 tensor cores
 //    (mma.sync.m8n8k4.f64: a product of two float32 entries is exact in
-//    double, sums are double; six warps, one per distinct 8x8 tile of the
-//    symmetric 16x16 and half of the block's pixels, each with two
+//    double, sums are double; one warp per distinct 8x8 tile of the
+//    symmetric 16x16 and per half of the block's pixels, each with two
 //    accumulators), and (r_I, r_Z, mask) stashed per pixel for launch 2, as
-//    the Pallas kernel keeps them in VMEM.  The blocks' partial Grams are
-//    reduced by the last block to finish (an integer atomic ticket per
-//    stream; no float atomics): it sums them in a fixed order (four chains
-//    over the blocks) and computes the new precision.
+//    the Pallas kernel keeps them in VMEM.  A thread starts its 7 refpack
+//    loads together, and then its 28 quad loads, before it uses any
+//    (tools/kernel_report.py shows the runs of loads in the machine code).
+//    The partial Grams are reduced by the last block (or cluster) to finish
+//    (an integer atomic ticket per stream; no float atomics): three chunks of
+//    68 threads each take every third partial, two entries (16 bytes) a load
+//    on eight accumulators, a tree over the accumulators, then the chunks in
+//    order; the precision follows.
 //  * Launch 2: each block sums log1p(r^T P_new r / dof) over its valid pixels
 //    from the stash; the last block sums the partials in a fixed order and
 //    computes the tail (logdet with the 1e-38 floor, ll, A with its
-//    0.5 (A + A^T), b, n) into one packed output buffer.
+//    0.5 (A + A^T), b, n) into one packed output buffer.  In the sharded
+//    evaluation its blocks first take the precision from the all-reduced
+//    sums, and the tail is launch 3, after the second all-reduce.
 //  * Every reduction runs in a fixed order, so two runs are bit-identical.
 //  * The per-pixel chain and the tail are float32, and the file is built with
 //    -fmad=false, so every product and sum rounds as in the plain PyTorch
@@ -66,18 +125,41 @@
 //    bit-equal to the plain version's residuals and mask.
 //  * The ticket buffer is allocated once per device and stream by the wrapper
 //    (zeros); the last block of each launch resets its stream's ticket.
+//  * Where launch 1 spends its time is read from a diagnostic build
+//    (-DDVO_STAMPS), which only tools/partials_probe.py builds and loads.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;                   // threads per block
-constexpr int kTile = 512;                      // pixels per block
-constexpr int kPerThread = kTile / kThreads;    // pixels per thread
 constexpr int kRows = 16;                       // rows of U
 constexpr int kPairs = kRows * (kRows + 1) / 2; // 136 upper-triangle entries
-constexpr int kStride = kTile + 4;              // 516 = 4 (mod 32): the MMA loads hit 32 banks
-constexpr int kMmaWarps = 6;                    // 3 tiles x 2 halves of the block's pixels
+constexpr int kPairPairs = kPairs / 2;          // 68: the last block's sum takes two entries a load
+constexpr int kChains = 8;                      // accumulators per thread of the last block's sum
+constexpr int kThreads = 256;                   // threads per block
+constexpr int kSplit = 2;                       // halves of a tile's pixels, one MMA warp each
+constexpr int kMmaWarps = 3 * kSplit;           // 3 distinct 8x8 tiles x 2 halves
+constexpr int kChunks = kThreads / kPairPairs;  // 3 chunks of 68 threads in the last block's sum
+constexpr int kMinBlocks = 3;                   // blocks an SM must hold: at most 85 registers
+constexpr int kMinTile = 256;                   // the smallest tile: sizes the scratch
+constexpr int kMaxCluster = 8;
+
+// One shape of the launches: a block takes kTile pixels; kCluster blocks
+// gather their Grams through distributed shared memory.
+template <int kTile_, int kCluster_>
+struct Shape {
+  static constexpr int kTile = kTile_;
+  static constexpr int kCluster = kCluster_;
+  static constexpr int kPerThread = kTile / kThreads;    // pixels per thread
+  static constexpr int kStride = kTile + 4;              // 4 (mod 32): the MMA loads hit 32 banks
+  static_assert(kTile % kThreads == 0 && kTile % (16 * kSplit) == 0 && kStride % 32 == 4, "tile");
+  static_assert(kTile >= kMinTile && kCluster <= kMaxCluster, "scratch");
+};
+using Wide = Shape<512, 1>;     // the tracker's evaluation and the sampled-input entries
+using Sharded = Shape<256, 8>;  // the sharded evaluation: a rank's shard fills the card
 
 // Packed output of one stream, in float32 words.
 constexpr int kOutGram = 0;      // [16, 16], symmetric
@@ -88,8 +170,19 @@ constexpr int kOutLL = 302;      // log-likelihood
 constexpr int kOutLogSum = 303;  // sum log1p(r^T P_new r / dof)
 constexpr int kOutN = 304;       // int32: valid constraints
 constexpr int kOutStride = 320;
+// The sharded entry points' buffer goes on: the 136 sums of the all-reduce
+// (m00, m01, m11 [6, 6], v [4, 6], scale_sum [3], n) and the shard's log sum.
+constexpr int kOutPacked = 320;
+constexpr int kOutShardLog = kOutPacked + kPairs;  // 456
+constexpr int kShardedStride = 464;
+constexpr int kPackedScale = 132;                  // scale_sum within the 136 sums
+constexpr int kPackedN = 135;
 
 enum Prologue { kSampled = 0, kWarp = 1, kWarpBuffered = 2 };
+// What launch 1 leaves: kStats the stash (r_I, r_Z, mask), the Gram and the
+// new precision; kRows4 the rows rw = (r_I, r_Z, w, mask) and the Gram;
+// kPacked the stash (r_I, r_Z, gate) and the 136 packed sums.
+enum Epilogue { kStats = 0, kRows4 = 1, kPacked = 2 };
 
 struct Args {
   const float* sampled;    // [B, 8, n]  (kSampled)
@@ -99,7 +192,8 @@ struct Args {
   const float* prev;       // warp: P_prev [B, 2, 2]; kSampled: precision3 [B, 3]
   const int* first_flags;  // kSampled: [B]
   int first;               // warp: the first-iteration flag of every stream
-  int n, height, width;
+  int n, height, width;    // n: pixels of the refpack (a rank's shard in the sharded entry)
+  int nq;                  // columns of the quad table (n but for a shard)
   float fx, fy, ox, oy, gx, gy, dof, dof_plus_2, ll_scale, hi_u, hi_v;
   float* rows;             // stash [B, 3, n] or rw [B, 4, n]
   double* gram_partials;   // [B, blocks, 136]
@@ -127,11 +221,14 @@ __device__ __forceinline__ float mahalanobis(float r_i, float r_z, float p00,
 // The warp and the bilinear quad sample of one reference point (x, y, z):
 // ops/residuals.warp_and_sample_cm and ops/interp.quad_index /
 // combine_quad, op for op.  s = (i, z, idx, idy, zdx, zdy, valid, z_t).
+// The table has A.nq columns whatever the refpack's: a zero-padded column of
+// a shard (x = y = z = 0) projects the warp's translation, its index is
+// clamped into the table like any other, and its sel = 0 gives mask 0.
 template <bool kBuffered>
 __device__ __forceinline__ void warp_sample(const Args& A, const float* __restrict__ quad,
                                             const float t[12], float x, float y, float z,
                                             float s[8]) {
-  const int n = A.n;
+  const int n = A.nq;
   const float px = t[0] * x + t[1] * y + t[2] * z + t[3];
   const float py = t[4] * x + t[5] * y + t[6] * z + t[7];
   const float zt = t[8] * x + t[9] * y + t[10] * z + t[11];
@@ -253,6 +350,29 @@ __device__ __forceinline__ void pair_of(int t, int& a, int& b) {
   b = a + t;
 }
 
+// upper-triangle index of (a, b), a <= b
+__device__ __forceinline__ int pair_at(int a, int b) { return a * kRows - a * (a - 1) / 2 + (b - a); }
+
+// (row, column) of U's Gram that entry k of the 136 packed sums holds:
+// m00 [6, 6], m01 [6, 6], m11 [6, 6], v [4, 6] (rows J_I r_I, J_I r_Z,
+// J_Z r_I, J_Z r_Z), scale_sum [3], n
+__device__ __forceinline__ void packed_entry(int k, int& a, int& b) {
+  if (k < 36) {
+    a = k / 6, b = k % 6;
+  } else if (k < 72) {
+    a = (k - 36) / 6, b = 6 + (k - 36) % 6;
+  } else if (k < 108) {
+    a = 6 + (k - 72) / 6, b = 6 + (k - 72) % 6;
+  } else if (k < kPackedScale) {
+    const int row = (k - 108) / 6;
+    a = 6 * (row / 2) + (k - 108) % 6, b = 12 + row % 2;
+  } else if (k < kPackedN) {
+    a = k == kPackedN - 1 ? 13 : 12, b = k == kPackedScale ? 12 : 13;
+  } else {
+    a = b = 14;
+  }
+}
+
 // D (8x8, two doubles a lane) += A (8x4) B (4x8) on the FP64 tensor cores.
 // Lane l holds A[l / 4][l % 4], B[l % 4][l / 4], D[l / 4][2 (l % 4) + i].
 __device__ __forceinline__ void mma_f64(double& d0, double& d1, double a, double b) {
@@ -261,215 +381,68 @@ __device__ __forceinline__ void mma_f64(double& d0, double& d1, double a, double
                : "d"(a), "d"(b));
 }
 
+// The cluster's hardware barrier in its two halves (cluster.sync() is one
+// after the other): every thread of every block of the cluster arrives, and
+// none passes the wait before all have arrived; what a thread wrote before
+// it arrived is visible to every thread that has waited.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 // Called by every thread of a block after it wrote its partial: true in the
-// last block of stream b to finish (which then resets the ticket).
-__device__ __forceinline__ bool last_block(unsigned* tickets, int b) {
+// last of stream b's `count` such blocks to finish (which then resets the
+// ticket).  One thread fences for the block: the barrier before it orders
+// the other threads' stores ahead of its fence and ticket, and the barrier
+// after it orders its fence ahead of their loads in the last block.
+__device__ __forceinline__ bool last_block(unsigned* tickets, int b, unsigned count) {
   __shared__ bool last;
-  __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(tickets + b, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (last) {
+  if (threadIdx.x == 0) {
     __threadfence();
-    if (threadIdx.x == 0) tickets[b] = 0;
+    last = atomicAdd(tickets + b, 1u) == count - 1;
+    if (last) {
+      __threadfence();
+      tickets[b] = 0;
+    }
   }
+  __syncthreads();
   return last;
 }
 
-// Launch 1: one block per kTile pixels of stream blockIdx.y.  kOutRows = 3
-// stashes (r_I, r_Z, mask) and finishes with the new precision; 4 writes
-// rw = (r_I, r_Z, w, mask) and stops at the Gram (fused_partials).
-template <int kPrologue, int kOutRows>
-__global__ void __launch_bounds__(kThreads) gram_kernel(const Args A) {
-  __shared__ float us[kRows * kStride];
-  __shared__ double tiles[2 * 3 * 64];
-  __shared__ float g[kPairs];
-  const int b = blockIdx.y;
-  const int n = A.n;
-  const int tid = threadIdx.x;
-  const float* refpack = A.refpack + (size_t)b * 8 * n;
-  float p00, p01, p11;
-  bool first;
-  float t[12];
-  if constexpr (kPrologue == kSampled) {
-    p00 = A.prev[b * 3 + 0];
-    p01 = A.prev[b * 3 + 1];
-    p11 = A.prev[b * 3 + 2];
-    first = A.first_flags[b] > 0;
-  } else {
-    p00 = A.prev[b * 4 + 0];
-    p01 = A.prev[b * 4 + 1];
-    p11 = A.prev[b * 4 + 3];
-    first = A.first != 0;
-#pragma unroll
-    for (int k = 0; k < 12; ++k) t[k] = A.T[b * 16 + k];
-  }
-
-#pragma unroll
-  for (int s = 0; s < kPerThread; ++s) {
-    const int col = s * kThreads + tid;
-    const int p = blockIdx.x * kTile + col;
-    float u[kRows];
-    if (p < n) {
-      float r[7];
-#pragma unroll
-      for (int c = 0; c < 7; ++c) r[c] = __ldg(refpack + (size_t)c * n + p);
-      float sv[8];
-      if constexpr (kPrologue == kSampled) {
-        const float* sampled = A.sampled + (size_t)b * 8 * n;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) sv[c] = __ldg(sampled + (size_t)c * n + p);
-      } else {
-        warp_sample<kPrologue == kWarpBuffered>(A, A.quad + (size_t)b * 32 * n, t, r[4], r[5],
-                                                r[1], sv);
-      }
-      float r_i, r_z, w, maskf;
-      pixel_rows(A, sv, r, p00, p01, p11, first, u, r_i, r_z, w, maskf);
-      float* rows = A.rows + (size_t)b * kOutRows * n;
-      rows[p] = r_i;
-      rows[(size_t)n + p] = r_z;
-      if constexpr (kOutRows == 3) {
-        rows[2 * (size_t)n + p] = maskf;
-      } else {
-        rows[2 * (size_t)n + p] = w;
-        rows[3 * (size_t)n + p] = maskf;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) u[k] = 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) us[k * kStride + col] = u[k];
-  }
-  __syncthreads();
-
-  // the block's Gram: warp w takes tile w % 3 ((0,0), (0,1), (1,1) of the
-  // 8x8 tiles) over half w / 3 of the pixels, in two accumulator chains
-  const int warp = tid >> 5;
-  if (warp < kMmaWarps) {
-    const int lane = tid & 31;
-    const int tile = warp % 3;
-    const int half = warp / 3;
-    const int ti = tile == 2 ? 1 : 0;
-    const int tj = tile == 0 ? 0 : 1;
-    const float* ra = us + (8 * ti + (lane >> 2)) * kStride + (lane & 3) + half * (kTile / 2);
-    const float* rb = us + (8 * tj + (lane >> 2)) * kStride + (lane & 3) + half * (kTile / 2);
-    double c0 = 0.0, c1 = 0.0, e0 = 0.0, e1 = 0.0;
-#pragma unroll 4
-    for (int k = 0; k < kTile / 2; k += 8) {
-      mma_f64(c0, c1, (double)ra[k], (double)rb[k]);
-      mma_f64(e0, e1, (double)ra[k + 4], (double)rb[k + 4]);
-    }
-    double* dst = tiles + (half * 3 + tile) * 64 + (lane >> 2) * 8 + 2 * (lane & 3);
-    dst[0] = c0 + e0;
-    dst[1] = c1 + e1;
-  }
-  __syncthreads();
-
-  double* partials = A.gram_partials + (size_t)b * gridDim.x * kPairs;
-  int pa = 0, pb = 0;
-  if (tid < kPairs) {
-    pair_of(tid, pa, pb);
-    const int e = ((pa >> 3) + (pb >> 3)) * 64 + (pa & 7) * 8 + (pb & 7);
-    partials[(size_t)blockIdx.x * kPairs + tid] = tiles[e] + tiles[3 * 64 + e];
-  }
-  if (!last_block(A.tickets, b)) return;
-
-  // the last block: fixed-order sum of the partials (four chains over the
-  // blocks modulo 4, the remainder on the first, so that four loads are in
-  // flight), the Gram, the precision
-  float* out = A.out + (size_t)b * kOutStride;
-  if (tid < kPairs) {
-    double acc[4] = {0.0, 0.0, 0.0, 0.0};
-    const int blocks = (int)gridDim.x;
-    int blk = 0;
-    for (; blk + 4 <= blocks; blk += 4) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[c] += __ldcg(partials + (size_t)(blk + c) * kPairs + tid);
-    }
-    for (; blk < blocks; ++blk) acc[0] += __ldcg(partials + (size_t)blk * kPairs + tid);
-    const float v = (float)((acc[0] + acc[1]) + (acc[2] + acc[3]));
-    out[kOutGram + pa * kRows + pb] = v;
-    out[kOutGram + pb * kRows + pa] = v;
-    g[tid] = v;
-  }
-  if constexpr (kOutRows == 3) {
-    __syncthreads();
-    if (tid == 0) {
-      // upper-triangle index of (a, b), a <= b
-      auto at = [](int a, int c) { return a * kRows - a * (a - 1) / 2 + (c - a); };
-      const float s00 = g[at(12, 12)];
-      const float s01 = g[at(12, 13)];
-      const float s11 = g[at(13, 13)];
-      const float cnt = g[at(14, 14)];
-      const float denom = max_nan(cnt - 3.0f, 1.0f);
-      const float qa = s00 / denom + sigma_floor_i();
-      const float qb = s01 / denom;
-      const float qc = s11 / denom + sigma_floor_z();
-      const float det = max_nan(qa * qc - qb * qb, 1e-30f);
-      const float off = -qb / det;
-      out[kOutPrec + 0] = qc / det;
-      out[kOutPrec + 1] = off;
-      out[kOutPrec + 2] = off;
-      out[kOutPrec + 3] = qa / det;
-    }
-  }
+// The new precision from the summed scale terms and the count:
+// robust.precision_from_scale(scale_sum / max(n - 3, 1)).  p = (P00, P01, P10, P11).
+__device__ __forceinline__ void precision_from_sums(float s00, float s01, float s11, float cnt,
+                                                    float p[4]) {
+  const float denom = max_nan(cnt - 3.0f, 1.0f);
+  const float qa = s00 / denom + sigma_floor_i();
+  const float qb = s01 / denom;
+  const float qc = s11 / denom + sigma_floor_z();
+  const float det = max_nan(qa * qc - qb * qb, 1e-30f);
+  const float off = -qb / det;
+  p[0] = qc / det;
+  p[1] = off;
+  p[2] = off;
+  p[3] = qa / det;
 }
 
-// Launch 2: per block, sum log1p(r^T P_new r / dof) over its valid stashed
-// pixels; the last block of each stream sums the partials and writes the
-// tail (log_sum, ll, A, b, n) next to launch 1's Gram and precision.
-__global__ void __launch_bounds__(kThreads) loglik_kernel(const Args A) {
-  __shared__ double red[kThreads];
-  __shared__ float a_raw[36];
-  const int b = blockIdx.y;
-  const int n = A.n;
+// The iteration's tail (the reference's evaluate_fused, and the tail of its
+// sharded evaluate) from the Gram at out + kOutGram, the precision p and
+// the log sum: log_sum, ll with the log-determinant floored at
+// `logdet_floor`, A with its 0.5 (A + A^T), b and n into `out`.  Every
+// thread of a block of at least 64 threads calls it; a_raw: 36 shared floats.
+__device__ __forceinline__ void write_tail(float* out, const float p[4], float log_sum,
+                                           float ll_scale, float logdet_floor, float* a_raw) {
   const int tid = threadIdx.x;
-  float* out = A.out + (size_t)b * kOutStride;
-  const float p00 = out[kOutPrec + 0];
-  const float p01 = out[kOutPrec + 1];
-  const float p10 = out[kOutPrec + 2];
-  const float p11 = out[kOutPrec + 3];
-  const float* rows = A.rows + (size_t)b * 3 * n;
-  double local = 0.0;
-#pragma unroll
-  for (int s = 0; s < kPerThread; ++s) {
-    const int p = blockIdx.x * kTile + s * kThreads + tid;
-    if (p < n) {
-      const float r_i = rows[p];
-      const float r_z = rows[(size_t)n + p];
-      const float maskf = rows[2 * (size_t)n + p];
-      const float d2 = mahalanobis(r_i, r_z, p00, p01, p11);
-      if (maskf > 0.5f) local += (double)log1pf(d2 / A.dof);
-    }
-  }
-  red[tid] = local;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (tid < half) red[tid] += red[tid + half];
-    __syncthreads();
-  }
-  double* partials = A.ll_partials + (size_t)b * gridDim.x;
-  if (tid == 0) partials[blockIdx.x] = red[0];
-  if (!last_block(A.tickets, b)) return;
-
-  double acc = 0.0;
-  for (int blk = tid; blk < (int)gridDim.x; blk += kThreads) acc += __ldcg(partials + blk);
-  red[tid] = acc;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (tid < half) red[tid] += red[tid + half];
-    __syncthreads();
-  }
-
-  // the tail of the reference's evaluate_fused
+  const float p00 = p[0], p01 = p[1], p10 = p[2], p11 = p[3];
   const float* gram = out + kOutGram;
   if (tid == 0) {
-    const float log_sum = (float)red[0];
     const float nf = gram[14 * kRows + 14];
-    const float logdet = logf(max_nan(p00 * p11 - p01 * p10, 1e-38f));
+    const float logdet = logf(max_nan(p00 * p11 - p01 * p10, logdet_floor));
     out[kOutLogSum] = log_sum;
-    out[kOutLL] = 0.5f * nf * logdet - A.ll_scale * log_sum;
+    out[kOutLL] = 0.5f * nf * logdet - ll_scale * log_sum;
     reinterpret_cast<int*>(out)[kOutN] = (int)nf;
   }
   if (tid < 36) {
@@ -490,15 +463,347 @@ __global__ void __launch_bounds__(kThreads) loglik_kernel(const Args A) {
   }
 }
 
+// A block's sum of one double per thread, in a fixed order; red: kThreads
+// shared doubles.  The sum is in red[0] after the call.
+__device__ __forceinline__ void block_sum(double* red, double value) {
+  const int tid = threadIdx.x;
+  red[tid] = value;
+  __syncthreads();
+  for (int half = kThreads / 2; half > 0; half >>= 1) {
+    if (tid < half) red[tid] += red[tid + half];
+    __syncthreads();
+  }
+}
+
+// A diagnostic build (-DDVO_STAMPS, tools/partials_probe.py) records where
+// launch 1 spends its time: thread 0 of every block of stream 0 writes the
+// device's nanosecond timer at six points (start, rows staged, Gram done,
+// cluster summed, ticket taken, last block done).  The normal build has none
+// of it.
+#ifdef DVO_STAMPS
+constexpr int kStamps = 8;
+__device__ long long* stamp_buffer = nullptr;
+__device__ __forceinline__ void stamp(int phase) {
+  if (threadIdx.x == 0 && blockIdx.y == 0 && stamp_buffer != nullptr) {
+    long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    stamp_buffer[(size_t)blockIdx.x * kStamps + phase] = now;
+  }
+}
+#define DVO_STAMP(phase) stamp(phase)
+#else
+#define DVO_STAMP(phase)
+#endif
+
+// Launch 1: one block per S::kTile pixels of stream blockIdx.y (the blocks
+// that round the grid up to whole clusters take no pixel).
+template <class S, int kPrologue, int kEpilogue>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gram_kernel(const Args A) {
+  constexpr int kTile = S::kTile, kStride = S::kStride;
+  constexpr int kStashRows = kEpilogue == kRows4 ? 4 : 3;
+  __shared__ float us[kRows * kStride];
+  __shared__ double tiles[kSplit * 3 * 64];
+  // a cluster's sums, gathered in its first block; then the chunks' sums of
+  // the last block
+  __shared__ double2 gathered[(S::kCluster > kChunks ? S::kCluster : kChunks) * kPairPairs];
+  __shared__ float g[kPairs];
+  // "this block runs": its cluster's first block may be written to once all
+  // have arrived (waited for only when the sums are ready)
+  if constexpr (S::kCluster > 1) cluster_arrive();
+  const int b = blockIdx.y;
+  const int n = A.n;
+  const int tid = threadIdx.x;
+  const float* refpack = A.refpack + (size_t)b * 8 * n;
+  float p00, p01, p11;
+  bool first;
+  float t[12];
+  DVO_STAMP(0);
+  if constexpr (kPrologue == kSampled) {
+    p00 = A.prev[b * 3 + 0];
+    p01 = A.prev[b * 3 + 1];
+    p11 = A.prev[b * 3 + 2];
+    first = A.first_flags[b] > 0;
+  } else {
+    p00 = A.prev[b * 4 + 0];
+    p01 = A.prev[b * 4 + 1];
+    p11 = A.prev[b * 4 + 3];
+    first = A.first != 0;
+#pragma unroll
+    for (int k = 0; k < 12; ++k) t[k] = A.T[b * 16 + k];
+  }
+
+#pragma unroll
+  for (int s = 0; s < S::kPerThread; ++s) {
+    const int col = s * kThreads + tid;
+    const int p = blockIdx.x * kTile + col;
+    float u[kRows];
+    if (p < n) {
+      float r[7];
+#pragma unroll
+      for (int c = 0; c < 7; ++c) r[c] = __ldg(refpack + (size_t)c * n + p);
+      float sv[8];
+      if constexpr (kPrologue == kSampled) {
+        const float* sampled = A.sampled + (size_t)b * 8 * n;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) sv[c] = __ldg(sampled + (size_t)c * n + p);
+      } else {
+        warp_sample<kPrologue == kWarpBuffered>(A, A.quad + (size_t)b * 32 * A.nq, t, r[4], r[5],
+                                                r[1], sv);
+      }
+      float r_i, r_z, w, maskf;
+      pixel_rows(A, sv, r, p00, p01, p11, first, u, r_i, r_z, w, maskf);
+      float* rows = A.rows + (size_t)b * kStashRows * n;
+      rows[p] = r_i;
+      rows[(size_t)n + p] = r_z;
+      if constexpr (kEpilogue == kStats) {
+        rows[2 * (size_t)n + p] = maskf;
+      } else if constexpr (kEpilogue == kPacked) {
+        // the gate of the sharded log-likelihood is the plain version's and
+        // the reference's, weights > 0, not the mask.  The two differ only
+        // where r^T P_prev r of a valid pixel is infinite or NaN (a
+        // non-finite intensity or precision): its weight is then 0 or NaN.
+        rows[2 * (size_t)n + p] = w > 0.0f ? 1.0f : 0.0f;
+      } else {
+        rows[2 * (size_t)n + p] = w;
+        rows[3 * (size_t)n + p] = maskf;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) u[k] = 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) us[k * kStride + col] = u[k];
+  }
+  __syncthreads();
+  DVO_STAMP(1);
+
+  // the block's Gram: warp w takes tile w % 3 ((0,0), (0,1), (1,1) of the
+  // 8x8 tiles) over part w / 3 of the pixels, in two accumulator chains
+  const int warp = tid >> 5;
+  if (warp < kMmaWarps) {
+    constexpr int kSpan = kTile / kSplit;
+    const int lane = tid & 31;
+    const int tile = warp % 3;
+    const int part = warp / 3;
+    const int ti = tile == 2 ? 1 : 0;
+    const int tj = tile == 0 ? 0 : 1;
+    const float* ra = us + (8 * ti + (lane >> 2)) * kStride + (lane & 3) + part * kSpan;
+    const float* rb = us + (8 * tj + (lane >> 2)) * kStride + (lane & 3) + part * kSpan;
+    double c0 = 0.0, c1 = 0.0, e0 = 0.0, e1 = 0.0;
+#pragma unroll 4
+    for (int k = 0; k < kSpan; k += 8) {
+      mma_f64(c0, c1, (double)ra[k], (double)rb[k]);
+      mma_f64(e0, e1, (double)ra[k + 4], (double)rb[k + 4]);
+    }
+    double* dst = tiles + (part * 3 + tile) * 64 + (lane >> 2) * 8 + 2 * (lane & 3);
+    dst[0] = c0 + e0;
+    dst[1] = c1 + e1;
+  }
+  __syncthreads();
+  DVO_STAMP(2);
+
+  // the block's 136 sums, two a thread; each block of a cluster stores its
+  // own into the first block's shared memory, which adds them up in rank order
+  unsigned count = gridDim.x;      // partials of this stream
+  unsigned slot = blockIdx.x;      // this block's
+  double2 mine = make_double2(0.0, 0.0);
+  if (tid < kPairPairs) {
+    double sum[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      int pa, pb;
+      pair_of(2 * tid + i, pa, pb);
+      const int at = ((pa >> 3) + (pb >> 3)) * 64 + (pa & 7) * 8 + (pb & 7);
+      sum[i] = tiles[at];
+#pragma unroll
+      for (int part = 1; part < kSplit; ++part) sum[i] += tiles[part * 3 * 64 + at];
+    }
+    mine = make_double2(sum[0], sum[1]);
+  }
+  if constexpr (S::kCluster > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const unsigned rank = cluster.block_rank();
+    cluster_wait();  // every block of the cluster runs
+    if (tid < kPairPairs) cluster.map_shared_rank(gathered, 0)[rank * kPairPairs + tid] = mine;
+    cluster_arrive();
+    cluster_wait();  // the first block holds every block's sums
+    if (rank != 0) return;
+    if (tid < kPairPairs) {
+      double2 v[S::kCluster];
+#pragma unroll
+      for (int r = 0; r < S::kCluster; ++r) v[r] = gathered[r * kPairPairs + tid];
+      mine = v[0];
+#pragma unroll
+      for (int r = 1; r < S::kCluster; ++r) {
+        mine.x += v[r].x;
+        mine.y += v[r].y;
+      }
+    }
+    count = gridDim.x / S::kCluster;
+    slot = blockIdx.x / S::kCluster;
+  }
+  DVO_STAMP(3);
+  double2* partials = reinterpret_cast<double2*>(A.gram_partials) + (size_t)b * count * kPairPairs;
+  if (tid < kPairPairs) partials[(size_t)slot * kPairPairs + tid] = mine;
+  const bool last = last_block(A.tickets, b, count);
+  DVO_STAMP(4);
+  if (!last) return;
+
+  // the last block: fixed-order sum of the partials.  Thread (chunk, pair of
+  // entries) takes the partials chunk, chunk + kChunks, ..., kChains of them
+  // in flight on as many accumulators, 16 bytes a load; then the chunks'
+  // sums are added in order.
+  {
+    const int chunk = tid / kPairPairs;
+    const int column = tid % kPairPairs;
+    if (chunk < kChunks) {
+      double2 acc[kChains];
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) acc[c] = make_double2(0.0, 0.0);
+      for (unsigned base = chunk; base < count; base += kChains * kChunks) {
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) {
+          const unsigned at = base + c * kChunks;
+          if (at < count) {
+            const double2 v = __ldcg(partials + (size_t)at * kPairPairs + column);
+            acc[c].x += v.x;
+            acc[c].y += v.y;
+          }
+        }
+      }
+      static_assert(kChains == 8, "the tree below");
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] = make_double2(acc[c].x + acc[c + 4].x, acc[c].y + acc[c + 4].y);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) acc[c] = make_double2(acc[c].x + acc[c + 2].x, acc[c].y + acc[c + 2].y);
+      gathered[chunk * kPairPairs + column] = make_double2(acc[0].x + acc[1].x, acc[0].y + acc[1].y);
+    }
+    __syncthreads();
+    if (tid < kPairPairs) {
+      double2 sum = gathered[tid];
+#pragma unroll
+      for (int c = 1; c < kChunks; ++c) {
+        sum.x += gathered[c * kPairPairs + tid].x;
+        sum.y += gathered[c * kPairPairs + tid].y;
+      }
+      g[2 * tid] = (float)sum.x;
+      g[2 * tid + 1] = (float)sum.y;
+    }
+  }
+  __syncthreads();
+  float* out = A.out + (size_t)b * kOutStride;
+  if constexpr (kEpilogue == kPacked) {
+    // the sums in the layout of the all-reduce
+    for (int k = tid; k < kPairs; k += kThreads) {
+      int pa, pb;
+      packed_entry(k, pa, pb);
+      out[kOutPacked + k] = g[pa <= pb ? pair_at(pa, pb) : pair_at(pb, pa)];
+    }
+  } else {
+    for (int e = tid; e < kPairs; e += kThreads) {
+      int pa, pb;
+      pair_of(e, pa, pb);
+      out[kOutGram + pa * kRows + pb] = g[e];
+      out[kOutGram + pb * kRows + pa] = g[e];
+    }
+    if constexpr (kEpilogue == kStats) {
+      if (tid == 0) {
+        float p[4];
+        precision_from_sums(g[pair_at(12, 12)], g[pair_at(12, 13)], g[pair_at(13, 13)],
+                            g[pair_at(14, 14)], p);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) out[kOutPrec + k] = p[k];
+      }
+    }
+  }
+  DVO_STAMP(5);
+}
+
+// Launch 2: per block, sum log1p(r^T P_new r / dof) over its gated stashed
+// pixels; the last block of each stream sums the partials.  kSharded: the
+// precision comes from the all-reduced packed sums (every block computes
+// it), and the last block writes the shard's log sum and the precision;
+// else the precision is launch 1's and the last block writes the tail
+// (log_sum, ll, A, b, n) next to launch 1's Gram.
+template <class S, bool kSharded>
+__global__ void __launch_bounds__(kThreads) loglik_kernel(const Args A) {
+  constexpr int kTile = S::kTile;
+  __shared__ double red[kThreads];
+  __shared__ float a_raw[36];
+  const int b = blockIdx.y;
+  const int n = A.n;
+  const int tid = threadIdx.x;
+  float* out = A.out + (size_t)b * kOutStride;
+  float prec[4];
+  if constexpr (kSharded) {
+    const float* sums = out + kOutPacked;
+    precision_from_sums(sums[kPackedScale], sums[kPackedScale + 1], sums[kPackedScale + 2],
+                        sums[kPackedN], prec);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) prec[k] = out[kOutPrec + k];
+  }
+  const float* rows = A.rows + (size_t)b * 3 * n;
+  double local = 0.0;
+#pragma unroll
+  for (int s = 0; s < S::kPerThread; ++s) {
+    const int p = blockIdx.x * kTile + s * kThreads + tid;
+    if (p < n) {
+      const float r_i = rows[p];
+      const float r_z = rows[(size_t)n + p];
+      const float gate = rows[2 * (size_t)n + p];
+      const float d2 = mahalanobis(r_i, r_z, prec[0], prec[1], prec[3]);
+      if (gate > 0.5f) local += (double)log1pf(d2 / A.dof);
+    }
+  }
+  block_sum(red, local);
+  double* partials = A.ll_partials + (size_t)b * gridDim.x;
+  if (tid == 0) partials[blockIdx.x] = red[0];
+  if (!last_block(A.tickets, b, gridDim.x)) return;
+
+  double acc = 0.0;
+  for (int blk = tid; blk < (int)gridDim.x; blk += kThreads) acc += __ldcg(partials + blk);
+  __syncthreads();
+  block_sum(red, acc);
+  const float log_sum = (float)red[0];
+  if constexpr (kSharded) {
+    if (tid == 0) out[kOutShardLog] = log_sum;
+    if (tid < 4) out[kOutPrec + tid] = prec[tid];
+  } else {
+    write_tail(out, prec, log_sum, A.ll_scale, 1e-38f, a_raw);
+  }
+}
+
+// Launch 3 of the sharded evaluation, one block: the all-reduced sums spread
+// into the Gram's layout, then the tail with the sharded path's 1e-30 floor.
+__global__ void __launch_bounds__(256) sharded_tail_kernel(float* out, float ll_scale) {
+  __shared__ float a_raw[36];
+  const int tid = threadIdx.x;
+  out[kOutGram + tid] = 0.0f;
+  __syncthreads();
+  if (tid < kPairs) {
+    int pa, pb;
+    packed_entry(tid, pa, pb);
+    out[kOutGram + pa * kRows + pb] = out[kOutPacked + tid];
+  }
+  __syncthreads();
+  float prec[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) prec[k] = out[kOutPrec + k];
+  write_tail(out, prec, out[kOutShardLog], ll_scale, 1e-30f, a_raw);
+}
+
 size_t align256(size_t bytes) { return (bytes + 255) & ~(size_t)255; }
 
-// Scratch of one call: [rows region][Gram partials][log-likelihood partials].
+// Scratch of one call: [rows region][Gram partials][log-likelihood partials],
+// sized for the smallest tile, whose grid has the most blocks.
 struct Workspace {
   size_t gram_offset, ll_offset, bytes;
 };
 
 Workspace workspace_layout(int n, int batch, int rows) {
-  const size_t blocks = (size_t)(n + kTile - 1) / kTile;
+  size_t blocks = (size_t)(n + kMinTile - 1) / kMinTile;
+  blocks = (blocks + kMaxCluster - 1) / kMaxCluster * kMaxCluster;
   Workspace w;
   w.gram_offset = align256((size_t)batch * rows * n * sizeof(float));
   w.ll_offset = w.gram_offset + align256((size_t)batch * blocks * kPairs * sizeof(double));
@@ -516,24 +821,93 @@ void set_workspace(Args& a, void* workspace, int n, int batch, int rows) {
 
 bool bad_shape(int n, int batch) { return n <= 0 || batch <= 0 || batch > 65535; }
 
-dim3 grid_of(int n, int batch) { return dim3((n + kTile - 1) / kTile, batch); }
+template <class S>
+dim3 grid_of(int n, int batch) {
+  const int blocks = (n + S::kTile - 1) / S::kTile;
+  return dim3((blocks + S::kCluster - 1) / S::kCluster * S::kCluster, batch);
+}
+
+// Launch 1 in the shape S.
+template <class S, int kPrologue, int kEpilogue>
+cudaError_t launch_gram(const Args& a, int batch, cudaStream_t st) {
+  const dim3 grid = grid_of<S>(a.n, batch);
+  if constexpr (S::kCluster == 1) {
+    gram_kernel<S, kPrologue, kEpilogue><<<grid, kThreads, 0, st>>>(a);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kThreads);
+    config.stream = st;
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = S::kCluster;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    config.attrs = &cluster;
+    config.numAttrs = 1;
+    return cudaLaunchKernelEx(&config, gram_kernel<S, kPrologue, kEpilogue>, a);
+  }
+}
+
+// Launch 2, on the tile of S (clusters play no part in it).
+template <class S, bool kSharded>
+cudaError_t launch_loglik(const Args& a, int batch, cudaStream_t st) {
+  using Tile = Shape<S::kTile, 1>;
+  loglik_kernel<Tile, kSharded><<<grid_of<Tile>(a.n, batch), kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The launch arguments every entry point shares.
+Args common_args(int n, float fx, float fy, float gx, float gy, float dof, float dof_plus_2,
+                 float ll_scale, unsigned* tickets, float* out) {
+  Args a = {};
+  a.n = n;
+  a.nq = n;
+  a.fx = fx; a.fy = fy; a.gx = gx; a.gy = gy;
+  a.dof = dof; a.dof_plus_2 = dof_plus_2; a.ll_scale = ll_scale;
+  a.tickets = tickets;
+  a.out = out;
+  return a;
+}
+
+// The level's geometry, for the warp prologues.
+void set_level(Args& a, int height, int width, float ox, float oy) {
+  a.height = height;
+  a.width = width;
+  a.ox = ox; a.oy = oy;
+  a.hi_u = (float)((double)width - 1.001);
+  a.hi_v = (float)((double)height - 1.001);
+}
 
 }  // namespace
 
 extern "C" {
 
-// The packed output's layout, in float32 words:
-// {stride, gram, precision, A, b, ll, log_sum, n}.
+// The packed output's layout, in float32 words: {stride, gram, precision,
+// A, b, ll, log_sum, n, the sharded buffer's stride, its 136 sums, its log
+// sum}.
 void dvo_fused_stats_layout(int* fields) {
-  const int layout[8] = {kOutStride, kOutGram, kOutPrec, kOutA, kOutB, kOutLL, kOutLogSum, kOutN};
-  for (int i = 0; i < 8; ++i) fields[i] = layout[i];
+  const int layout[11] = {kOutStride, kOutGram, kOutPrec, kOutA, kOutB, kOutLL, kOutLogSum,
+                          kOutN, kShardedStride, kOutPacked, kOutShardLog};
+  for (int i = 0; i < 11; ++i) fields[i] = layout[i];
 }
 
-// Bytes of scratch a call needs: `rows` = 3 for the statistics entry points
-// (the stash), 0 for dvo_fused_partials (whose rw rows are an output).
+// Bytes of scratch a call needs: `rows` = 3 for the entry points that stash
+// (r_I, r_Z, mask or gate), 0 for dvo_fused_partials (whose rw rows are an
+// output).  Enough for either shape.
 long long dvo_fused_stats_workspace_bytes(int n, int batch, int rows) {
   return (long long)workspace_layout(n, batch, rows).bytes;
 }
+
+#ifdef DVO_STAMPS
+// The diagnostic build's stamp buffer: [blocks of launch 1, 8] int64 on the
+// device (null: no stamps), and its row width.
+int dvo_set_stamps(long long* buffer) {
+  return (int)cudaMemcpyToSymbol(stamp_buffer, &buffer, sizeof(buffer));
+}
+int dvo_stamps_per_block() { return kStamps; }
+#endif
 
 // The folded call, B streams: refpack [B, 8, n], quad [B, 32, n] (the
 // current frames' quad tables), T [B, 4, 4] and P_prev [B, 2, 2], float32,
@@ -544,8 +918,8 @@ long long dvo_fused_stats_workspace_bytes(int n, int batch, int rows) {
 // rounds it to float32.  workspace: dvo_fused_stats_workspace_bytes(n, B,
 // 3) bytes; its first B * 3 * n floats are the stash (r_I, r_Z, mask)
 // [B, 3, n] after the call.  tickets: [B] uint32, zero.  out: [B, 320]
-// float32 (dvo_fused_stats_layout).  Two launches on `stream`; returns
-// cudaGetLastError().
+// float32 (dvo_fused_stats_layout).  Two launches on `stream`; returns the
+// first CUDA error, 0 for none.
 int dvo_warp_fused_stats(const float* refpack, const float* quad, const float* T,
                          const float* P_prev, int n, int height, int width, int batch,
                          int first, int depth_buffered, float fx, float fy, float ox, float oy,
@@ -553,30 +927,18 @@ int dvo_warp_fused_stats(const float* refpack, const float* quad, const float* T
                          void* workspace, unsigned* tickets, float* out, void* stream) {
   if (bad_shape(n, batch) || (long long)height * width != n) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a = {};
+  Args a = common_args(n, fx, fy, gx, gy, dof, dof_plus_2, ll_scale, tickets, out);
   a.refpack = refpack;
   a.quad = quad;
   a.T = T;
   a.prev = P_prev;
   a.first = first;
-  a.n = n;
-  a.height = height;
-  a.width = width;
-  a.fx = fx; a.fy = fy; a.ox = ox; a.oy = oy; a.gx = gx; a.gy = gy;
-  a.dof = dof; a.dof_plus_2 = dof_plus_2; a.ll_scale = ll_scale;
-  a.hi_u = (float)((double)width - 1.001);
-  a.hi_v = (float)((double)height - 1.001);
-  a.tickets = tickets;
-  a.out = out;
+  set_level(a, height, width, ox, oy);
   set_workspace(a, workspace, n, batch, 3);
-  const dim3 grid = grid_of(n, batch);
-  if (depth_buffered) {
-    gram_kernel<kWarpBuffered, 3><<<grid, kThreads, 0, st>>>(a);
-  } else {
-    gram_kernel<kWarp, 3><<<grid, kThreads, 0, st>>>(a);
-  }
-  loglik_kernel<<<grid, kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  cudaError_t err = depth_buffered ? launch_gram<Wide, kWarpBuffered, kStats>(a, batch, st)
+                                   : launch_gram<Wide, kWarp, kStats>(a, batch, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_loglik<Wide, false>(a, batch, st);
 }
 
 // The statistics of B streams from their sampled packs: sampled, refpack
@@ -589,21 +951,15 @@ int dvo_fused_stats_batched(const float* sampled, const float* refpack, const fl
                             void* workspace, unsigned* tickets, float* out, void* stream) {
   if (bad_shape(n, batch)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a = {};
+  Args a = common_args(n, fx, fy, gx, gy, dof, dof_plus_2, ll_scale, tickets, out);
   a.sampled = sampled;
   a.refpack = refpack;
   a.prev = precision3;
   a.first_flags = first_flags;
-  a.n = n;
-  a.fx = fx; a.fy = fy; a.gx = gx; a.gy = gy;
-  a.dof = dof; a.dof_plus_2 = dof_plus_2; a.ll_scale = ll_scale;
-  a.tickets = tickets;
-  a.out = out;
   set_workspace(a, workspace, n, batch, 3);
-  const dim3 grid = grid_of(n, batch);
-  gram_kernel<kSampled, 3><<<grid, kThreads, 0, st>>>(a);
-  loglik_kernel<<<grid, kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  cudaError_t err = launch_gram<Wide, kSampled, kStats>(a, batch, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_loglik<Wide, false>(a, batch, st);
 }
 
 // One stream: the batched entry point at B = 1.
@@ -625,19 +981,61 @@ int dvo_fused_partials(const float* sampled, const float* refpack, const float* 
                        float* out, float* rw, void* stream) {
   if (bad_shape(n, 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a = {};
+  Args a = common_args(n, fx, fy, gx, gy, dof, dof_plus_2, 0.0f, tickets, out);
   a.sampled = sampled;
   a.refpack = refpack;
   a.prev = precision3;
   a.first_flags = first_flags;
-  a.n = n;
-  a.fx = fx; a.fy = fy; a.gx = gx; a.gy = gy;
-  a.dof = dof; a.dof_plus_2 = dof_plus_2;
-  a.tickets = tickets;
-  a.out = out;
   a.rows = rw;
   set_workspace(a, workspace, n, 1, 0);
-  gram_kernel<kSampled, 4><<<grid_of(n, 1), kThreads, 0, st>>>(a);
+  return (int)launch_gram<Wide, kSampled, kRows4>(a, 1, st);
+}
+
+// Launch 1 of the pixel-sharded evaluation: refpack [8, n_local], one rank's
+// column block of the zero-padded refpack; quad [32, n], the WHOLE current
+// frame's table, n = height * width; T [4, 4], P_prev [2, 2].  The sample
+// is depth-buffered.  Scalars and tickets as for dvo_warp_fused_stats.
+// workspace: dvo_fused_stats_workspace_bytes(n_local, 1, 3) bytes, whose
+// first 3 * n_local floats are the stash (r_I, r_Z, gate) afterwards.  out:
+// [464] float32; this launch writes the shard's 136 sums at words 320-455,
+// in the layout of the all-reduce (m00, m01, m11, v, scale_sum, n).
+int dvo_warp_fused_partials(const float* refpack, const float* quad, const float* T,
+                            const float* P_prev, int n_local, int n, int height, int width,
+                            int first, float fx, float fy, float ox, float oy, float gx, float gy,
+                            float dof, float dof_plus_2, void* workspace, unsigned* tickets,
+                            float* out, void* stream) {
+  if (bad_shape(n_local, 1) || n <= 0 || (long long)height * width != n)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args a = common_args(n_local, fx, fy, gx, gy, dof, dof_plus_2, 0.0f, tickets, out);
+  a.nq = n;
+  a.refpack = refpack;
+  a.quad = quad;
+  a.T = T;
+  a.prev = P_prev;
+  a.first = first;
+  set_level(a, height, width, ox, oy);
+  set_workspace(a, workspace, n_local, 1, 3);
+  return (int)launch_gram<Sharded, kWarpBuffered, kPacked>(a, 1, st);
+}
+
+// Launch 2 of the pixel-sharded evaluation, after the all-reduce of out's
+// 136 sums: the new precision into out (dvo_fused_stats_layout) and the
+// shard's sum of log1p(r^T P_new r / dof) over the gated stash entries into
+// word 456.  workspace, tickets and out as given to launch 1.
+int dvo_sharded_loglik(int n_local, float dof, void* workspace, unsigned* tickets, float* out,
+                       void* stream) {
+  if (bad_shape(n_local, 1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args a = common_args(n_local, 0.0f, 0.0f, 0.0f, 0.0f, dof, 0.0f, 0.0f, tickets, out);
+  set_workspace(a, workspace, n_local, 1, 3);
+  return (int)launch_loglik<Sharded, true>(a, 1, st);
+}
+
+// Launch 3 of the pixel-sharded evaluation, after the all-reduce of the log
+// sum: the Gram, ll (log-determinant floor 1e-30), A, b and n into out.
+int dvo_sharded_tail(float ll_scale, float* out, void* stream) {
+  sharded_tail_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(out, ll_scale);
   return (int)cudaGetLastError();
 }
 

@@ -10,6 +10,7 @@ a constant-velocity warm start at the caller's ``TrackerConfig``.
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -19,20 +20,30 @@ from .ops.pyramid import build_pyramid, convert_raw_depth
 from .utils import synthetic
 
 
-def render_sequence(poses, shape, intrinsics, scene=None, seed0=0):
+def render_sequence(poses, shape, intrinsics, scene=None, seed0=0, workers=1):
     """Camera-format frames of the synthetic scene along ``poses``:
     u8 intensity [N, H, W] and u16 depth [N, H, W] (1/5000 m, 0 invalid),
-    with the benchmark's sensor noise."""
+    with the benchmark's sensor noise.  Frame i depends on its pose and on
+    seed ``seed0 + i`` alone, so ``workers`` threads render the same frames
+    as one (NumPy's array operations run outside the interpreter lock)."""
     n = len(poses)
     intensity_u8 = np.zeros((n,) + tuple(shape), np.uint8)
     depth_u16 = np.zeros((n,) + tuple(shape), np.uint16)
-    for i in range(n):
+
+    def render(i):
         intensity, depth, valid = synthetic.render_frame(
             poses[i], intrinsics, shape, scene=scene, seed=seed0 + i,
             depth_noise=0.002, intensity_noise=1.0,
         )
         intensity_u8[i] = np.clip(intensity, 0, 255).astype(np.uint8)
         depth_u16[i] = np.where(valid, depth * 5000.0, 0).astype(np.uint16)
+
+    if workers > 1:
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            list(pool.map(render, range(n)))
+    else:
+        for i in range(n):
+            render(i)
     return intensity_u8, depth_u16
 
 

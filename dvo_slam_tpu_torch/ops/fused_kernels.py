@@ -11,32 +11,42 @@ which holds every precision-independent sum of the normal equations
 numerator and n).  A second pass takes the new precision from those sums
 and reduces sum log1p(r^T P_new r / dof) over the valid pixels.
 
-Three forms of it:
+Four forms of it:
   * ``warp_fused_stats``: one whole IRLS evaluation of the tracker, from
     the warp T on: warp and depth-buffered sample of the current frame's
     quad table, the statistics, and the iteration's tail (new precision,
     log-likelihood, normal equations, constraint count) ->
     ``WarpFusedStats``;
+  * ``warp_fused_partials``: the same evaluation for one rank of the
+    pixel-sharded alignment, whose Gram must be summed over the ranks
+    before the precision can be taken: this rank's refpack shard against
+    the whole quad table, in three steps around two all-reduces (the 136
+    packed sums, then the log-likelihood sum) -> ``WarpFusedStats``,
+    the same on every rank;
   * ``fused_stats_*``: the statistics from an already sampled pack;
-  * ``fused_partials``: the Gram plus the per-pixel residuals and weights,
-    for a caller that reduces the Gram over several ranks before it can
-    take the precision (the pixel-sharded alignment).
+  * ``fused_partials``: the Gram plus the per-pixel residuals and weights
+    from a sampled pack (the reference's ``fused_partials_pallas``).
 
 Two implementations of each, one result:
-  * ``warp_fused_stats_plain`` / ``fused_stats_plain`` /
-    ``fused_partials_plain`` — plain PyTorch, the CPU path and the
-    kernels' oracle (the reference's ``warp_and_sample_cm`` +
-    ``fused_stats_xla`` + tail, ``fused_stats_xla``, ``fused_partials_xla``);
+  * ``warp_fused_stats_plain`` / ``warp_fused_partials_plain`` (with
+    ``sharded_loglik_plain`` and ``sharded_tail_plain``) /
+    ``fused_stats_plain`` / ``fused_partials_plain`` — plain PyTorch, the
+    CPU path and the kernels' oracle (the reference's
+    ``warp_and_sample_cm`` + ``fused_stats_xla`` + tail, its sharded
+    ``evaluate``, ``fused_stats_xla``, ``fused_partials_xla``);
   * the hand-written CUDA kernels for Hopper in ``csrc/fused_stats.cu``
     (replacing ``fused_stats_pallas`` / ``fused_partials_pallas``):
     ``warp_fused_stats_cuda`` and ``warp_fused_stats_batched_cuda`` (B
     streams in lockstep in one call, where the reference vmaps the
-    kernel), ``fused_stats_cuda`` / ``fused_stats_batched_cuda`` (the same
-    two launches loading a sampled pack) and ``fused_partials_cuda``.
-``warp_fused_stats`` and ``fused_partials`` pick one by the tensors'
-device; the sampled-input kernels are called directly (phases 3 and 7 of
-``chip_smoke.py`` hold them to ``fused_stats_plain``).  The plain
-versions take a leading stream axis as they are.
+    kernel), ``warp_fused_partials_cuda`` / ``sharded_loglik_cuda`` /
+    ``sharded_tail_cuda`` (the sharded evaluation's three launches),
+    ``fused_stats_cuda`` / ``fused_stats_batched_cuda`` (the tracker's two
+    launches loading a sampled pack) and ``fused_partials_cuda``.
+``warp_fused_stats``, ``warp_fused_partials`` and ``fused_partials`` pick
+one by the tensors' device and raise on any other; the sampled-input
+kernels are called directly (phases 3 and 7 of ``chip_smoke.py`` hold
+them to their plain versions).  The plain versions take a leading stream
+axis as they are.
 
 Inputs are channel-major [8, N] (or [B, 8, N]):
   refpack: i, z, idx, idy, x, y, sel, 0
@@ -48,9 +58,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import _build
 from . import robust
@@ -91,6 +102,45 @@ class WarpFusedStats(NamedTuple):
     ll: torch.Tensor  # [] log-likelihood
     A: torch.Tensor  # [6, 6] normal-equation matrix
     b: torch.Tensor  # [6] normal-equation right-hand side
+
+
+class ShardedEvaluation(NamedTuple):
+    """One rank's pixel-sharded evaluation between its steps: the caller
+    all-reduces ``sums`` in place after the first step and ``log_sum``
+    after the second (``warp_fused_partials``)."""
+
+    sums: torch.Tensor  # [136] float32, the packed sums (``PACKED_SUMS``)
+    log_sum: Optional[torch.Tensor]  # [1] the log-likelihood sum, from the second step on
+    state: tuple  # the implementation's own
+
+
+# the 136 float32 sums of the sharded evaluation's first all-reduce: m00,
+# m01, m11 [6, 6], v [4, 6], scale_sum [3], num_valid [1]
+PACKED_SUMS = (("m00", (6, 6)), ("m01", (6, 6)), ("m11", (6, 6)), ("v", (4, 6)),
+               ("scale_sum", (3,)), ("num_valid", ()))
+NUM_PACKED = 136
+
+
+def pack_sums(parts) -> torch.Tensor:
+    """The Gram blocks of a ``FusedPartials`` / ``FusedStats`` as one [136]
+    tensor in the order of ``PACKED_SUMS``."""
+    return torch.cat([getattr(parts, name).reshape(-1) for name, _ in PACKED_SUMS])
+
+
+def unpack_sums(packed: torch.Tensor) -> dict:
+    """{field: view of ``packed`` [136]} in the shapes of ``PACKED_SUMS``."""
+    out, start = {}, 0
+    for name, shape in PACKED_SUMS:
+        size = int(torch.Size(shape).numel())
+        out[name] = packed[start : start + size].reshape(shape)
+        start += size
+    return out
+
+
+def sums_as_stats(packed: torch.Tensor) -> FusedStats:
+    """The 136 packed sums as the Gram blocks of a ``FusedStats`` (views;
+    ``log_sum`` is None)."""
+    return FusedStats(**unpack_sums(packed), log_sum=None)
 
 
 def _pixel_math(ref, cur, precision, first_iter, fx, fy, dof):
@@ -286,27 +336,88 @@ def warp_fused_stats_plain(
     return WarpFusedStats(n=n, precision=precision_new, ll=ll, A=A, b=b)
 
 
+def warp_fused_partials_plain(
+    refpack,  # [8, N_local] this rank's block of the zero-padded refpack
+    quad,  # [32, N] the whole quad table of the current frame
+    shape,  # (H, W) of the level, H * W = N
+    intrinsics: Intrinsics,
+    T,  # [4, 4]
+    P_prev,  # [2, 2]
+    first: bool,
+    dof: float = 5.0,
+) -> ShardedEvaluation:
+    """Step 1 of one rank's pixel-sharded evaluation in plain PyTorch (the
+    CPU path and the kernels' oracle; the reference's sharded ``evaluate``,
+    op for op): warp and sample of the shard, always depth-buffered, and
+    the single-pass partials on it.  ``sums`` are the shard's 136 packed
+    sums, for the caller to all-reduce in place."""
+    sampled = warp_and_sample_cm(refpack, quad, shape, intrinsics, T)
+    p3 = torch.stack([P_prev[0, 0], P_prev[0, 1], P_prev[1, 1]])
+    first_flag = torch.tensor(int(bool(first)), dtype=torch.int32, device=refpack.device)
+    parts = fused_partials_plain(sampled, refpack, p3, first_flag, intrinsics, dof)
+    return ShardedEvaluation(sums=pack_sums(parts), log_sum=None, state=(parts, dof))
+
+
+def sharded_loglik_plain(evaluation: ShardedEvaluation) -> ShardedEvaluation:
+    """Step 2, after the all-reduce of ``sums``: the new precision from the
+    reduced sums, and the shard's sum of log1p(r^T P_new r / dof) over
+    weights > 0 as ``log_sum`` [1], for the caller to all-reduce in place."""
+    parts, dof = evaluation.state
+    full = parts._replace(**unpack_sums(evaluation.sums))
+    precision_new = robust.precision_from_scale(
+        scale_matrix(full) / torch.clamp(full.num_valid - 3.0, min=1.0)
+    )
+    r_i, r_z = parts.residuals[0], parts.residuals[1]
+    p00, p01, p11 = precision_new[0, 0], precision_new[0, 1], precision_new[1, 1]
+    d2 = r_i * (p00 * r_i + p01 * r_z) + r_z * (p01 * r_i + p11 * r_z)
+    log_sum = torch.sum(
+        torch.where(parts.weights > 0, torch.log1p(d2 / dof), torch.zeros_like(d2))
+    ).reshape(1)
+    return evaluation._replace(log_sum=log_sum, state=(full, dof, precision_new))
+
+
+def sharded_tail_plain(evaluation: ShardedEvaluation) -> WarpFusedStats:
+    """Step 3, after the all-reduce of ``log_sum``: the log-likelihood with
+    the sharded path's 1e-30 log-determinant floor (the single path's is
+    1e-38), the normal equations and the constraint count."""
+    full, dof, precision_new = evaluation.state
+    n_total = full.num_valid
+    det = (
+        precision_new[0, 0] * precision_new[1, 1]
+        - precision_new[0, 1] * precision_new[1, 0]
+    )
+    ll = 0.5 * n_total * torch.log(torch.clamp(det, min=1e-30)) - 0.5 * (
+        dof + 2.0
+    ) * evaluation.log_sum[0]
+    A, b = assemble_normal_equations(full, precision_new)
+    return WarpFusedStats(n=n_total.to(torch.int32), precision=precision_new, ll=ll, A=A, b=b)
+
+
 # The packed output of one stream (csrc/fused_stats.cu), in float32 words:
 # the Gram [16, 16], the new precision [2, 2], A [6, 6], b [6], ll, the
 # log-likelihood sum, and n as int32 bits.
 OUT_STRIDE = 320
 _OUT_GRAM, _OUT_PREC, _OUT_A, _OUT_B, _OUT_LL, _OUT_LOG_SUM, _OUT_N = 0, 256, 260, 296, 302, 303, 304
-_LAYOUT = (OUT_STRIDE, _OUT_GRAM, _OUT_PREC, _OUT_A, _OUT_B, _OUT_LL, _OUT_LOG_SUM, _OUT_N)
-_STASH_ROWS = 3  # (r_I, r_Z, mask) per pixel, between the two launches
+# the sharded evaluation's buffer goes on with the 136 sums of the first
+# all-reduce and the shard's log-likelihood sum of the second
+SHARDED_STRIDE, _OUT_PACKED, _OUT_SHARD_LOG = 464, 320, 456
+_LAYOUT = (OUT_STRIDE, _OUT_GRAM, _OUT_PREC, _OUT_A, _OUT_B, _OUT_LL, _OUT_LOG_SUM, _OUT_N,
+           SHARDED_STRIDE, _OUT_PACKED, _OUT_SHARD_LOG)
+_STASH_ROWS = 3  # (r_I, r_Z, mask or gate) per pixel, between the launches
 
-
-@functools.lru_cache(maxsize=None)
-def _kernel_library():
-    """The built fused-stats library with its C signatures declared (built
-    by nvcc at the first call in a process); raises if its packed-output
-    layout is not this module's."""
-    lib = _build.load_library("fused_stats").lib
+def declare_signatures(lib):
+    """Declare the C signatures of a build of ``csrc/fused_stats.cu`` on its
+    ``ctypes`` library and return it; raises if its packed-output layout is
+    not this module's."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         "dvo_warp_fused_stats": [p] * 4 + [i] * 6 + [f] * 9 + [p] * 4,
         "dvo_fused_stats_batched": [p] * 4 + [i] * 2 + [f] * 7 + [p] * 4,
         "dvo_fused_stats": [p] * 4 + [i] + [f] * 7 + [p] * 4,
         "dvo_fused_partials": [p] * 4 + [i] + [f] * 6 + [p] * 5,
+        "dvo_warp_fused_partials": [p] * 4 + [i] * 5 + [f] * 8 + [p] * 4,
+        "dvo_sharded_loglik": [i] + [f] + [p] * 4,
+        "dvo_sharded_tail": [f] + [p] * 2,
     }
     for name, argtypes in signatures.items():
         getattr(lib, name).argtypes = argtypes
@@ -320,6 +431,13 @@ def _kernel_library():
     if tuple(fields) != _LAYOUT:
         raise RuntimeError(f"fused_stats library layout {tuple(fields)} != {_LAYOUT}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_library():
+    """The built fused-stats library with its C signatures declared (built
+    by nvcc at the first call in a process)."""
+    return declare_signatures(_build.load_library("fused_stats").lib)
 
 
 _tickets = {}
@@ -529,6 +647,140 @@ def warp_fused_stats(
         kernel = warp_fused_stats_batched_cuda if refpack.dim() == 3 else warp_fused_stats_cuda
         return kernel(*args)
     raise ValueError(f"warp_fused_stats: no implementation for device {refpack.device}")
+
+
+class _ShardedLaunch(NamedTuple):
+    """What the sharded evaluation's later launches need of the first."""
+
+    buf: torch.Tensor  # [464] the call's packed buffer
+    workspace: torch.Tensor  # its head is the stash (r_I, r_Z, gate) [3, N_local]
+    n_local: int
+    dof: float
+    ll_scale: float
+
+
+def warp_fused_partials_cuda(
+    refpack, quad, shape, intrinsics: Intrinsics, T, P_prev, first: bool, dof: float = 5.0
+) -> ShardedEvaluation:
+    """Launch 1 of one rank's pixel-sharded evaluation
+    (``csrc/fused_stats.cu``, ``dvo_warp_fused_partials``): ``refpack``
+    [8, N_local], this rank's block of the zero-padded refpack, against the
+    whole ``quad`` [32, N], N = H * W of ``shape``; ``T`` [4, 4],
+    ``P_prev`` [2, 2]; float32 CUDA tensors.  One launch on the current
+    stream, nothing read from the host.  ``sums`` is the shard's 136 sums
+    in the all-reduce's layout (a view of the call's buffer).  Each call
+    adds one to ``warp_fused_partials_cuda.launches``."""
+    who = "warp_fused_partials_cuda"
+    if not isinstance(refpack, torch.Tensor) or refpack.dim() != 2:
+        raise ValueError(f"{who}: refpack must be a [8, N_local] CUDA tensor")
+    n_local = refpack.shape[1]
+    height, width = shape
+    n = height * width
+    if not 0 < n_local <= n:
+        raise ValueError(f"{who}: a shard of {n_local} pixels of a level of {tuple(shape)}")
+    T = T.contiguous() if isinstance(T, torch.Tensor) else T
+    P_prev = P_prev.contiguous() if isinstance(P_prev, torch.Tensor) else P_prev
+    _check_cuda(who, "refpack", refpack, (8, n_local))
+    _check_cuda(who, "quad", quad, (32, n))
+    _check_cuda(who, "T", T, (4, 4))
+    _check_cuda(who, "P_prev", P_prev, (2, 2))
+    device = refpack.device
+    if any(t.device != device for t in (quad, T, P_prev)):
+        raise ValueError(f"{who}: inputs on different devices")
+    lib = _kernel_library()
+    stream = _build.current_stream(device)
+    workspace = _workspace(lib, n_local, 1, _STASH_ROWS, device)
+    buf = torch.empty((SHARDED_STRIDE,), dtype=torch.float32, device=device)
+    fx, fy, gx, gy, dof_, dof_plus_2, ll_scale = _scalars(intrinsics, dof)
+    err = lib.dvo_warp_fused_partials(
+        refpack.data_ptr(), quad.data_ptr(), T.data_ptr(), P_prev.data_ptr(),
+        n_local, n, height, width, int(bool(first)),
+        fx, fy, intrinsics.ox, intrinsics.oy, gx, gy, dof_, dof_plus_2,
+        workspace.data_ptr(), _ticket_buffer(device, stream, 1).data_ptr(), buf.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{who}: kernel launch failed, CUDA error {err}")
+    warp_fused_partials_cuda.launches += 1
+    return ShardedEvaluation(
+        sums=buf[_OUT_PACKED:_OUT_PACKED + NUM_PACKED],
+        log_sum=buf[_OUT_SHARD_LOG:_OUT_SHARD_LOG + 1],
+        state=_ShardedLaunch(buf, workspace, n_local, dof_, ll_scale),
+    )
+
+
+warp_fused_partials_cuda.launches = 0
+
+
+def sharded_loglik_cuda(evaluation: ShardedEvaluation) -> ShardedEvaluation:
+    """Launch 2 (``dvo_sharded_loglik``), after the all-reduce of ``sums``:
+    the new precision from the reduced sums and the shard's sum of
+    log1p(r^T P_new r / dof) over its gated stash entries into ``log_sum``
+    (a view of the call's buffer), for the caller to all-reduce.  Each
+    call adds one to ``sharded_loglik_cuda.launches``."""
+    call = evaluation.state
+    device = call.buf.device
+    stream = _build.current_stream(device)
+    err = _kernel_library().dvo_sharded_loglik(
+        call.n_local, call.dof, call.workspace.data_ptr(),
+        _ticket_buffer(device, stream, 1).data_ptr(), call.buf.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"sharded_loglik_cuda: kernel launch failed, CUDA error {err}")
+    sharded_loglik_cuda.launches += 1
+    return evaluation
+
+
+sharded_loglik_cuda.launches = 0
+
+
+def sharded_tail_cuda(evaluation: ShardedEvaluation) -> WarpFusedStats:
+    """Launch 3 (``dvo_sharded_tail``, one block), after the all-reduce of
+    ``log_sum``: ll with the 1e-30 log-determinant floor, A, b and n, as
+    views of the call's buffer.  Each call adds one to
+    ``sharded_tail_cuda.launches``."""
+    call = evaluation.state
+    err = _kernel_library().dvo_sharded_tail(
+        call.ll_scale, call.buf.data_ptr(), _build.current_stream(call.buf.device)
+    )
+    if err != 0:
+        raise RuntimeError(f"sharded_tail_cuda: kernel launch failed, CUDA error {err}")
+    sharded_tail_cuda.launches += 1
+    return _unpack_out(call.buf[:OUT_STRIDE])
+
+
+sharded_tail_cuda.launches = 0
+
+
+def sharded_stash(evaluation: ShardedEvaluation) -> torch.Tensor:
+    """The stash (r_I, r_Z, gate) [3, N_local] of a CUDA sharded evaluation
+    (for the checks): gate is 1 where the pixel's weight is > 0."""
+    call = evaluation.state
+    return _stash(call.workspace, (), call.n_local)
+
+
+def warp_fused_partials(
+    refpack, quad, shape, intrinsics: Intrinsics, T, P_prev, first: bool, dof: float = 5.0,
+    group=None,
+) -> WarpFusedStats:
+    """One IRLS evaluation of the pixel-sharded alignment on this rank's
+    shard, dispatched on the tensors' device: CPU tensors take the plain
+    version, CUDA tensors the three kernels; any other device raises.
+    Between the steps, the two collectives of the sharded semantics on
+    ``group`` (None: the default process group): the all-reduce of the 136
+    packed sums, then of the log-likelihood sum.  Every rank of the group
+    calls it and gets the same result."""
+    kind = refpack.device.type
+    if kind == "cpu":
+        partials, loglik, tail = warp_fused_partials_plain, sharded_loglik_plain, sharded_tail_plain
+    elif kind == "cuda":
+        partials, loglik, tail = warp_fused_partials_cuda, sharded_loglik_cuda, sharded_tail_cuda
+    else:
+        raise ValueError(f"warp_fused_partials: no implementation for device {refpack.device}")
+    evaluation = partials(refpack, quad, shape, intrinsics, T, P_prev, first, dof)
+    dist.all_reduce(evaluation.sums, group=group)  # collective 1: every precision-independent sum
+    evaluation = loglik(evaluation)
+    dist.all_reduce(evaluation.log_sum, group=group)  # collective 2: the log-likelihood sum
+    return tail(evaluation)
 
 
 def _sampled_inputs(who, sampled, refpack, precision3, first_iter, batched):

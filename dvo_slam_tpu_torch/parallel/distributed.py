@@ -23,15 +23,17 @@ def initialize(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
     backend: Optional[str] = None,
+    device=None,
 ) -> bool:
     """Initialise the process group (idempotent); returns whether more
     than one rank is active.
 
     With no arguments, reads ``MASTER_ADDR``/``MASTER_PORT`` (the
     rendezvous, ``tcp://addr:port``), ``WORLD_SIZE`` and ``RANK``.  The
-    backend is ``nccl`` where the rank's device is a card and ``gloo`` on
-    the CPU, unless it is named; an ``nccl`` rank first makes its card the
-    current device."""
+    rank runs on its card (``mesh.rank_device``) and raises where none is
+    visible; only ``device="cpu"`` starts a CPU rank.  The backend is
+    ``nccl`` for a card and ``gloo`` for the CPU, unless it is named; a
+    rank on a card first makes it the current device."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     if init_method is None:
@@ -45,7 +47,7 @@ def initialize(
         world_size = int(os.environ.get("WORLD_SIZE", "1"))
     if rank is None:
         rank = int(os.environ.get("RANK", "0"))
-    device = rank_device(rank)
+    device = rank_device(rank, device)
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":

@@ -29,17 +29,28 @@ class Mesh(NamedTuple):
     device: torch.device
 
 
-def rank_device(rank: int) -> torch.device:
-    """Rank r's device: ``cuda:(r % device_count)`` where there is a card,
-    else the CPU."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", rank % torch.cuda.device_count())
-    return torch.device("cpu")
+def rank_device(rank: int, device=None) -> torch.device:
+    """Rank r's device.  By default, and for ``device="cuda"``, the card
+    ``cuda:(r % device_count)``: raises where no card is visible.  A device
+    with an index (``"cuda:0"``: several ranks on one card) or ``"cpu"``
+    is taken as it is named."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"rank {rank}: no CUDA device is visible; the multi-rank paths run on "
+            'the card by default (pass device="cpu" for a CPU mesh over gloo)'
+        )
+    return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def make_mesh(n_devices: Optional[int] = None, axis: str = BATCH_AXIS) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, axis: str = BATCH_AXIS, device=None) -> Mesh:
     """1-D mesh over the ranks of the initialised process group.
-    ``n_devices``, when given, must be the world size."""
+    ``n_devices``, when given, must be the world size.  Each rank's device
+    is its card (``rank_device``), which raises where there is none; only
+    ``device="cpu"`` gives a CPU mesh."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh: no process group; call parallel.distributed.initialize() first"
@@ -48,7 +59,7 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = BATCH_AXIS) -> Mesh:
     if n_devices is not None and n_devices != size:
         raise ValueError(f"make_mesh: {n_devices} devices asked, the process group has {size} ranks")
     rank = dist.get_rank()
-    return Mesh(group=None, axis=axis, rank=rank, size=size, device=rank_device(rank))
+    return Mesh(group=None, axis=axis, rank=rank, size=size, device=rank_device(rank, device))
 
 
 def replicated(tree, mesh: Mesh):

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import default_device
 from ..config import TrackerConfig
 from ..models.dense_tracker import match_prepared, match_pyramids, prepare_frame, ref_artifacts
 from ..odometry import build_frame
@@ -57,14 +58,25 @@ class StreamTracks(NamedTuple):
     loop_iterations: int  # solver loop iterations this rank ran
 
 
-def as_frames(intensity_u8, depth_u16, device=None):
-    """Frames as tensors (NumPy u16 depth widened to int32), on ``device``
-    when it is given."""
+def host_frames(intensity_u8, depth_u16):
+    """NumPy frames as host tensors (u16 depth widened to int32); tensors
+    as they are."""
     if isinstance(intensity_u8, np.ndarray):
         intensity_u8 = torch.from_numpy(intensity_u8)
     if isinstance(depth_u16, np.ndarray):
         depth_u16 = torch.from_numpy(depth_u16.astype(np.int32))
-    if device is not None:
+    return intensity_u8, depth_u16
+
+
+def as_frames(intensity_u8, depth_u16, device=None):
+    """Frames as tensors (NumPy u16 depth widened to int32) on ``device``.
+    With no ``device``, NumPy frames go to the card, which raises where
+    there is none (``default_device``; ``device="cpu"`` asks for the CPU),
+    and tensors stay where they are."""
+    from_host = isinstance(intensity_u8, np.ndarray) or isinstance(depth_u16, np.ndarray)
+    intensity_u8, depth_u16 = host_frames(intensity_u8, depth_u16)
+    if device is not None or from_host:
+        device = default_device(device)
         intensity_u8, depth_u16 = intensity_u8.to(device), depth_u16.to(device)
     return intensity_u8, depth_u16
 
@@ -159,15 +171,17 @@ def make_multistream_tracker(
     mesh: Optional[Mesh] = None,
     axis: str = BATCH_AXIS,
     schedule: str = "lockstep",
+    device=None,
 ):
     """Multi-stream tracker: ``run(intensity_u8 [B, T, H, W], depth_u16
     [B, T, H, W]) -> poses [B, T-1, 4, 4]``; ``run.tracks`` takes the same
     arguments and returns the whole ``StreamTracks``.
 
-    Without a mesh the streams run where the frames are.  With one, every
-    rank passes all B streams (B divisible by the world size), tracks its
-    contiguous B / world on ``mesh.device`` and gets every stream's
-    results; ``loop_iterations`` is then this rank's own count."""
+    Without a mesh the streams run on ``device``: by default tensors where
+    they are and NumPy frames on the card (``as_frames``).  With a mesh,
+    every rank passes all B streams (B divisible by the world size),
+    tracks its contiguous B / world on ``mesh.device`` and gets every
+    stream's results; ``loop_iterations`` is then this rank's own count."""
     if schedule == "lockstep":
         inner = _track_streams
     elif schedule == "sequential":
@@ -178,11 +192,10 @@ def make_multistream_tracker(
         raise ValueError(f"mesh axis is {mesh.axis!r}, not {axis!r}")
 
     def tracks(intensity_u8, depth_u16) -> StreamTracks:
-        intensity_u8, depth_u16 = as_frames(intensity_u8, depth_u16)
         if mesh is None:
-            return inner(cfg, intrinsics, intensity_u8, depth_u16)
+            return inner(cfg, intrinsics, *as_frames(intensity_u8, depth_u16, device))
         # the rank's streams only go to its device
-        local_frames = shard_leading_axis((intensity_u8, depth_u16), mesh, axis)
+        local_frames = shard_leading_axis(host_frames(intensity_u8, depth_u16), mesh, axis)
         local = inner(cfg, intrinsics, *as_frames(*local_frames, mesh.device))
         return StreamTracks(
             *(_all_gather(f, mesh) for f in local[:3]), loop_iterations=local.loop_iterations

@@ -4,19 +4,30 @@
   * **Pixel-parallel**: ONE alignment sharded over the reference pixels.
     Every rank holds both pyramids and the current frame's quad table; the
     refpack is zero-padded to a multiple of the world size and each rank
-    takes its contiguous column block.  Per iteration each rank warps and
-    samples its shard and runs the single-pass fused partials on it (the
-    CUDA kernel on the card, the plain twin on the CPU), then:
-      1. one all-reduce of the 136 packed float32 Gram sums (M00, M01,
-         M11, the four J^T r vectors, the scale numerator, n);
-      2. the new precision, replicated on every rank;
-      3. the shard's sum of log1p(r^T P r / dof) over weights > 0, in
-         plain torch, and a second all-reduce of that scalar;
-      4. the log-likelihood, normal equations, smoothing, 6x6 solve,
-         termination and revert, replicated.
-    So two collectives and one host read-back (``done``) per iteration.
-    (The reference's docstring says one psum; its code psums seven
-    arrays.)
+    takes its contiguous column block.  Per iteration each rank's
+    evaluation is one call of ``fused_kernels.warp_fused_partials`` on its
+    shard and the whole table: on the card three launches of
+    ``csrc/fused_stats.cu`` with nothing read from the host, on the CPU
+    the plain version:
+      1. ``dvo_warp_fused_partials``: warp, depth-buffered sample and the
+         residual/weight/Jacobian chain of the shard's pixels in
+         registers, the stash (r_I, r_Z, gate) and the shard's 136 float32
+         Gram sums (M00, M01, M11, the four J^T r vectors, the scale
+         numerator, n) in the all-reduce's layout; then the all-reduce of
+         those sums;
+      2. ``dvo_sharded_loglik``: the new precision from the reduced sums,
+         replicated on every rank, and the shard's sum of
+         log1p(r^T P r / dof) over weights > 0; then the all-reduce of
+         that scalar;
+      3. ``dvo_sharded_tail``: the log-likelihood and the normal equations;
+    then, replicated in PyTorch, the smoothing, the 6x6 solve, termination
+    and revert.  So three launches, two collectives and one host read-back
+    (``done``) per iteration.  The launches take 256 pixels per block in
+    clusters of 8 blocks (the tracker's evaluation takes 512), so that a
+    rank's share of a level still fills the card; a pixel of the shard
+    moves at most 152 bytes (28 of the refpack, 112 of the quad table, 12
+    of the stash).  (The reference's docstring says one psum; its code
+    psums seven arrays.)
   * **Pair-parallel**: a wave of B frame pairs; each rank runs
     ``match_pyramids`` on its contiguous B / world pairs and the results
     are all-gathered into one batched ``TrackingResult``.
@@ -29,7 +40,7 @@ reference's sharded path differs from its own single path:
   (b) ``neg_log_likelihood`` is -ll, with no prior term;
   (c) the sample is always depth-buffered (``depth_buffered_sampling`` is
       not read);
-  (d) ``kernel_backend`` is not read (the partials go by the device), and
+  (d) ``kernel_backend`` is not read (the evaluation goes by the device), and
       the log-determinant floor is 1e-30 where the single path's is 1e-38.
 """
 
@@ -41,31 +52,11 @@ import torch.distributed as dist
 from ..config import TrackerConfig
 from ..models import dense_tracker as dt
 from ..models.dense_tracker import LevelStats, TrackingResult, match_pyramids
-from ..ops import fused_kernels, robust, se3
+from ..ops import fused_kernels, se3
 from ..ops.camera import Intrinsics
 from ..ops.interp import build_quad_table_cm
 from ..ops.pyramid import PyramidLevel, build_acceleration_cm, selection_mask
-from ..ops.residuals import warp_and_sample_cm
 from .mesh import BATCH_AXIS, Mesh, local_block, shard_leading_axis
-
-# the 136 float32 sums of one all-reduce: m00, m01, m11 [6, 6], v [4, 6],
-# scale_sum [3], num_valid [1]
-_PACKED = (("m00", (6, 6)), ("m01", (6, 6)), ("m11", (6, 6)), ("v", (4, 6)),
-           ("scale_sum", (3,)), ("num_valid", ()))
-
-
-def _pack(parts) -> torch.Tensor:
-    return torch.cat([getattr(parts, name).reshape(-1) for name, _ in _PACKED])
-
-
-def _unpack(packed: torch.Tensor) -> dict:
-    out, start = {}, 0
-    for name, shape in _PACKED:
-        size = int(torch.Size(shape).numel())
-        out[name] = packed[start : start + size].reshape(shape)
-        start += size
-    return out
-
 
 def _check_mesh(mesh: Mesh, axis: str):
     if axis != mesh.axis:
@@ -78,43 +69,13 @@ def _match_level_sharded(cfg, intrinsics, mesh: Mesh, refpack, quad, shape, x0, 
     Returns (final carry, iterations)."""
     device = refpack.device
     dof = cfg.influence_function_param
-    first_flags = (
-        torch.zeros((), dtype=torch.int32, device=device),
-        torch.ones((), dtype=torch.int32, device=device),
-    )
 
     def evaluate(T, P_prev, first: bool):
-        sampled = warp_and_sample_cm(refpack, quad, shape, intrinsics, T)  # (c)
-        p3 = torch.stack([P_prev[0, 0], P_prev[0, 1], P_prev[1, 1]])
-        parts = fused_kernels.fused_partials(  # (d)
-            sampled, refpack, p3, first_flags[int(first)], intrinsics, dof
+        """One IRLS evaluation with its two collectives: (c) always
+        depth-buffered, (d) by the device."""
+        return fused_kernels.warp_fused_partials(
+            refpack, quad, shape, intrinsics, T, P_prev, first, dof, group=mesh.group
         )
-        # collective 1: every precision-independent sum at once
-        packed = _pack(parts)
-        dist.all_reduce(packed, group=mesh.group)
-        full = parts._replace(**_unpack(packed))
-        n_total = full.num_valid
-        precision_new = robust.precision_from_scale(
-            fused_kernels.scale_matrix(full) / torch.clamp(n_total - 3.0, min=1.0)
-        )
-
-        # the shard's log1p sum, then collective 2
-        r_i, r_z = parts.residuals[0], parts.residuals[1]
-        p00, p01, p11 = precision_new[0, 0], precision_new[0, 1], precision_new[1, 1]
-        d2 = r_i * (p00 * r_i + p01 * r_z) + r_z * (p01 * r_i + p11 * r_z)
-        log_sum = torch.sum(
-            torch.where(parts.weights > 0, torch.log1p(d2 / dof), torch.zeros_like(d2))
-        ).reshape(1)
-        dist.all_reduce(log_sum, group=mesh.group)
-        det = (
-            precision_new[0, 0] * precision_new[1, 1]
-            - precision_new[0, 1] * precision_new[1, 0]
-        )
-        ll = 0.5 * n_total * torch.log(torch.clamp(det, min=1e-30)) - 0.5 * (
-            dof + 2.0
-        ) * log_sum[0]
-        A, b = fused_kernels.assemble_normal_equations(full, precision_new)
-        return n_total.to(torch.int32), precision_new, ll, A, b
 
     identity = se3.identity(x0.dtype, device)  # (a)
     carry, iterations, _ = dt._irls_level(cfg, evaluate, x0, T0, identity, precision0)

@@ -24,7 +24,7 @@ import torch.distributed as dist
 from ..config import TrackerConfig
 from ..ops.camera import Intrinsics
 from .mesh import BATCH_AXIS, Mesh
-from .multistream import as_frames, make_multistream_tracker
+from .multistream import as_frames, host_frames, make_multistream_tracker
 
 
 def chunk_sequence(intensity_u8, depth_u16, num_chunks: int) -> Tuple:
@@ -87,10 +87,14 @@ def make_temporal_tracker(
     mesh: Optional[Mesh] = None,
     num_chunks: Optional[int] = None,
     axis: str = BATCH_AXIS,
+    device=None,
 ):
     """Sequence-parallel tracker: ``run(intensity_u8 [T, H, W], depth_u16
     [T, H, W]) -> absolute poses [T-1, 4, 4]`` (float64 NumPy, frame t+1 in
     frame 0's camera).  ``num_chunks`` defaults to the mesh size (or 1).
+    Without a mesh the chunks run on ``device``: by default tensors where
+    they are and NumPy frames on the card (``as_frames``); with one, on
+    each rank's ``mesh.device``.
 
     When the mesh size does not divide ``num_chunks``, the chunks run on the
     first n ranks, n the largest divisor that fits, as the reference
@@ -113,7 +117,10 @@ def make_temporal_tracker(
         tracker = make_multistream_tracker(cfg, intrinsics, run_mesh, axis)
 
     def run(intensity_u8, depth_u16) -> np.ndarray:
-        intensity_u8, depth_u16 = as_frames(intensity_u8, depth_u16)
+        if mesh is None:
+            intensity_u8, depth_u16 = as_frames(intensity_u8, depth_u16, device)
+        else:  # chunked on the host; each rank's chunks go to its device
+            intensity_u8, depth_u16 = host_frames(intensity_u8, depth_u16)
         t = int(intensity_u8.shape[0])
         chunks_i, chunks_d = chunk_sequence(intensity_u8, depth_u16, num_chunks)
         if tracker is not None:

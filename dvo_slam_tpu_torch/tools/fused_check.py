@@ -13,7 +13,12 @@ within 1e-4 of sqrt(G_aa G_bb) (``compare_gram``); and element-wise, rtol
 (``compare_fused_stats``); ``fused_partials`` its per-pixel rows
 (``compare_fused_partials``).  The folded call (``warp_fused_stats``) adds
 its stash of per-pixel residuals and mask (``compare_stash``) and the
-iteration's tail (``compare_warp_fused_stats``).
+iteration's tail (``compare_warp_fused_stats``).  The pixel-sharded
+evaluation (``warp_fused_partials``) is run for every rank on one device,
+with the blocks' sums added in rank order where the ranks all-reduce
+(``sharded_on_one_device``), and held the same way: its stash with the gate
+weights > 0 (``twin_sharded_stash``), its 136 packed sums
+(``compare_packed_sums``) and its tail.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from ..models.dense_tracker import prepare_frame
 from ..ops import fused_kernels, se3
 from ..ops.residuals import warp_and_sample_cm
+from ..parallel.mesh import BATCH_AXIS, Mesh, local_block
 
 # the reference's own kernel-vs-twin tolerances (tests/test_pallas.py); the
 # Gram's is taken relative to sqrt(G_aa G_bb) (see compare_fused_stats)
@@ -112,25 +118,104 @@ def twin_stash(refpack, quad, shape, intrinsics, T, P_prev, first, dof=5.0, dept
 
 def warp_exact_gram(refpack, quad, shape, intrinsics, T, P_prev, first, dof=5.0,
                     depth_buffered=True):
-    """``exact_gram`` of the folded call's inputs (one stream): the float64
-    Gram of the plain version's float32 rows."""
+    """``exact_gram`` of the folded call's inputs (one stream, or one
+    rank's refpack block against the whole quad table): the float64 Gram of
+    the plain version's float32 rows."""
     sampled = warp_and_sample_cm(refpack, quad, shape, intrinsics, T, depth_buffered=depth_buffered)
     return exact_gram(sampled, refpack, _p3(P_prev), int(bool(first)), intrinsics, dof)
 
 
-def compare_stash(kernel_rows, twin_rows):
-    """The folded kernel's stash against ``twin_stash`` -> (the worst
-    residual error, the number of entries that are not bit-equal); raises
-    unless the mask rows are equal and r_I, r_Z agree within atol 1e-6.
-    Both are the same float32 operations (the kernel built with
-    -fmad=false), so 0 entries differ as a rule."""
+def compare_stash(kernel_rows, twin_rows, gate="mask"):
+    """The folded kernel's stash against ``twin_stash`` (or the sharded
+    kernel's against ``twin_sharded_stash``, whose third row is the
+    ``gate``) -> (the worst residual error, the number of entries that are
+    not bit-equal); raises unless the mask rows are equal and r_I, r_Z
+    agree within atol 1e-6.  Both are the same float32 operations (the
+    kernel built with -fmad=false), so 0 entries differ as a rule."""
     k, t = kernel_rows.detach().cpu(), twin_rows.detach().cpu()
     require(k.shape == t.shape, f"stash shape {tuple(k.shape)} != {tuple(t.shape)}")
     require(torch.equal(k[..., 2, :], t[..., 2, :]),
-            f"stash mask: {int((k[..., 2, :] != t[..., 2, :]).sum())} pixels differ")
+            f"stash {gate}: {int((k[..., 2, :] != t[..., 2, :]).sum())} pixels differ")
     r_err = float((k[..., :2, :] - t[..., :2, :]).abs().max())
     require(r_err <= RESIDUAL_ATOL, f"stashed residuals differ by {r_err!r} > atol {RESIDUAL_ATOL}")
     return r_err, int((k.view(torch.int32) != t.view(torch.int32)).sum())
+
+
+def shard_blocks(refpack, world: int):
+    """The ``world`` ranks' blocks of a refpack [8, N] in rank order: the
+    pack zero-padded to a multiple of ``world`` columns, cut into contiguous
+    column blocks (``mesh.local_block``)."""
+    return [local_block(refpack, Mesh(None, BATCH_AXIS, rank, world, refpack.device), dim=1)
+            for rank in range(world)]
+
+
+def sharded_on_one_device(steps, blocks, quad, shape, intrinsics, T, P_prev, first, dof=5.0):
+    """Every rank's pixel-sharded evaluation on one device, with no process
+    group: ``steps`` = (partials, loglik, tail), the plain functions or the
+    CUDA wrappers of ``fused_kernels``; ``blocks`` the ranks' refpack blocks.
+    Where the ranks all-reduce, the blocks' values are added in rank order.
+    Returns (every rank's ``WarpFusedStats``, the evaluations, each block's
+    own 136 sums [world, 136], the reduced sums [136])."""
+    partials, loglik, tail = steps
+    evaluations = [partials(block, quad, shape, intrinsics, T, P_prev, first, dof)
+                   for block in blocks]
+    own_sums = torch.stack([e.sums for e in evaluations])
+
+    def reduce(values):
+        total = values[0].clone()
+        for value in values[1:]:
+            total += value
+        for value in values:
+            value.copy_(total)
+        return total
+
+    total = reduce([e.sums for e in evaluations])
+    evaluations = [loglik(e) for e in evaluations]
+    reduce([e.log_sum for e in evaluations])
+    return [tail(e) for e in evaluations], evaluations, own_sums, total
+
+
+def twin_sharded_stash(block, quad, shape, intrinsics, T, P_prev, first, dof=5.0):
+    """The plain version's per-pixel (r_I, r_Z, gate) [3, N_local] of one
+    rank's block: what launch 1 of the sharded evaluation stashes.  The
+    gate is weights > 0, what the log-likelihood is summed over."""
+    sampled = warp_and_sample_cm(block, quad, shape, intrinsics, T)
+    r_i, r_z, w, _, _, _ = fused_kernels._pixel_math(
+        block, sampled, _p3(P_prev), int(bool(first)), intrinsics.fx, intrinsics.fy, dof
+    )
+    return torch.stack([r_i, r_z, (w > 0).to(r_i.dtype)])
+
+
+def packed_entry(k: int):
+    """(row, column) of U's Gram that entry ``k`` of the 136 packed sums
+    holds: the kernel's own table (``packed_entry`` in
+    ``csrc/fused_stats.cu``), which must agree with
+    ``fused_kernels.PACKED_SUMS``."""
+    if k < 36:
+        return k // 6, k % 6
+    if k < 72:
+        return (k - 36) // 6, 6 + (k - 36) % 6
+    if k < 108:
+        return 6 + (k - 72) // 6, 6 + (k - 72) % 6
+    if k < 132:
+        row = (k - 108) // 6
+        return 6 * (row // 2) + (k - 108) % 6, 12 + row % 2
+    if k < 135:
+        return (13 if k == 134 else 12), (12 if k == 132 else 13)
+    return 14, 14
+
+
+def compare_packed_sums(sums, exact, num_valid=None):
+    """The 136 packed sums of a kernel (a block's own, or the reduced ones)
+    against the float64 Gram ``exact`` [14, 14] of the same pixels -> the
+    worst relative error; raises unless every sum is within rtol
+    ``EXACT_GRAM_RTOL`` of its exact value, and the count equals
+    ``num_valid`` where that is given."""
+    stats = fused_kernels.sums_as_stats(sums)
+    if num_valid is not None:
+        require(float(stats.num_valid) == float(num_valid),
+                f"num_valid {float(stats.num_valid)} != {float(num_valid)}")
+    return compare_exact_gram(stats, exact)
 
 
 def compare_warp_fused_stats(kernel, twin):
@@ -169,7 +254,7 @@ def compare_warp_fused_stats(kernel, twin):
     check("precision_offdiagonal", np.abs(P_k[:, 0, 1] - P_t[:, 0, 1]),
           np.sqrt(np.abs(P_t[:, 0, 0] * P_t[:, 1, 1])))
     det = P_t[:, 0, 0] * P_t[:, 1, 1] - P_t[:, 0, 1] * P_t[:, 1, 0]
-    term = 0.5 * n_t * np.log(np.maximum(det, 1e-38))
+    term = 0.5 * n_t * np.log(np.maximum(det, 1e-38))  # the scale only: either path's floor
     check("ll", np.abs(ll_k - ll_t), np.abs(term) + np.abs(term - ll_t))
     a_diag = np.diagonal(A_t, axis1=-2, axis2=-1)
     check("A_diagonal", np.abs(np.diagonal(A_k, axis1=-2, axis2=-1) - a_diag), np.abs(a_diag))
@@ -218,10 +303,10 @@ def compare_exact_gram(kernel, exact):
     return float((err[nonzero] / np.abs(exact[nonzero])).max())
 
 
-def compare_gram(kernel, twin):
+def compare_gram(kernel, twin, rtol=GRAM_RTOL):
     """Kernel vs twin Gram blocks (``FusedStats`` or ``FusedPartials``) ->
     (max abs error, max scaled error); raises unless ``num_valid`` is equal
-    and every Gram entry G_ab is within rtol 1e-4 of sqrt(G_aa G_bb).
+    and every Gram entry G_ab is within ``rtol`` (1e-4) of sqrt(G_aa G_bb).
 
     That bound is the entry's own magnitude on the diagonal and wherever
     the sum does not cancel.  Off the diagonal a float32 dot product's
@@ -239,9 +324,9 @@ def compare_gram(kernel, twin):
     err = np.abs(a - b)
     scaled = err / scale
     worst = tuple(int(i) for i in np.unravel_index(np.argmax(scaled), scaled.shape))
-    require(scaled.max() <= GRAM_RTOL,
+    require(scaled.max() <= rtol,
             f"Gram entry {worst}: kernel {float(a[worst])!r} vs twin {float(b[worst])!r}, "
-            f"error {scaled.max():.3g} of sqrt(G_aa G_bb) > {GRAM_RTOL}")
+            f"error {scaled.max():.3g} of sqrt(G_aa G_bb) > {rtol}")
     return float(err.max()), float(scaled.max())
 
 

@@ -42,6 +42,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from .. import default_device
 from ..ops.interp import combine_quad, quad_index, sample_quad
 from ..ops.table_copy import table_copy
 
@@ -55,9 +56,11 @@ class ProbeInputs(NamedTuple):
     shape: tuple  # (H, W)
 
 
-def make_inputs(streams: int, height: int, width: int, seed: int = 0, device="cpu") -> ProbeInputs:
+def make_inputs(streams: int, height: int, width: int, seed: int = 0, device=None) -> ProbeInputs:
     """Random tables and a per-stream sub-pixel shift of the pixel grid,
-    from ``seed`` (the reference probe's inputs)."""
+    from ``seed`` (the reference probe's inputs), on the card unless
+    ``device`` names another (``default_device``)."""
+    device = default_device(device)
     rng = np.random.default_rng(seed)
     n = height * width
     u0 = np.tile(np.arange(width, dtype=np.float32), height)
@@ -187,7 +190,7 @@ def probe(streams: int = 8, height: int = 240, width: int = 320, iters: int = 32
           reps: int = 3, variants=VARIANTS):
     """Check every variant against ``batched``, then time each on the card
     -> one dict per variant."""
-    inputs = make_inputs(streams, height, width, device="cuda")
+    inputs = make_inputs(streams, height, width)
     check_variants(inputs, variants)
     n = height * width
     rows = []

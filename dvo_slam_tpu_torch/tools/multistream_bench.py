@@ -36,15 +36,17 @@ from ..utils import synthetic, trajectory
 SHAPE = (480, 640)
 
 
-def render_streams(streams: int, frames: int, shape=SHAPE, intrinsics=TUM_FR1):
+def render_streams(streams: int, frames: int, shape=SHAPE, intrinsics=TUM_FR1, workers=1):
     """The benchmark's B streams: (u8 intensity [B, T, H, W], u16 depth
-    [B, T, H, W], ground-truth poses [B, T, 4, 4])."""
+    [B, T, H, W], ground-truth poses [B, T, 4, 4]), each stream rendered by
+    ``workers`` threads."""
     intensity = np.zeros((streams, frames) + tuple(shape), np.uint8)
     depth = np.zeros((streams, frames) + tuple(shape), np.uint16)
     gt = np.zeros((streams, frames, 4, 4))
     for b in range(streams):
         gt[b] = synthetic.circular_trajectory(frames, radius=0.05 + 0.005 * b, rot_amplitude=0.02)
-        intensity[b], depth[b] = render_sequence(gt[b], shape, intrinsics, seed0=31 * b)
+        intensity[b], depth[b] = render_sequence(gt[b], shape, intrinsics, seed0=31 * b,
+                                                   workers=workers)
     return intensity, depth, gt
 
 

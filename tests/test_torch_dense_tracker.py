@@ -172,7 +172,7 @@ def test_match_prepared_on_reference_prepared_frames():
     prep0, prep1 = j_dt.prepare_frame(cfg, kj, ref0), j_dt.prepare_frame(cfg, kj, ref1)
     with jax.disable_jit():
         ref = j_dt.match_prepared(cfg, kj, prep0, prep1, init)
-    port_prep0, port_prep1 = prepared_from_numpy(prep0), prepared_from_numpy(prep1)
+    port_prep0, port_prep1 = (prepared_from_numpy(p, device="cpu") for p in (prep0, prep1))
     port = t_dt.match_prepared(t_cfg, TIntrinsics(*K), port_prep0, port_prep1, init)
     _assert_results_match(port, ref)
     # a keyframe keeps only its reference-role artifacts
@@ -182,7 +182,8 @@ def test_match_prepared_on_reference_prepared_frames():
     assert torch.equal(stripped.transformation, port.transformation)
     # the reference's pyramids, carried across, through the whole entry point
     via_levels = t_dt.match_pyramids(
-        t_cfg, TIntrinsics(*K), levels_from_numpy(ref0), levels_from_numpy(ref1), init
+        t_cfg, TIntrinsics(*K), levels_from_numpy(ref0, device="cpu"),
+        levels_from_numpy(ref1, device="cpu"), init
     )
     _assert_results_match(via_levels, ref)
 

@@ -26,7 +26,7 @@ STREAMS, HEIGHT, WIDTH = 3, 30, 40
 
 @pytest.fixture(scope="module")
 def inputs():
-    return gather_probe.make_inputs(STREAMS, HEIGHT, WIDTH, seed=0)
+    return gather_probe.make_inputs(STREAMS, HEIGHT, WIDTH, seed=0, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -82,16 +82,16 @@ def test_batched_matches_reference_sampler(inputs, batched):
 
 
 def test_make_inputs_is_seeded():
-    a = gather_probe.make_inputs(2, 6, 8, seed=4)
-    b = gather_probe.make_inputs(2, 6, 8, seed=4)
-    c = gather_probe.make_inputs(2, 6, 8, seed=5)
+    a = gather_probe.make_inputs(2, 6, 8, seed=4, device="cpu")
+    b = gather_probe.make_inputs(2, 6, 8, seed=4, device="cpu")
+    c = gather_probe.make_inputs(2, 6, 8, seed=5, device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a[:3], b[:3]))
     assert not torch.equal(a.table, c.table)
     assert a.table.shape == (2, 32, 48) and a.u.shape == a.v.shape == (2, 48)
 
 
 def test_unknown_variant():
-    inputs = gather_probe.make_inputs(1, 4, 4)
+    inputs = gather_probe.make_inputs(1, 4, 4, device="cpu")
     with pytest.raises(ValueError, match="unknown variant"):
         gather_probe.prepare("sharedT", inputs)
 

@@ -110,8 +110,9 @@ def tracker_runs():
         iu, du = _streams(streams, 4, noise)
         out[name] = dict(
             iu=iu, du=du, cfg=t_cfg,
-            lockstep=t_ms.make_multistream_tracker(t_cfg, K).tracks(iu, du),
-            sequential=t_ms.make_multistream_tracker(t_cfg, K, schedule="sequential").tracks(iu, du),
+            lockstep=t_ms.make_multistream_tracker(t_cfg, K, device="cpu").tracks(iu, du),
+            sequential=t_ms.make_multistream_tracker(t_cfg, K, schedule="sequential",
+                                                        device="cpu").tracks(iu, du),
             reference=np.asarray(j_multistream(cfg, K)(jnp.asarray(iu), jnp.asarray(du))),
         )
     return out
@@ -129,7 +130,7 @@ def _prepared_streams(cfg, streams=B):
     """Each stream's prepared frames 0 and 1 (the reference tests' streams),
     batched: ([B] ref, [B] cur) PreparedFrames."""
     iu, du = _streams(streams, 2, noise=True)
-    i, d = t_ms.as_frames(iu, du)
+    i, d = t_ms.as_frames(iu, du, device="cpu")
     return tuple(prepare_frame(cfg, K, build_frame(cfg, i[:, t], d[:, t])) for t in (0, 1))
 
 
@@ -317,7 +318,7 @@ def test_unbuffered_mode_tracks_like_buffered(tracker_runs):
     clean scene to within 5e-3 of the buffered run."""
     run = tracker_runs["unbuffered"]
     cfg = _cfgs(**BASE_CFG)[1]
-    buffered = t_ms.make_multistream_tracker(cfg, K)(run["iu"], run["du"]).numpy()
+    buffered = t_ms.make_multistream_tracker(cfg, K, device="cpu")(run["iu"], run["du"]).numpy()
     for b in range(2):
         for t in range(3):
             assert _pose_err(buffered[b, t], run["lockstep"].poses[b, t].numpy()) < 5e-3
@@ -334,7 +335,8 @@ def test_unknown_schedule_and_mesh_axis():
 
 
 def test_as_frames_widens_u16():
-    i, d = t_ms.as_frames(np.zeros((1, 2, 3, 4), np.uint8), np.full((1, 2, 3, 4), 65535, np.uint16))
+    i, d = t_ms.as_frames(np.zeros((1, 2, 3, 4), np.uint8), np.full((1, 2, 3, 4), 65535, np.uint16),
+                        device="cpu")
     assert i.dtype == torch.uint8 and d.dtype == torch.int32 and int(d.max()) == 65535
 
 
@@ -395,10 +397,10 @@ def test_temporal_tracker_matches_reference(temporal_scene):
     iu, du, poses = temporal_scene
     cfg, t_cfg = _cfgs(first_level=1, last_level=0, max_iterations_per_level=15)
     ref = j_temporal.make_temporal_tracker(cfg, K, None, num_chunks=4)(jnp.asarray(iu), jnp.asarray(du))
-    mine = t_temporal.make_temporal_tracker(t_cfg, K, num_chunks=4)(iu, du)
+    mine = t_temporal.make_temporal_tracker(t_cfg, K, num_chunks=4, device="cpu")(iu, du)
     assert mine.shape == (8, 4, 4) and mine.dtype == np.float64
     np.testing.assert_allclose(mine, ref, atol=1e-4)
-    seq = t_ms.make_multistream_tracker(t_cfg, K)(iu[None], du[None])[0].numpy()
+    seq = t_ms.make_multistream_tracker(t_cfg, K, device="cpu")(iu[None], du[None])[0].numpy()
     for t in range(8):
         assert _pose_err(seq[t], mine[t]) < 1e-3  # tests/test_parallel.py:251
         assert _pose_err(poses[t + 1], mine[t]) < 8e-3
@@ -424,8 +426,9 @@ spec = json.load(open(f"{work}/spec.json"))
 data = np.load(f"{work}/inputs.npz")
 K = Intrinsics(*spec["K"])
 cfg = TrackerConfig(**spec["cfg"])
-distributed.initialize(init_method=f"file://{work}/store", world_size=2, rank=rank, backend="gloo")
-mesh = mesh_lib.make_mesh(2)
+distributed.initialize(init_method=f"file://{work}/store", world_size=2, rank=rank, backend="gloo",
+                       device="cpu")
+mesh = mesh_lib.make_mesh(2, device="cpu")
 out = {}
 for schedule in ("lockstep", "sequential"):
     tracks = make_multistream_tracker(cfg, K, mesh, schedule=schedule).tracks(data["iu"], data["du"])
@@ -485,7 +488,7 @@ def test_dp_tracker_on_two_ranks_equals_local(two_ranks, schedule):
     sequential schedule, within 1e-6 for lockstep, whose local run batches
     two streams where each rank has one)."""
     iu, du, cfg, _, outs = two_ranks
-    local = t_ms.make_multistream_tracker(cfg, K, schedule=schedule).tracks(iu, du)
+    local = t_ms.make_multistream_tracker(cfg, K, schedule=schedule, device="cpu").tracks(iu, du)
     for out in outs:
         np.testing.assert_array_equal(out[schedule + "/iterations"], local.iterations.numpy())
         np.testing.assert_array_equal(out[schedule + "/termination"], local.termination.numpy())
@@ -498,7 +501,7 @@ def test_temporal_on_two_ranks_shrinks_and_broadcasts(two_ranks):
     """3 chunks over 2 ranks: the chunks run on the first rank (with a
     warning), and both ranks return the local run's trajectory."""
     _, _, cfg, (t_iu, t_du), outs = two_ranks
-    local = t_temporal.make_temporal_tracker(cfg, K, num_chunks=3)(t_iu, t_du)
+    local = t_temporal.make_temporal_tracker(cfg, K, num_chunks=3, device="cpu")(t_iu, t_du)
     for out in outs:
         assert bool(out["temporal/warned"])
         np.testing.assert_array_equal(out["temporal/poses"], local)

@@ -51,8 +51,8 @@ import tempfile
 from dvo_slam_tpu_torch.parallel import distributed, mesh, sharded_alignment
 with tempfile.TemporaryDirectory() as store:
     distributed.initialize(init_method=f"file://{store}/store", world_size=1, rank=0,
-                           backend="gloo")
-    run = sharded_alignment.make_pixel_sharded_matcher(cfg, K, mesh.make_mesh(1))
+                           backend="gloo", device="cpu")
+    run = sharded_alignment.make_pixel_sharded_matcher(cfg, K, mesh.make_mesh(1, device="cpu"))
     sharded = run(levels[0], levels[1], torch.eye(4))
     distributed.shutdown()
 assert torch.isfinite(sharded.transformation).all()
@@ -66,11 +66,12 @@ for pose in synthetic.circular_trajectory(3, radius=0.02):
 iu = np.stack([np.stack([f[0] for f in frames])] * 2)
 du = np.stack([np.stack([f[1] for f in frames])] * 2)
 for schedule in ("lockstep", "sequential"):
-    tracks = multistream.make_multistream_tracker(cfg, K, schedule=schedule).tracks(iu, du)
+    tracks = multistream.make_multistream_tracker(cfg, K, schedule=schedule,
+                                                  device="cpu").tracks(iu, du)
     assert tracks.poses.shape == (2, 2, 4, 4) and torch.isfinite(tracks.poses).all()
-chain = temporal.make_temporal_tracker(cfg, K, num_chunks=2)(iu[0], du[0])
+chain = temporal.make_temporal_tracker(cfg, K, num_chunks=2, device="cpu")(iu[0], du[0])
 assert chain.shape == (2, 4, 4) and np.isfinite(chain).all()
-gather_probe.check_variants(gather_probe.make_inputs(2, 6, 8))
+gather_probe.check_variants(gather_probe.make_inputs(2, 6, 8, device="cpu"))
 from dvo_slam_tpu_torch.utils import trajectory
 stamps = np.arange(3) / 30.0
 assert trajectory.ate_rmse(stamps, np.tile(np.eye(4), (3, 1, 1)), stamps,

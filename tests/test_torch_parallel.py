@@ -17,7 +17,8 @@ of 1e-3 of its largest entry (the tracker parity tests' stated deviation:
 its small off-diagonal entries cancel); the negative log-likelihood within
 rtol 1e-4.  The reference's sharded path differs from its own single path
 in four ways (ROADMAP queue C, (a)-(d)); the port mirrors each, and one
-test pins each.
+test pins each.  The entry points ask for the card: ``initialize`` and
+``make_mesh`` raise without one unless ``device="cpu"`` is named.
 """
 
 import json
@@ -39,6 +40,7 @@ from dvo_slam_tpu.parallel import mesh as j_mesh
 from dvo_slam_tpu.parallel.sharded_alignment import make_pixel_sharded_matcher
 from dvo_slam_tpu.utils import synthetic
 
+from dvo_slam_tpu_torch import default_device
 from dvo_slam_tpu_torch.parallel import distributed as t_distributed
 from dvo_slam_tpu_torch.parallel import mesh as t_mesh
 
@@ -89,13 +91,13 @@ spec = json.load(open(f"{work}/spec.json"))
 data = np.load(f"{work}/inputs.npz")
 K = Intrinsics(*spec["K"])
 distributed.initialize(init_method=f"file://{work}/store{world}", world_size=world,
-                       rank=rank, backend="gloo")
-mesh = mesh_lib.make_mesh(world)
+                       rank=rank, backend="gloo", device="cpu")
+mesh = mesh_lib.make_mesh(world, device="cpu")
 out = {}
 
 def levels(prefix):
     return levels_from_numpy([tuple(data[f"{prefix}/{l}/{f}"] for f in spec["fields"])
-                              for l in range(spec["levels"][prefix])])
+                              for l in range(spec["levels"][prefix])], device="cpu")
 
 def save(prefix, r):
     out[prefix + "/T"] = r.transformation.numpy()
@@ -388,6 +390,51 @@ def test_no_mesh_or_rendezvous_without_setup(monkeypatch):
     monkeypatch.delenv("MASTER_PORT", raising=False)
     with pytest.raises(ValueError, match="MASTER_ADDR"):
         t_distributed.initialize()
+
+
+def test_default_device_raises_without_a_card_unless_cpu_is_named():
+    if torch.cuda.is_available():
+        assert default_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            default_device()
+    assert default_device("cpu") == torch.device("cpu")
+
+
+def test_rank_device_and_mesh_ask_for_the_card(monkeypatch):
+    """``rank_device`` (under ``make_mesh`` and ``initialize``): the card
+    ``rank % device_count`` by default, a RuntimeError without one, the CPU
+    only by name."""
+    assert t_mesh.rank_device(3, "cpu") == torch.device("cpu")
+    assert t_mesh.rank_device(3, "cuda:1") == torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_mesh.rank_device(0, device)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert t_mesh.rank_device(6) == torch.device("cuda", 2)
+    assert t_mesh.rank_device(5, "cuda") == torch.device("cuda", 1)
+
+
+def test_initialize_and_make_mesh_raise_without_a_card(monkeypatch, tmp_path):
+    """Neither starts a CPU run unasked: without a card ``initialize``
+    raises before any process group exists, and ``make_mesh`` on an
+    initialised group (faked here: no group is made in the test worker)
+    raises unless ``device="cpu"``."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_distributed.initialize(init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    assert not dist.is_initialized()
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_mesh.make_mesh()
+    mesh = t_mesh.make_mesh(2, device="cpu")
+    assert mesh.device == torch.device("cpu") and (mesh.rank, mesh.size) == (1, 2)
 
 
 def test_sharded_bench_runs_on_cpu():

@@ -120,8 +120,8 @@ def _port_args(streams, batch, level, first, buffered):
     """The port's arguments of ``warp_fused_stats*`` for the same inputs:
     the prepared frames carried across by ``convert.prepared_from_numpy``."""
     picked = streams[:batch] if batch else streams[:1]
-    refpack = torch.stack([prepared_from_numpy(p[0]).refpack[level] for p, _ in picked])
-    quad = torch.stack([prepared_from_numpy(p[1]).quad[level] for p, _ in picked])
+    refpack = torch.stack([prepared_from_numpy(p[0], device="cpu").refpack[level] for p, _ in picked])
+    quad = torch.stack([prepared_from_numpy(p[1], device="cpu").quad[level] for p, _ in picked])
     _, _, T, P = _inputs(streams, batch, level)
     if not batch:
         refpack, quad = refpack[0], quad[0]
@@ -244,7 +244,7 @@ def test_dispatch_by_device(streams):
 def test_cpu_tracker_evaluates_once_per_iteration(streams):
     """The tracker's evaluate is one warp_fused_stats call: on the CPU one
     warp_and_sample_cm per solver iteration."""
-    ref, cur = (prepared_from_numpy(p) for p in streams[0][0])
+    ref, cur = (prepared_from_numpy(p, device="cpu") for p in streams[0][0])
     cfg = config_from_reference(CFG)
     calls = t_res.warp_and_sample_cm.calls
     result = t_dt.match_prepared(cfg, TIntrinsics(*K), ref, cur)

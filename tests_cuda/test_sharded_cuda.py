@@ -1,7 +1,7 @@
 """The pixel-sharded matcher with two ranks on one card: two gloo ranks
 share ``cuda:0`` (NCCL refuses two ranks on one device), each runs the
-partials kernel on its pixel shard, and the two all-reduces go through
-gloo.  Held against the same matcher at one rank on the card: per-level
+sharded evaluation's three kernels on its pixel shard, and the two
+all-reduces go through gloo.  Held against the same matcher at one rank on the card: per-level
 iterations and terminations equal, the estimate within 1e-5.
 
 The ranks are child processes that rendezvous on a ``file://`` store in
@@ -43,8 +43,11 @@ assert mesh.device == torch.device("cuda", 0), mesh.device
 run = sharded_alignment.make_pixel_sharded_matcher(cfg, TUM_FR1, mesh)
 result = run(frames[0], frames[1], torch.eye(4, device="cuda"))
 iterations = sum(s.iterations for s in result.level_stats)
-assert fused_kernels.fused_partials_cuda.launches == iterations, (
-    fused_kernels.fused_partials_cuda.launches, iterations)
+launches = [w.launches for w in (fused_kernels.warp_fused_partials_cuda,
+                                 fused_kernels.sharded_loglik_cuda,
+                                 fused_kernels.sharded_tail_cuda)]
+assert launches == [iterations] * 3, (launches, iterations)
+assert fused_kernels.fused_partials_cuda.launches == 0
 np.savez(f"{work}/out_w{world}_r{rank}.npz", T=result.transformation.cpu().numpy(),
          counts=np.array([[s.iterations, int(s.termination)] for s in result.level_stats]))
 distributed.shutdown()

@@ -86,6 +86,11 @@ def test_batched_bit_equal_per_stream(frames, level, first):
     for b in range(STREAMS):
         one, one_stats, one_stash = fused_kernels.warp_fused_stats_rows_cuda(
             *per_stream[b], P[b], first, CFG.influence_function_param, True)
+        _, not_bit_equal = fused_check.compare_stash(one_stash, fused_check.twin_stash(
+            *per_stream[b], P[b], first, CFG.influence_function_param, True))
+        assert not_bit_equal == 0
+        fused_check.compare_exact_gram(one_stats, fused_check.warp_exact_gram(
+            *per_stream[b], P[b], first, CFG.influence_function_param, True))
         for x, y in zip((*batched, stash), (*one, one_stash)):
             assert torch.equal(x[b].view(torch.int32), y.view(torch.int32))
         assert torch.equal(stats.m00[b], one_stats.m00)
