@@ -69,8 +69,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    mu = 0, where the sharded and single paths coincide, one pair against
    ``match_pyramids``: per-level iterations and terminations equal,
    estimate within 1e-4, information within rtol 2e-3 / atol 1e-3.  The
-   pair-parallel matcher on 8 pairs, bit-equal to ``match_pyramids`` pair
-   by pair.  Prints ms per iteration and pairs/s of the sharded path and
+   pair-parallel matcher on 8 pairs (each rank's pairs in one lockstep
+   call) against ``match_pyramids`` pair by pair: level statistics equal,
+   estimates within 1e-5 and information within 1e-5 of its largest entry
+   (the batched 6x6 solve's tolerance); the pairs that are not bit-equal
+   are counted.  Prints ms per iteration and pairs/s of the sharded path and
    of ``match_pyramids`` on the same 20 pairs; after phase 10 (so that no
    profiler is attached to the timed phases) the device kernels per
    iteration of both under ``torch.profiler``
@@ -108,6 +111,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``batched``, ms and device ms per iteration each; its ``pcopy`` tables
    are the copy kernel's main path.
 
+Phases 11 and 12 run after phase 5, before any profiler session, so that
+their frames/s compare with phase 4's:
+
+11. ``CameraTracker``: phase 4's 100 frames as u8/u16 through
+   ``Frame.from_raw(prepare_for=(cfg, K))`` and ``CameraTracker.update``:
+   per frame the relative transform within 1e-6 of phase 4's (the frames
+   that are not bit-equal counted) and the per-level iterations equal; the
+   folded kernel's launches equal the solver iterations, no other kernel;
+   ``prepare_frame`` runs once per frame (phase 4's inline path twice per
+   pair).  Prints the ATE-RMSE and tracked frames/s beside phase 4's.
+12. ``LocalTracker`` with ``LocalMap``: the same frames through
+   ``init_new_local_map`` and ``update``, the map completed every 10 frames
+   (``force_complete_current_local_map``), a map-complete callback running
+   ``local_map.optimize(50)`` as ``KeyframeGraph.add`` does.  The batched
+   folded kernel's launches equal the dual match's lockstep iterations, the
+   one-stream kernel's those of the initial match; 9 maps complete, each
+   optimize returns a finite, non-increasing chi2 history; on 5 frames the
+   dual match's stream 1 (last frame -> frame) against a one-stream
+   ``match_pyramids`` of the pair: per-level iterations and terminations
+   equal (flips counted), transformation within 1e-4; ATE-RMSE < 10 mm.
+   Prints tracked frames/s and the split per frame: ingest
+   (``Frame.from_raw``), dual match, host decision, LM solve.  Then the
+   batched folded kernel at the dual match's shape (B = 2, two refpacks
+   against one frame's stacked table) at L1: wrapper, device and plain
+   times and the bound.
+
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
 plain version, kernel and plain ms at L1, the bound from this run's
@@ -141,8 +170,14 @@ SHARD_WORLDS = (1, 4, 7)  # phase 3: the whole frame, and every block of 4 and o
 SHARD_TIMED = (1, 2, 4)  # phase 3: N, N/2 and N/4 pixels of L1, block 0 of as many ranks
 PROFILED_PAIRS = 3
 WAVE_PAIRS = 8
+WAVE_ATOL = 1e-5  # the batched 6x6 solve's tolerance against the one-system solve
 POSE_GATE = 5e-3  # tests/test_parallel.py: max |log(T_gt^-1 T)| against the ground truth
 MU0_POSE_GATE = 1e-4  # tests/test_parallel.py: sharded vs single at mu = 0
+CAMERA_TRACKER_ATOL = 1e-6  # phase 11 against phase 4, per transform entry
+LOCAL_MAP_FRAMES = 10  # phase 12 completes the local map every 10 frames
+LOCAL_MAP_ITERATIONS = 50  # KeyframeGraph.add's local_map.optimize(50)
+STREAM_CHECK_FRAMES = 5  # phase 12: frames whose stream 1 is held to a one-stream match
+STREAM_ATOL = 1e-4
 STREAMS = 8  # the reference's stream count (tests/test_parallel.py, tools/gather_probe.py)
 STREAM_FRAMES = 50
 STREAM_ATE_GATE_M = 0.01
@@ -723,18 +758,25 @@ def check_sharded(cfg, intrinsics, frames, poses):
                 stack(frames[:WAVE_PAIRS]), stack(frames[1:WAVE_PAIRS + 1]),
                 eye.expand(WAVE_PAIRS, 4, 4).contiguous(),
             )
+            wave_not_bit_equal, wave_err = 0, 0.0
             for b in range(WAVE_PAIRS):
                 one = singles[b]
-                require(torch.equal(wave.transformation[b], one.transformation)
-                        and torch.equal(wave.information[b], one.information)
-                        and torch.equal(wave.neg_log_likelihood[b], one.neg_log_likelihood),
-                        f"pair-parallel pair {b} differs from match_pyramids")
+                wave_not_bit_equal += not (
+                    torch.equal(wave.transformation[b], one.transformation)
+                    and torch.equal(wave.information[b], one.information)
+                    and torch.equal(wave.neg_log_likelihood[b], one.neg_log_likelihood))
+                wave_err = max(wave_err, float(
+                    (wave.transformation[b] - one.transformation).abs().max()))
+                torch.testing.assert_close(wave.information[b], one.information, rtol=0,
+                                           atol=WAVE_ATOL * float(one.information.abs().max()))
                 for s_wave, s_one in zip(wave.level_stats, one.level_stats):
                     require([int(s_wave.valid_pixels[b]), int(s_wave.valid_constraints[b]),
                              int(s_wave.iterations[b]), int(s_wave.termination[b])]
                             == [int(s_one.valid_pixels), int(s_one.valid_constraints),
                                 s_one.iterations, int(s_one.termination)],
                             f"pair-parallel pair {b} level stats differ")
+            require(wave_err <= WAVE_ATOL,
+                    f"pair-parallel estimates {wave_err} from match_pyramids (tolerance {WAVE_ATOL})")
         finally:
             distributed.shutdown()
     summary = {
@@ -747,7 +789,8 @@ def check_sharded(cfg, intrinsics, frames, poses):
         "single_pairs_per_s": SHARDED_PAIRS / single_s,
         "single_iterations": single_iterations,
         "mu0_levels": counts(sharded0), "mu0_pose_err": mu0_err,
-        "wave_pairs_bit_equal": WAVE_PAIRS,
+        "wave_pairs": WAVE_PAIRS, "wave_pairs_not_bit_equal": wave_not_bit_equal,
+        "wave_max_transform_err": wave_err,
     }
     print("phase 6:", json.dumps(summary), flush=True)
     return partials_launches, summary
@@ -1017,6 +1060,209 @@ def check_temporal(cfg, intrinsics, d_i, d_d, est, gt):
     return summary
 
 
+def _host(frame_results):
+    """Per-level (iterations, termination) of results with host or device fields."""
+    return [[(int(s.iterations), int(s.termination)) for s in r.level_stats] for r in frame_results]
+
+
+def _raw_frames(cfg, intrinsics, d_i, d_d, count):
+    """Frames 0..count-1 of a device sequence through ``Frame.from_raw``,
+    prepared for ``cfg`` (the live ingest)."""
+    from dvo_slam_tpu_torch.models.frames import Frame
+
+    for k in range(count):
+        yield Frame.from_raw(d_i[k], d_d[k], k / 30.0, cfg.num_levels,
+                             prepare_for=(cfg, intrinsics), device=d_i.device)
+
+
+def check_camera_tracker(cfg, intrinsics, d_i, d_d, odometry_results, gt, odometry_fps):
+    """Phase 11: ``CameraTracker`` on phase 4's frames against phase 4.
+    Returns the folded kernel's launches and the phase's summary."""
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.models.camera_tracker import CameraTracker
+    from dvo_slam_tpu_torch.tools.fused_check import require
+    from dvo_slam_tpu_torch.utils import trajectory
+
+    def run(count):
+        tracker = CameraTracker(intrinsics, cfg, device=d_i.device)
+        poses, results = [], []
+        for frame in _raw_frames(cfg, intrinsics, d_i, d_d, count):
+            poses.append(tracker.update(frame).copy())
+            results.append(tracker.last_result)
+        return np.asarray(poses), results[1:]
+
+    run(3)  # warm-up, not counted
+    _reset_counts()
+    dense_tracker.prepare_frame.calls = 0
+    (poses, results), seconds = _synchronized_seconds(lambda: run(NUM_FRAMES))
+    counts, prepares = _launches(), dense_tracker.prepare_frame.calls
+    iterations = sum(s.iterations for r in results for s in r.level_stats)
+    _require_only(counts, "warp_fused_stats", iterations, "phase 11")
+    require(prepares == NUM_FRAMES, f"phase 11: prepare_frame ran {prepares} times")
+    expected = [r.transformation.cpu().numpy() for r in odometry_results]
+    got = [r.transformation.astype(np.float32) for r in results]
+    not_bit_equal = sum(not np.array_equal(a, b) for a, b in zip(got, expected))
+    err = max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(got, expected))
+    require(err <= CAMERA_TRACKER_ATOL, f"phase 11: transforms {err} from phase 4's")
+    require(_host(results) == _host(odometry_results),
+            "phase 11: per-level iterations or terminations differ from phase 4's")
+    stamps = np.arange(NUM_FRAMES) / 30.0
+    ate = trajectory.ate_rmse(stamps, poses, stamps, gt)
+    require(np.isfinite(ate), "phase 11: non-finite ATE")
+    summary = {
+        "frames": NUM_FRAMES, "ate_rmse_m": ate, "tracked_frames_per_s": (NUM_FRAMES - 1) / seconds,
+        "phase4_tracked_frames_per_s": odometry_fps, "seconds": seconds,
+        "solver_iterations": iterations, "launches": counts, "prepare_frame_calls": prepares,
+        "phase4_prepare_frame_calls": 2 * (NUM_FRAMES - 1), "max_transform_err": err,
+        "frames_not_bit_equal": not_bit_equal,
+    }
+    print("phase 11:", json.dumps(summary), flush=True)
+    return counts["warp_fused_stats"], summary
+
+
+def check_local_tracker(cfg, intrinsics, d_i, d_d, gt, odometry_fps):
+    """Phase 12: ``LocalTracker`` and ``LocalMap`` on phase 4's frames.
+    Returns (one-stream launches, batched launches, the phase's summary)."""
+    import torch
+
+    from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
+    from dvo_slam_tpu_torch.models.local_tracker import LocalTracker
+    from dvo_slam_tpu_torch.tools.fused_check import require
+    from dvo_slam_tpu_torch.utils import trajectory
+
+    checked = set(np.linspace(2, NUM_FRAMES - 1, STREAM_CHECK_FRAMES).astype(int).tolist())
+
+    def run(count):
+        tracker = LocalTracker(intrinsics, cfg, device=d_i.device)
+        log = {"dual": [], "init": [], "histories": [], "lm_s": [], "dual_s": [], "ingest_s": [],
+               "update_s": [], "pairs": {}}
+        match_many = tracker.matcher.match_many
+
+        def timed_match_many(requests):
+            t0 = time.perf_counter()
+            out = match_many(requests)  # ends in one copy to the host
+            if len(requests) == 2:  # the dual match, not the initial one
+                log["dual_s"].append(time.perf_counter() - t0)
+            return out
+
+        def complete(_, local_map):
+            t0 = time.perf_counter()
+            log["histories"].append(local_map.optimize(LOCAL_MAP_ITERATIONS))
+            log["lm_s"].append(time.perf_counter() - t0)
+
+        tracker.matcher.match_many = timed_match_many
+        tracker.add_map_initialized_callback(lambda _, __, r: log["init"].append(r))
+        tracker.add_map_complete_callback(complete)
+        tracker.add_accept_criterion(
+            lambda _, r_odo, r_kf: (log["dual"].append((r_kf, r_odo)) or True, r_odo, r_kf))
+        frames = _raw_frames(cfg, intrinsics, d_i, d_d, count)
+        first, second = next(frames), next(frames)
+        tracker.init_new_local_map(first, second, np.eye(4))
+        poses = [np.eye(4), tracker.local_map.current_frame_pose()]
+        for k in range(2, count):
+            t0 = time.perf_counter()
+            frame = next(frames)
+            t1 = time.perf_counter()
+            log["ingest_s"].append(t1 - t0)
+            if k % LOCAL_MAP_FRAMES == 0:
+                tracker.force_complete_current_local_map()
+            if k in checked:
+                log["pairs"][k] = (tracker._last_frame, frame)
+            poses.append(tracker.update(frame))
+            log["update_s"].append(time.perf_counter() - t1)
+        return np.asarray(poses), log
+
+    run(4)  # warm-up, not counted
+    _reset_counts()
+    (poses, log), seconds = _synchronized_seconds(lambda: run(NUM_FRAMES))
+    counts = _launches()
+    init_iterations = sum(s.iterations for s in log["init"][0].level_stats)
+    lockstep = sum(max(a.iterations, b.iterations) for r_kf, r_odo in log["dual"]
+                   for a, b in zip(r_kf.level_stats, r_odo.level_stats))
+    require(counts["warp_fused_stats"] == init_iterations > 0,
+            f"phase 12: one-stream launches {counts['warp_fused_stats']} != the initial "
+            f"match's iterations {init_iterations}")
+    _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
+                  "warp_fused_stats_batched", lockstep, "phase 12")
+    completed = len(log["histories"])
+    require(completed == (NUM_FRAMES - 1) // LOCAL_MAP_FRAMES, f"phase 12: {completed} maps completed")
+    for h in log["histories"]:
+        require(np.isfinite(h).all() and (np.diff(h) <= 1e-9 * np.maximum(h[:-1], 1.0)).all(),
+                f"phase 12: chi2 history not finite and non-increasing: {h.tolist()}")
+
+    # stream 1 of the dual match against a one-stream match of the pair
+    flips, stream_err = 0, 0.0
+    for k, (last, frame) in sorted(log["pairs"].items()):
+        one = match_pyramids(cfg, intrinsics, last.levels, frame.levels,
+                             torch.eye(4, device=d_i.device))
+        r_odo = log["dual"][k - 2][1]
+        flips += _host([r_odo]) != _host([one])
+        stream_err = max(stream_err, float(np.abs(
+            r_odo.transformation - one.transformation.cpu().numpy()).max()))
+    require(stream_err <= STREAM_ATOL, f"phase 12: stream 1 {stream_err} from one-stream matches")
+    require(flips <= 1, f"phase 12: {flips} of {len(log['pairs'])} checked frames flip")
+
+    stamps = np.arange(NUM_FRAMES) / 30.0
+    ate = trajectory.ate_rmse(stamps, poses, stamps, gt)
+    require(ate < HARD_ATE_GATE_M, f"phase 12: ATE-RMSE {ate} m >= {HARD_ATE_GATE_M} m")
+    updates = NUM_FRAMES - 2
+    dual_ms = 1000.0 * float(np.sum(log["dual_s"])) / updates
+    lm_total_ms = 1000.0 * float(np.sum(log["lm_s"]))
+    update_ms = 1000.0 * float(np.sum(log["update_s"])) / updates
+    summary = {
+        "frames": NUM_FRAMES, "ate_rmse_m": ate, "tracked_frames_per_s": (NUM_FRAMES - 1) / seconds,
+        "phase4_tracked_frames_per_s": odometry_fps, "seconds": seconds,
+        "maps_completed": completed, "launches": counts,
+        "initial_match_iterations": init_iterations, "dual_lockstep_iterations": lockstep,
+        "dual_stream_iterations": sum(s.iterations for pair in log["dual"] for r in pair
+                                      for s in r.level_stats),
+        "ms_per_frame": {
+            "ingest": 1000.0 * float(np.sum(log["ingest_s"])) / updates,
+            "dual_match": dual_ms,
+            "host_decision": update_ms - dual_ms - lm_total_ms / updates,
+            "lm_solve_amortized": lm_total_ms / updates,
+        },
+        "ms_per_lm_solve": lm_total_ms / max(completed, 1),
+        "chi2_first_last": [[float(h[0]), float(h[-1])] for h in log["histories"]],
+        "stream1_checked_frames": sorted(log["pairs"]), "stream1_flips": flips,
+        "stream1_max_transform_err": stream_err,
+    }
+    print("phase 12:", json.dumps(summary), flush=True)
+    return counts["warp_fused_stats"], counts["warp_fused_stats_batched"], summary
+
+
+def time_dual_kernel(cfg, intrinsics, frames):
+    """Phase 12b: the batched folded kernel at the dual match's shape, L1:
+    frames 0 and 1 as references against frame 2 (its table stacked twice)."""
+    import torch
+
+    from dvo_slam_tpu_torch.ops import fused_kernels
+    from dvo_slam_tpu_torch.tools import fused_check
+
+    level = cfg.last_level
+    inputs = [fused_check.warp_level_inputs(cfg, intrinsics, frames[b], frames[2])[level]
+              for b in (0, 1)]
+    device = inputs[0].refpack.device
+    P = torch.tensor(CHECK_P_PREV, dtype=torch.float32, device=device)
+    stack = lambda field: torch.stack([getattr(i, field) for i in inputs]).contiguous()  # noqa: E731
+    args = (stack("refpack"), stack("quad"), inputs[0].shape, inputs[0].intrinsics, stack("T"),
+            torch.stack([P, P]), False, cfg.influence_function_param, True)
+    row = {"level": level, "streams": 2, "pixels": inputs[0].refpack.shape[1],
+           "kernel": "warp_fused_stats_batched", "shape": "dual match"}
+    kernel = fused_kernels.warp_fused_stats_batched_cuda(*args)
+    plain = fused_kernels.warp_fused_stats_plain(*args)
+    row["max_scaled_err"] = fused_check.compare_warp_fused_stats(kernel, plain)
+    _timed(row, lambda: fused_kernels.warp_fused_stats_batched_cuda(*args),
+           lambda: fused_kernels.warp_fused_stats_plain(*args))
+    row["device_ms"] = device_ms(lambda: fused_kernels.warp_fused_stats_batched_cuda(*args))
+    row["plain_device_ms"] = device_ms(lambda: fused_kernels.warp_fused_stats_plain(*args))
+    row["bound_ms"], row["bound_by"] = _bound(
+        _rows_bytes(args[0], 7) + _quad_bytes(*args[:5]) + _bytes(args[4], args[5], *kernel),
+        2 * inputs[0].refpack.shape[1] * (CHAIN_FLOPS + GRAM_FLOPS))
+    print("phase 12:", json.dumps(row), flush=True)
+    return row
+
+
 def check_copy_and_probe():
     """Phase 10: the copy kernel against ``clone()``, then the gather probe
     (whose ``pcopy`` variant is the copy kernel's main path).  Returns the
@@ -1160,7 +1406,9 @@ def main() -> int:
     # phase 4: 100-frame odometry through the folded kernel
     track_sequence(cfg, TUM_FR1, d_i[:3], d_d[:3])  # warm-up, not counted
     _reset_counts()
-    est, iterations, seconds = track_sequence(cfg, TUM_FR1, d_i, d_d)
+    odometry_results = []
+    est, iterations, seconds = track_sequence(cfg, TUM_FR1, d_i, d_d,
+                                              on_result=odometry_results.append)
     counts = _launches()
     launches = counts["warp_fused_stats"]
     _require_only(counts, "warp_fused_stats", iterations, "phase 4")
@@ -1197,6 +1445,15 @@ def main() -> int:
     }), flush=True)
     require(hard_ate < HARD_ATE_GATE_M, f"hard-scene ATE {hard_ate} m >= {HARD_ATE_GATE_M} m")
     elapsed("phases 4-5")
+
+    # phases 11-12: the tracking front end on phase 4's frames (run here,
+    # before any profiler session, so that their frames/s compare with
+    # phase 4's)
+    camera_launches, _ = check_camera_tracker(cfg, TUM_FR1, d_i, d_d, odometry_results,
+                                              easy_poses, fps)
+    init_launches, dual_launches, _ = check_local_tracker(cfg, TUM_FR1, d_i, d_d, easy_poses, fps)
+    dual_row = time_dual_kernel(cfg, TUM_FR1, frames)
+    elapsed("phases 11-12")
 
     # phase 6: the sharded paths on a one-rank process group
     frames += [build_frame(cfg, d_i[k], d_d[k]) for k in range(len(frames), SHARDED_PAIRS + 1)]
@@ -1240,15 +1497,21 @@ def main() -> int:
     # path enters them through the folded entry point; the sampled-input
     # entry point (the same launches, another prologue) is checked in phases
     # 3 and 7 and runs on no tracker path
-    for name, replaces, main_launches, row, worst, sampled_entry, sampled_row, sampled_errors in (
-        ("fused_stats", STATS_REPLACES, launches + hard_launches, l1, folded_worst,
-         "dvo_fused_stats", sampled_l1, sampled_worst),
-        ("fused_stats_batched", BATCHED_REPLACES, batched_launches, l1_batched,
-         folded_batched_worst, "dvo_fused_stats_batched", batched_l1, batched_worst),
+    by_phase = {
+        "fused_stats": {"4": launches, "5": hard_launches, "11": camera_launches,
+                        "12": init_launches},
+        "fused_stats_batched": {"7": batched_launches, "12": dual_launches},
+    }
+    for name, replaces, row, worst, sampled_entry, sampled_row, sampled_errors in (
+        ("fused_stats", STATS_REPLACES, l1, folded_worst, "dvo_fused_stats", sampled_l1,
+         sampled_worst),
+        ("fused_stats_batched", BATCHED_REPLACES, l1_batched, folded_batched_worst,
+         "dvo_fused_stats_batched", batched_l1, batched_worst),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
-            "entry": "dvo_warp_fused_stats", "launches": main_launches,
+            "entry": "dvo_warp_fused_stats", "launches": sum(by_phase[name].values()),
+            "launches_by_phase": by_phase[name],
             "max_abs_err": worst["max_abs_err"], **{k: row[k] for k in timing_keys},
             "library_ms": None, **{k: v for k, v in worst.items() if k != "max_abs_err"},
             **{k: row[k] for k in row if "device_ms" in k or k.endswith("x_streams_ms")
@@ -1256,6 +1519,10 @@ def main() -> int:
             "sampled_entry": {"entry": sampled_entry, "main_path_launches": 0,
                               **{k: sampled_row[k] for k in timing_keys}, **sampled_errors},
         })
+    # kernel #1b at the dual match's shape (B = 2), phase 12's launches
+    kernels[-1]["dual_match_b2"] = {
+        k: dual_row[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
+                                 "bound_by")}
     # kernel #2: the sharded evaluation's three launches (the folded entry
     # point, phase 6's path); the sampled-input entry point is checked in
     # phase 3 and runs on no main path

@@ -3,10 +3,13 @@
 This package runs the dense-alignment main path of ``dvo_slam_tpu`` (one
 coarse-to-fine t-distribution IRLS Gauss-Newton alignment of two RGB-D
 frames) in PyTorch, with frame-to-frame odometry, B camera streams in
-lockstep, temporal chunking and the multi-rank alignments on
-``torch.distributed``.  Module and function names mirror the JAX package,
-which stays the reference: each port function is held against its
-same-named counterpart by the parity tests in ``tests/test_torch_*.py``.
+lockstep, temporal chunking, the multi-rank alignments on
+``torch.distributed``, and the tracking half of the SLAM front end
+(``models/frames``, ``local_map``, ``local_tracker``, ``camera_tracker``,
+and ``pose_graph``'s dense route).  Module and function names mirror the
+JAX package, which stays the reference: each port function is held
+against its same-named counterpart by the parity tests in
+``tests/test_torch_*.py``.
 
 Every Pallas kernel of the reference is a CUDA C++ kernel for Hopper
 (``csrc/fused_stats.cu``, ``csrc/table_copy.cu``), built with ``nvcc`` at

@@ -1,9 +1,10 @@
 """Carry state between the reference and the port.
 
 The system has no learned weights: its state is configs, pyramids,
-prepared frames and tracking results.  These helpers take the reference's
-NamedTuples (any array that ``numpy.asarray`` accepts, JAX arrays
-included) and return the port's, or bring a port result back to NumPy.
+frames, prepared frames, pose graphs and tracking results.  These helpers
+take the reference's objects (any array that ``numpy.asarray`` accepts,
+JAX arrays included) and return the port's, or bring a port result back
+to NumPy.
 The configs move both ways by field name and enum member name.  Nothing
 here imports JAX or the reference package: conversion goes through NumPy,
 and the caller hands ``config_to_reference`` the reference's config module.
@@ -26,6 +27,8 @@ from .models.dense_tracker import (
     PreparedFrame,
     TrackingResult,
 )
+from .models.frames import Frame
+from .models.pose_graph import PoseGraph
 from .ops.pyramid import PyramidLevel
 
 
@@ -105,3 +108,40 @@ def result_to_numpy(result: TrackingResult) -> TrackingResult:
             IterationStats(*(_to_numpy(f) for f in s)) for s in result.iteration_stats
         ),
     )
+
+
+def frame_from_reference(frame, device=None) -> Frame:
+    """Reference ``Frame`` -> the port's (its levels and timestamp; the
+    prepared cache is not carried), on the card unless ``device`` names
+    another (``default_device``)."""
+    return Frame(levels=levels_from_numpy(frame.levels, device), timestamp=frame.timestamp)
+
+
+# the container's storage: per-vertex and per-edge arrays, then the rest
+_VERTEX_ARRAYS = ("poses", "fixed")
+_EDGE_ARRAYS = ("edge_i", "edge_j", "measurements", "information", "edge_active", "robust",
+                "edge_level")
+
+
+def pose_graph_from_reference(graph) -> PoseGraph:
+    """Reference ``PoseGraph`` -> the port's: a copy of its arrays (at their
+    capacity), dtype, vertex keys and edge index."""
+    out = PoseGraph(dtype=graph.dtype)
+    for name in _VERTEX_ARRAYS + _EDGE_ARRAYS:
+        setattr(out, name, np.array(getattr(graph, name)))
+    out._n, out._e = graph.num_vertices, graph.num_edges
+    out._vertex_ids = dict(graph._vertex_ids)
+    out._edge_index = {pair: list(edges) for pair, edges in graph._edge_index.items()}
+    return out
+
+
+def pose_graph_to_numpy(graph) -> dict:
+    """Either package's ``PoseGraph`` as NumPy copies of its used storage:
+    ``keys`` (vertex keys in index order), the vertex arrays [:n] and the
+    edge arrays [:e]."""
+    n, e = graph.num_vertices, graph.num_edges
+    keys = sorted(graph._vertex_ids, key=graph._vertex_ids.get)
+    out = {"keys": keys}
+    out.update({name: np.array(getattr(graph, name)[:n]) for name in _VERTEX_ARRAYS})
+    out.update({name: np.array(getattr(graph, name)[:e]) for name in _EDGE_ARRAYS})
+    return out

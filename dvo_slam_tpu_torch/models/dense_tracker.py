@@ -57,8 +57,9 @@ INFORMATION_SCALE = 0.008 * 0.008
 
 class LevelStats(NamedTuple):
     """Per-level statistics.  One stream: ``iterations`` is a Python int
-    (the loop that counts them runs on the host).  B streams in lockstep:
-    every field is a [B] int32 tensor."""
+    (the loop that counts them runs on the host; the reference's is an
+    int32 array, and ``frames._flatten_result`` takes either).  B streams in
+    lockstep: every field is a [B] int32 tensor."""
 
     valid_pixels: torch.Tensor  # [] int32, selected reference points
     valid_constraints: torch.Tensor  # [] int32, constraints of the last accepted iteration
@@ -117,7 +118,9 @@ def _resolve_backend(cfg: TrackerConfig, device: torch.device) -> str:
     """The inner-loop implementation for tensors on ``device``.
 
     ``auto`` takes the CUDA kernel ("pallas", after the reference's name)
-    for CUDA tensors and the plain twin ("fused") for CPU tensors.  The
+    for CUDA tensors and the plain twin ("fused") for CPU tensors.  A
+    caller who names ``fused`` gets the plain twin on either device, as the
+    reference runs its XLA twin on the accelerator when asked.  The
     modular ``xla`` oracle path is not ported yet."""
     backend = cfg.kernel_backend
     tdist = (
@@ -140,11 +143,8 @@ def _resolve_backend(cfg: TrackerConfig, device: torch.device) -> str:
         backend = "pallas" if kind == "cuda" else "fused"
     if backend == "pallas" and kind != "cuda":
         raise ValueError("kernel_backend='pallas' runs the CUDA kernel: it needs CUDA tensors")
-    if backend == "fused" and kind != "cpu":
-        raise ValueError(
-            "kernel_backend='fused' is the plain twin, the CPU path: on "
-            f"{kind} tensors the tracker runs the kernel ('auto' or 'pallas')"
-        )
+    if backend == "fused" and kind not in ("cpu", "cuda"):
+        raise ValueError(f"kernel_backend='fused': no plain twin for {kind} tensors")
     return backend
 
 
@@ -194,15 +194,20 @@ def _match_level(
     level's prepared artifacts (see :func:`prepare_frame`): the reference
     frame's selection mask and refpack, the current frame's quad table.
     With a leading stream axis on every input, B levels solve in lockstep."""
-    _resolve_backend(cfg, sel_mask.device)
+    backend = _resolve_backend(cfg, sel_mask.device)
     dof = cfg.influence_function_param
     level_shape = tuple(sel_mask.shape[-2:])
+    fused = (
+        fused_kernels.warp_fused_stats_plain if backend == "fused"
+        else fused_kernels.warp_fused_stats
+    )
 
     def evaluate(T, P_prev, first: bool):
         """One IRLS evaluation in one call (the folded kernel on the card,
-        the plain version on the CPU): warp and sample, statistics, new
-        precision, log-likelihood and normal equations."""
-        return fused_kernels.warp_fused_stats(
+        the plain version on the CPU or where ``fused`` is named): warp and
+        sample, statistics, new precision, log-likelihood and normal
+        equations."""
+        return fused(
             refpack, quad, level_shape, intrinsics, T, P_prev, first, dof,
             cfg.depth_buffered_sampling,
         )
@@ -360,8 +365,9 @@ class PreparedFrame(NamedTuple):
     """Per-frame cached solver artifacts of the fused path, one entry per
     pyramid level (``None`` outside the solve range).  ``sel``/``refpack``
     serve the frame's reference role, ``quad`` its current role.  (The
-    reference also carries the levels and the modular path's
-    acceleration tensor, which the fused path never reads.)"""
+    reference also carries the levels, which ``frames.Frame.levels`` holds
+    here, and the modular path's acceleration tensor, which the fused path
+    never reads.)"""
 
     sel: Tuple[Optional[torch.Tensor], ...]
     refpack: Tuple[Optional[torch.Tensor], ...]
@@ -373,7 +379,9 @@ def prepare_frame(
 ) -> PreparedFrame:
     """Precompute both roles' per-level artifacts for the solve range:
     selection mask and refpack [8, N], quad table [32, N] (each with a
-    leading [B] for batched pyramids)."""
+    leading [B] for batched pyramids).  Each call adds one to
+    ``prepare_frame.calls``."""
+    prepare_frame.calls += 1
     _resolve_backend(cfg, levels[cfg.first_level].intensity.device)
     n = len(levels)
     sel = [None] * n
@@ -389,6 +397,9 @@ def prepare_frame(
             build_acceleration_cm(lv), lv.intensity.shape[-1]
         )
     return PreparedFrame(sel=tuple(sel), refpack=tuple(refpack), quad=tuple(quad))
+
+
+prepare_frame.calls = 0
 
 
 def ref_artifacts(prepared: PreparedFrame) -> PreparedFrame:

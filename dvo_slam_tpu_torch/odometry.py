@@ -65,12 +65,13 @@ def build_frame(cfg, intensity_u8, depth_raw):
     )
 
 
-def track_sequence(cfg, intrinsics, intensity, depth):
+def track_sequence(cfg, intrinsics, intensity, depth, on_result=None):
     """Frame-to-frame odometry over device-resident frames [N, H, W].
 
     Returns (poses [N, 4, 4] float64 with the first at the identity, total
     solver iterations, seconds from the first pyramid build to the last
-    pose on the host)."""
+    pose on the host).  ``on_result``, where given, is called with each
+    pair's ``TrackingResult`` (its tensors still on the device)."""
     device = intensity.device
     eye = torch.eye(4, dtype=torch.float32, device=device)
     if device.type == "cuda":
@@ -83,6 +84,8 @@ def track_sequence(cfg, intrinsics, intensity, depth):
     for k in range(1, intensity.shape[0]):
         cur = build_frame(cfg, intensity[k], depth[k])
         result = match_pyramids(cfg, intrinsics, prev, cur, rel)
+        if on_result is not None:
+            on_result(result)
         iterations += sum(s.iterations for s in result.level_stats)
         rel = result.transformation
         pose = pose @ rel

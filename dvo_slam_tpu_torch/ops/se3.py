@@ -69,6 +69,14 @@ def _homogeneous(top):
     return torch.cat([top, bottom], dim=-2)
 
 
+def exp_so3(w):
+    """Rodrigues' formula: rotation vector -> rotation matrix."""
+    theta_sq = torch.sum(w * w, dim=-1)
+    a, b, _ = _exp_coefficients(theta_sq)
+    what = hat_so3(w)
+    return _eye3(w) + a[..., None, None] * what + b[..., None, None] * (what @ what)
+
+
 def log_so3(R):
     """Rotation matrix -> rotation vector, with theta from
     atan2(|skew(R)|, (tr - 1) / 2) (well conditioned at small angles)."""
@@ -131,5 +139,55 @@ def inverse(T):
     return _homogeneous(torch.cat([Rt, t_inv[..., None]], dim=-1))
 
 
+def compose(A, B):
+    """A @ B for stacked 4x4 transforms."""
+    return A @ B
+
+
 def identity(dtype=torch.float32, device=None):
     return torch.eye(4, dtype=dtype, device=device)
+
+
+def adjoint(T):
+    """6x6 adjoint of T mapping twists, Ad(T) xi ~ T exp(xi) T^{-1}; with the
+    [v, w] ordering Ad = [[R, hat(t) R], [0, R]]."""
+    R = T[..., :3, :3]
+    tR = hat_so3(T[..., :3, 3]) @ R
+    top = torch.cat([R, tR], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def ad_se3(xi):
+    """Small adjoint ad(xi) with [v, w] ordering: [[hat(w), hat(v)], [0, hat(w)]]."""
+    vh = hat_so3(xi[..., :3])
+    wh = hat_so3(xi[..., 3:])
+    top = torch.cat([wh, vh], dim=-1)
+    bottom = torch.cat([torch.zeros_like(wh), wh], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def right_jacobian_inverse_approx(r):
+    """Second-order inverse right Jacobian of log:
+    Jr^{-1}(r) ~= I + ad(r)/2 + ad(r)^2 / 12 (the pose-graph edge Jacobian)."""
+    a = ad_se3(r)
+    eye = torch.eye(6, dtype=r.dtype, device=r.device)
+    return eye + 0.5 * a + (1.0 / 12.0) * (a @ a)
+
+
+def transform_points(T, points):
+    """Apply a rigid transform to points of shape [..., 3]."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    return torch.einsum("...ij,...nj->...ni", R, points) + t[..., None, :]
+
+
+def orthonormalize(T):
+    """Re-project the rotation block onto SO(3) (polar factor via SVD), to
+    control float32 drift after long chains of compositions."""
+    u, _, vt = torch.linalg.svd(T[..., :3, :3])
+    sign = torch.sign(torch.linalg.det(u @ vt))
+    u = torch.cat([u[..., :, :2], u[..., :, 2:] * sign[..., None, None]], dim=-1)
+    out = T.clone()
+    out[..., :3, :3] = u @ vt
+    return out

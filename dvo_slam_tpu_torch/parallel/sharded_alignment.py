@@ -28,9 +28,11 @@
     moves at most 152 bytes (28 of the refpack, 112 of the quad table, 12
     of the stash).  (The reference's docstring says one psum; its code
     psums seven arrays.)
-  * **Pair-parallel**: a wave of B frame pairs; each rank runs
-    ``match_pyramids`` on its contiguous B / world pairs and the results
-    are all-gathered into one batched ``TrackingResult``.
+  * **Pair-parallel**: a wave of B frame pairs; each rank prepares its
+    contiguous B / world pairs as one batch and aligns them in one lockstep
+    ``match_prepared`` call (the reference's ``vmap`` of the matcher; on
+    the card the batched folded kernel), and the results are all-gathered
+    into one batched ``TrackingResult``.
 
 The pixel-sharded path mirrors the reference's, including where the
 reference's sharded path differs from its own single path:
@@ -51,11 +53,11 @@ import torch.distributed as dist
 
 from ..config import TrackerConfig
 from ..models import dense_tracker as dt
-from ..models.dense_tracker import LevelStats, TrackingResult, match_pyramids
+from ..models.dense_tracker import LevelStats, TrackingResult, match_prepared, prepare_frame
 from ..ops import fused_kernels, se3
 from ..ops.camera import Intrinsics
 from ..ops.interp import build_quad_table_cm
-from ..ops.pyramid import PyramidLevel, build_acceleration_cm, selection_mask
+from ..ops.pyramid import build_acceleration_cm, selection_mask
 from .mesh import BATCH_AXIS, Mesh, local_block, shard_leading_axis
 
 def _check_mesh(mesh: Mesh, axis: str):
@@ -141,12 +143,6 @@ def make_pixel_sharded_matcher(
     return run
 
 
-def _pair(stack, b: int):
-    """Pair ``b`` of a batched pyramid (a tuple of ``PyramidLevel`` with a
-    leading batch axis, ``None`` levels kept)."""
-    return tuple(None if lv is None else PyramidLevel(*(f[b] for f in lv)) for lv in stack)
-
-
 def _all_gather(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     parts = [torch.empty_like(local) for _ in range(mesh.size)]
     dist.all_gather(parts, local, group=mesh.group)
@@ -161,8 +157,11 @@ def make_pair_parallel_matcher(
     fields: transformation [B, 4, 4], information [B, 6, 6],
     neg_log_likelihood [B], and per level ``LevelStats`` of [B] int32
     tensors.  Every rank passes the whole wave (B divisible by the world
-    size), runs ``match_pyramids`` on its contiguous B / world pairs, and
-    gets the whole wave's results (two all-gathers)."""
+    size), aligns its contiguous B / world pairs in one lockstep
+    ``match_prepared`` call, and gets the whole wave's results (two
+    all-gathers).  Each pair's iterations and terminations are those of its
+    ``match_pyramids`` solve; the estimate agrees to the batched 6x6
+    solve's rounding."""
     _check_mesh(mesh, axis)
 
     def run(ref_stack, cur_stack, inits) -> TrackingResult:
@@ -170,24 +169,21 @@ def make_pair_parallel_matcher(
         ref_local, cur_local, inits_local = shard_leading_axis(
             (ref_stack, cur_stack, inits), mesh, axis
         )
-        floats, ints = [], []
-        for b in range(inits_local.shape[0]):
-            r = match_pyramids(
-                cfg, intrinsics, _pair(ref_local, b), _pair(cur_local, b), inits_local[b]
-            )
-            floats.append(torch.cat([
-                r.transformation.reshape(-1), r.information.reshape(-1),
-                r.neg_log_likelihood.reshape(1),
-            ]))
-            ints.append(torch.stack([
-                torch.stack([
-                    s.valid_pixels, s.valid_constraints,
-                    torch.full_like(s.termination, s.iterations), s.termination,
-                ])
-                for s in r.level_stats
-            ]))
-        f = _all_gather(torch.stack(floats), mesh)  # [B, 53]
-        i = _all_gather(torch.stack(ints), mesh)  # [B, levels, 4]
+        r = match_prepared(
+            cfg, intrinsics, prepare_frame(cfg, intrinsics, ref_local),
+            prepare_frame(cfg, intrinsics, cur_local), inits_local,
+        )
+        local = inits_local.shape[0]
+        floats = torch.cat([
+            r.transformation.reshape(local, 16), r.information.reshape(local, 36),
+            r.neg_log_likelihood.reshape(local, 1),
+        ], dim=1)
+        ints = torch.stack([
+            torch.stack([s.valid_pixels, s.valid_constraints, s.iterations, s.termination], dim=1)
+            for s in r.level_stats
+        ], dim=1)
+        f = _all_gather(floats, mesh)  # [B, 53]
+        i = _all_gather(ints, mesh)  # [B, levels, 4]
         return TrackingResult(
             transformation=f[:, :16].reshape(batch, 4, 4),
             information=f[:, 16:52].reshape(batch, 6, 6),

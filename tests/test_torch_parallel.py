@@ -86,6 +86,11 @@ from dvo_slam_tpu_torch.ops import se3
 from dvo_slam_tpu_torch.parallel import distributed, mesh as mesh_lib
 from dvo_slam_tpu_torch.parallel import sharded_alignment as sa
 
+from dvo_slam_tpu_torch.ops.pyramid import PyramidLevel
+
+def pair(stack, b):  # pair b of a batched pyramid, None levels kept
+    return tuple(None if lv is None else PyramidLevel(*(f[b] for f in lv)) for lv in stack)
+
 work, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 spec = json.load(open(f"{work}/spec.json"))
 data = np.load(f"{work}/inputs.npz")
@@ -128,9 +133,13 @@ if world == 2:
     ref_stack, cur_stack = levels("pairs/ref"), levels("pairs/cur")
     inits = torch.from_numpy(data["pairs/inits"])
     run = sa.make_pair_parallel_matcher(cfg, K, mesh)
+    calls, match_prepared = [], sa.match_prepared
+    sa.match_prepared = lambda *a, **k: calls.append(1) or match_prepared(*a, **k)
     save("pairs/wave", run(ref_stack, cur_stack, inits))
+    sa.match_prepared = match_prepared
+    out["pairs/match_prepared_calls"] = np.array(len(calls))
     for b in range(inits.shape[0]):
-        save(f"pairs/{b}", match_pyramids(cfg, K, sa._pair(ref_stack, b), sa._pair(cur_stack, b),
+        save(f"pairs/{b}", match_pyramids(cfg, K, pair(ref_stack, b), pair(cur_stack, b),
                                           inits[b]))
     try:
         run(ref_stack, cur_stack, inits[:3])
@@ -327,17 +336,25 @@ def test_quirk_d_kernel_backend_not_read(port):
 
 
 def test_pair_parallel_bit_equal_to_match_pyramids(port):
-    """2 ranks x 2 pairs: the gathered wave is bit-equal to match_pyramids
-    pair by pair, and tracks; 3 pairs do not divide over 2 ranks."""
+    """2 ranks x 2 pairs, each rank's pairs in one lockstep call: against
+    match_pyramids pair by pair, the counts (selected pixels, valid
+    constraints, iterations, terminations) equal, the estimate within the
+    batched 6x6 solve's tolerance (1e-5), the information within 1e-5 of
+    its largest entry and the negative log-likelihood within rtol 1e-5
+    (measured: 8e-8, 2.2e-6, 1e-7); one match_prepared call per rank.  It
+    tracks; 3 pairs do not divide over 2 ranks."""
     out = port.out(2)
     for b, twist in enumerate(PAIR_TWISTS):
-        np.testing.assert_array_equal(out["pairs/wave/T"][b], out[f"pairs/{b}/T"])
-        np.testing.assert_array_equal(out["pairs/wave/info"][b], out[f"pairs/{b}/info"])
-        np.testing.assert_array_equal(out["pairs/wave/nll"][b], out[f"pairs/{b}/nll"])
-        np.testing.assert_array_equal(out["pairs/wave/counts"][:, :, b], out[f"pairs/{b}/counts"])
+        one = lambda field: out[f"pairs/{b}/{field}"]  # noqa: E731,B023
+        np.testing.assert_array_equal(out["pairs/wave/counts"][:, :, b], one("counts"))
+        np.testing.assert_allclose(out["pairs/wave/T"][b], one("T"), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(out["pairs/wave/info"][b], one("info"), rtol=0,
+                                   atol=1e-5 * np.abs(one("info")).max())
+        np.testing.assert_allclose(out["pairs/wave/nll"][b], one("nll"), rtol=1e-5)
         err = np.asarray(j_se3.log_se3(jnp.asarray(
             np.linalg.inv(_exp(twist)) @ out["pairs/wave/T"][b].astype(np.float64), jnp.float32)))
         assert np.abs(err).max() < 5e-3, (b, err)
+    assert int(out["pairs/match_prepared_calls"]) == 1
     assert "does not divide over 2 ranks" in str(out["pairs/odd_batch_error"])
 
 
