@@ -111,7 +111,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``batched``, ms and device ms per iteration each; its ``pcopy`` tables
    are the copy kernel's main path.
 
-Phases 11 and 12 run after phase 5, before any profiler session, so that
+Phases 11-13 run after phase 5, before any profiler session, so that
 their frames/s compare with phase 4's:
 
 11. ``CameraTracker``: phase 4's 100 frames as u8/u16 through
@@ -136,6 +136,21 @@ their frames/s compare with phase 4's:
    batched folded kernel at the dual match's shape (B = 2, two refpacks
    against one frame's stacked table) at L1: wrapper, device and plain
    times and the bound.
+13. ``KeyframeTracker`` (``benchmark_config()``, the graph's worker thread
+   on) on phase 5's 100 hard-scene frames, u8/u16 through
+   ``make_frame_raw``, then ``finish()`` and ``trajectory()``: 100 poses,
+   the optimized trajectory's ATE-RMSE < 5 mm and the online poses' < 10 mm
+   (``bench.py:44-45``), every graph solve's chi2 history finite, no solve
+   falling back; kernel 1's launches equal the initial match's iterations,
+   kernel 1b's the dual matches' plus the validation waves' lockstep
+   iterations, no other kernel and no ``warp_and_sample_cm``.  The final
+   pass's starting graph solved again by the dense, sparse, Schur and CG
+   routes: each within ``ROUTE_GATES`` of dense.  Prints keyframes, loop
+   edges, the waves' sizes, per-frame latency (``bench.py:379-386``'s
+   keys, all frames and split by keyframe events), the back end's phase
+   ms per frame (``bench.py:323-333``), frames/s and the routes; then kernel
+   1b at the largest wave's shape, coarse (level 3) and fine (L1), against
+   its plain version, as phase 12 holds B = 2.
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
@@ -178,6 +193,12 @@ LOCAL_MAP_FRAMES = 10  # phase 12 completes the local map every 10 frames
 LOCAL_MAP_ITERATIONS = 50  # KeyframeGraph.add's local_map.optimize(50)
 STREAM_CHECK_FRAMES = 5  # phase 12: frames whose stream 1 is held to a one-stream match
 STREAM_ATOL = 1e-4
+E2E_ATE_GATE_M = 0.005  # bench.py:45, the optimized SLAM trajectory
+ONLINE_ATE_GATE_M = 0.01  # bench.py:44, the online poses
+# phase 13's host cross-check: each route's poses against the dense route's
+# from the same state (tests/test_pose_graph.py: Schur within 1e-4, CG and
+# sparse within 1e-3 of dense, max |log(T_a^-1 T_b)|)
+ROUTE_GATES = {"sparse": 1e-3, "schur": 1e-4, "cg": 1e-3}
 STREAMS = 8  # the reference's stream count (tests/test_parallel.py, tools/gather_probe.py)
 STREAM_FRAMES = 50
 STREAM_ATE_GATE_M = 0.01
@@ -1231,24 +1252,25 @@ def check_local_tracker(cfg, intrinsics, d_i, d_d, gt, odometry_fps):
     return counts["warp_fused_stats"], counts["warp_fused_stats_batched"], summary
 
 
-def time_dual_kernel(cfg, intrinsics, frames):
-    """Phase 12b: the batched folded kernel at the dual match's shape, L1:
-    frames 0 and 1 as references against frame 2 (its table stacked twice)."""
+def time_batched_kernel(cfg, intrinsics, pairs, level, shape_name):
+    """The batched folded kernel on B = len(pairs) streams (reference
+    pyramid, current pyramid) at ``level``, each warped by the check twist,
+    against its plain version: the largest error on each quantity's rounding
+    scale, wrapper, device and plain times, and the bound.  Returns the row."""
     import torch
 
     from dvo_slam_tpu_torch.ops import fused_kernels
     from dvo_slam_tpu_torch.tools import fused_check
 
-    level = cfg.last_level
-    inputs = [fused_check.warp_level_inputs(cfg, intrinsics, frames[b], frames[2])[level]
-              for b in (0, 1)]
+    inputs = [fused_check.warp_level_inputs(cfg, intrinsics, ref, cur)[level]
+              for ref, cur in pairs]
     device = inputs[0].refpack.device
     P = torch.tensor(CHECK_P_PREV, dtype=torch.float32, device=device)
     stack = lambda field: torch.stack([getattr(i, field) for i in inputs]).contiguous()  # noqa: E731
     args = (stack("refpack"), stack("quad"), inputs[0].shape, inputs[0].intrinsics, stack("T"),
-            torch.stack([P, P]), False, cfg.influence_function_param, True)
-    row = {"level": level, "streams": 2, "pixels": inputs[0].refpack.shape[1],
-           "kernel": "warp_fused_stats_batched", "shape": "dual match"}
+            torch.stack([P] * len(pairs)), False, cfg.influence_function_param, True)
+    row = {"level": level, "streams": len(pairs), "pixels": inputs[0].refpack.shape[1],
+           "kernel": "warp_fused_stats_batched", "shape": shape_name}
     kernel = fused_kernels.warp_fused_stats_batched_cuda(*args)
     plain = fused_kernels.warp_fused_stats_plain(*args)
     row["max_scaled_err"] = fused_check.compare_warp_fused_stats(kernel, plain)
@@ -1258,9 +1280,209 @@ def time_dual_kernel(cfg, intrinsics, frames):
     row["plain_device_ms"] = device_ms(lambda: fused_kernels.warp_fused_stats_plain(*args))
     row["bound_ms"], row["bound_by"] = _bound(
         _rows_bytes(args[0], 7) + _quad_bytes(*args[:5]) + _bytes(args[4], args[5], *kernel),
-        2 * inputs[0].refpack.shape[1] * (CHAIN_FLOPS + GRAM_FLOPS))
+        len(pairs) * inputs[0].refpack.shape[1] * (CHAIN_FLOPS + GRAM_FLOPS))
+    return row
+
+
+def time_dual_kernel(cfg, intrinsics, frames):
+    """Phase 12b: the batched folded kernel at the dual match's shape, L1:
+    frames 0 and 1 as references against frame 2 (its table stacked twice)."""
+    row = time_batched_kernel(cfg, intrinsics, [(frames[0], frames[2]), (frames[1], frames[2])],
+                              cfg.last_level, "dual match")
     print("phase 12:", json.dumps(row), flush=True)
     return row
+
+
+def _percentiles(ms):
+    """bench.py:379-386's latency keys."""
+    ms = np.asarray(ms, np.float64)
+    if ms.size == 0:
+        return None
+    return {"p50": float(np.percentile(ms, 50)), "p90": float(np.percentile(ms, 90)),
+            "p99": float(np.percentile(ms, 99)), "mean": float(ms.mean()), "max": float(ms.max()),
+            "frames": int(ms.size)}
+
+
+def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
+    """Phase 13: ``KeyframeTracker`` (the SLAM system: front end, keyframe
+    graph on its worker thread, loop-closure waves, final optimization) on
+    phase 5's frames.  Returns (kernel 1 launches, kernel 1b launches, the
+    wave-shape rows of kernel 1b, the phase's summary)."""
+    import copy
+    import threading
+    import warnings
+
+    import torch
+
+    from dvo_slam_tpu_torch.models import frames as frames_mod
+    from dvo_slam_tpu_torch.models import pose_graph
+    from dvo_slam_tpu_torch.models.keyframe_tracker import KeyframeTracker
+    from dvo_slam_tpu_torch.ops import se3
+    from dvo_slam_tpu_torch.tools.fused_check import require
+    from dvo_slam_tpu_torch.utils import trajectory
+
+    calls, waves, optimizes, snapshots = [], [], [], []
+    in_wave = threading.local()
+    match_prepared = frames_mod.match_prepared
+    match_pairs = frames_mod.TwoStageMatcher.match_pairs
+    optimize = pose_graph.PoseGraph.optimize
+    set_levels = pose_graph.PoseGraph.set_all_edge_levels
+
+    def counted_match(cfg, k, ref, cur, initial=None, *args, **kwargs):
+        result = match_prepared(cfg, k, ref, cur, initial, *args, **kwargs)
+        calls.append((getattr(in_wave, "on", False), result.level_stats))
+        return result
+
+    def counted_pairs(self, requests):
+        outer = not getattr(in_wave, "on", False)
+        if outer:
+            waves.append([(r[0], r[1]) for r in requests])
+        in_wave.on = True
+        try:
+            return match_pairs(self, requests)
+        finally:
+            in_wave.on = not outer
+
+    def recorded_optimize(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        history = optimize(self, *args, **kwargs)
+        optimizes.append((history, self.last_solver, time.perf_counter() - t0,
+                          self.num_vertices))
+        return history
+
+    def snapshot_levels(self, level):
+        set_levels(self, level)
+        snapshots.append(copy.deepcopy(self))  # the final pass's starting state
+
+    def lockstep(level_stats):
+        """Launches of one match_prepared call: per level its longest stream."""
+        return sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
+                   else int(s.iterations) for s in level_stats)
+
+    tracker = KeyframeTracker(intrinsics, slam_cfg, device=d_i.device)
+    require(tracker.graph._thread is not None, "phase 13: the graph worker thread is off")
+    keyframe_frames = []
+    tracker.lt.add_map_complete_callback(lambda _, m: keyframe_frames.append(True))
+    latency, events = [], []
+    online = []
+    mp_attrs = ((frames_mod, "match_prepared", counted_match),
+                (frames_mod.TwoStageMatcher, "match_pairs", counted_pairs),
+                (pose_graph.PoseGraph, "optimize", recorded_optimize),
+                (pose_graph.PoseGraph, "set_all_edge_levels", snapshot_levels))
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in mp_attrs]
+    for obj, name, fn in mp_attrs:
+        setattr(obj, name, fn)
+    _reset_counts()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracker.init()
+            for k in range(NUM_FRAMES):
+                before = len(keyframe_frames)
+                t1 = time.perf_counter()
+                online.append(tracker.update(tracker.make_frame_raw(d_i[k], d_d[k], k / 30.0)))
+                latency.append(1000.0 * (time.perf_counter() - t1))
+                events.append(len(keyframe_frames) > before)
+            t_track = time.perf_counter() - t0
+            tracker.finish()
+            stamps, poses = tracker.trajectory()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            tracker.graph.shutdown()
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+    counts = _launches()
+    fallbacks = [str(w.message) for w in caught if "falling back" in str(w.message)]
+    require(not fallbacks, f"phase 13: a graph solve fell back: {fallbacks}")
+
+    # the kernels' launches against the solves' lockstep iterations
+    one_stream = sum(lockstep(ls) for wave, ls in calls if _streams(ls) == 1)
+    dual = sum(lockstep(ls) for wave, ls in calls if not wave and _streams(ls) > 1)
+    wave_iterations = sum(lockstep(ls) for wave, ls in calls if wave)
+    require(counts["warp_fused_stats"] == one_stream > 0,
+            f"phase 13: kernel 1 launches {counts['warp_fused_stats']} != the initial match's "
+            f"iterations {one_stream}")
+    _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
+                  "warp_fused_stats_batched", dual + wave_iterations, "phase 13")
+    require(wave_iterations > 0 and waves, "phase 13: no validation wave ran")
+
+    # accuracy and the back end's results
+    stamps_gt = np.arange(NUM_FRAMES) / 30.0
+    online = np.asarray(online, np.float64)
+    online_ate = trajectory.ate_rmse(stamps_gt, online, stamps_gt, gt)
+    graph_ate = trajectory.ate_rmse(stamps, poses, stamps_gt, gt)
+    require(len(stamps) == NUM_FRAMES and np.isfinite(poses).all(),
+            f"phase 13: trajectory of {len(stamps)} frames")
+    require(online_ate < ONLINE_ATE_GATE_M, f"phase 13: online ATE {online_ate} m")
+    require(graph_ate < E2E_ATE_GATE_M, f"phase 13: graph ATE {graph_ate} m")
+    for history, route, _, _ in optimizes:
+        require(np.isfinite(history).all(), f"phase 13: non-finite chi2 ({route}): {history}")
+    graph = tracker.graph.graph
+    loops = int(graph.robust[: graph.num_edges].sum())
+    final_routes = sorted({route for _, route, _, n in optimizes[-10:]})
+
+    # the host routes from the final pass's starting state
+    require(len(snapshots) == 1, f"phase 13: {len(snapshots)} final-pass snapshots")
+    cross = {}
+    iterations = max(slam_cfg.graph.final_optimization_iterations // 10, 1)
+    solved = {}
+    for route in ("dense", "sparse", "schur", "cg"):
+        g = copy.deepcopy(snapshots[0])
+        t1 = time.perf_counter()
+        h = optimize(g, iterations, solver=route, tol=slam_cfg.graph.optimization_tol)
+        solved[route] = g
+        cross[route] = {"took": g.last_solver, "ms": 1000.0 * (time.perf_counter() - t1),
+                        "chi2_first_last": [float(h[0]), float(h[-1])] if len(h) else None}
+    n = snapshots[0].num_vertices
+    for route, gate in ROUTE_GATES.items():
+        rel = np.linalg.inv(solved["dense"].poses[:n].astype(np.float64)) @ solved[
+            route].poses[:n].astype(np.float64)
+        err = float(torch.abs(se3.log_se3(torch.from_numpy(rel))).max())
+        cross[route]["max_log_err_vs_dense"] = err
+        require(err <= gate, f"phase 13: the {route} route {err} from dense (gate {gate})")
+
+    # kernel 1b at the largest wave's shape, coarse (level 3) and fine (L1)
+    biggest = max(waves, key=len)[:frames_mod.TwoStageMatcher.MAX_PAIRS]
+    pairs = [(r.levels, c.levels) for r, c in biggest] + [(c.levels, r.levels) for r, c in biggest]
+    tcfg = slam_cfg.tracker
+    wave_rows = [time_batched_kernel(tcfg, intrinsics, pairs, level, name)
+                 for level, name in ((tcfg.first_level, "validation wave, coarse"),
+                                     (tcfg.last_level, "validation wave, fine"))]
+    for row in wave_rows:
+        print("phase 13:", json.dumps(row), flush=True)
+
+    keyframe_ms = [ms for ms, e in zip(latency[2:], events[2:]) if e]
+    other_ms = [ms for ms, e in zip(latency[2:], events[2:]) if not e]
+    timers = tracker.graph.timers.summary()
+    summary = {
+        "frames": NUM_FRAMES, "seconds": seconds, "tracking_seconds": t_track,
+        "tracked_frames_per_s": NUM_FRAMES / t_track, "e2e_frames_per_s": NUM_FRAMES / seconds,
+        "online_ate_rmse_m": online_ate, "graph_ate_rmse_m": graph_ate,
+        "keyframes": len(tracker.graph.keyframes), "loop_edges": loops,
+        "waves_pairs": [len(w) for w in waves],
+        "wave_batch_sizes": [_streams(ls) for wave, ls in calls if wave][::2],
+        "launches": counts,
+        "initial_match_iterations": one_stream, "dual_lockstep_iterations": dual,
+        "wave_lockstep_iterations": wave_iterations,
+        "online_latency_ms": _percentiles(latency[2:]),
+        "online_latency_ms_keyframe_event": _percentiles(keyframe_ms),
+        "online_latency_ms_no_event": _percentiles(other_ms),
+        "backend_phase_ms_per_frame": {
+            name: 1000.0 * t["total_s"] / NUM_FRAMES for name, t in timers.items()},
+        "graph_solves": len(optimizes), "final_pass_routes": final_routes,
+        "final_pass_vertices": n, "host_routes": cross,
+    }
+    print("phase 13:", json.dumps(summary), flush=True)
+    return one_stream, dual + wave_iterations, wave_rows, summary
+
+
+def _streams(level_stats):
+    """The stream count of a match_prepared call's level statistics."""
+    it = level_stats[0].iterations
+    return int(it.numel()) if hasattr(it, "numel") else 1
 
 
 def check_copy_and_probe():
@@ -1455,6 +1677,11 @@ def main() -> int:
     dual_row = time_dual_kernel(cfg, TUM_FR1, frames)
     elapsed("phases 11-12")
 
+    # phase 13: KeyframeTracker (the SLAM system) on phase 5's frames
+    slam_one, slam_batched, wave_rows, _ = check_keyframe_tracker(
+        benchmark_config(), TUM_FR1, h_i, h_d, hard_poses)
+    elapsed("phase 13")
+
     # phase 6: the sharded paths on a one-rank process group
     frames += [build_frame(cfg, d_i[k], d_d[k]) for k in range(len(frames), SHARDED_PAIRS + 1)]
     partials_launches, _ = check_sharded(cfg, TUM_FR1, frames, easy_poses)
@@ -1499,8 +1726,8 @@ def main() -> int:
     # 3 and 7 and runs on no tracker path
     by_phase = {
         "fused_stats": {"4": launches, "5": hard_launches, "11": camera_launches,
-                        "12": init_launches},
-        "fused_stats_batched": {"7": batched_launches, "12": dual_launches},
+                        "12": init_launches, "13": slam_one},
+        "fused_stats_batched": {"7": batched_launches, "12": dual_launches, "13": slam_batched},
     }
     for name, replaces, row, worst, sampled_entry, sampled_row, sampled_errors in (
         ("fused_stats", STATS_REPLACES, l1, folded_worst, "dvo_fused_stats", sampled_l1,
@@ -1520,9 +1747,12 @@ def main() -> int:
                               **{k: sampled_row[k] for k in timing_keys}, **sampled_errors},
         })
     # kernel #1b at the dual match's shape (B = 2), phase 12's launches
-    kernels[-1]["dual_match_b2"] = {
-        k: dual_row[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
-                                 "bound_by")}
+    row_keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by")
+    kernels[-1]["dual_match_b2"] = {k: dual_row[k] for k in row_keys}
+    # and at the largest validation wave's shape (phase 13), coarse and fine
+    kernels[-1]["validation_wave"] = {
+        name: {k: row[k] for k in ("streams", "level", "max_scaled_err") + row_keys}
+        for name, row in zip(("coarse", "fine"), wave_rows)}
     # kernel #2: the sharded evaluation's three launches (the folded entry
     # point, phase 6's path); the sampled-input entry point is checked in
     # phase 3 and runs on no main path

@@ -27,7 +27,8 @@ from .models.dense_tracker import (
     PreparedFrame,
     TrackingResult,
 )
-from .models.frames import Frame
+from .models.evaluation import RestoredEvaluation, evaluation_state
+from .models.frames import Frame, Keyframe
 from .models.pose_graph import PoseGraph
 from .ops.pyramid import PyramidLevel
 
@@ -117,6 +118,19 @@ def frame_from_reference(frame, device=None) -> Frame:
     return Frame(levels=levels_from_numpy(frame.levels, device), timestamp=frame.timestamp)
 
 
+def keyframe_from_reference(keyframe, device=None) -> Keyframe:
+    """Reference ``Keyframe`` -> the port's: its id, frame
+    (``frame_from_reference``), pose (float64) and evaluation, whose running
+    statistics come across as a ``RestoredEvaluation`` (None stays None)."""
+    state = evaluation_state(keyframe.evaluation)
+    return Keyframe(
+        id=keyframe.id,
+        frame=frame_from_reference(keyframe.frame, device),
+        pose=np.array(keyframe.pose, np.float64),
+        evaluation=None if state is None else RestoredEvaluation(state),
+    )
+
+
 # the container's storage: per-vertex and per-edge arrays, then the rest
 _VERTEX_ARRAYS = ("poses", "fixed")
 _EDGE_ARRAYS = ("edge_i", "edge_j", "measurements", "information", "edge_active", "robust",
@@ -125,7 +139,9 @@ _EDGE_ARRAYS = ("edge_i", "edge_j", "measurements", "information", "edge_active"
 
 def pose_graph_from_reference(graph) -> PoseGraph:
     """Reference ``PoseGraph`` -> the port's: a copy of its arrays (at their
-    capacity), dtype, vertex keys and edge index."""
+    capacity), dtype, vertex keys and edge index, in a fresh container (its
+    caches and memos empty), so that the same graph goes into both
+    packages' solvers."""
     out = PoseGraph(dtype=graph.dtype)
     for name in _VERTEX_ARRAYS + _EDGE_ARRAYS:
         setattr(out, name, np.array(getattr(graph, name)))

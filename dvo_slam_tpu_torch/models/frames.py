@@ -1,16 +1,17 @@
 """Frame and keyframe records and batched alignment (port of
 ``dvo_slam_tpu.models.frames``: ``Frame``, ``Keyframe``, ``stack_frames``,
-the host-side result and ``BatchedMatcher``).
+the host-side result, ``BatchedMatcher`` and ``TwoStageMatcher``).
 
 The reference runs concurrent alignments (the dual keyframe/odometry
 match, loop-closure waves) as one ``vmap`` of ``match_prepared``.  Here
 they are one lockstep call of ``match_prepared`` on stacked [B, ...]
 artifacts: every op of an iteration runs once for the B pairs, and on the
 card the evaluation is one call of the batched folded kernel.  A wave of n
-requests runs at B = n; one request runs the one-stream path.  The
-reference's power-of-two buckets, padded slots, chunking past 16 and
-fixed-size prepare chunks keep XLA's compile set closed; eager PyTorch has
-no compile set, so they are not ported.
+requests runs at B = n; one request runs the one-stream path; a
+validation wave of n pairs runs at B = 2n.  The reference's power-of-two
+buckets, padded slots, chunking past 16 and fixed-size prepare chunks keep
+XLA's compile set closed; eager PyTorch has no compile set, so they are
+not ported.
 
 Frames are prepared once (selection mask, refpack, quad table per level,
 ``prepare_frame``) and the artifacts cached on the Frame under the
@@ -28,6 +29,7 @@ import torch
 
 from .. import default_device
 from ..config import TrackerConfig
+from ..ops import se3
 from ..ops.camera import Intrinsics
 from ..ops.pyramid import PyramidLevel, build_pyramid, convert_raw_depth
 from .dense_tracker import PreparedFrame, TrackingResult, match_prepared, prepare_frame
@@ -284,3 +286,84 @@ class BatchedMatcher:
 
     def match(self, ref: Frame, cur: Frame, initial=None) -> HostTrackingResult:
         return self.match_many([(ref, cur, initial)])[0]
+
+
+class TwoStageMatcher:
+    """The validation wave: per frame pair the coarse forward and backward
+    screens and the fine forward and backward refinements, each seeded by
+    its own direction's coarse result (constraint_proposal_validator.cpp:
+    69-160 runs the two stages as separate tracker passes with the host in
+    between).  Stage 1's voting only selects which direction's stage-2
+    solve to keep, so the device computes stage 2 for both directions and
+    the host votes on the results.
+
+    n pairs run as two lockstep ``match_prepared`` calls at B = 2n (the
+    forward references and the backward ones stacked together): the coarse
+    config seeded by ``init`` and, for the backward stream, its inverse
+    (in float32 on the device, as the reference's wave inverts it); then
+    the fine config seeded on the device by the coarse transforms.  One
+    copy to the host at the end.  Artifacts are prepared once under the
+    fine config and read by the coarse solve (``BatchedMatcher``'s
+    ``artifact_cfg``).  Each frame serves both roles, so its refpack and
+    quad table are stacked copies (the folded kernel takes contiguous
+    [B, 32, N] tables).
+    """
+
+    # pairs per wave: the bound on the stacked copies (a wave of more pairs
+    # runs in chunks, as the reference's does past 8)
+    MAX_PAIRS = 8
+
+    def __init__(self, coarse_cfg: TrackerConfig, fine_cfg: TrackerConfig, intrinsics: Intrinsics):
+        self.coarse_cfg = coarse_cfg
+        self.fine_cfg = fine_cfg
+        self.intrinsics = intrinsics
+        # artifact owner: prepares and evicts under the fine config's key
+        self.artifacts = BatchedMatcher(fine_cfg, intrinsics)
+        BatchedMatcher(coarse_cfg, intrinsics, artifact_cfg=fine_cfg)  # checks the level ranges
+        # flat width of one coarse result (for the host decode)
+        self._f1 = _FLAT_BASE + 4 * (coarse_cfg.first_level - coarse_cfg.last_level + 1)
+
+    def match_pairs(
+        self,
+        requests: Sequence[Tuple[Frame, Frame, Optional[np.ndarray]]],
+    ) -> List[Tuple[HostTrackingResult, HostTrackingResult, HostTrackingResult,
+                    HostTrackingResult]]:
+        """[(ref, cur, init), ...] -> [(s1_fwd, s1_bwd, s2_fwd, s2_bwd)], the
+        stage-2 results seeded by their direction's stage-1 transformation
+        (the validator's feed-forward)."""
+        if not requests:
+            return []
+        if len(requests) > self.MAX_PAIRS:
+            out = []
+            for s in range(0, len(requests), self.MAX_PAIRS):
+                out.extend(self.match_pairs(requests[s: s + self.MAX_PAIRS]))
+            return out
+        n = len(requests)
+        refs = [self.artifacts.prepared(r[0]) for r in requests]
+        curs = [self.artifacts.prepared(r[1]) for r in requests]
+        device = refs[0].refpack[self.fine_cfg.first_level].device
+        inits = torch.from_numpy(np.stack([
+            np.eye(4, dtype=np.float32) if r[2] is None else np.asarray(r[2], np.float32)
+            for r in requests
+        ])).to(device)
+        # streams 0..n-1 forward (ref -> cur), n..2n-1 backward (cur -> ref)
+        none = (None,) * len(refs[0].sel)
+        ref_b = PreparedFrame(
+            sel=_stack_levels([p.sel for p in refs + curs], self.fine_cfg),
+            refpack=_stack_levels([p.refpack for p in refs + curs], self.fine_cfg),
+            quad=none,
+        )
+        cur_b = PreparedFrame(
+            sel=none, refpack=none, quad=_stack_levels([p.quad for p in curs + refs], self.fine_cfg)
+        )
+        seeds = torch.cat([inits, se3.inverse(inits)])
+        coarse = match_prepared(self.coarse_cfg, self.intrinsics, ref_b, cur_b, seeds)
+        fine = match_prepared(self.fine_cfg, self.intrinsics, ref_b, cur_b, coarse.transformation)
+        flat = torch.cat([_flatten_result(coarse), _flatten_result(fine)], dim=-1)
+        flat = flat.cpu().numpy()  # one copy for both stages and directions
+        f1 = self._f1
+        return [
+            (_decode_result(flat[k, :f1]), _decode_result(flat[n + k, :f1]),
+             _decode_result(flat[k, f1:]), _decode_result(flat[n + k, f1:]))
+            for k in range(n)
+        ]

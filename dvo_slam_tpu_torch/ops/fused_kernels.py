@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -441,18 +442,23 @@ def _kernel_library():
 
 
 _tickets = {}
+_tickets_lock = threading.Lock()
 
 
 def _ticket_buffer(device, stream, batch):
     """The kernels' per-stream tickets (int32, zero between launches; each
     launch's last block resets its own): one buffer per device and CUDA
-    stream, allocated once and grown for a call with more streams."""
+    stream, allocated once and grown for a call with more streams.  Two
+    threads may launch (the tracker and the keyframe graph's worker): the
+    create-or-grow is locked, and their launches on one stream run in
+    order, so a ticket is never shared by two running launches."""
     key = (device.index, stream)
-    buf = _tickets.get(key)
-    if buf is None or buf.numel() < batch:
-        buf = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
-        _tickets[key] = buf
-    return buf
+    with _tickets_lock:
+        buf = _tickets.get(key)
+        if buf is None or buf.numel() < batch:
+            buf = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
+            _tickets[key] = buf
+        return buf
 
 
 def _scalars(intrinsics: Intrinsics, dof):

@@ -185,6 +185,14 @@ def circular_trajectory(
     return np.asarray(poses)
 
 
+def linear_trajectory(num_frames: int, step: np.ndarray, rot_step: np.ndarray) -> np.ndarray:
+    """Constant-velocity camera path."""
+    poses = []
+    for i in range(num_frames):
+        poses.append(_pose_from_rt(np.asarray(rot_step) * i, np.asarray(step) * i))
+    return np.asarray(poses)
+
+
 def _pose_from_rt(rotvec: np.ndarray, t: np.ndarray) -> np.ndarray:
     theta = np.linalg.norm(rotvec)
     if theta < 1e-12:

@@ -315,3 +315,46 @@ def test_partials_check_against_pallas_interpret():
         bad[row, valid] += delta * (1.0 if row != 2 else float(bad[2, valid]))
         with pytest.raises(RuntimeError, match=message):
             fused_check.compare_fused_partials(kernel, bad, twin, twin_rw)
+
+
+def test_ticket_buffer_create_or_grow_from_two_threads(monkeypatch):
+    """The tracker and the keyframe graph's worker launch from two threads:
+    ``_ticket_buffer``'s create-or-grow runs under its lock, so every caller
+    gets a buffer of at least its batch, one buffer per (device, stream)
+    survives, and it is as large as the largest batch asked for.  (On the
+    CPU the buffer is a plain tensor; the launches are not involved.)"""
+    import threading
+
+    monkeypatch.setattr(fused_kernels, "_tickets", {})
+    device, stream = torch.device("cpu"), 12345
+    got, errors = [], []
+    start = threading.Barrier(2)
+
+    def ask(batches):
+        try:
+            start.wait()
+            for batch in batches:
+                buf = fused_kernels._ticket_buffer(device, stream, batch)
+                got.append((batch, buf.numel(), buf.dtype))
+        except Exception as err:  # surfaced below
+            errors.append(err)
+
+    threads = [threading.Thread(target=ask, args=(range(1, 400, 3),)),
+               threading.Thread(target=ask, args=(range(400, 1, -2),))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors and len(got) == 133 + 200
+    assert all(numel >= batch and dtype == torch.int32 for batch, numel, dtype in got)
+    assert list(fused_kernels._tickets) == [(None, stream)]
+    assert fused_kernels._tickets[(None, stream)].numel() >= 400
+    assert not fused_kernels._tickets[(None, stream)].any()
+    # the lock is held around the create-or-grow
+    with fused_kernels._tickets_lock:
+        blocked = threading.Thread(target=fused_kernels._ticket_buffer, args=(device, 7, 1))
+        blocked.start()
+        blocked.join(timeout=0.2)
+        assert blocked.is_alive() and (None, 7) not in fused_kernels._tickets
+    blocked.join()
+    assert (None, 7) in fused_kernels._tickets

@@ -4,9 +4,10 @@ raises), every module of ``dvo_slam_tpu_torch`` (the ``parallel`` modules
 and the tools included) and ``chip_smoke.py`` import, and a tiny CPU
 ``match_pyramids``, a one-rank gloo pixel-sharded match, both multi-stream
 schedules, the temporal tracker, the gather probe's check and the ATE
-metric run.  Afterwards no ``jax`` and no ``dvo_slam_tpu`` module is
-loaded.  No source file of the port names either package in an import, a
-dynamic one included."""
+metric run, and a tiny CPU ``KeyframeTracker`` (the back end included)
+tracks, finishes and exports its trajectory.  Afterwards no ``jax`` and no
+``dvo_slam_tpu`` module is loaded.  No source file of the port names either
+package in an import, a dynamic one included."""
 
 import ast
 import os
@@ -29,7 +30,11 @@ parallel = {"dvo_slam_tpu_torch.parallel." + m
             for m in ("mesh", "distributed", "sharded_alignment", "multistream", "temporal")}
 tools = {"dvo_slam_tpu_torch.tools." + m for m in ("gather_probe", "multistream_bench")}
 ops = {"dvo_slam_tpu_torch.ops.table_copy"}
-assert parallel | tools | ops <= set(names), sorted((parallel | tools | ops) - set(names))
+back_end = {"dvo_slam_tpu_torch.models." + m
+            for m in ("constraints", "keyframe_graph", "keyframe_tracker", "pose_graph")}
+back_end.add("dvo_slam_tpu_torch.utils.timers")
+wanted = parallel | tools | ops | back_end
+assert wanted <= set(names), sorted(wanted - set(names))
 
 from dvo_slam_tpu_torch.config import TrackerConfig
 from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
@@ -72,6 +77,16 @@ for schedule in ("lockstep", "sequential"):
 chain = temporal.make_temporal_tracker(cfg, K, num_chunks=2, device="cpu")(iu[0], du[0])
 assert chain.shape == (2, 4, 4) and np.isfinite(chain).all()
 gather_probe.check_variants(gather_probe.make_inputs(2, 6, 8, device="cpu"))
+from dvo_slam_tpu_torch.config import SlamConfig
+from dvo_slam_tpu_torch.models.keyframe_tracker import KeyframeTracker
+kt = KeyframeTracker(K, SlamConfig(tracker=cfg), use_threading=False, device="cpu")
+kt.init()
+for t, pose in enumerate(synthetic.circular_trajectory(4, radius=0.02)):
+    i, d, v = synthetic.render_frame(pose, K, (24, 32))
+    kt.update(kt.make_frame(i, d, v, t / 30.0))
+kt.force_keyframe()
+kt.finish()
+assert kt.trajectory()[1].shape == (4, 4, 4) and kt.graph.keyframes
 from dvo_slam_tpu_torch.utils import trajectory
 stamps = np.arange(3) / 30.0
 assert trajectory.ate_rmse(stamps, np.tile(np.eye(4), (3, 1, 1)), stamps,

@@ -1,5 +1,5 @@
 """The port's pose graph (the container and the dense route) against the
-reference, on the CPU.
+reference, on the CPU (the other routes: test_torch_pose_graph_solvers.py).
 
 Each case of ``tests/test_pose_graph.py`` that the dense route serves is
 built in the reference's ``PoseGraph``, copied into the port's with
@@ -11,7 +11,7 @@ accelerator; so a float64 graph is held against the reference under
 op under ``jax.disable_jit``, where its ``lax.while_loop`` is a Python
 loop).  A float32 graph is held against the reference's float32 CPU run:
 poses within 1e-5.  Each case keeps its reference test's own assertions on
-the port.  The unported solvers raise ``NotImplementedError``.
+the port.  Every ``solver`` name runs; an unknown one raises.
 """
 
 import copy
@@ -433,18 +433,37 @@ def test_convergence_memo_skips_resolves_and_invalidates():
 
 @pytest.mark.parametrize("solver", ["cg", "schur", "sparse"])
 def test_unported_solvers_raise(solver):
-    g = pose_graph_from_reference(ring(np.float64))
-    with pytest.raises(NotImplementedError, match="A.4"):
-        g.optimize(5, solver=solver)
+    """The routes that raised before they were ported now run, on the float64
+    ring, to the reference's poses (within 1e-9) and history (rtol 1e-9);
+    an unknown solver still raises."""
+    with jax.enable_x64(True):
+        ref = ring(np.float64)
+        g = pose_graph_from_reference(ref)
+        h_ref = ref.optimize(5, solver=solver)
+    h = g.optimize(5, solver=solver)
+    assert g.last_solver == solver and h.shape == h_ref.shape
+    np.testing.assert_allclose(h, h_ref, rtol=HISTORY_RTOL_F64)
+    np.testing.assert_allclose(g.poses[: g.num_vertices], ref.poses[: ref.num_vertices],
+                               atol=POSE_ATOL_F64, rtol=0)
     with pytest.raises(ValueError, match="unknown solver"):
         g.optimize(5, solver="qr")
 
 
 def test_auto_beyond_the_dense_cap_raises():
-    g = pose_graph_from_reference(ring(np.float64, n=130, loops=()))
-    with pytest.raises(NotImplementedError, match="A.4"):
-        g.optimize(2)
-    assert g.optimize(2, solver="dense").shape == (2,)
+    """``auto`` on 130 active vertices no longer raises: it takes the route
+    the reference takes (a ring of one chain: schur) to the reference's
+    poses; "dense" still serves the same graph."""
+    with jax.enable_x64(True):
+        ref = ring(np.float64, n=130, loops=())
+        g = pose_graph_from_reference(ref)
+        dense = pose_graph_from_reference(ref)
+        h_ref = ref.optimize(2)
+    h = g.optimize(2)
+    assert g.last_solver == "schur" and h.shape == h_ref.shape == (2,)
+    np.testing.assert_allclose(h, h_ref, rtol=HISTORY_RTOL_F64)
+    np.testing.assert_allclose(g.poses[: g.num_vertices], ref.poses[: ref.num_vertices],
+                               atol=POSE_ATOL_F64, rtol=0)
+    assert dense.optimize(2, solver="dense").shape == (2,) and dense.last_solver == "dense"
 
 
 def test_container_round_trip():

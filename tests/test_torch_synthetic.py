@@ -45,3 +45,11 @@ def test_render_frame_bit_equal(scene, noise):
             np.testing.assert_array_equal(a, b)
         if noise:
             assert not ref[2].all()  # some invalid pixels
+
+
+def test_linear_trajectory_bit_equal():
+    """The constant-velocity path of the keyframe-switching tests."""
+    for step, rot in ((np.array([0.02, 0, 0]), np.zeros(3)),
+                      (np.array([0.01, -0.004, 0.003]), np.array([0.0, 0.004, -0.01]))):
+        np.testing.assert_array_equal(t_syn.linear_trajectory(12, step, rot),
+                                      j_syn.linear_trajectory(12, step, rot))
