@@ -78,7 +78,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    profiler is attached to the timed phases) the device kernels per
    iteration of both under ``torch.profiler``
    (``tools/sharded_bench.kernels_per_iteration``).
-7. Lockstep multi-stream odometry: 8 streams x 50 frames at 640x480
+7. Lockstep multi-stream odometry: 8 streams x 30 frames at 640x480
+   (the reference's 50 cut to 30 to pay for phase 14)
    (``tools/multistream_bench.render_streams``) through
    ``make_multistream_tracker``.  The batched sampled-input kernel
    (``dvo_fused_stats_batched``) first, against the single-stream one on
@@ -111,7 +112,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``batched``, ms and device ms per iteration each; its ``pcopy`` tables
    are the copy kernel's main path.
 
-Phases 11-13 run after phase 5, before any profiler session, so that
+Phases 11-14 run after phase 5, before any profiler session, so that
 their frames/s compare with phase 4's:
 
 11. ``CameraTracker``: phase 4's 100 frames as u8/u16 through
@@ -151,6 +152,26 @@ their frames/s compare with phase 4's:
    ms per frame (``bench.py:323-333``), frames/s and the routes; then kernel
    1b at the largest wave's shape, coarse (level 3) and fine (L1), against
    its plain version, as phase 12 holds B = 2.
+
+14. ``StreamingSLAM(TUM_FR1, benchmark_config())`` (run right after phase
+   13) on phase 5's 100 hard-scene frames as u8/u16, host-reduced to the
+   ingest level (the native C++ reduction where it built, else NumPy; the
+   path and the reason printed): ``track_sequence(..., pipeline_chunk=50)``
+   (``bench.py:304``) with the graph's worker thread, then
+   ``track_frontend`` of the same frames.  The two forms' records and
+   poses bit-equal; the online poses within 2e-3 of phase 13's and the
+   keyframes as many as phase 13's (phase 13 forces the last keyframe as
+   ``force_last`` does) and as the switches + 1; graph ATE < 5 mm, online
+   ATE < 10 mm, every graph solve's chi2 finite; in each run kernel 1's
+   launches equal the bootstrap match's iterations and kernel 1b's the dual
+   matches' plus the validation waves' lockstep iterations, no other
+   kernel.  Prints keyframes, loop edges, e2e frames/s (``slam_e2e_fps``'s
+   definition, ``bench.py:313-331``) and the front end's frames/s, the
+   back end's phase ms per frame, the pipelined run's split (front-end
+   runs, record feed, final pass) and the host read-backs per frame.  Then
+   ``cli.benchmark.main(["--synthetic", "20", "--engine", "streaming",
+   "--timing", ...])`` at 480x640 on the card: exit 0 and the report's ATE
+   and RPE keys finite.
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
@@ -199,8 +220,11 @@ ONLINE_ATE_GATE_M = 0.01  # bench.py:44, the online poses
 # from the same state (tests/test_pose_graph.py: Schur within 1e-4, CG and
 # sparse within 1e-3 of dense, max |log(T_a^-1 T_b)|)
 ROUTE_GATES = {"sparse": 1e-3, "schur": 1e-4, "cg": 1e-3}
+STREAM_PIPELINE_CHUNK = 50  # bench.py:304's pipeline_chunk
+STREAMING_VS_TRACKER_ATOL = 2e-3  # tests/test_streaming.py: streaming against the per-frame loop
+CLI_FRAMES = 20  # phase 14's run of the benchmark CLI
 STREAMS = 8  # the reference's stream count (tests/test_parallel.py, tools/gather_probe.py)
-STREAM_FRAMES = 50
+STREAM_FRAMES = 30  # the reference benchmark's 50, cut to pay for phase 14
 STREAM_ATE_GATE_M = 0.01
 SCHEDULE_STREAMS = 2
 SCHEDULE_FRAMES = 20
@@ -1382,6 +1406,8 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
             for k in range(NUM_FRAMES):
                 before = len(keyframe_frames)
                 t1 = time.perf_counter()
+                if k == NUM_FRAMES - 1:
+                    tracker.force_keyframe()  # benchmark_slam.cpp:477-481 (phase 14's force_last)
                 online.append(tracker.update(tracker.make_frame_raw(d_i[k], d_d[k], k / 30.0)))
                 latency.append(1000.0 * (time.perf_counter() - t1))
                 events.append(len(keyframe_frames) > before)
@@ -1476,7 +1502,217 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
         "final_pass_vertices": n, "host_routes": cross,
     }
     print("phase 13:", json.dumps(summary), flush=True)
-    return one_stream, dual + wave_iterations, wave_rows, summary
+    return one_stream, dual + wave_iterations, wave_rows, summary, online
+
+
+def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframes13):
+    """Phase 14: ``StreamingSLAM`` (the scanned front end, its host-reduced
+    ingest and the replayed back end) on phase 5's frames, pipelined and
+    monolithic, against phase 13; then the benchmark CLI's streaming engine.
+    Returns ({run: (kernel 1 launches, kernel 1b launches)}, the summary)."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+    import warnings
+
+    import torch
+
+    from dvo_slam_tpu_torch import native
+    from dvo_slam_tpu_torch.cli import benchmark as cli
+    from dvo_slam_tpu_torch.models import frames as frames_mod
+    from dvo_slam_tpu_torch.models import pose_graph, streaming
+    from dvo_slam_tpu_torch.tools.fused_check import require
+    from dvo_slam_tpu_torch.utils import trajectory
+
+    calls, optimizes = [], []
+    in_wave = threading.local()
+    frontend_match = streaming.match_prepared
+    wave_match = frames_mod.match_prepared
+    match_pairs = frames_mod.TwoStageMatcher.match_pairs
+    optimize = pose_graph.PoseGraph.optimize
+
+    def counted_frontend(cfg, k, ref, cur, initial=None, *args, **kwargs):
+        result = frontend_match(cfg, k, ref, cur, initial, *args, **kwargs)
+        calls.append(("frontend", result.level_stats))
+        return result
+
+    def counted_wave(cfg, k, ref, cur, initial=None, *args, **kwargs):
+        result = wave_match(cfg, k, ref, cur, initial, *args, **kwargs)
+        calls.append(("wave" if getattr(in_wave, "on", False) else "other", result.level_stats))
+        return result
+
+    def counted_pairs(self, requests):
+        outer = not getattr(in_wave, "on", False)
+        in_wave.on = True
+        try:
+            return match_pairs(self, requests)
+        finally:
+            in_wave.on = not outer
+
+    def recorded_optimize(self, *args, **kwargs):
+        history = optimize(self, *args, **kwargs)
+        optimizes.append((history, self.last_solver))
+        return history
+
+    def lockstep(level_stats):
+        return sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
+                   else int(s.iterations) for s in level_stats)
+
+    def expected_launches(what):
+        """(kernel 1, kernel 1b) launches the recorded solves imply."""
+        one = sum(lockstep(ls) for _, ls in calls if _streams(ls) == 1)
+        batched = sum(lockstep(ls) for _, ls in calls if _streams(ls) > 1)
+        others = [kind for kind, ls in calls if kind == "other"]
+        require(not others, f"{what}: {len(others)} matches outside the front end and the waves")
+        return one, batched
+
+    mp_attrs = ((streaming, "match_prepared", counted_frontend),
+                (frames_mod, "match_prepared", counted_wave),
+                (frames_mod.TwoStageMatcher, "match_pairs", counted_pairs),
+                (pose_graph.PoseGraph, "optimize", recorded_optimize))
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in mp_attrs]
+    for obj, name, fn in mp_attrs:
+        setattr(obj, name, fn)
+    stamps_gt = np.arange(NUM_FRAMES) / 30.0
+    runs, seconds, times = {}, {}, {"frontend_s": 0.0, "feed_s": 0.0}
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            # the pipelined form (bench.py's e2e section): chunk k's records
+            # feed the back end once chunk k+1 has run
+            slam = streaming.StreamingSLAM(intrinsics, slam_cfg)
+            run_first, run_cont = slam._chunked_runs()
+
+            def timed(fn):
+                def run(*args):
+                    t0 = time.perf_counter()
+                    out = fn(*args)
+                    times["frontend_s"] += time.perf_counter() - t0
+                    return out
+                return run
+
+            feed = streaming._ReplayFeeder.feed
+
+            def timed_feed(self, rec):
+                t0 = time.perf_counter()
+                feed(self, rec)
+                times["feed_s"] += time.perf_counter() - t0
+
+            slam._chunked = (timed(run_first), timed(run_cont))
+            streaming._ReplayFeeder.feed = timed_feed
+            calls.clear()
+            _reset_counts()
+            try:
+                online, seconds["pipelined"] = _synchronized_seconds(lambda: slam.track_sequence(
+                    hard_i, hard_d, stamps_gt, pipeline_chunk=STREAM_PIPELINE_CHUNK))
+            finally:
+                streaming._ReplayFeeder.feed = feed
+            runs["pipelined"] = (_launches(), expected_launches("phase 14 pipelined"), list(calls))
+            ingest = {"level": slam.ingest_level, "path": streaming.host_reduce_ingest.last_path,
+                      "why_not_native": streaming.host_reduce_ingest.last_reason,
+                      "native_build_error": native.build_error()}
+            stamps, poses = slam.trajectory()
+            timers = slam.graph.timers.summary()
+            keyframes = len(slam.graph.keyframes)
+            graph = slam.graph.graph
+            loops = int(graph.robust[: graph.num_edges].sum())
+            slam.graph.shutdown()
+
+            # the monolithic form: one front-end run, one copy of the records
+            mono = streaming.StreamingSLAM(intrinsics, slam_cfg)
+            calls.clear()
+            _reset_counts()
+            (records, mono_online), seconds["monolithic_frontend"] = _synchronized_seconds(
+                lambda: mono.track_frontend(hard_i, hard_d))
+            runs["monolithic"] = (_launches(), expected_launches("phase 14 monolithic"), list(calls))
+            mono.graph.shutdown()
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+    fallbacks = [str(w.message) for w in caught if "falling back" in str(w.message)]
+    require(not fallbacks, f"phase 14: a graph solve fell back: {fallbacks}")
+
+    launches = {}
+    for name, (counts, (one, batched), _) in runs.items():
+        require(counts["warp_fused_stats"] == one > 0,
+                f"phase 14 {name}: kernel 1 launches {counts['warp_fused_stats']} != the "
+                f"bootstrap's iterations {one}")
+        _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
+                      "warp_fused_stats_batched", batched, f"phase 14 {name}")
+        launches[name] = (counts["warp_fused_stats"], counts["warp_fused_stats_batched"])
+    pipelined_calls = runs["pipelined"][2]
+    wave_iterations = sum(lockstep(ls) for kind, ls in pipelined_calls if kind == "wave")
+    require(wave_iterations > 0, "phase 14: no validation wave ran")
+
+    # the two forms' records bit-equal; the decisions and poses of phase 13
+    require(len(records) == len(slam.records) == NUM_FRAMES, "phase 14: record count")
+    differ = [k for k, (a, b) in enumerate(zip(slam.records, records))
+              if not all(np.array_equal(x, y) for x, y in zip(a, b))]
+    require(not differ, f"phase 14: pipelined records differ from monolithic at frames {differ}")
+    require(np.array_equal(online, mono_online), "phase 14: pipelined poses differ from monolithic")
+    pose_err = float(np.abs(online - np.asarray(online13, np.float64)).max())
+    require(pose_err <= STREAMING_VS_TRACKER_ATOL,
+            f"phase 14: online poses {pose_err} from phase 13's (gate {STREAMING_VS_TRACKER_ATOL})")
+    switches = sum(not r.accept for r in records[2:])
+    require(keyframes == keyframes13 == switches + 1,
+            f"phase 14: {keyframes} keyframes, phase 13 {keyframes13}, switches + 1 = {switches + 1}")
+    online_ate = trajectory.ate_rmse(stamps_gt, online, stamps_gt, gt)
+    graph_ate = trajectory.ate_rmse(stamps, poses, stamps_gt, gt)
+    require(len(stamps) == NUM_FRAMES and np.isfinite(poses).all(),
+            f"phase 14: trajectory of {len(stamps)} frames")
+    require(online_ate < ONLINE_ATE_GATE_M, f"phase 14: online ATE {online_ate} m")
+    require(graph_ate < E2E_ATE_GATE_M, f"phase 14: graph ATE {graph_ate} m")
+    for history, route in optimizes:
+        require(np.isfinite(history).all(), f"phase 14: non-finite chi2 ({route}): {history}")
+
+    frontend_iterations = {
+        name: sum(lockstep(ls) for kind, ls in run[2] if kind == "frontend")
+        for name, run in runs.items()}
+    chunks = -(-NUM_FRAMES // STREAM_PIPELINE_CHUNK)
+
+    # the CLI's streaming engine on the card, at the default 480x640
+    with tempfile.TemporaryDirectory() as out_dir:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--synthetic", str(CLI_FRAMES), "--engine", "streaming", "--timing",
+                           "--output-dir", out_dir])
+        cli_seconds = time.perf_counter() - t0
+        report = json.loads(out.getvalue())
+        written = sorted(os.listdir(out_dir))
+    require(rc == 0, f"phase 14: the CLI exited {rc}")
+    ate_keys = ("ate_rmse_m", "ate_rmse_optimized_m", "rpe_translational_m", "rpe_rotational_rad")
+    require(all(np.isfinite(report.get(k, np.nan)) for k in ate_keys) and
+            report["frames"] == CLI_FRAMES, f"phase 14: CLI report {report}")
+
+    summary = {
+        "frames": NUM_FRAMES, "pipeline_chunk": STREAM_PIPELINE_CHUNK, "ingest": ingest,
+        "keyframes": keyframes, "phase13_keyframes": keyframes13, "loop_edges": loops,
+        "online_ate_rmse_m": online_ate, "graph_ate_rmse_m": graph_ate,
+        "max_pose_err_vs_phase13": pose_err,
+        "e2e_frames_per_s": NUM_FRAMES / seconds["pipelined"],
+        "e2e_seconds": seconds["pipelined"],
+        "tracked_frames_per_s": NUM_FRAMES / seconds["monolithic_frontend"],
+        "monolithic_frontend_seconds": seconds["monolithic_frontend"],
+        "pipelined_split_s": {"frontend_runs": times["frontend_s"],
+                              "record_feed": times["feed_s"],
+                              "final_optimization": timers.get("final_optimization", {}).get(
+                                  "total_s")},
+        "backend_phase_ms_per_frame": {
+            name: 1000.0 * t["total_s"] / NUM_FRAMES for name, t in timers.items()},
+        "launches": {name: run[0] for name, run in runs.items()},
+        "frontend_lockstep_iterations": frontend_iterations,
+        "wave_lockstep_iterations": wave_iterations,
+        "host_readbacks_per_frame": {
+            "irls_done_reads": frontend_iterations["pipelined"] / NUM_FRAMES,
+            "record_copies": chunks / NUM_FRAMES},
+        "graph_solves": len(optimizes),
+        "cli": {"frames": CLI_FRAMES, "seconds": cli_seconds, "written": written,
+                **{k: report[k] for k in ate_keys}},
+    }
+    print("phase 14:", json.dumps(summary), flush=True)
+    return launches, summary
 
 
 def _streams(level_stats):
@@ -1678,9 +1914,14 @@ def main() -> int:
     elapsed("phases 11-12")
 
     # phase 13: KeyframeTracker (the SLAM system) on phase 5's frames
-    slam_one, slam_batched, wave_rows, _ = check_keyframe_tracker(
+    slam_one, slam_batched, wave_rows, phase13, online13 = check_keyframe_tracker(
         benchmark_config(), TUM_FR1, h_i, h_d, hard_poses)
     elapsed("phase 13")
+
+    # phase 14: StreamingSLAM on the same frames, then the benchmark CLI
+    streaming_launches, _ = check_streaming(benchmark_config(), TUM_FR1, hard_i, hard_d,
+                                            hard_poses, online13, phase13["keyframes"])
+    elapsed("phase 14")
 
     # phase 6: the sharded paths on a one-rank process group
     frames += [build_frame(cfg, d_i[k], d_d[k]) for k in range(len(frames), SHARDED_PAIRS + 1)]
@@ -1726,8 +1967,12 @@ def main() -> int:
     # 3 and 7 and runs on no tracker path
     by_phase = {
         "fused_stats": {"4": launches, "5": hard_launches, "11": camera_launches,
-                        "12": init_launches, "13": slam_one},
-        "fused_stats_batched": {"7": batched_launches, "12": dual_launches, "13": slam_batched},
+                        "12": init_launches, "13": slam_one,
+                        "14_pipelined": streaming_launches["pipelined"][0],
+                        "14_monolithic": streaming_launches["monolithic"][0]},
+        "fused_stats_batched": {"7": batched_launches, "12": dual_launches, "13": slam_batched,
+                                "14_pipelined": streaming_launches["pipelined"][1],
+                                "14_monolithic": streaming_launches["monolithic"][1]},
     }
     for name, replaces, row, worst, sampled_entry, sampled_row, sampled_errors in (
         ("fused_stats", STATS_REPLACES, l1, folded_worst, "dvo_fused_stats", sampled_l1,

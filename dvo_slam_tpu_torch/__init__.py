@@ -4,9 +4,12 @@ This package runs the dense-alignment main path of ``dvo_slam_tpu`` (one
 coarse-to-fine t-distribution IRLS Gauss-Newton alignment of two RGB-D
 frames) in PyTorch, with frame-to-frame odometry, B camera streams in
 lockstep, temporal chunking, the multi-rank alignments on
-``torch.distributed``, and the tracking half of the SLAM front end
-(``models/frames``, ``local_map``, ``local_tracker``, ``camera_tracker``,
-and ``pose_graph``'s dense route).  Module and function names mirror the
+``torch.distributed``, and the SLAM system: the tracking front end
+(``models/frames``, ``local_map``, ``local_tracker``, ``camera_tracker``),
+the back end (``pose_graph``, ``constraints``, ``keyframe_graph``,
+``keyframe_tracker``), the batch front end (``models/streaming``) and the
+drivers (``cli/benchmark``, ``utils/dataset``, ``utils/serialization``,
+``native``).  Module and function names mirror the
 JAX package, which stays the reference: each port function is held
 against its same-named counterpart by the parity tests in
 ``tests/test_torch_*.py``.

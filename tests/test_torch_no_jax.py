@@ -4,8 +4,11 @@ raises), every module of ``dvo_slam_tpu_torch`` (the ``parallel`` modules
 and the tools included) and ``chip_smoke.py`` import, and a tiny CPU
 ``match_pyramids``, a one-rank gloo pixel-sharded match, both multi-stream
 schedules, the temporal tracker, the gather probe's check and the ATE
-metric run, and a tiny CPU ``KeyframeTracker`` (the back end included)
-tracks, finishes and exports its trajectory.  Afterwards no ``jax`` and no
+metric run, a tiny CPU ``KeyframeTracker`` (the back end included)
+tracks, finishes and exports its trajectory, a tiny CPU ``StreamingSLAM``
+tracks in chunks and its graph is checkpointed, and the benchmark CLI runs
+odometry.  The C++ source and build of ``native`` are not taken for
+modules.  Afterwards no ``jax`` and no
 ``dvo_slam_tpu`` module is loaded.  No source file of the port names either
 package in an import, a dynamic one included."""
 
@@ -33,8 +36,14 @@ ops = {"dvo_slam_tpu_torch.ops.table_copy"}
 back_end = {"dvo_slam_tpu_torch.models." + m
             for m in ("constraints", "keyframe_graph", "keyframe_tracker", "pose_graph")}
 back_end.add("dvo_slam_tpu_torch.utils.timers")
-wanted = parallel | tools | ops | back_end
+drivers = {"dvo_slam_tpu_torch.models.streaming", "dvo_slam_tpu_torch.cli.benchmark",
+           "dvo_slam_tpu_torch.native"}
+drivers |= {"dvo_slam_tpu_torch.utils." + m
+            for m in ("dataset", "metrics", "serialization", "synthetic_tum", "trajectory")}
+wanted = parallel | tools | ops | back_end | drivers
 assert wanted <= set(names), sorted(wanted - set(names))
+# the native extension's C++ source and its build are not Python modules
+assert not [n for n in names if "ingest" in n or ".build" in n], names
 
 from dvo_slam_tpu_torch.config import TrackerConfig
 from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
@@ -87,6 +96,20 @@ for t, pose in enumerate(synthetic.circular_trajectory(4, radius=0.02)):
 kt.force_keyframe()
 kt.finish()
 assert kt.trajectory()[1].shape == (4, 4, 4) and kt.graph.keyframes
+from dvo_slam_tpu_torch.models.streaming import StreamingSLAM
+from dvo_slam_tpu_torch.utils import serialization
+ss = StreamingSLAM(K, SlamConfig(tracker=cfg), device="cpu")
+iu8 = np.stack([f[0] for f in frames])
+du16 = np.stack([f[1] for f in frames])
+online = ss.track_sequence(iu8, du16, np.arange(3) / 30.0, pipeline_chunk=2)
+assert online.shape == (3, 4, 4) and np.isfinite(online).all() and ss.graph.keyframes
+with tempfile.TemporaryDirectory() as out:
+    serialization.save_keyframe_graph(out + "/graph.npz", ss.graph)
+    assert serialization.load_pose_graph(out + "/graph.npz").num_vertices == 3
+    from dvo_slam_tpu_torch.cli import benchmark
+    assert benchmark.main(["--synthetic", "3", "--shape", "60x80", "--mode", "odometry",
+                           "--device", "cpu", "--output-dir", out]) == 0
+ss.graph.shutdown()
 from dvo_slam_tpu_torch.utils import trajectory
 stamps = np.arange(3) / 30.0
 assert trajectory.ate_rmse(stamps, np.tile(np.eye(4), (3, 1, 1)), stamps,
