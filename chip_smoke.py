@@ -23,12 +23,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    float64 Gram of the plain float32 rows; n equal, the precision, ll, A
    and b as ``fused_check.compare_warp_fused_stats`` holds them (rtol 1e-5
    of each quantity's rounding scale, A's entries within 1e-4 of
-   sqrt(A_aa A_bb)); two runs bit-identical.  Then B = 8 pairs in one call
-   bit-equal per stream to one-stream calls and held to the plain version
-   the same way.  Times (CUDA events, median of 30 after 5 warm-ups, in
+   sqrt(A_aa A_bb)); two runs bit-identical.  Then B = 8 pairs in one call,
+   depth-buffered sampling on and off, bit-equal per stream to one-stream
+   calls and held to the plain version the same way.  Times (CUDA events, median of 30 after 5 warm-ups, in
    turns with the plain version) and device times (the same events with
    the card spinning first, so they bracket the kernels and not the
-   host's enqueue) at first = 0, depth-buffered, beside the unfolded pair
+   host's enqueue) at first = 0, depth-buffered (the batched call also
+   without depth buffering), beside the unfolded pair
    ``warp_and_sample_cm`` + ``fused_stats_cuda``.  The sampled-input
    kernels on the same pair's sampled packs: ``num_valid`` equal; the Gram
    blocks within rtol 1e-6 of the float64 Gram and within 1e-4 of
@@ -112,7 +113,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``batched``, ms and device ms per iteration each; its ``pcopy`` tables
    are the copy kernel's main path.
 
-Phases 11-14 run after phase 5, before any profiler session, so that
+Phases 11-15 run after phase 5, before any profiler session, so that
 their frames/s compare with phase 4's:
 
 11. ``CameraTracker``: phase 4's 100 frames as u8/u16 through
@@ -171,7 +172,28 @@ their frames/s compare with phase 4's:
    runs, record feed, final pass) and the host read-backs per frame.  Then
    ``cli.benchmark.main(["--synthetic", "20", "--engine", "streaming",
    "--timing", ...])`` at 480x640 on the card: exit 0 and the report's ATE
-   and RPE keys finite.
+   and RPE keys finite.  Prints the records' sha256 (to compare trees).
+15. ``DataParallelSLAM(TUM_FR1, benchmark_config())`` (run right after
+   phase 14) on a one-rank NCCL process group: 2 hard-scene streams of 40
+   frames rendered as ``bench.py:228-239`` renders them (seeds 3000 +
+   97 b), the two in lockstep through the streaming front end (one dual
+   match at B = 4 per frame), then each stream's back end and final pass.
+   Each stream's online poses bit-equal to its one-stream
+   ``StreamingSLAM.track_frontend`` (run after the counted window), graph
+   ATE < 5 mm, online ATE < 10 mm; kernel 1's launches equal the
+   stream-by-stream bootstraps' iterations and kernel 1b's the dual
+   matches' plus the validation waves' lockstep iterations, no other
+   kernel.  Prints the aggregate e2e frames/s.  Then every section of
+   the port's driver (``dvo_slam_tpu_torch/bench.py``) once at a cut size
+   (phase 4's first 12 frames, e2e on 12 hard-scene frames in chunks of
+   6 and one timed run, 8 streams x 3 frames, a bsweep of 16 x 2): no
+   section fails, the record's keys are ``bench.py``'s; in each section
+   kernel 1's launches equal its one-stream solves' iterations and kernel
+   1b's its lockstep solves' (``tools/driver_launches.py``), no other
+   kernel runs, and the lockstep_nobuf runs launch kernel 1b's
+   non-depth-buffered template as often as their loop iterations; prints
+   the record and the counts per section (its accuracy gates are not held
+   at this cut: the loops are 12 frames long).
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
@@ -223,6 +245,11 @@ ROUTE_GATES = {"sparse": 1e-3, "schur": 1e-4, "cg": 1e-3}
 STREAM_PIPELINE_CHUNK = 50  # bench.py:304's pipeline_chunk
 STREAMING_VS_TRACKER_ATOL = 2e-3  # tests/test_streaming.py: streaming against the per-frame loop
 CLI_FRAMES = 20  # phase 14's run of the benchmark CLI
+DP_STREAMS = 2  # phase 15: DataParallelSLAM on bench.py's --mesh streams (B = 2)
+DP_FRAMES = 40  # bench.py:226
+DRIVER_FRAMES = 12  # phase 15: the driver's sections on phase 4's first 12 frames
+DRIVER_STREAM_FRAMES = 3  # phase 15: multistream's 8 streams x 3 frames
+DRIVER_SWEEP = ((16, 2),)  # phase 15: bsweep cut to one (B, T)
 STREAMS = 8  # the reference's stream count (tests/test_parallel.py, tools/gather_probe.py)
 STREAM_FRAMES = 30  # the reference benchmark's 50, cut to pay for phase 14
 STREAM_ATE_GATE_M = 0.01
@@ -465,8 +492,8 @@ def check_folded(cfg, intrinsics, frames):
     """Phase 3a: the folded kernel against its plain version at every solved
     level, first 0 and 1, depth-buffered on and off (pair 0 of ``frames``),
     then B = STREAMS pairs in one call against one-stream calls (pairs b,
-    b + 1).  Returns (one-stream rows, their worst errors, batched rows,
-    their worst errors)."""
+    b + 1), depth-buffered on and off.  Returns (one-stream rows, their
+    worst errors, batched rows, their worst errors by ``depth_buffered``)."""
     import torch
 
     from dvo_slam_tpu_torch.ops import fused_kernels
@@ -477,7 +504,7 @@ def check_folded(cfg, intrinsics, frames):
     dof = cfg.influence_function_param
     per_pair = [fused_check.warp_level_inputs(cfg, intrinsics, frames[b], frames[b + 1])
                 for b in range(STREAMS)]
-    rows, worst, batched_rows, batched_worst = [], {}, [], {}
+    rows, worst, batched_rows, batched_worst = [], {}, [], {True: {}, False: {}}
 
     def note(table, **errors):
         for key, value in errors.items():
@@ -542,51 +569,57 @@ def check_folded(cfg, intrinsics, frames):
                 rows.append(row)
                 print("phase 3:", json.dumps(row), flush=True)
 
-        # B pairs in one call, depth-buffered (the benchmark's sampling)
+        # B pairs in one call, depth-buffered (the benchmark's sampling) and
+        # not (the driver's lockstep_nobuf section)
         Ps = torch.stack([P * (1.0 + 0.1 * b) for b in range(STREAMS)])
         stack = lambda field: torch.stack(  # noqa: E731
             [getattr(pp[level], field) for pp in per_pair]).contiguous()  # noqa: B023
         for first in (0, 1):
-            bargs = (stack("refpack"), stack("quad"), inputs.shape, inputs.intrinsics, stack("T"),
-                     Ps, bool(first), dof, True)
-            one_args = [(*per_pair[b][level], Ps[b], bool(first), dof, True) for b in range(STREAMS)]
-            kernel, stats, stash = fused_kernels.warp_fused_stats_rows_cuda(*bargs)
-            again = fused_kernels.warp_fused_stats_rows_cuda(*bargs)
-            plain = fused_kernels.warp_fused_stats_plain(*bargs)
-            torch.cuda.synchronize(device)
-            fused_check.assert_bit_identical((*kernel, *stats, stash),
-                                             (*again[0], *again[1], again[2]))
-            not_bit_equal = 0
-            for b in range(STREAMS):
-                one, one_stats, one_stash = fused_kernels.warp_fused_stats_rows_cuda(*one_args[b])
-                not_bit_equal += _bits_differ(
-                    (*_stream(kernel, b), *_stream(stats, b), stash[b]), (*one, *one_stats, one_stash))
-            require(not_bit_equal == 0,
-                    f"batched folded kernel: {not_bit_equal} outputs differ from one-stream calls "
-                    f"(level {level}, first {first})")
-            errors = held(kernel, stats, stash, plain, bargs, one_args)
-            note(batched_worst, not_bit_equal_to_single=not_bit_equal,
-                 **{k: v for k, v in errors.items() if k != "n"})
-            row = {"level": level, "streams": STREAMS, "pixels": inputs.refpack.shape[1],
-                   "first": first, "kernel": "warp_fused_stats_batched",
-                   "not_bit_equal_to_single": not_bit_equal, **errors}
-            if level == cfg.last_level and first == 0:
-                def batched():
-                    return fused_kernels.warp_fused_stats_batched_cuda(*bargs)  # noqa: B023
+            for buffered in (True, False):
+                bargs = (stack("refpack"), stack("quad"), inputs.shape, inputs.intrinsics,
+                         stack("T"), Ps, bool(first), dof, buffered)
+                one_args = [(*per_pair[b][level], Ps[b], bool(first), dof, buffered)
+                            for b in range(STREAMS)]
+                kernel, stats, stash = fused_kernels.warp_fused_stats_rows_cuda(*bargs)
+                again = fused_kernels.warp_fused_stats_rows_cuda(*bargs)
+                plain = fused_kernels.warp_fused_stats_plain(*bargs)
+                torch.cuda.synchronize(device)
+                fused_check.assert_bit_identical((*kernel, *stats, stash),
+                                                 (*again[0], *again[1], again[2]))
+                not_bit_equal = 0
+                for b in range(STREAMS):
+                    one, one_stats, one_stash = fused_kernels.warp_fused_stats_rows_cuda(
+                        *one_args[b])
+                    not_bit_equal += _bits_differ((*_stream(kernel, b), *_stream(stats, b), stash[b]),
+                                                  (*one, *one_stats, one_stash))
+                require(not_bit_equal == 0,
+                        f"batched folded kernel: {not_bit_equal} outputs differ from one-stream "
+                        f"calls (level {level}, first {first}, depth_buffered {buffered})")
+                errors = held(kernel, stats, stash, plain, bargs, one_args)
+                note(batched_worst[buffered], not_bit_equal_to_single=not_bit_equal,
+                     **{k: v for k, v in errors.items() if k != "n"})
+                row = {"level": level, "streams": STREAMS, "pixels": inputs.refpack.shape[1],
+                       "first": first, "depth_buffered": buffered,
+                       "kernel": "warp_fused_stats_batched",
+                       "not_bit_equal_to_single": not_bit_equal, **errors}
+                if level == cfg.last_level and first == 0:
+                    def batched():
+                        return fused_kernels.warp_fused_stats_batched_cuda(*bargs)  # noqa: B023
 
-                def batched_plain():
-                    return fused_kernels.warp_fused_stats_plain(*bargs)  # noqa: B023
+                    def batched_plain():
+                        return fused_kernels.warp_fused_stats_plain(*bargs)  # noqa: B023
 
-                _timed(row, batched, batched_plain)
-                row["single_kernel_x_streams_ms"] = median_ms(lambda: [
-                    fused_kernels.warp_fused_stats_cuda(*a) for a in one_args])  # noqa: B023
-                row["device_ms"] = device_ms(batched)
-                row["plain_device_ms"] = device_ms(batched_plain)
-                row["bound_ms"], row["bound_by"] = _bound(
-                    _rows_bytes(bargs[0], 7) + _quad_bytes(*bargs[:5]) + _bytes(bargs[4], Ps, *kernel),
-                    STREAMS * inputs.refpack.shape[1] * (CHAIN_FLOPS + GRAM_FLOPS))
-            batched_rows.append(row)
-            print("phase 3:", json.dumps(row), flush=True)
+                    _timed(row, batched, batched_plain)
+                    row["single_kernel_x_streams_ms"] = median_ms(lambda: [
+                        fused_kernels.warp_fused_stats_cuda(*a) for a in one_args])  # noqa: B023
+                    row["device_ms"] = device_ms(batched)
+                    row["plain_device_ms"] = device_ms(batched_plain)
+                    row["bound_ms"], row["bound_by"] = _bound(
+                        _rows_bytes(bargs[0], 7) + _quad_bytes(*bargs[:5])
+                        + _bytes(bargs[4], Ps, *kernel),
+                        STREAMS * inputs.refpack.shape[1] * (CHAIN_FLOPS + GRAM_FLOPS))
+                batched_rows.append(row)
+                print("phase 3:", json.dumps(row), flush=True)
     return rows, worst, batched_rows, batched_worst
 
 
@@ -960,39 +993,21 @@ def check_batched_kernel(cfg, intrinsics, pairs):
 SHARDED_KERNELS = ("warp_fused_partials", "sharded_loglik", "sharded_tail")
 
 
-def _wrappers():
-    """{name: wrapper} of every kernel's launch count."""
-    from dvo_slam_tpu_torch.ops import fused_kernels, table_copy
-
-    return {
-        "warp_fused_partials": fused_kernels.warp_fused_partials_cuda,
-        "sharded_loglik": fused_kernels.sharded_loglik_cuda,
-        "sharded_tail": fused_kernels.sharded_tail_cuda,
-        "warp_fused_stats": fused_kernels.warp_fused_stats_cuda,
-        "warp_fused_stats_batched": fused_kernels.warp_fused_stats_batched_cuda,
-        "fused_stats": fused_kernels.fused_stats_cuda,
-        "fused_stats_batched": fused_kernels.fused_stats_batched_cuda,
-        "fused_partials": fused_kernels.fused_partials_cuda,
-        "table_copy": table_copy.table_copy_cuda,
-    }
-
-
 def _reset_counts():
     """Every kernel's launch count, and warp_and_sample_cm's call count, to 0."""
     from dvo_slam_tpu_torch.ops import residuals
+    from dvo_slam_tpu_torch.tools import driver_launches
 
-    for wrapper in _wrappers().values():
+    for wrapper in driver_launches.wrappers().values():
         wrapper.launches = 0
     residuals.warp_and_sample_cm.calls = 0
 
 
 def _launches():
     """{name: launches} since the last reset, with warp_and_sample_cm's calls."""
-    from dvo_slam_tpu_torch.ops import residuals
+    from dvo_slam_tpu_torch.tools import driver_launches
 
-    counts = {name: wrapper.launches for name, wrapper in _wrappers().items()}
-    counts["warp_and_sample_cm_calls"] = residuals.warp_and_sample_cm.calls
-    return counts
+    return driver_launches.launches()
 
 
 def _require_only(counts, name, expected, what):
@@ -1342,6 +1357,7 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
     from dvo_slam_tpu_torch.models import pose_graph
     from dvo_slam_tpu_torch.models.keyframe_tracker import KeyframeTracker
     from dvo_slam_tpu_torch.ops import se3
+    from dvo_slam_tpu_torch.tools.driver_launches import lockstep_iterations, streams
     from dvo_slam_tpu_torch.tools.fused_check import require
     from dvo_slam_tpu_torch.utils import trajectory
 
@@ -1377,11 +1393,6 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
     def snapshot_levels(self, level):
         set_levels(self, level)
         snapshots.append(copy.deepcopy(self))  # the final pass's starting state
-
-    def lockstep(level_stats):
-        """Launches of one match_prepared call: per level its longest stream."""
-        return sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
-                   else int(s.iterations) for s in level_stats)
 
     tracker = KeyframeTracker(intrinsics, slam_cfg, device=d_i.device)
     require(tracker.graph._thread is not None, "phase 13: the graph worker thread is off")
@@ -1425,9 +1436,9 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
     require(not fallbacks, f"phase 13: a graph solve fell back: {fallbacks}")
 
     # the kernels' launches against the solves' lockstep iterations
-    one_stream = sum(lockstep(ls) for wave, ls in calls if _streams(ls) == 1)
-    dual = sum(lockstep(ls) for wave, ls in calls if not wave and _streams(ls) > 1)
-    wave_iterations = sum(lockstep(ls) for wave, ls in calls if wave)
+    one_stream = sum(lockstep_iterations(ls) for wave, ls in calls if streams(ls) == 1)
+    dual = sum(lockstep_iterations(ls) for wave, ls in calls if not wave and streams(ls) > 1)
+    wave_iterations = sum(lockstep_iterations(ls) for wave, ls in calls if wave)
     require(counts["warp_fused_stats"] == one_stream > 0,
             f"phase 13: kernel 1 launches {counts['warp_fused_stats']} != the initial match's "
             f"iterations {one_stream}")
@@ -1489,7 +1500,7 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
         "online_ate_rmse_m": online_ate, "graph_ate_rmse_m": graph_ate,
         "keyframes": len(tracker.graph.keyframes), "loop_edges": loops,
         "waves_pairs": [len(w) for w in waves],
-        "wave_batch_sizes": [_streams(ls) for wave, ls in calls if wave][::2],
+        "wave_batch_sizes": [streams(ls) for wave, ls in calls if wave][::2],
         "launches": counts,
         "initial_match_iterations": one_stream, "dual_lockstep_iterations": dual,
         "wave_lockstep_iterations": wave_iterations,
@@ -1516,12 +1527,11 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     import threading
     import warnings
 
-    import torch
-
     from dvo_slam_tpu_torch import native
     from dvo_slam_tpu_torch.cli import benchmark as cli
     from dvo_slam_tpu_torch.models import frames as frames_mod
     from dvo_slam_tpu_torch.models import pose_graph, streaming
+    from dvo_slam_tpu_torch.tools.driver_launches import lockstep_iterations, streams
     from dvo_slam_tpu_torch.tools.fused_check import require
     from dvo_slam_tpu_torch.utils import trajectory
 
@@ -1555,14 +1565,10 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
         optimizes.append((history, self.last_solver))
         return history
 
-    def lockstep(level_stats):
-        return sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
-                   else int(s.iterations) for s in level_stats)
-
     def expected_launches(what):
         """(kernel 1, kernel 1b) launches the recorded solves imply."""
-        one = sum(lockstep(ls) for _, ls in calls if _streams(ls) == 1)
-        batched = sum(lockstep(ls) for _, ls in calls if _streams(ls) > 1)
+        one = sum(lockstep_iterations(ls) for _, ls in calls if streams(ls) == 1)
+        batched = sum(lockstep_iterations(ls) for _, ls in calls if streams(ls) > 1)
         others = [kind for kind, ls in calls if kind == "other"]
         require(not others, f"{what}: {len(others)} matches outside the front end and the waves")
         return one, batched
@@ -1642,7 +1648,7 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
                       "warp_fused_stats_batched", batched, f"phase 14 {name}")
         launches[name] = (counts["warp_fused_stats"], counts["warp_fused_stats_batched"])
     pipelined_calls = runs["pipelined"][2]
-    wave_iterations = sum(lockstep(ls) for kind, ls in pipelined_calls if kind == "wave")
+    wave_iterations = sum(lockstep_iterations(ls) for kind, ls in pipelined_calls if kind == "wave")
     require(wave_iterations > 0, "phase 14: no validation wave ran")
 
     # the two forms' records bit-equal; the decisions and poses of phase 13
@@ -1667,7 +1673,7 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
         require(np.isfinite(history).all(), f"phase 14: non-finite chi2 ({route}): {history}")
 
     frontend_iterations = {
-        name: sum(lockstep(ls) for kind, ls in run[2] if kind == "frontend")
+        name: sum(lockstep_iterations(ls) for kind, ls in run[2] if kind == "frontend")
         for name, run in runs.items()}
     chunks = -(-NUM_FRAMES // STREAM_PIPELINE_CHUNK)
 
@@ -1708,6 +1714,7 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
             "irls_done_reads": frontend_iterations["pipelined"] / NUM_FRAMES,
             "record_copies": chunks / NUM_FRAMES},
         "graph_solves": len(optimizes),
+        "records_sha256": _records_digest(records),
         "cli": {"frames": CLI_FRAMES, "seconds": cli_seconds, "written": written,
                 **{k: report[k] for k in ate_keys}},
     }
@@ -1715,10 +1722,146 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     return launches, summary
 
 
-def _streams(level_stats):
-    """The stream count of a match_prepared call's level statistics."""
-    it = level_stats[0].iterations
-    return int(it.numel()) if hasattr(it, "numel") else 1
+def _records_digest(records):
+    """sha256 of a front end's decoded records (every field as float64), to
+    compare runs of two trees."""
+    import hashlib
+
+    flat = [np.ravel(np.asarray(x, np.float64)) for r in records for x in r]
+    return hashlib.sha256(np.concatenate(flat).tobytes()).hexdigest()
+
+
+def check_dp_slam_and_driver(slam_cfg, intrinsics, easy_i, easy_d, easy_poses):
+    """Phase 15: ``DataParallelSLAM`` on a one-rank NCCL process group (two
+    hard-scene streams of 40 frames rendered as ``bench.py:228-239``
+    renders them) against each stream's one-stream front end; then every
+    section of the port's driver (``dvo_slam_tpu_torch/bench.py``) once at
+    a cut size, each section's launches against its solves' iterations
+    (``tools/driver_launches.py``).  Returns ({part: (kernel 1 launches,
+    kernel 1b launches)} with the non-depth-buffered launches of kernel 1b
+    under ``driver_nobuf``, and the summary)."""
+    import tempfile
+
+    from dvo_slam_tpu_torch import bench
+    from dvo_slam_tpu_torch.models import streaming
+    from dvo_slam_tpu_torch.parallel import distributed, mesh as mesh_lib
+    from dvo_slam_tpu_torch.parallel.dp_slam import DataParallelSLAM
+    from dvo_slam_tpu_torch.tools import driver_launches
+    from dvo_slam_tpu_torch.tools.fused_check import require
+    from dvo_slam_tpu_torch.utils import synthetic, trajectory
+
+    # the streams of bench.py's --mesh path
+    gt = synthetic.circular_trajectory(DP_FRAMES, radius=0.15, rot_amplitude=0.12,
+                                       z_amplitude=0.05)
+    scene = synthetic.occluded_scene()
+    rendered = [bench.render_sequence(gt, SHAPE, scene=scene, seed0=3000 + 97 * b,
+                                      intrinsics=intrinsics, workers=RENDER_WORKERS)
+                for b in range(DP_STREAMS)]
+    iu = np.stack([r[0] for r in rendered])
+    du = np.stack([r[1] for r in rendered])
+    stamps = np.arange(DP_FRAMES) / 30.0
+
+    with tempfile.TemporaryDirectory() as store:
+        distributed.initialize(init_method=f"file://{store}/rendezvous", world_size=1,
+                               rank=0, backend="nccl")
+        try:
+            mesh = mesh_lib.make_mesh(1)
+            device = mesh.device
+            dp = DataParallelSLAM(intrinsics, slam_cfg, mesh=mesh)
+            with driver_launches.counting() as iterations:
+                _reset_counts()
+                online, dp_seconds = _synchronized_seconds(
+                    lambda: dp.track_sequences(iu, du, stamps))
+                counts = _launches()
+            trajectories = dp.trajectories()
+            keyframes = [len(s.graph.keyframes) for s in dp.slams]
+            dp.shutdown()
+        finally:
+            distributed.shutdown()
+    one, batched = iterations.one, iterations.batched
+    require(counts["warp_fused_stats"] == one > 0,
+            f"phase 15: kernel 1 launches {counts['warp_fused_stats']} != the bootstraps' "
+            f"iterations {one}")
+    _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
+                  "warp_fused_stats_batched", batched, "phase 15")
+    require(online.shape == (DP_STREAMS, DP_FRAMES, 4, 4) and len(trajectories) == DP_STREAMS,
+            f"phase 15: online {online.shape}, {len(trajectories)} trajectories")
+
+    # each stream against its one-stream front end (comparison runs, not counted)
+    solo_diff, not_bit_equal = [], []
+    for b in range(DP_STREAMS):
+        solo = streaming.StreamingSLAM(intrinsics, slam_cfg)
+        _, want = solo.track_frontend(iu[b], du[b])
+        solo.graph.shutdown()
+        solo_diff.append(float(np.abs(online[b] - want).max()))
+        if not np.array_equal(online[b], want):
+            not_bit_equal.append(b)
+    require(not not_bit_equal,
+            f"phase 15: streams {not_bit_equal} part from their one-stream front ends by "
+            f"{solo_diff}")
+    graph_ates = [float(trajectory.ate_rmse(st, poses, stamps, gt)) for st, poses in trajectories]
+    online_ates = [float(trajectory.ate_rmse(stamps, online[b], stamps, gt))
+                   for b in range(DP_STREAMS)]
+    require(max(graph_ates) < E2E_ATE_GATE_M, f"phase 15: graph ATEs {graph_ates} m")
+    require(max(online_ates) < ONLINE_ATE_GATE_M, f"phase 15: online ATEs {online_ates} m")
+
+    # the driver: every section once at a cut size, on phase 4's easy frames
+    n = DRIVER_FRAMES
+    setup = bench.Setup(slam_cfg, intrinsics, device, SHAPE,
+                        easy_poses[:n], easy_i[:n], easy_d[:n], RENDER_WORKERS)
+    driver_kwargs = {
+        "e2e": dict(frames=n, pipeline_chunk=n // 2, reps=1),
+        "tracker": dict(reps=1),
+        "multistream": dict(streams=bench.MS_STREAMS, frames=DRIVER_STREAM_FRAMES),
+        "bsweep": dict(sweep=DRIVER_SWEEP),
+    }
+    with tempfile.TemporaryDirectory() as out:
+        _reset_counts()
+        t0 = time.perf_counter()
+        report, passed, sections = driver_launches.count_sections(
+            setup, list(bench.SECTION_FUNCTIONS), rep=bench.Report(f"{out}/partial.json"),
+            **driver_kwargs)
+        driver_seconds = time.perf_counter() - t0
+        driver_counts = _launches()
+    record = report.result
+    require(not report.failed, f"phase 15: driver sections failed: {report.failed} {record}")
+    expected = bench_keys(bench.MS_STREAMS, [b for b, _ in DRIVER_SWEEP])
+    require(set(record) == expected,
+            f"phase 15: driver keys {sorted(set(record) ^ expected)} differ from bench.py's")
+    wrong = driver_launches.mismatches(sections)
+    require(not wrong, f"phase 15: the driver's launches differ from its iterations: {wrong}")
+    nobuf = sections["multistream"]["nobuf_launches"]
+    require(nobuf > 0, "phase 15: the lockstep_nobuf runs launched kernel 1b no time")
+
+    summary = {
+        "streams": DP_STREAMS, "frames": DP_FRAMES, "keyframes": keyframes,
+        "graph_ate_rmse_m": graph_ates, "online_ate_rmse_m": online_ates,
+        "max_pose_diff_vs_one_stream": solo_diff,
+        "e2e_aggregate_frames_per_s": DP_STREAMS * DP_FRAMES / dp_seconds,
+        "e2e_seconds": dp_seconds, "launches": counts,
+        "bootstrap_iterations": one, "lockstep_iterations": batched,
+        "driver": {"frames": n, "stream_frames": DRIVER_STREAM_FRAMES,
+                   "sweep": DRIVER_SWEEP, "seconds": driver_seconds, "exit_rule": passed,
+                   "launches": {k: driver_counts[k] for k in
+                                ("warp_fused_stats", "warp_fused_stats_batched")},
+                   "sections": sections, "record": record},
+    }
+    print("phase 15:", json.dumps(summary), flush=True)
+    return {"dp": (counts["warp_fused_stats"], counts["warp_fused_stats_batched"]),
+            "driver": (driver_counts["warp_fused_stats"],
+                       driver_counts["warp_fused_stats_batched"]),
+            "driver_nobuf": nobuf}, summary
+
+
+def bench_keys(streams, sweep_streams):
+    """The keys of ``bench.py``'s record for every section: :264-267, :332-336,
+    :379-386, :428-432, :446, :494-497, :533-536, :570-573 and :587."""
+    return ({"metric", "unit", "device", "slam_e2e_fps", "slam_e2e_ate_rmse_m",
+             "backend_phase_ms_per_frame", "online_latency_ms", "value", "vs_baseline",
+             "ate_rmse_m", "ate_rmse_hard_m", "slam_frontend_fps", "slam_ate_rmse_m", "gates"}
+            | {f"aggregate_fps_{streams}stream_{name}"
+               for name in ("lockstep", "sequential", "lockstep_nobuf")}
+            | {f"aggregate_fps_{b}stream_sequential" for b in sweep_streams})
 
 
 def check_copy_and_probe():
@@ -1923,6 +2066,11 @@ def main() -> int:
                                             hard_poses, online13, phase13["keyframes"])
     elapsed("phase 14")
 
+    # phase 15: DataParallelSLAM on a one-rank process group, then the driver
+    dp_launches, _ = check_dp_slam_and_driver(benchmark_config(), TUM_FR1, easy_i, easy_d,
+                                              easy_poses)
+    elapsed("phase 15")
+
     # phase 6: the sharded paths on a one-rank process group
     frames += [build_frame(cfg, d_i[k], d_d[k]) for k in range(len(frames), SHARDED_PAIRS + 1)]
     partials_launches, _ = check_sharded(cfg, TUM_FR1, frames, easy_poses)
@@ -1954,8 +2102,9 @@ def main() -> int:
     folded_rows, folded_worst, folded_batched_rows, folded_batched_worst = folded
     l1 = next(r for r in folded_rows
               if r["level"] == cfg.last_level and r["first"] == 0 and r["depth_buffered"])
-    l1_batched = next(r for r in folded_batched_rows
-                      if r["level"] == cfg.last_level and r["first"] == 0)
+    l1_batched, l1_nobuf = (next(r for r in folded_batched_rows if r["level"] == cfg.last_level
+                                 and r["first"] == 0 and r["depth_buffered"] is buffered)
+                            for buffered in (True, False))
     sampled_rows, sampled_worst = checks["fused_stats"]
     sampled_l1 = next(r for r in sampled_rows if r["level"] == cfg.last_level and r["first_iter"] == 0)
     batched_l1 = next(r for r in batched_rows
@@ -1969,15 +2118,18 @@ def main() -> int:
         "fused_stats": {"4": launches, "5": hard_launches, "11": camera_launches,
                         "12": init_launches, "13": slam_one,
                         "14_pipelined": streaming_launches["pipelined"][0],
-                        "14_monolithic": streaming_launches["monolithic"][0]},
+                        "14_monolithic": streaming_launches["monolithic"][0],
+                        "15_dp_slam": dp_launches["dp"][0], "15_driver": dp_launches["driver"][0]},
         "fused_stats_batched": {"7": batched_launches, "12": dual_launches, "13": slam_batched,
                                 "14_pipelined": streaming_launches["pipelined"][1],
-                                "14_monolithic": streaming_launches["monolithic"][1]},
+                                "14_monolithic": streaming_launches["monolithic"][1],
+                                "15_dp_slam": dp_launches["dp"][1],
+                                "15_driver": dp_launches["driver"][1]},
     }
     for name, replaces, row, worst, sampled_entry, sampled_row, sampled_errors in (
         ("fused_stats", STATS_REPLACES, l1, folded_worst, "dvo_fused_stats", sampled_l1,
          sampled_worst),
-        ("fused_stats_batched", BATCHED_REPLACES, l1_batched, folded_batched_worst,
+        ("fused_stats_batched", BATCHED_REPLACES, l1_batched, folded_batched_worst[True],
          "dvo_fused_stats_batched", batched_l1, batched_worst),
     ):
         kernels.append({
@@ -1998,6 +2150,18 @@ def main() -> int:
     kernels[-1]["validation_wave"] = {
         name: {k: row[k] for k in ("streams", "level", "max_scaled_err") + row_keys}
         for name, row in zip(("coarse", "fine"), wave_rows)}
+    # kernel #1b's template without depth-buffered sampling: phase 15's
+    # lockstep_nobuf runs (counted in fused_stats_batched's 15_driver too)
+    nobuf_worst = folded_batched_worst[False]
+    kernels.append({
+        "name": "fused_stats_batched_nobuf", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": BATCHED_REPLACES, "entry": "dvo_warp_fused_stats", "depth_buffered": False,
+        "launches": dp_launches["driver_nobuf"],
+        "launches_by_phase": {"15_driver_lockstep_nobuf": dp_launches["driver_nobuf"]},
+        "max_abs_err": nobuf_worst["max_abs_err"], **{k: l1_nobuf[k] for k in timing_keys},
+        "library_ms": None, **{k: v for k, v in nobuf_worst.items() if k != "max_abs_err"},
+        **{k: l1_nobuf[k] for k in l1_nobuf if "device_ms" in k or k.endswith("x_streams_ms")},
+    })
     # kernel #2: the sharded evaluation's three launches (the folded entry
     # point, phase 6's path); the sampled-input entry point is checked in
     # phase 3 and runs on no main path

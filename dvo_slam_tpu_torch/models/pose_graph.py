@@ -29,8 +29,10 @@ the host while the tracker owns the card.  The placement follows the
 reference's design; it is not a fallback.  The reference's ``lax.scan`` and
 ``lax.while_loop`` loops are Python loops here.  The compacted subgraph and
 the chain structure are not padded to a power of two: that padding keeps
-XLA's compile set closed (``pad_chain_structure`` comes with the edge-
-sharded bundle adjustment, its other caller).
+XLA's compile set closed (``parallel/distributed_ba.pad_chain_structure``
+pads the chains to a multiple of the world size only).  The solvers'
+tensors live on their inputs' device, so the distributed solvers of
+``parallel/distributed_ba`` run these functions in float64 on the card.
 
 Conventions: vertex update is right-multiplicative (T <- T exp(xi)); edge
 residual r = log(T_meas^{-1} T_i^{-1} T_j), so a perfect edge has T_meas =
@@ -94,12 +96,12 @@ def _edge_jacobians(r, B):
 def assemble_blocks(n, ei, ej, H_ii, H_ij, H_jj, b_i, b_j):
     """Scatter per-edge blocks into raw dense normal equations
     ([N, N, 6, 6], [N, 6]), before the gauge."""
-    H = torch.zeros((n, n, 6, 6), dtype=H_ii.dtype)
+    H = torch.zeros((n, n, 6, 6), dtype=H_ii.dtype, device=H_ii.device)
     H.index_put_((ei, ei), H_ii, accumulate=True)
     H.index_put_((ei, ej), H_ij, accumulate=True)
     H.index_put_((ej, ei), H_ij.transpose(-1, -2), accumulate=True)
     H.index_put_((ej, ej), H_jj, accumulate=True)
-    b = torch.zeros((n, 6), dtype=b_i.dtype)
+    b = torch.zeros((n, 6), dtype=b_i.dtype, device=b_i.device)
     b.index_add_(0, ei, b_i)
     b.index_add_(0, ej, b_j)
     return H, b
@@ -112,8 +114,8 @@ def apply_gauge(H, b, free, damping=GAUGE_DAMPING):
     n = H.shape[0]
     freef = free.to(H.dtype)
     H = H * freef[:, None, None, None] * freef[None, :, None, None]
-    eye = torch.eye(6, dtype=H.dtype)
-    idx = torch.arange(n)
+    eye = torch.eye(6, dtype=H.dtype, device=H.device)
+    idx = torch.arange(n, device=H.device)
     H[idx, idx] = H[idx, idx] + (1.0 - freef)[:, None, None] * eye
     H[idx, idx] = H[idx, idx] + damping * eye
     b = b * freef[:, None]
@@ -138,7 +140,7 @@ def _solve_scaled(H, b):
     d_inv = 1.0 / d
     Hs = H * d_inv[:, None] * d_inv[None, :]
     bs = b * d_inv
-    L = _cholesky(Hs + 1e-9 * torch.eye(H.shape[0], dtype=H.dtype))
+    L = _cholesky(Hs + 1e-9 * torch.eye(H.shape[0], dtype=H.dtype, device=H.device))
     y = torch.cholesky_solve(bs[:, None], L)[:, 0]
     return y * d_inv
 
@@ -172,7 +174,7 @@ def _masked_sum(values, mask):
 
 def _gradient(graph: GraphArrays, b_i, b_j):
     """The per-vertex gradient [N, 6] of the per-edge blocks."""
-    b = torch.zeros((graph.poses.shape[0], 6), dtype=b_i.dtype)
+    b = torch.zeros((graph.poses.shape[0], 6), dtype=b_i.dtype, device=b_i.device)
     b.index_add_(0, graph.edge_i, b_i)
     b.index_add_(0, graph.edge_j, b_j)
     return b
@@ -185,15 +187,21 @@ def _vdot(a, b):
 # ------------------------------------------------------------ block CG
 
 
-def block_diag_preconditioner(n, ei, ej, H_ii, H_jj, free, dtype, damping=GAUGE_DAMPING):
+def block_diag_preconditioner(n, ei, ej, H_ii, H_jj, free, dtype, damping=GAUGE_DAMPING,
+                              all_reduce=None):
     """Cholesky factors of the block-Jacobi preconditioner: the per-vertex
     6x6 diagonal blocks of the gauged system (each edge's diagonal
-    contributions plus damping, identity on fixed vertices)."""
-    eye = torch.eye(6, dtype=dtype)
+    contributions plus damping, identity on fixed vertices).  With
+    ``all_reduce`` (a function that sums a tensor over the ranks) the
+    edges are this rank's shard and their accumulations are summed before
+    the gauge: one [N, 6, 6] collective."""
+    eye = torch.eye(6, dtype=dtype, device=H_ii.device)
     freef = free.to(dtype)
-    D = torch.zeros((n, 6, 6), dtype=dtype)
+    D = torch.zeros((n, 6, 6), dtype=dtype, device=H_ii.device)
     D.index_add_(0, ei, H_ii)
     D.index_add_(0, ej, H_jj)
+    if all_reduce is not None:
+        D = all_reduce(D)
     D = D * freef[:, None, None] + (1.0 - freef)[:, None, None] * eye
     D = D + damping * eye
     return _cholesky(D)
@@ -231,16 +239,29 @@ def edge_matvec(ei, ej, H_ii, H_ij, H_jj, free, x, damping=GAUGE_DAMPING):
 
 def solve_blocks_cg(
     n, ei, ej, H_ii, H_ij, H_jj, rhs, free, iterations: int = 100, tol: float = 1e-6,
-    damping=GAUGE_DAMPING, return_iterations: bool = False,
+    damping=GAUGE_DAMPING, return_iterations: bool = False, all_reduce=None,
 ):
     """Preconditioned conjugate gradients on the block-sparse gauged normal
     equations ``rhs`` [N, 6] (the replacement for the dense [6N, 6N]
     Cholesky on large graphs; O(E) per iteration).  Stops after
     ``iterations`` or once |r| <= tol |rhs|; one read of |r|^2 per
-    iteration."""
+    iteration.
+
+    With ``all_reduce`` (a function that sums a tensor over the ranks) the
+    edge arrays are this rank's shard and ``rhs`` is already summed: each
+    iteration sums ONE [N, 6] partial product over the ranks (the
+    reference's ``axis_name`` form), and every rank holds the same
+    iterate, so all take the same stopping decision."""
     dtype = rhs.dtype
     rhs = rhs * free.to(dtype)[:, None]
-    L = block_diag_preconditioner(n, ei, ej, H_ii, H_jj, free, dtype, damping)
+    L = block_diag_preconditioner(n, ei, ej, H_ii, H_jj, free, dtype, damping, all_reduce)
+    if all_reduce is None:
+        def matvec(v):
+            return edge_matvec(ei, ej, H_ii, H_ij, H_jj, free, v, damping)
+    else:
+        def matvec(v):
+            part = edge_matvec_partial(ei, ej, H_ii, H_ij, H_jj, free, v)
+            return all_reduce(part) + _gauge_terms(v, free, damping)
 
     def precond(r):
         return torch.cholesky_solve(r[..., None], L)[..., 0]
@@ -253,7 +274,7 @@ def solve_blocks_cg(
     stop2 = tol * tol * torch.clamp(_vdot(rhs, rhs), min=1e-30)
     k = 0
     while k < iterations and bool(_vdot(r, r) > stop2):
-        Hp = edge_matvec(ei, ej, H_ii, H_ij, H_jj, free, p, damping)
+        Hp = matvec(p)
         alpha = rz / torch.clamp(_vdot(p, Hp), min=1e-30)
         x = x + alpha * p
         r = r - alpha * Hp
@@ -406,34 +427,44 @@ def _spd_solve(d, r):
 
 
 def schur_chain_solve(struct: ChainStructure, n, H_ii, H_ij, H_jj, b, free,
-                      damping=GAUGE_DAMPING):
+                      damping=GAUGE_DAMPING, all_reduce=None):
     """Exact direct solve of the gauged normal equations H dx = -b by chain
     elimination: a forward and a backward block-tridiagonal sweep over every
     chain at once (6x6 solves, 13 right-hand sides: the couplings to both
     end separators and the gradient) reduce the system onto the separators;
     one dense Cholesky solves the reduced system; the chains' updates are
     back-substituted from the same sweep columns.  Gauge and damping as
-    :func:`apply_gauge`."""
-    dtype = b.dtype
-    eye = torch.eye(6, dtype=dtype)
+    :func:`apply_gauge`.
+
+    Zero-length segments (``seg_len == 0``, the padding of
+    ``pad_chain_structure``) contribute nothing.  With ``all_reduce`` (a
+    function that sums a tensor over the ranks) the segment arrays are this
+    rank's shard: each rank eliminates its own chains, the reduced
+    [S, S, 6, 6] system and its right-hand side are summed over the ranks
+    (the reference's ``axis_name`` form), the small solve runs on every
+    rank, and the back-substituted chain updates are summed once as an
+    [N, 6] tensor."""
+    dtype, device = b.dtype, b.device
+    eye = torch.eye(6, dtype=dtype, device=device)
     freef = free.to(dtype)
     rhs = -b * freef[:, None]
-    as_long = lambda a: torch.from_numpy(np.asarray(a, np.int64))  # noqa: E731
+    as_long = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(device)  # noqa: E731
     sep_ids, seg_a, seg_b = as_long(struct.sep_ids), as_long(struct.seg_a), as_long(struct.seg_b)
     seg_len, seg_vert = as_long(struct.seg_len), as_long(struct.seg_vert)
     s_count = sep_ids.shape[0]
     g_count, kp1 = struct.seg_edges.shape
     k_max = kp1 - 1
-    rows = torch.arange(g_count)
+    rows = torch.arange(g_count, device=device)
+    segf = (seg_len > 0).to(dtype)  # padding-segment mask
 
     e = as_long(struct.seg_edges)
-    flip = torch.from_numpy(np.asarray(struct.seg_flip))[..., None, None]
+    flip = torch.from_numpy(np.asarray(struct.seg_flip)).to(device)[..., None, None]
     Hii_e, Hij_e, Hjj_e = H_ii[e], H_ij[e], H_jj[e]
     Dp = torch.where(flip, Hjj_e, Hii_e)  # diag block on the earlier endpoint
     Dq = torch.where(flip, Hii_e, Hjj_e)  # diag block on the later endpoint
     U = torch.where(flip, Hij_e.transpose(-1, -2), Hij_e)  # H(P, Q) along the walk
 
-    tpos = torch.arange(k_max)
+    tpos = torch.arange(k_max, device=device)
     valid_t = tpos[None, :] < seg_len[:, None]  # [G, K]
     last = torch.clamp(seg_len - 1, min=0)
     # interior tridiagonal: D_t = Dq(edge t) + Dp(edge t+1) + damping
@@ -444,8 +475,8 @@ def schur_chain_solve(struct: ChainStructure, n, H_ii, H_ij, H_jj, b, free,
 
     free_sep = freef[sep_ids]
     # gauged couplings to the end separators
-    Ca = U[:, 0].transpose(-1, -2) * free_sep[seg_a][:, None, None]  # H(v_0, sep_a)
-    Cb = U[rows, seg_len] * free_sep[seg_b][:, None, None]  # H(v_{k-1}, sep_b)
+    Ca = U[:, 0].transpose(-1, -2) * (free_sep[seg_a] * segf)[:, None, None]  # H(v_0, sep_a)
+    Cb = U[rows, seg_len] * (free_sep[seg_b] * segf)[:, None, None]  # H(v_{k-1}, sep_b)
     b_int = rhs[seg_vert] * valid_t[..., None]  # [G, K, 6]
     onehot0 = (tpos == 0).to(dtype)
     onehotk = (tpos[None, :] == last[:, None]).to(dtype)
@@ -481,14 +512,18 @@ def schur_chain_solve(struct: ChainStructure, n, H_ii, H_ij, H_jj, b, free,
     corr_b = Cb.transpose(-1, -2) @ X[rows, last]
 
     # the reduced separator system: the chains' contributions ...
-    S = torch.zeros((s_count, s_count, 6, 6), dtype=dtype)
-    S.index_put_((seg_a, seg_a), Dp[:, 0] - corr_a[..., :6], accumulate=True)
+    segw = segf[:, None, None]
+    S = torch.zeros((s_count, s_count, 6, 6), dtype=dtype, device=device)
+    S.index_put_((seg_a, seg_a), Dp[:, 0] * segw - corr_a[..., :6], accumulate=True)
     S.index_put_((seg_a, seg_b), -corr_a[..., 6:12], accumulate=True)
     S.index_put_((seg_b, seg_a), -corr_b[..., :6], accumulate=True)
-    S.index_put_((seg_b, seg_b), Dq[rows, seg_len] - corr_b[..., 6:12], accumulate=True)
-    rhs_seg = torch.zeros((s_count, 6), dtype=dtype)
+    S.index_put_((seg_b, seg_b), Dq[rows, seg_len] * segw - corr_b[..., 6:12], accumulate=True)
+    rhs_seg = torch.zeros((s_count, 6), dtype=dtype, device=device)
     rhs_seg.index_add_(0, seg_a, -corr_a[..., 12])
     rhs_seg.index_add_(0, seg_b, -corr_b[..., 12])
+    if all_reduce is not None:
+        S = all_reduce(S)
+        rhs_seg = all_reduce(rhs_seg)
     # ... plus the separator-separator edges
     se, sa, sb = (as_long(a) for a in (struct.sep_edge, struct.sep_edge_a, struct.sep_edge_b))
     S.index_put_((sa, sa), H_ii[se], accumulate=True)
@@ -498,7 +533,7 @@ def schur_chain_solve(struct: ChainStructure, n, H_ii, H_ij, H_jj, b, free,
     rhs_sep = rhs[sep_ids] + rhs_seg
     # gauge and damping on the reduced system (apply_gauge semantics)
     S = S * free_sep[:, None, None, None] * free_sep[None, :, None, None]
-    diag = torch.arange(s_count)
+    diag = torch.arange(s_count, device=device)
     S[diag, diag] = S[diag, diag] + ((1.0 - free_sep) + damping)[:, None, None] * eye
     Hs = S.permute(0, 2, 1, 3).reshape(s_count * 6, s_count * 6)
     x_sep = _solve_scaled(Hs, (rhs_sep * free_sep[:, None]).reshape(-1)).reshape(s_count, 6)
@@ -510,8 +545,10 @@ def schur_chain_solve(struct: ChainStructure, n, H_ii, H_ij, H_jj, b, free,
         - torch.einsum("gkab,gb->gka", X[..., :6], x_sep[seg_a])
         - torch.einsum("gkab,gb->gka", X[..., 6:12], x_sep[seg_b])
     ) * valid_t[..., None]
-    dx = torch.zeros((n, 6), dtype=dtype)
+    dx = torch.zeros((n, 6), dtype=dtype, device=device)
     dx.index_add_(0, seg_vert.reshape(-1), x_int.reshape(-1, 6))
+    if all_reduce is not None:
+        dx = all_reduce(dx)
     dx.index_add_(0, sep_ids, x_sep)
     return dx * freef[:, None]
 

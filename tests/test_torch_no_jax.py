@@ -6,7 +6,8 @@ and the tools included) and ``chip_smoke.py`` import, and a tiny CPU
 schedules, the temporal tracker, the gather probe's check and the ATE
 metric run, a tiny CPU ``KeyframeTracker`` (the back end included)
 tracks, finishes and exports its trajectory, a tiny CPU ``StreamingSLAM``
-tracks in chunks and its graph is checkpointed, and the benchmark CLI runs
+tracks in chunks and its graph is checkpointed, a tiny CPU
+``DataParallelSLAM`` tracks two streams, and the benchmark CLI runs
 odometry.  The C++ source and build of ``native`` are not taken for
 modules.  Afterwards no ``jax`` and no
 ``dvo_slam_tpu`` module is loaded.  No source file of the port names either
@@ -30,14 +31,15 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # the card's smoke run imports no JAX either
 parallel = {"dvo_slam_tpu_torch.parallel." + m
-            for m in ("mesh", "distributed", "sharded_alignment", "multistream", "temporal")}
+            for m in ("mesh", "distributed", "sharded_alignment", "multistream", "temporal",
+                      "dp_slam", "distributed_ba")}
 tools = {"dvo_slam_tpu_torch.tools." + m for m in ("gather_probe", "multistream_bench")}
 ops = {"dvo_slam_tpu_torch.ops.table_copy"}
 back_end = {"dvo_slam_tpu_torch.models." + m
             for m in ("constraints", "keyframe_graph", "keyframe_tracker", "pose_graph")}
 back_end.add("dvo_slam_tpu_torch.utils.timers")
 drivers = {"dvo_slam_tpu_torch.models.streaming", "dvo_slam_tpu_torch.cli.benchmark",
-           "dvo_slam_tpu_torch.native"}
+           "dvo_slam_tpu_torch.native", "dvo_slam_tpu_torch.bench"}
 drivers |= {"dvo_slam_tpu_torch.utils." + m
             for m in ("dataset", "metrics", "serialization", "synthetic_tum", "trajectory")}
 wanted = parallel | tools | ops | back_end | drivers
@@ -110,6 +112,11 @@ with tempfile.TemporaryDirectory() as out:
     assert benchmark.main(["--synthetic", "3", "--shape", "60x80", "--mode", "odometry",
                            "--device", "cpu", "--output-dir", out]) == 0
 ss.graph.shutdown()
+from dvo_slam_tpu_torch.parallel.dp_slam import DataParallelSLAM
+dp = DataParallelSLAM(K, SlamConfig(tracker=cfg), device="cpu")
+assert dp.track_sequences(iu, du, np.arange(3) / 30.0).shape == (2, 3, 4, 4)
+assert len(dp.trajectories()) == 2
+dp.shutdown()
 from dvo_slam_tpu_torch.utils import trajectory
 stamps = np.arange(3) / 30.0
 assert trajectory.ate_rmse(stamps, np.tile(np.eye(4), (3, 1, 1)), stamps,

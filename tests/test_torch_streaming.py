@@ -23,6 +23,12 @@
   ``ingest_level=0``; a frame without valid depth; ``reset()`` after a
   poisoned back end; no host read-back in the frame loop beyond the IRLS
   loop's ``done`` reads; the device rule.
+- The stream axis (B streams in lockstep, the reference's vmapped front
+  end) on 3 tiny 30x40 streams: each stream's records bit-equal to that
+  stream run alone, monolithic and chunked, B = 1 bit-equal to the
+  one-stream call; only the IRLS ``done`` reads in its frame loop; and
+  why the bootstrap and the pose products go stream by stream (pinned:
+  a bootstrap match at B parts from the one-stream matches within 1e-5).
 """
 
 import dataclasses
@@ -327,3 +333,112 @@ def test_streaming_asks_for_the_card(monkeypatch):
 
 def test_default_backend_is_the_plain_twin_on_the_cpu():
     assert t_dense._resolve_backend(CFG.tracker, torch.device("cpu")) == "fused"
+
+
+def _tiny_streams(count=3, frames=10):
+    """``count`` tiny streams on circles of 35, 39, 43, ... mm: u8/u16
+    [count, frames, 30, 40]."""
+    pairs = [_raw_sequence(synthetic.circular_trajectory(frames, radius=0.035 + 0.004 * s,
+                                                         rot_amplitude=0.02), K_TINY, SHAPE_TINY)
+             for s in range(count)]
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+def _front(ingest_level=0, chunked=False):
+    return t_streaming.make_streaming_frontend(
+        convert.config_from_reference(TINY_CFG), K_TINY, ingest_level=ingest_level,
+        chunked=chunked)
+
+
+def _tensors(iu, du, force_last=True):
+    force = np.zeros(iu.shape[:-2], bool)
+    if force_last:
+        force[..., -1] = True
+    init = np.broadcast_to(np.eye(4, dtype=np.float32), iu.shape[:-3] + (4, 4))
+    return (torch.from_numpy(iu), torch.from_numpy(du.astype(np.int32)), torch.from_numpy(force),
+            torch.from_numpy(init.copy()))
+
+
+def test_stream_axis_bit_equal_to_solo_runs():
+    """B = 3 streams in lockstep (the reference's vmapped front end): each
+    stream's [T, 130] records bit-equal to that stream run alone, in the
+    monolithic and the chunked form; B = 1 bit-equal to the one-stream
+    call.  The switches differ between the streams, so their keyframe
+    references part inside the 2B dual match."""
+    iu, du = _tiny_streams()
+    run = _front()
+    records = run(*_tensors(iu, du)).numpy()
+    assert records.shape == (3, 10, t_streaming.RECORD_WIDTH)
+    solo = [run(*_tensors(iu[b], du[b])).numpy() for b in range(3)]
+    for b in range(3):
+        np.testing.assert_array_equal(records[b], solo[b])
+    accepts = records[:, 2:, 0]
+    assert len({tuple(a) for a in accepts}) > 1 and (accepts == 0).any()
+    np.testing.assert_array_equal(run(*_tensors(iu[:1], du[:1])).numpy()[0], solo[0])
+
+    run_first, run_cont = _front(chunked=True)
+    d_i, d_d, d_f, init = _tensors(iu, du)
+    state, first = run_first(d_i[:, :4], d_d[:, :4], d_f[:, :4], init)
+    state, rest = run_cont(state, d_i[:, 4:], d_d[:, 4:], d_f[:, 4:])
+    np.testing.assert_array_equal(torch.cat([first, rest], dim=1).numpy(), records)
+
+
+def test_batched_bootstrap_and_pose_products_part_from_solo():
+    """Why the lockstep front end bootstraps and composes poses stream by
+    stream (ROADMAP queue C): one match at B for the bootstrap, and a
+    batched [B, 4, 4] pose product, round otherwise than the one-stream
+    forms (the 6x6 solve's batched products against matrix-vector ones,
+    its stated 1e-5), so stream b would part from its solo run from
+    frame 1 on.  Pinned: the batched bootstrap's transforms differ from the
+    one-stream matches' within 1e-5."""
+    iu, du = _tiny_streams()
+    cfg = convert.config_from_reference(TINY_CFG)
+    from dvo_slam_tpu_torch.ops.pyramid import build_pyramid, convert_raw_depth
+
+    def prepared(k):
+        depth, valid = convert_raw_depth(torch.from_numpy(du[:, k].astype(np.int32)))
+        levels = build_pyramid(torch.from_numpy(iu[:, k]).float(), depth, valid,
+                               cfg.tracker.num_levels, skip_below=cfg.tracker.last_level)
+        return t_dense.prepare_frame(cfg.tracker, K_TINY, levels)
+
+    f0, f1 = prepared(0), prepared(1)
+    batched = t_dense.match_prepared(cfg.tracker, K_TINY, f0, f1).transformation
+    single = torch.stack([
+        t_dense.match_prepared(cfg.tracker, K_TINY, t_streaming._stream_of(f0, b),
+                               t_streaming._stream_of(f1, b)).transformation for b in range(3)])
+    assert not torch.equal(batched, single)
+    np.testing.assert_allclose(batched.numpy(), single.numpy(), atol=1e-5, rtol=0)
+
+
+def test_stream_axis_reads_back_only_the_irls_flags(monkeypatch):
+    """The B-stream frame loop's only host reads are the IRLS ``done``
+    flags: one per lockstep iteration of the dual matches and of the
+    stream-by-stream bootstrap matches."""
+    iu, du = _tiny_streams(count=2, frames=5)
+    run = _front()
+    args = _tensors(iu, du)
+    calls = []
+    match = t_streaming.match_prepared
+
+    def counted_match(*a, **k):
+        result = match(*a, **k)
+        calls.append(result.level_stats)
+        return result
+
+    reads = []
+    for name in ("__bool__", "item", "cpu", "numpy", "tolist", "__int__", "__float__",
+                 "__index__"):
+        original = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _original=original, _name=name, **k):
+            reads.append(_name)
+            return _original(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    monkeypatch.setattr(t_streaming, "match_prepared", counted_match)
+    run(*args)
+    monkeypatch.undo()
+    lockstep = sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
+                   else s.iterations for ls in calls for s in ls)
+    assert len(calls) == 2 + 3  # two bootstrap matches, one dual match per later frame
+    assert reads == ["__bool__"] * lockstep

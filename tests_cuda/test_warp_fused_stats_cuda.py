@@ -9,8 +9,8 @@ mask) bit-equal to the plain version's residuals and mask (held to atol
 1e-6); the Gram element-wise within rtol 1e-6 of the float64 Gram of the
 plain version's float32 rows; n, the precision, ll, A and b as
 ``compare_warp_fused_stats`` holds them; two runs bit-identical; B streams
-in one call bit-equal per stream to one-stream calls; the tracker runs
-only the folded kernel.
+in one call, depth-buffered or not, bit-equal per stream to one-stream
+calls; the tracker runs only the folded kernel.
 """
 
 import pytest
@@ -69,15 +69,16 @@ def test_kernel_matches_plain(level_inputs, level, first, buffered):
     assert int(kernel.n) > 0.3 * args[0].shape[1]
 
 
+@pytest.mark.parametrize("buffered", [True, False])
 @pytest.mark.parametrize("first", [0, 1])
 @pytest.mark.parametrize("level", [3, 1])
-def test_batched_bit_equal_per_stream(frames, level, first):
+def test_batched_bit_equal_per_stream(frames, level, first, buffered):
     per_stream = [fused_check.warp_level_inputs(CFG, TUM_FR1, frames[b], frames[b + 1])[level]
                   for b in range(STREAMS)]
     stack = lambda field: torch.stack([getattr(s, field) for s in per_stream]).contiguous()  # noqa: E731
     P = torch.stack([_args(per_stream[0], first, True, 1.0 + 0.1 * b)[5] for b in range(STREAMS)])
     batched_args = (stack("refpack"), stack("quad"), per_stream[0].shape, per_stream[0].intrinsics,
-                    stack("T"), P, first, CFG.influence_function_param, True)
+                    stack("T"), P, first, CFG.influence_function_param, buffered)
     before = fused_kernels.warp_fused_stats_batched_cuda.launches
     batched, stats, stash = fused_kernels.warp_fused_stats_rows_cuda(*batched_args)
     assert fused_kernels.warp_fused_stats_batched_cuda.launches == before + 1
@@ -85,12 +86,12 @@ def test_batched_bit_equal_per_stream(frames, level, first):
     fused_check.compare_warp_fused_stats(batched, plain)
     for b in range(STREAMS):
         one, one_stats, one_stash = fused_kernels.warp_fused_stats_rows_cuda(
-            *per_stream[b], P[b], first, CFG.influence_function_param, True)
+            *per_stream[b], P[b], first, CFG.influence_function_param, buffered)
         _, not_bit_equal = fused_check.compare_stash(one_stash, fused_check.twin_stash(
-            *per_stream[b], P[b], first, CFG.influence_function_param, True))
+            *per_stream[b], P[b], first, CFG.influence_function_param, buffered))
         assert not_bit_equal == 0
         fused_check.compare_exact_gram(one_stats, fused_check.warp_exact_gram(
-            *per_stream[b], P[b], first, CFG.influence_function_param, True))
+            *per_stream[b], P[b], first, CFG.influence_function_param, buffered))
         for x, y in zip((*batched, stash), (*one, one_stash)):
             assert torch.equal(x[b].view(torch.int32), y.view(torch.int32))
         assert torch.equal(stats.m00[b], one_stats.m00)
