@@ -170,9 +170,16 @@ their frames/s compare with phase 4's:
    definition, ``bench.py:313-331``) and the front end's frames/s, the
    back end's phase ms per frame, the pipelined run's split (front-end
    runs, record feed, final pass) and the host read-backs per frame.  Then
-   ``cli.benchmark.main(["--synthetic", "20", "--engine", "streaming",
-   "--timing", ...])`` at 480x640 on the card: exit 0 and the report's ATE
-   and RPE keys finite.  Prints the records' sha256 (to compare trees).
+   the slice's main path, ``cli.benchmark.main(["--synthetic", "20",
+   "--engine", "streaming", "--timing", "--interactive-html", "graph.html",
+   ...])`` at 480x640 on the card: exit 0, the report's ATE and RPE keys
+   finite, kernel 1's launches equal its bootstrap's iterations and kernel
+   1b's its dual matches' and waves' lockstep iterations, as for the runs
+   above; the viewer written atomically (no temporary file left), its
+   embedded payload parsing, one keyframe entry per keyframe of the graph
+   it exported and an error grid for each of the worst 5 ranked loop edges
+   whose keyframes hold pyramid levels (the count printed, with the
+   export's seconds).  Prints the records' sha256 (to compare trees).
 15. ``DataParallelSLAM(TUM_FR1, benchmark_config())`` (run right after
    phase 14) on a one-rank NCCL process group: 2 hard-scene streams of 40
    frames rendered as ``bench.py:228-239`` renders them (seeds 3000 +
@@ -194,6 +201,31 @@ their frames/s compare with phase 4's:
    non-depth-buffered template as often as their loop iterations; prints
    the record and the counts per section (its accuracy gates are not held
    at this cut: the loops are 12 frames long).
+16. The modular tracker backend and the warps (run after phases 8-9,
+   since it reads phase 7's streams, and before phase 10's profiler
+   sessions).  (a) Kernel 1's folded call against the modular evaluation
+   (``tools/fused_check.compare_modular_to_kernel``) on phase 3's pair at
+   levels 3, 2, 1, ``first`` 0 and 1, depth-buffered: n and the mask
+   equal, the stashed residuals within atol 2e-5 of the modular ones, A
+   and b within rtol 2e-3 (b also atol 1e-2), the scale numerator within
+   rtol 2e-3 (the reference's tolerances, ``tests/test_pallas.py``).
+   (b) ``odometry.track_sequence`` on phase 4's first 20 frames: kernel 1
+   (``benchmark_config().tracker``) for the timing, then
+   ``kernel_backend="xla"`` with the t-distribution, (Huber, normal),
+   (Tukey, MAD), (Huber, MAD), (unit, unit) and ``use_weighting=False``:
+   no kernel launch and no ``warp_and_sample_cm`` call, one modular
+   evaluation per solver iteration, every tensor it reads on the card,
+   finite poses; the t-distribution's ATE within 1 mm of phase 4's on the
+   same frames.  Prints ATE, tracked frames/s and ms per iteration of each
+   beside kernel 1's.  Then 4 streams of phase 7 (10 frames) in lockstep
+   under (Huber, MAD) against the sequential schedule: iterations and
+   terminations per stream, frame and level (flips counted; more than 5 %
+   fail).  (c) ``intensity_error_image`` on phase 4's first pair at L1 on
+   the card: mean error at the true transform below the identity's; against
+   the same call on CPU copies, at most 0.1 % of the valid pixels differ
+   and the values agree within 1e-4 where both are valid;
+   ``warp_depth_forward_advanced`` and ``compute_normals`` once each, finite
+   where valid.  Prints the phase's seconds.
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
@@ -245,11 +277,18 @@ ROUTE_GATES = {"sparse": 1e-3, "schur": 1e-4, "cg": 1e-3}
 STREAM_PIPELINE_CHUNK = 50  # bench.py:304's pipeline_chunk
 STREAMING_VS_TRACKER_ATOL = 2e-3  # tests/test_streaming.py: streaming against the per-frame loop
 CLI_FRAMES = 20  # phase 14's run of the benchmark CLI
+VIEWER_FILE = "graph.html"  # phase 14: the CLI's --interactive-html
 DP_STREAMS = 2  # phase 15: DataParallelSLAM on bench.py's --mesh streams (B = 2)
 DP_FRAMES = 40  # bench.py:226
 DRIVER_FRAMES = 12  # phase 15: the driver's sections on phase 4's first 12 frames
 DRIVER_STREAM_FRAMES = 3  # phase 15: multistream's 8 streams x 3 frames
 DRIVER_SWEEP = ((16, 2),)  # phase 15: bsweep cut to one (B, T)
+MODULAR_FRAMES = 20  # phase 16(b): phase 4's first 20 frames
+MODULAR_ATE_GAP_M = 1e-3  # phase 16(b): the xla route's ATE against phase 4's on them
+MODULAR_STREAMS = 4  # phase 16(b): streams of phase 7 in lockstep under (Huber, MAD)
+MODULAR_STREAM_FRAMES = 10
+WARP_MASK_SHARE = 1e-3  # phase 16(c): valid pixels that may differ from the CPU's
+WARP_VALUE_ATOL = 1e-4
 STREAMS = 8  # the reference's stream count (tests/test_parallel.py, tools/gather_probe.py)
 STREAM_FRAMES = 30  # the reference benchmark's 50, cut to pay for phase 14
 STREAM_ATE_GATE_M = 0.01
@@ -1533,9 +1572,9 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     from dvo_slam_tpu_torch.models import pose_graph, streaming
     from dvo_slam_tpu_torch.tools.driver_launches import lockstep_iterations, streams
     from dvo_slam_tpu_torch.tools.fused_check import require
-    from dvo_slam_tpu_torch.utils import trajectory
+    from dvo_slam_tpu_torch.utils import interactive_viz, trajectory
 
-    calls, optimizes = [], []
+    calls, optimizes, viewer = [], [], {}
     in_wave = threading.local()
     frontend_match = streaming.match_prepared
     wave_match = frames_mod.match_prepared
@@ -1565,6 +1604,15 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
         optimizes.append((history, self.last_solver))
         return history
 
+    export = interactive_viz.export_interactive_graph
+
+    def watched_export(path, keyframe_graph, *args, **kwargs):
+        """The CLI's viewer export, timed, with the graph it exported."""
+        t0 = time.perf_counter()
+        out = export(path, keyframe_graph, *args, **kwargs)
+        viewer.update(seconds=time.perf_counter() - t0, graph=keyframe_graph)
+        return out
+
     def expected_launches(what):
         """(kernel 1, kernel 1b) launches the recorded solves imply."""
         one = sum(lockstep_iterations(ls) for _, ls in calls if streams(ls) == 1)
@@ -1576,7 +1624,8 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     mp_attrs = ((streaming, "match_prepared", counted_frontend),
                 (frames_mod, "match_prepared", counted_wave),
                 (frames_mod.TwoStageMatcher, "match_pairs", counted_pairs),
-                (pose_graph.PoseGraph, "optimize", recorded_optimize))
+                (pose_graph.PoseGraph, "optimize", recorded_optimize),
+                (interactive_viz, "export_interactive_graph", watched_export))
     originals = [(obj, name, getattr(obj, name)) for obj, name, _ in mp_attrs]
     for obj, name, fn in mp_attrs:
         setattr(obj, name, fn)
@@ -1633,6 +1682,24 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
                 lambda: mono.track_frontend(hard_i, hard_d))
             runs["monolithic"] = (_launches(), expected_launches("phase 14 monolithic"), list(calls))
             mono.graph.shutdown()
+
+            # the CLI's streaming engine on the card, at the default 480x640,
+            # with the interactive viewer: the slice's main path
+            with tempfile.TemporaryDirectory() as out_dir:
+                out = io.StringIO()
+                calls.clear()
+                _reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main(["--synthetic", str(CLI_FRAMES), "--engine", "streaming",
+                                   "--timing", "--interactive-html", VIEWER_FILE,
+                                   "--output-dir", out_dir])
+                cli_seconds = time.perf_counter() - t0
+                runs["cli"] = (_launches(), expected_launches("phase 14 CLI"), list(calls))
+                report = json.loads(out.getvalue())
+                written = sorted(os.listdir(out_dir))
+                with open(os.path.join(out_dir, VIEWER_FILE)) as f:
+                    html = f.read()
     finally:
         for obj, name, fn in originals:
             setattr(obj, name, fn)
@@ -1677,20 +1744,11 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
         for name, run in runs.items()}
     chunks = -(-NUM_FRAMES // STREAM_PIPELINE_CHUNK)
 
-    # the CLI's streaming engine on the card, at the default 480x640
-    with tempfile.TemporaryDirectory() as out_dir:
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(["--synthetic", str(CLI_FRAMES), "--engine", "streaming", "--timing",
-                           "--output-dir", out_dir])
-        cli_seconds = time.perf_counter() - t0
-        report = json.loads(out.getvalue())
-        written = sorted(os.listdir(out_dir))
     require(rc == 0, f"phase 14: the CLI exited {rc}")
     ate_keys = ("ate_rmse_m", "ate_rmse_optimized_m", "rpe_translational_m", "rpe_rotational_rad")
     require(all(np.isfinite(report.get(k, np.nan)) for k in ate_keys) and
             report["frames"] == CLI_FRAMES, f"phase 14: CLI report {report}")
+    viewer_summary = check_viewer(html, written, viewer)
 
     summary = {
         "frames": NUM_FRAMES, "pipeline_chunk": STREAM_PIPELINE_CHUNK, "ingest": ingest,
@@ -1716,10 +1774,49 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
         "graph_solves": len(optimizes),
         "records_sha256": _records_digest(records),
         "cli": {"frames": CLI_FRAMES, "seconds": cli_seconds, "written": written,
-                **{k: report[k] for k in ate_keys}},
+                **{k: report[k] for k in ate_keys}, "viewer": viewer_summary},
     }
     print("phase 14:", json.dumps(summary), flush=True)
     return launches, summary
+
+
+def check_viewer(html, written, viewer):
+    """Phase 14's interactive viewer: written atomically (no temporary file
+    left), its embedded payload parses, one keyframe entry per keyframe of
+    the graph the CLI exported, and an error grid for each of the worst-k
+    ranked loop edges whose keyframes hold pyramid levels.  Returns the
+    summary."""
+    import re
+
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    require(VIEWER_FILE in written and VIEWER_FILE + ".tmp" not in written and "graph" in viewer,
+            f"phase 14: viewer files {written}")
+    match = re.search(r"const D = (.*?);\n", html)
+    require("<canvas" in html and match is not None, "phase 14: the viewer has no payload")
+    payload = json.loads(match.group(1))
+    graph = viewer["graph"]
+    require(len(payload["keyframes"]) == len(graph.keyframes) > 0,
+            f"phase 14: viewer keyframes {len(payload['keyframes'])} != {len(graph.keyframes)}")
+    # the worst-k ranking of interactive_viz._edge_error_payload (k = 5, level 0)
+    g = graph.graph
+    _, chi2 = graph.edge_errors()
+    by_id = {k.id: k for k in graph.keyframes}
+    idx_of = {g.vertex_index(("kf", kid)): kid for kid in by_id}
+    ranked = sorted(((float(chi2[k]), k, idx_of[int(g.edge_i[k])], idx_of[int(g.edge_j[k])])
+                     for k in range(g.num_edges)
+                     if g.edge_active[k] and g.robust[k]
+                     and int(g.edge_i[k]) in idx_of and int(g.edge_j[k]) in idx_of),
+                    reverse=True)[:5]
+    with_levels = sorted(str(k) for _, k, a, b in ranked
+                         if all(by_id[x].frame.levels is not None
+                                and by_id[x].frame.levels[0] is not None for x in (a, b)))
+    require(sorted(payload["errimgs"]) == with_levels,
+            f"phase 14: viewer error grids {sorted(payload['errimgs'])} != {with_levels}")
+    return {"keyframes": len(payload["keyframes"]), "edges": len(payload["edges"]),
+            "ranked_loop_edges": len(ranked), "error_grids": len(payload["errimgs"]),
+            "clouds": len(payload["clouds"]), "bytes": len(html),
+            "export_seconds": viewer["seconds"]}
 
 
 def _records_digest(records):
@@ -1862,6 +1959,162 @@ def bench_keys(streams, sweep_streams):
             | {f"aggregate_fps_{streams}stream_{name}"
                for name in ("lockstep", "sequential", "lockstep_nobuf")}
             | {f"aggregate_fps_{b}stream_sequential" for b in sweep_streams})
+
+
+def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, s_i, s_d):
+    """Phase 16: the modular tracker backend and the warps on the card.
+    Returns the summary."""
+    import dataclasses
+
+    import torch
+
+    from dvo_slam_tpu_torch.config import InfluenceFunction, ScaleEstimator
+    from dvo_slam_tpu_torch.models import dense_tracker
+    from dvo_slam_tpu_torch.odometry import track_sequence
+    from dvo_slam_tpu_torch.ops import residuals, warp
+    from dvo_slam_tpu_torch.parallel.multistream import make_multistream_tracker
+    from dvo_slam_tpu_torch.tools import fused_check
+    from dvo_slam_tpu_torch.tools.fused_check import require
+    from dvo_slam_tpu_torch.utils import trajectory
+
+    started = time.perf_counter()
+    device = d_i.device
+
+    # (a) kernel 1's folded call against the modular evaluation, per level
+    P_prev = torch.tensor(CHECK_P_PREV, dtype=torch.float32, device=device)
+    per_evaluation = [
+        fused_check.compare_modular_to_kernel(cfg, intrinsics, frames[0], frames[1], level,
+                                              bool(first), P_prev)
+        for level in range(cfg.first_level, cfg.last_level - 1, -1) for first in (0, 1)]
+    for row in per_evaluation:
+        print("phase 16a:", json.dumps(row), flush=True)
+
+    # (b) frame-to-frame tracking on phase 4's first frames, every tensor on
+    # the card, no kernel launched
+    xla = dataclasses.replace(cfg, kernel_backend="xla")
+    IF, SE = InfluenceFunction, ScaleEstimator
+    configs = {
+        "tdist_xla": xla,
+        "huber_normal": dataclasses.replace(xla, influence_function=IF.HUBER,
+                                            scale_estimator=SE.NORMAL),
+        "tukey_mad": dataclasses.replace(xla, influence_function=IF.TUKEY, scale_estimator=SE.MAD),
+        "huber_mad": dataclasses.replace(xla, influence_function=IF.HUBER, scale_estimator=SE.MAD),
+        "unit_unit": dataclasses.replace(xla, influence_function=IF.UNIT, scale_estimator=SE.UNIT),
+        "no_weighting": dataclasses.replace(xla, use_weighting=False),
+    }
+    sub_i, sub_d = d_i[:MODULAR_FRAMES], d_d[:MODULAR_FRAMES]
+    stamps = np.arange(MODULAR_FRAMES) / 30.0
+    gt = easy_poses[:MODULAR_FRAMES]
+    phase4_ate = trajectory.ate_rmse(stamps, est[:MODULAR_FRAMES], stamps, gt)
+    devices = set()
+    evaluate = dense_tracker.compute_residuals
+
+    def watched(*args):
+        devices.update(a.device.type for a in args if isinstance(a, torch.Tensor))
+        return evaluate(*args)
+
+    dense_tracker.compute_residuals = watched
+    try:
+        track_sequence(configs["huber_mad"], intrinsics, d_i[:3], d_d[:3])  # warm-up
+        _reset_counts()
+        _, kernel_iterations, kernel_seconds = track_sequence(cfg, intrinsics, sub_i, sub_d)
+        kernel_counts = _launches()
+        _require_only(kernel_counts, "warp_fused_stats", kernel_iterations, "phase 16b kernel 1")
+        tracking = {}
+        for name, c in configs.items():
+            _reset_counts()
+            before = residuals.compute_residuals.calls
+            poses, iterations, seconds = track_sequence(c, intrinsics, sub_i, sub_d)
+            counts = _launches()
+            evaluations = residuals.compute_residuals.calls - before
+            require(not any(counts.values()), f"phase 16b {name}: kernels ran: {counts}")
+            require(evaluations == iterations > 0,
+                    f"phase 16b {name}: {evaluations} modular evaluations, {iterations} iterations")
+            require(np.isfinite(poses).all(), f"phase 16b {name}: non-finite poses")
+            tracking[name] = {
+                "ate_rmse_m": trajectory.ate_rmse(stamps, poses, stamps, gt),
+                "tracked_frames_per_s": (MODULAR_FRAMES - 1) / seconds, "seconds": seconds,
+                "solver_iterations": iterations, "ms_per_iteration": 1000.0 * seconds / iterations}
+    finally:
+        dense_tracker.compute_residuals = evaluate
+    require(devices == {device.type},
+            f"phase 16b: the modular evaluation read {devices} tensors, the frames are on {device}")
+    gap = abs(tracking["tdist_xla"]["ate_rmse_m"] - phase4_ate)
+    require(gap <= MODULAR_ATE_GAP_M,
+            f"phase 16b: the xla route's ATE is {gap} m from phase 4's (gate {MODULAR_ATE_GAP_M})")
+
+    # B streams of phase 7 in lockstep on the modular path, against solo runs
+    huber_mad = configs["huber_mad"]
+    sub = (s_i[:MODULAR_STREAMS, :MODULAR_STREAM_FRAMES],
+           s_d[:MODULAR_STREAMS, :MODULAR_STREAM_FRAMES])
+    _reset_counts()
+    lock, lock_seconds = _synchronized_seconds(
+        lambda: make_multistream_tracker(huber_mad, intrinsics).tracks(*sub))
+    lock_counts = _launches()
+    require(not any(lock_counts.values()), f"phase 16b lockstep: kernels ran: {lock_counts}")
+    solo, solo_seconds = _synchronized_seconds(
+        lambda: make_multistream_tracker(huber_mad, intrinsics, schedule="sequential").tracks(*sub))
+    differ = (lock.iterations != solo.iterations) | (lock.termination != solo.termination)
+    flips = [tuple(int(i) for i in at) for at in torch.nonzero(differ).tolist()]
+    require(len(flips) <= SCHEDULE_FLIP_SHARE * differ.numel(),
+            f"phase 16b lockstep: {len(flips)} of {differ.numel()} stream-frame-levels differ")
+    lockstep = {
+        "streams": MODULAR_STREAMS, "frames": MODULAR_STREAM_FRAMES,
+        "stream_frame_levels": differ.numel(), "flips": len(flips),
+        "flips_at_stream_frame_level": flips,
+        "max_pose_err_vs_solo": float(_pose_errors(lock.poses.cpu().numpy(),
+                                                   solo.poses.cpu().numpy()).max()),
+        "lockstep_iterations": lock.loop_iterations, "solo_iterations": solo.loop_iterations,
+        "aggregate_frames_per_s": MODULAR_STREAMS * (MODULAR_STREAM_FRAMES - 1) / lock_seconds,
+        "solo_aggregate_frames_per_s":
+            MODULAR_STREAMS * (MODULAR_STREAM_FRAMES - 1) / solo_seconds,
+    }
+
+    print("phase 16b:", json.dumps({
+        "frames": MODULAR_FRAMES, "phase4_ate_rmse_m": phase4_ate,
+        "kernel1": {"seconds": kernel_seconds, "solver_iterations": kernel_iterations,
+                    "ms_per_iteration": 1000.0 * kernel_seconds / kernel_iterations,
+                    "tracked_frames_per_s": (MODULAR_FRAMES - 1) / kernel_seconds},
+        "modular": tracking, "lockstep": lockstep}), flush=True)
+
+    # (c) the warps on the card at L1, against CPU copies
+    level = cfg.last_level
+    k = intrinsics.at_level(level)
+    ref, cur = frames[0][level], frames[1][level]
+    T_gt = torch.tensor(np.linalg.inv(easy_poses[1]) @ easy_poses[0], dtype=torch.float32)
+    err, ok = warp.intensity_error_image(ref, cur, k, T_gt.to(device))
+    err_id, ok_id = warp.intensity_error_image(ref, cur, k, torch.eye(4, device=device))
+    require(err.device == device and bool(ok.any()), "phase 16c: no valid error image on the card")
+    mean_gt, mean_id = float(err[ok].mean()), float(err_id[ok_id].mean())
+    require(mean_gt < mean_id, f"phase 16c: error at the truth {mean_gt} >= at identity {mean_id}")
+    on_cpu = lambda lv: type(lv)(*(f.cpu() for f in lv))  # noqa: E731
+    err_c, ok_c = warp.intensity_error_image(on_cpu(ref), on_cpu(cur), k, T_gt)
+    mask_differ = int((ok.cpu() != ok_c).sum())
+    require(mask_differ <= WARP_MASK_SHARE * ok.numel(),
+            f"phase 16c: {mask_differ} valid pixels differ from the CPU's")
+    both = ok.cpu() & ok_c
+    value_err = float((err.cpu() - err_c)[both].abs().max())
+    require(value_err <= WARP_VALUE_ATOL, f"phase 16c: error image {value_err} from the CPU's")
+    depth, depth_ok = warp.warp_depth_forward_advanced(ref.depth, ref.valid, k, T_gt.to(device))
+    normals, normals_ok = warp.compute_normals(ref.depth, ref.valid, k)
+    require(bool(depth_ok.any()) and bool(torch.isfinite(depth[depth_ok]).all())
+            and bool(normals_ok.any()) and bool(torch.isfinite(normals[normals_ok]).all()),
+            "phase 16c: non-finite forward warp or normals")
+
+    summary = {
+        "per_evaluation": per_evaluation,
+        "tracking_ate_rmse_m": {name: row["ate_rmse_m"] for name, row in tracking.items()},
+        "lockstep_flips": len(flips),
+        "warps": {"error_mean_at_truth": mean_gt, "error_mean_at_identity": mean_id,
+                  "valid_pixels": int(ok.sum()), "valid_differ_from_cpu": mask_differ,
+                  "max_abs_err_vs_cpu": value_err,
+                  "forward_depth_valid": int(depth_ok.sum()),
+                  "normals_valid": int(normals_ok.sum())},
+        "seconds": time.perf_counter() - started,
+    }
+    print("phase 16:", json.dumps({k: v for k, v in summary.items() if k != "per_evaluation"}),
+          flush=True)
+    return summary
 
 
 def check_copy_and_probe():
@@ -2093,6 +2346,11 @@ def main() -> int:
     check_temporal(cfg, TUM_FR1, d_i, d_d, est, easy_poses)
     elapsed("phases 8-9")
 
+    # phase 16: the modular backend and the warps (after phase 7, whose
+    # streams it reads, and before phase 10's profiler sessions)
+    check_modular_and_warps(cfg, TUM_FR1, frames, d_i, d_d, easy_poses, est, s_i, s_d)
+    elapsed("phase 16")
+
     # phase 10: the copy kernel and the gather probe
     copy_row = check_copy_and_probe()
     sharded_kernel_counts = count_sharded_kernels(cfg, TUM_FR1, frames)
@@ -2119,10 +2377,12 @@ def main() -> int:
                         "12": init_launches, "13": slam_one,
                         "14_pipelined": streaming_launches["pipelined"][0],
                         "14_monolithic": streaming_launches["monolithic"][0],
+                        "14_cli": streaming_launches["cli"][0],
                         "15_dp_slam": dp_launches["dp"][0], "15_driver": dp_launches["driver"][0]},
         "fused_stats_batched": {"7": batched_launches, "12": dual_launches, "13": slam_batched,
                                 "14_pipelined": streaming_launches["pipelined"][1],
                                 "14_monolithic": streaming_launches["monolithic"][1],
+                                "14_cli": streaming_launches["cli"][1],
                                 "15_dp_slam": dp_launches["dp"][1],
                                 "15_driver": dp_launches["driver"][1]},
     }

@@ -24,10 +24,6 @@ import sys
 
 import numpy as np
 
-# what --interactive-html needs that the port does not have yet
-_VIEWER_MODULES = ("dvo_slam_tpu_torch.utils.interactive_viz", "dvo_slam_tpu_torch.ops.warp")
-
-
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--dataset", help="TUM RGB-D sequence directory (with assoc.txt)")
@@ -69,8 +65,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--interactive-html", default=None, metavar="FILE",
-        help="SLAM mode: export the interactive pose-graph viewer (needs "
-        + " and ".join(_VIEWER_MODULES) + ", not ported yet: exits with code 2)",
+        help="SLAM mode: export the interactive pose-graph viewer (one "
+        "self-contained HTML file) into --output-dir",
     )
     return p
 
@@ -89,13 +85,6 @@ def _write_slam_outputs(args, graph, opt_stamps, opt_poses, trajectory):
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
-    if args.interactive_html:
-        print(
-            "error: --interactive-html needs " + " and ".join(_VIEWER_MODULES)
-            + ", which are not ported yet (ROADMAP.md queue A.7); no viewer was written",
-            file=sys.stderr,
-        )
-        return 2
 
     import dataclasses
 
@@ -222,6 +211,14 @@ def main(argv=None):
     trajectory.write_tum_trajectory(
         os.path.join(args.output_dir, args.trajectory_file), stamps, est_poses
     )
+
+    if args.interactive_html and args.mode == "slam":
+        from ..utils.interactive_viz import export_interactive_graph
+
+        export_interactive_graph(
+            os.path.join(args.output_dir, args.interactive_html),
+            kt.graph, intrinsics=intrinsics,
+        )
 
     report = {"frames": n_frames, "mode": args.mode}
     if gt_poses is not None and len(gt_poses):

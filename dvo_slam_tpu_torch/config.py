@@ -9,9 +9,10 @@ between them through ``convert.config_to_reference`` /
 name.
 
 ``TrackerConfig.kernel_backend`` reads, in the port: ``auto`` takes the
-CUDA kernel for CUDA tensors and the plain twin for CPU tensors;
-``pallas`` (the kernel) and ``fused`` (the twin) force one; ``xla``, the
-modular oracle path, is not ported.
+CUDA kernel for CUDA tensors and the plain twin for CPU tensors with
+t-distribution weights and scale, and the modular path with any other
+configuration; ``pallas`` (the kernel) and ``fused`` (the twin) force one
+and need the t-distribution; ``xla`` forces the modular path.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ class TrackerConfig:
     intensity_derivative_threshold: float = 0.0
     depth_derivative_threshold: float = 0.0
     # "auto", "pallas" (the CUDA kernel), "fused" (the plain twin) or "xla"
-    # (the modular oracle path, not ported): see the module docstring
+    # (the modular path): see the module docstring
     kernel_backend: str = "auto"
     # the reference's 5 cm depth-buffer rule inside the bilinear sample
     # (interpolation.cpp:55-110): a foreground neighbour never blends into

@@ -83,9 +83,9 @@ def levels_from_numpy(levels: Sequence, device=None):
 
 
 def prepared_from_numpy(prepared, device=None) -> PreparedFrame:
-    """Reference ``PreparedFrame`` -> the port's: the fused path's
-    selection masks, refpacks and quad tables (the reference's levels and
-    acceleration tensors are not carried: the fused path never reads them),
+    """Reference ``PreparedFrame`` -> the port's: the selection masks,
+    refpacks, quad tables and acceleration tensors (the reference's levels
+    are not carried: the port reads the reference level from the refpack),
     on the card unless ``device`` names another (``default_device``)."""
     device = default_device(device)
     tensors = lambda entries: tuple(_to_tensor(a, device) for a in entries)  # noqa: E731
@@ -93,6 +93,7 @@ def prepared_from_numpy(prepared, device=None) -> PreparedFrame:
         sel=tensors(prepared.sel),
         refpack=tensors(prepared.refpack),
         quad=tensors(prepared.quad),
+        accel=tensors(prepared.accel),
     )
 
 

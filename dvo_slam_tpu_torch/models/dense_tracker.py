@@ -1,15 +1,24 @@
 """Dense RGB-D tracker: coarse-to-fine IRLS Gauss-Newton on SE(3)
-(port of ``dvo_slam_tpu.models.dense_tracker``, fused path).
+(port of ``dvo_slam_tpu.models.dense_tracker``).
 
 Per pyramid level: iterate { apply the increment; evaluate: warp and
-sample, fused statistics with IRLS weights from the previous precision,
-the re-estimated 2x2 t-distribution precision, the log-likelihood and the
-6x6 normal equations, all in one call (``fused_kernels.warp_fused_stats``:
-the folded CUDA kernel on the card, the plain version on the CPU); accept
-if the negative log-likelihood decreased, else revert and stop; solve the
-normal equations } until the
-increment's infinity norm drops below ``cfg.precision`` or the iteration
-cap is hit.
+sample, IRLS weights from the previous precision, the re-estimated 2x2
+precision, the log-likelihood and the 6x6 normal equations; accept if the
+negative log-likelihood decreased, else revert and stop; solve the normal
+equations } until the increment's infinity norm drops below
+``cfg.precision`` or the iteration cap is hit.
+
+Two evaluations, picked by ``_resolve_backend`` as the reference picks
+them:
+  * the fused path (t-distribution weights and scale): one call of
+    ``fused_kernels.warp_fused_stats`` (the folded CUDA kernel on the
+    card, the plain version on the CPU);
+  * the modular path (``kernel_backend="xla"``, or ``auto`` with any other
+    influence function, scale estimator or ``use_weighting=False``):
+    ``residuals.compute_residuals``, the configured weights and scale
+    (``_weights_for``, ``_scale_for``), the t-distribution
+    log-likelihood and ``residuals.normal_equations``, plain PyTorch on
+    the tensors' device, as it is XLA code in the reference.
 
 The reference's ``lax.while_loop`` is a Python loop here that reads the
 ``done`` flag back to the host once per iteration; everything else stays
@@ -34,15 +43,17 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..config import InfluenceFunction, ScaleEstimator, TrackerConfig
-from ..ops import fused_kernels, least_squares, se3
+from ..ops import fused_kernels, least_squares, robust, se3
 from ..ops.camera import Intrinsics
 from ..ops.interp import build_quad_table_cm
 from ..ops.pyramid import (
     PyramidLevel,
+    build_acceleration,
     build_acceleration_cm,
     build_pyramid,
     selection_mask,
 )
+from ..ops.residuals import compute_residuals, normal_equations
 
 # Termination criteria (reference: dense_tracking.h TerminationCriteria).
 TERM_NONE = 0
@@ -114,33 +125,73 @@ class _Carry(NamedTuple):
     done: torch.Tensor  # [] bool
 
 
-def _resolve_backend(cfg: TrackerConfig, device: torch.device) -> str:
-    """The inner-loop implementation for tensors on ``device``.
+def _weights_for(cfg: TrackerConfig, residuals, precision, mask):
+    """The modular path's IRLS weights [..., N] for ``cfg``'s influence
+    function: the bivariate t-distribution, or Huber/Tukey (at their
+    default constants) of the Mahalanobis distance; the mask itself for
+    unit weights or ``use_weighting=False``."""
+    if not cfg.use_weighting or cfg.influence_function is InfluenceFunction.UNIT:
+        return mask.to(residuals.dtype)
+    if cfg.influence_function is InfluenceFunction.TDISTRIBUTION:
+        return robust.tdist_weights(residuals, precision, mask, cfg.influence_function_param)
+    d = torch.sqrt(torch.clamp(robust.mahalanobis_sq(residuals, precision), min=0.0))
+    if cfg.influence_function is InfluenceFunction.HUBER:
+        w = robust.huber_weights(d)
+    elif cfg.influence_function is InfluenceFunction.TUKEY:
+        w = robust.tukey_weights(d)
+    else:
+        raise ValueError(f"unknown influence function {cfg.influence_function}")
+    return torch.where(mask, w, torch.zeros_like(w))
 
-    ``auto`` takes the CUDA kernel ("pallas", after the reference's name)
-    for CUDA tensors and the plain twin ("fused") for CPU tensors.  A
-    caller who names ``fused`` gets the plain twin on either device, as the
-    reference runs its XLA twin on the accelerator when asked.  The
-    modular ``xla`` oracle path is not ported yet."""
+
+def _scale_for(cfg: TrackerConfig, residuals, weights, n):
+    """The modular path's new precision [..., 2, 2] for ``cfg``'s scale
+    estimator: the inverse t-distribution scale, the identity, or the
+    inverse squared normal / MAD scales of each channel over the pixels
+    with a weight above zero."""
+    if cfg.scale_estimator is ScaleEstimator.TDISTRIBUTION:
+        return robust.precision_from_scale(robust.tdist_scale(residuals, weights, n))
+    if cfg.scale_estimator is ScaleEstimator.UNIT:
+        eye = torch.eye(2, dtype=residuals.dtype, device=residuals.device)
+        return eye.expand(residuals.shape[:-2] + (2, 2))
+    if cfg.scale_estimator is ScaleEstimator.NORMAL:
+        scale = robust.normal_scale
+    elif cfg.scale_estimator is ScaleEstimator.MAD:
+        scale = robust.mad_scale
+    else:
+        raise ValueError(f"unknown scale estimator {cfg.scale_estimator}")
+    mask = weights > 0
+    s = torch.stack([scale(residuals[..., 0], mask), scale(residuals[..., 1], mask)], dim=-1)
+    return torch.diag_embed(1.0 / torch.clamp(s**2, min=1e-12))
+
+
+def _resolve_backend(cfg: TrackerConfig, device: torch.device) -> str:
+    """The inner-loop implementation for tensors on ``device``, as the
+    reference resolves it.  The fused evaluation hard-codes the
+    t-distribution statistics, so ``auto`` with any other configuration
+    (another influence function or scale estimator, or
+    ``use_weighting=False``) takes the modular ``xla`` path, and
+    ``pallas`` or ``fused`` with one raise.  ``auto`` with the
+    t-distribution takes the CUDA kernel ("pallas", after the reference's
+    name) for CUDA tensors and the plain twin ("fused") for CPU tensors.
+    A caller who names ``fused`` gets the plain twin on either device, as
+    the reference runs its XLA twin on the accelerator when asked; ``xla``
+    runs on any device."""
     backend = cfg.kernel_backend
+    if backend not in ("auto", "fused", "pallas", "xla"):
+        raise ValueError(f"unknown kernel_backend {backend!r}")
     tdist = (
         cfg.use_weighting
         and cfg.influence_function is InfluenceFunction.TDISTRIBUTION
         and cfg.scale_estimator is ScaleEstimator.TDISTRIBUTION
     )
-    if backend == "xla" or (backend == "auto" and not tdist):
-        raise NotImplementedError(
-            "the modular 'xla' oracle backend (any influence/scale "
-            "configuration other than the t-distribution) is not ported "
-            "yet: ROADMAP.md A.13"
-        )
-    if backend not in ("auto", "fused", "pallas"):
-        raise ValueError(f"unknown kernel_backend {backend!r}")
-    if not tdist:
-        raise ValueError(f"kernel_backend={backend!r} requires t-distribution weighting")
     kind = torch.device(device).type
     if backend == "auto":
+        if not tdist:
+            return "xla"
         backend = "pallas" if kind == "cuda" else "fused"
+    elif backend in ("fused", "pallas") and not tdist:
+        raise ValueError(f"kernel_backend={backend!r} requires t-distribution weighting")
     if backend == "pallas" and kind != "cuda":
         raise ValueError("kernel_backend='pallas' runs the CUDA kernel: it needs CUDA tensors")
     if backend == "fused" and kind not in ("cpu", "cuda"):
@@ -189,28 +240,39 @@ def _match_level(
     initial0,
     precision0,
     collect_stats: bool = False,
+    accel=None,
 ):
     """Run the IRLS Gauss-Newton iteration on one pyramid level, from the
     level's prepared artifacts (see :func:`prepare_frame`): the reference
-    frame's selection mask and refpack, the current frame's quad table.
-    With a leading stream axis on every input, B levels solve in lockstep."""
+    frame's selection mask and refpack, the current frame's quad table
+    (the fused path) or acceleration tensor [..., H, W, 8] (the modular
+    path).  With a leading stream axis on every input, B levels solve in
+    lockstep."""
     backend = _resolve_backend(cfg, sel_mask.device)
     dof = cfg.influence_function_param
     level_shape = tuple(sel_mask.shape[-2:])
-    fused = (
-        fused_kernels.warp_fused_stats_plain if backend == "fused"
-        else fused_kernels.warp_fused_stats
-    )
-
-    def evaluate(T, P_prev, first: bool):
-        """One IRLS evaluation in one call (the folded kernel on the card,
-        the plain version on the CPU or where ``fused`` is named): warp and
-        sample, statistics, new precision, log-likelihood and normal
-        equations."""
-        return fused(
-            refpack, quad, level_shape, intrinsics, T, P_prev, first, dof,
-            cfg.depth_buffered_sampling,
+    if backend == "xla":
+        evaluate = _modular_evaluation(cfg, intrinsics, sel_mask, refpack, accel)
+    else:
+        if quad is None:
+            raise ValueError(
+                "the fused path needs the current frame's quad table: prepare "
+                "the frame under a t-distribution config"
+            )
+        fused = (
+            fused_kernels.warp_fused_stats_plain if backend == "fused"
+            else fused_kernels.warp_fused_stats
         )
+
+        def evaluate(T, P_prev, first: bool):
+            """One IRLS evaluation in one call (the folded kernel on the
+            card, the plain version on the CPU or where ``fused`` is
+            named): warp and sample, statistics, new precision,
+            log-likelihood and normal equations."""
+            return fused(
+                refpack, quad, level_shape, intrinsics, T, P_prev, first, dof,
+                cfg.depth_buffered_sampling,
+            )
 
     carry, iterations, trace = _irls_level(
         cfg, evaluate, x0, T0, initial0, precision0, collect_stats
@@ -222,6 +284,38 @@ def _match_level(
         termination=carry.termination,
     )
     return carry, stats, trace
+
+
+def _modular_evaluation(cfg: TrackerConfig, intrinsics: Intrinsics, sel_mask, refpack, accel):
+    """The modular path's ``evaluate(T, P_prev, first) -> (n, precision,
+    ll, A, b)``: residuals and Jacobians (always depth-buffered, as the
+    reference's), weights from the previous precision (the mask itself on
+    the first iteration), the new precision from those weights, the
+    t-distribution log-likelihood at it (whatever the influence function:
+    the reference's), and the normal equations.  The reference level's
+    intensity, depth and gradients are rows 0-3 of its refpack."""
+    if refpack is None or accel is None:
+        raise ValueError(
+            "the modular 'xla' path needs the reference frame's refpack and the "
+            "current frame's acceleration tensor: prepare both frames under the "
+            "xla config (prepare_frame)"
+        )
+    dof = cfg.influence_function_param
+    rows = refpack.unflatten(-1, tuple(sel_mask.shape[-2:]))  # [..., 8, H, W]
+    ref_i, ref_z, ref_idx, ref_idy = (rows[..., c, :, :] for c in range(4))
+
+    def evaluate(T, P_prev, first: bool):
+        rd = compute_residuals(ref_i, ref_z, ref_idx, ref_idy, sel_mask, accel, intrinsics, T)
+        if first:
+            weights = rd.mask.to(refpack.dtype)
+        else:
+            weights = _weights_for(cfg, rd.residuals, P_prev, rd.mask)
+        precision_new = _scale_for(cfg, rd.residuals, weights, rd.num_valid)
+        ll = robust.tdist_log_likelihood(rd.residuals, precision_new, rd.mask, dof)
+        A, b = normal_equations(rd, weights, precision_new)
+        return rd.num_valid, precision_new, ll, A, b
+
+    return evaluate
 
 
 def _where(cond, new, old):
@@ -362,41 +456,50 @@ def _irls_level(
 
 
 class PreparedFrame(NamedTuple):
-    """Per-frame cached solver artifacts of the fused path, one entry per
-    pyramid level (``None`` outside the solve range).  ``sel``/``refpack``
-    serve the frame's reference role, ``quad`` its current role.  (The
+    """Per-frame cached solver artifacts, one entry per pyramid level
+    (``None`` outside the solve range).  ``sel``/``refpack`` serve the
+    frame's reference role on both paths (the modular path reads the
+    reference level's intensity, depth and gradients from refpack rows
+    0-3), ``quad`` its current role on the fused path and ``accel`` on the
+    modular one; the other is None, so a frame holds one of them.  (The
     reference also carries the levels, which ``frames.Frame.levels`` holds
-    here, and the modular path's acceleration tensor, which the fused path
-    never reads.)"""
+    here.)"""
 
     sel: Tuple[Optional[torch.Tensor], ...]
     refpack: Tuple[Optional[torch.Tensor], ...]
     quad: Tuple[Optional[torch.Tensor], ...]
+    accel: Tuple[Optional[torch.Tensor], ...]
 
 
 def prepare_frame(
     cfg: TrackerConfig, intrinsics: Intrinsics, levels: Sequence[PyramidLevel]
 ) -> PreparedFrame:
     """Precompute both roles' per-level artifacts for the solve range:
-    selection mask and refpack [8, N], quad table [32, N] (each with a
-    leading [B] for batched pyramids).  Each call adds one to
+    selection mask and refpack [8, N], and the quad table [32, N] (fused
+    path) or the acceleration tensor [H, W, 8] (modular path), each with a
+    leading [B] for batched pyramids.  Each call adds one to
     ``prepare_frame.calls``."""
     prepare_frame.calls += 1
-    _resolve_backend(cfg, levels[cfg.first_level].intensity.device)
+    modular = _resolve_backend(cfg, levels[cfg.first_level].intensity.device) == "xla"
     n = len(levels)
     sel = [None] * n
     refpack = [None] * n
     quad = [None] * n
+    accel = [None] * n
     for level in range(cfg.last_level, cfg.first_level + 1):
         lv = levels[level]
         sel[level] = selection_mask(
             lv, cfg.intensity_derivative_threshold, cfg.depth_derivative_threshold
         )
         refpack[level] = _build_refpack(lv, sel[level], intrinsics.at_level(level))
-        quad[level] = build_quad_table_cm(
-            build_acceleration_cm(lv), lv.intensity.shape[-1]
-        )
-    return PreparedFrame(sel=tuple(sel), refpack=tuple(refpack), quad=tuple(quad))
+        if modular:
+            accel[level] = build_acceleration(lv)
+        else:
+            quad[level] = build_quad_table_cm(
+                build_acceleration_cm(lv), lv.intensity.shape[-1]
+            )
+    return PreparedFrame(sel=tuple(sel), refpack=tuple(refpack), quad=tuple(quad),
+                         accel=tuple(accel))
 
 
 prepare_frame.calls = 0
@@ -405,9 +508,8 @@ prepare_frame.calls = 0
 def ref_artifacts(prepared: PreparedFrame) -> PreparedFrame:
     """Strip a PreparedFrame to its reference-role artifacts (selection
     mask and refpack): what a keyframe must keep for later matches."""
-    return PreparedFrame(
-        sel=prepared.sel, refpack=prepared.refpack, quad=(None,) * len(prepared.quad)
-    )
+    none = (None,) * len(prepared.sel)
+    return PreparedFrame(sel=prepared.sel, refpack=prepared.refpack, quad=none, accel=none)
 
 
 def match_prepared(
@@ -458,6 +560,7 @@ def match_prepared(
             initial,
             precision,
             collect_stats=collect_iteration_stats,
+            accel=cur.accel[level],
         )
         level_stats.append(stats)
         if collect_iteration_stats:

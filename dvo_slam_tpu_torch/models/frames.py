@@ -13,7 +13,8 @@ buckets, padded slots, chunking past 16 and fixed-size prepare chunks keep
 XLA's compile set closed; eager PyTorch has no compile set, so they are
 not ported.
 
-Frames are prepared once (selection mask, refpack, quad table per level,
+Frames are prepared once (per level the selection mask, the refpack and
+the quad table, or on the modular path the acceleration tensor:
 ``prepare_frame``) and the artifacts cached on the Frame under the
 matcher's (config, intrinsics) key, so a keyframe matched against every
 incoming frame never recomputes them.
@@ -195,11 +196,27 @@ def _decode_result(flat: np.ndarray) -> HostTrackingResult:
 
 def _stack_levels(entries: Sequence[Tuple[Optional[torch.Tensor], ...]], cfg: TrackerConfig):
     """The requests' artifacts stacked [B, ...] at each level of ``cfg``'s
-    solve range; None elsewhere."""
+    solve range that holds them; None elsewhere."""
     return tuple(
-        torch.stack(per_level) if cfg.last_level <= level <= cfg.first_level else None
+        torch.stack(per_level)
+        if cfg.last_level <= level <= cfg.first_level and per_level[0] is not None else None
         for level, per_level in enumerate(zip(*entries))
     )
+
+
+# the artifacts of each role: the reference frame's, the current frame's
+# (the quad table on the fused path, the acceleration tensor on the modular)
+REF_FIELDS = ("sel", "refpack")
+CUR_FIELDS = ("quad", "accel")
+
+
+def _stack_role(prepared: Sequence[PreparedFrame], fields, cfg: TrackerConfig) -> PreparedFrame:
+    """The requests' artifacts of one role (``fields``) stacked [B, ...]."""
+    none = (None,) * len(prepared[0].sel)
+    return PreparedFrame(**{
+        field: _stack_levels([getattr(p, field) for p in prepared], cfg) if field in fields else none
+        for field in PreparedFrame._fields
+    })
 
 
 class BatchedMatcher:
@@ -210,8 +227,9 @@ class BatchedMatcher:
     flat [n, 53 + 4 * levels] float32 tensor to the host.  This is the
     engine of the dual keyframe/odometry match (n = 2) and of loop-closure
     waves.  The artifacts are stacked copies: the dual match's two
-    requests share the current frame, whose quad table is then stacked
-    twice (the folded kernel takes contiguous [B, 32, N] tables).
+    requests share the current frame, whose quad table (or acceleration
+    tensor) is then stacked twice (the folded kernel takes contiguous
+    [B, 32, N] tables).
     """
 
     def __init__(
@@ -271,15 +289,8 @@ class BatchedMatcher:
         if len(requests) == 1:
             result = match_prepared(self.cfg, self.intrinsics, refs[0], curs[0], inits[0])
         else:
-            none = (None,) * len(refs[0].sel)
-            ref_b = PreparedFrame(
-                sel=_stack_levels([r.sel for r in refs], self.cfg),
-                refpack=_stack_levels([r.refpack for r in refs], self.cfg),
-                quad=none,
-            )
-            cur_b = PreparedFrame(
-                sel=none, refpack=none, quad=_stack_levels([c.quad for c in curs], self.cfg)
-            )
+            ref_b = _stack_role(refs, REF_FIELDS, self.cfg)
+            cur_b = _stack_role(curs, CUR_FIELDS, self.cfg)
             result = match_prepared(self.cfg, self.intrinsics, ref_b, cur_b, inits)
         flat = _flatten_result(result).reshape(len(requests), -1).cpu().numpy()  # one copy
         return [_decode_result(row) for row in flat]
@@ -347,15 +358,8 @@ class TwoStageMatcher:
             for r in requests
         ])).to(device)
         # streams 0..n-1 forward (ref -> cur), n..2n-1 backward (cur -> ref)
-        none = (None,) * len(refs[0].sel)
-        ref_b = PreparedFrame(
-            sel=_stack_levels([p.sel for p in refs + curs], self.fine_cfg),
-            refpack=_stack_levels([p.refpack for p in refs + curs], self.fine_cfg),
-            quad=none,
-        )
-        cur_b = PreparedFrame(
-            sel=none, refpack=none, quad=_stack_levels([p.quad for p in curs + refs], self.fine_cfg)
-        )
+        ref_b = _stack_role(refs + curs, REF_FIELDS, self.fine_cfg)
+        cur_b = _stack_role(curs + refs, CUR_FIELDS, self.fine_cfg)
         seeds = torch.cat([inits, se3.inverse(inits)])
         coarse = match_prepared(self.coarse_cfg, self.intrinsics, ref_b, cur_b, seeds)
         fine = match_prepared(self.fine_cfg, self.intrinsics, ref_b, cur_b, coarse.transformation)

@@ -314,8 +314,10 @@ def make_streaming_frontend(cfg: SlamConfig, intrinsics: Intrinsics,
         init_kf = state.last_kf_estimate if tcfg.use_initial_estimate else eyes
         none = (None,) * len(cur.quad)
         ref_b = PreparedFrame(sel=stack2(b, state.kf.sel, state.last.sel),
-                              refpack=stack2(b, state.kf.refpack, state.last.refpack), quad=none)
-        cur_b = PreparedFrame(sel=none, refpack=none, quad=stack2(b, cur.quad, cur.quad))
+                              refpack=stack2(b, state.kf.refpack, state.last.refpack),
+                              quad=none, accel=none)
+        cur_b = PreparedFrame(sel=none, refpack=none, quad=stack2(b, cur.quad, cur.quad),
+                              accel=stack2(b, cur.accel, cur.accel))
         r = match(ref_b, cur_b, join(b, init_kf, eyes))
         (kf_T, odo_T), (kf_info, odo_info), (kf_nll, odo_nll), (kf_n, odo_n), (kf_pix, odo_pix) = (
             halves(b, x) for x in res_of(r))
@@ -351,7 +353,7 @@ def make_streaming_frontend(cfg: SlamConfig, intrinsics: Intrinsics,
         new_state = _State(
             kf=PreparedFrame(sel=select(accept, state.kf.sel, state.last.sel),
                              refpack=select(accept, state.kf.refpack, state.last.refpack),
-                             quad=none),
+                             quad=none, accel=none),
             last=ref_artifacts(cur),
             kf_pose=_where(accept, state.kf_pose, state.last_pose),
             last_pose=_where(accept, compose(b, state.kf_pose, kf_T),

@@ -31,6 +31,13 @@ class Intrinsics(NamedTuple):
         """Intrinsics for pyramid level ``level`` (halved per level)."""
         return self.scale(0.5**level)
 
+    def matrix(self, dtype=torch.float32, device=None):
+        """The 3x3 camera matrix K."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.ox], [0.0, self.fy, self.oy], [0.0, 0.0, 1.0]],
+            dtype=dtype, device=device,
+        )
+
 
 # TUM RGB-D intrinsics, as used by the reference benchmark driver.
 TUM_FR1 = Intrinsics(517.3, 516.5, 318.6, 255.3)
@@ -40,12 +47,15 @@ TUM_DEFAULT = Intrinsics(525.0, 525.0, 319.5, 239.5)
 
 
 def unproject(depth, intrinsics: Intrinsics):
-    """Back-project a depth map [H, W] to camera-frame points [H, W, 3]."""
-    h, w = depth.shape
+    """Back-project a depth map [..., H, W] to camera-frame points
+    [..., H, W, 3]."""
+    h, w = depth.shape[-2:]
     u = torch.arange(w, dtype=depth.dtype, device=depth.device)[None, :]
     v = torch.arange(h, dtype=depth.dtype, device=depth.device)[:, None]
-    x = (u - intrinsics.ox) / intrinsics.fx * depth
-    y = (v - intrinsics.oy) / intrinsics.fy * depth
+    # divided by tensors: PyTorch's CUDA division by a Python scalar
+    # multiplies by its rounded reciprocal, the CPU divides
+    x = (u - intrinsics.ox) / torch.full_like(u, intrinsics.fx) * depth
+    y = (v - intrinsics.oy) / torch.full_like(v, intrinsics.fy) * depth
     return torch.stack([x, y, depth], dim=-1)
 
 

@@ -1,5 +1,6 @@
-"""Bilinear sampling through the channel-major quad table (port of the
-quad-table part of ``dvo_slam_tpu.ops.interp``).
+"""Bilinear sampling (port of ``dvo_slam_tpu.ops.interp``): through the
+channel-major quad table (the fused path), of the channel-last [H, W, 8]
+acceleration tensor (the modular path), and of single images (the warps).
 
 Validity travels as an explicit channel: a sample is valid only if its
 2x2 support is inside the image and (plain form) all four neighbours are
@@ -124,3 +125,117 @@ def sample_quad(quad_cm, shape, u, v, z_expected=None):
     [..., N]); depth-buffered when ``z_expected`` is given."""
     q = quad_index(shape, u, v)
     return combine_quad(gather_quad(quad_cm, q.idx), q, z_expected)
+
+
+def _neighbours(shape, u, v):
+    """:func:`quad_index` of samples at (u, v) [..., N] and the flat indices
+    of their four neighbours (top-left, top-right, bottom-left,
+    bottom-right: the clamp keeps the top-left pixel off the last row and
+    column)."""
+    q = quad_index(shape, u, v)
+    w = shape[1]
+    return q, (q.idx, q.idx + 1, q.idx + w, q.idx + w + 1)
+
+
+def _gather_rows(flat, idx):
+    """Rows ``idx`` [..., N] of ``flat`` [..., M, C] -> [..., N, C]."""
+    if flat.dim() == 2:
+        return flat[idx]
+    return torch.gather(flat, -2, idx.unsqueeze(-1).expand(idx.shape + (flat.shape[-1],)))
+
+
+def bilinear_sample_accel(accel, u, v, z_expected=None):
+    """Sample the acceleration tensor [..., H, W, 8] at (u, v) [..., N]:
+    the four-gather form of the modular path.  Returns (values [..., N, 8],
+    valid [..., N]); the bounds keep the 2x2 support inside the image
+    (0 <= u < W-1, 0 <= v < H-1).  Without ``z_expected`` a sample needs
+    all four neighbours valid; with it the sample is depth-buffered (the
+    5 cm rule of :func:`combine_quad`)."""
+    h, w, c = accel.shape[-3:]
+    q, neighbours = _neighbours((h, w), u, v)
+    flat = accel.reshape(accel.shape[:-3] + (h * w, c))
+    a00, a10, a01, a11 = (_gather_rows(flat, i) for i in neighbours)
+    x0w, x1w, y0w, y1w = (t.unsqueeze(-1) for t in (q.x0w, q.x1w, q.y0w, q.y1w))
+    in_bounds = q.in_bounds
+
+    if z_expected is None:
+        values = (a00 * x0w + a10 * x1w) * y0w + (a01 * x0w + a11 * x1w) * y1w
+        neighbors_valid = (
+            (a00[..., VALID_CHANNEL] > 0.5)
+            & (a10[..., VALID_CHANNEL] > 0.5)
+            & (a01[..., VALID_CHANNEL] > 0.5)
+            & (a11[..., VALID_CHANNEL] > 0.5)
+        )
+        return values, in_bounds & neighbors_valid
+
+    z_eps = z_expected - DEPTH_BUFFER_M
+
+    def keep(a):
+        return ((a[..., VALID_CHANNEL] > 0.5) & (a[..., 1] > z_eps)).to(u.dtype)
+
+    w00 = q.x0w * q.y0w * keep(a00)
+    w10 = q.x1w * q.y0w * keep(a10)
+    w01 = q.x0w * q.y1w * keep(a01)
+    w11 = q.x1w * q.y1w * keep(a11)
+    wsum = w00 + w10 + w01 + w11
+    values = (
+        a00 * w00.unsqueeze(-1) + a10 * w10.unsqueeze(-1)
+        + a01 * w01.unsqueeze(-1) + a11 * w11.unsqueeze(-1)
+    ) / torch.clamp(wsum, min=1e-6).unsqueeze(-1)
+    return values, in_bounds & (wsum > 1e-6)
+
+
+def build_quad_table(accel):
+    """Row-major quad table [..., H*W, 32] of an acceleration tensor
+    [..., H, W, 8]: the transpose of :func:`build_quad_table_cm`."""
+    h, w, c = accel.shape[-3:]
+    accel_cm = accel.reshape(accel.shape[:-3] + (h * w, c)).transpose(-1, -2)
+    return build_quad_table_cm(accel_cm, w).transpose(-1, -2)
+
+
+def bilinear_sample_quad(quad, shape, u, v, z_expected=None):
+    """Bilinear sampling through the row-major quad table [..., H*W, 32]:
+    :func:`sample_quad` on its transpose.  Returns (values [..., N, 8],
+    valid [..., N])."""
+    values, valid = sample_quad(quad.transpose(-1, -2), shape, u, v, z_expected)
+    return values.transpose(-1, -2), valid
+
+
+def bilinear_with_depth_buffer(intensity, depth, depth_valid, u, v, z_expected):
+    """Depth-buffered bilinear interpolation of an intensity image [H, W]
+    at (u, v) [N] (the reference's Interpolation::bilinearWithDepthBuffer):
+    a neighbour contributes only if its depth is valid and not more than
+    5 cm in front of ``z_expected`` [N]; the weights renormalise over the
+    contributors, and a sample without one is invalid.  Returns (values
+    [N], valid [N])."""
+    h, w = intensity.shape
+    q, idx = _neighbours((h, w), u, v)
+    flat_i = intensity.reshape(h * w)
+    flat_z = depth.reshape(h * w)
+    flat_ok = depth_valid.reshape(h * w)
+    z_eps = z_expected - DEPTH_BUFFER_M
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    val = torch.zeros_like(u)
+    weight_sum = torch.zeros_like(u)
+    for i, wgt in zip(idx, (q.x0w * q.y0w, q.x1w * q.y0w, q.x0w * q.y1w, q.x1w * q.y1w)):
+        contributes = flat_ok[i] & (flat_z[i] > z_eps)
+        wgt = torch.where(contributes, wgt, zero)
+        val = val + wgt * flat_i[i]
+        weight_sum = weight_sum + wgt
+    valid = q.in_bounds & (weight_sum > 0.0)
+    values = torch.where(valid, val / torch.clamp(weight_sum, min=1e-12), zero)
+    return values, valid
+
+
+def bilinear_sample_image(img, u, v):
+    """Plain bilinear sample of a single-channel image [H, W] at (u, v)
+    [N]; out-of-bounds samples are 0 and invalid.  Returns (values [N],
+    valid [N])."""
+    accel = img[..., None]
+    padded = torch.cat(
+        [accel] * 6 + [torch.ones_like(accel), torch.zeros_like(accel)], dim=-1
+    )
+    values, _ = bilinear_sample_accel(padded, u, v)
+    h, w = img.shape
+    in_bounds = (u >= 0.0) & (u < w - 1) & (v >= 0.0) & (v < h - 1)
+    return torch.where(in_bounds, values[:, 0], torch.zeros_like(u)), in_bounds

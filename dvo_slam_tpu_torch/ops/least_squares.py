@@ -1,5 +1,8 @@
-"""6-DoF normal-equation solve (port of ``solve_ldlt`` from
-``dvo_slam_tpu.ops.least_squares``).
+"""6-DoF normal-equation solvers and partial-sum merging (port of
+``dvo_slam_tpu.ops.least_squares``): ``solve_ldlt`` (the tracker's solve),
+``solve_evd`` (eigendecomposition with small-eigenvalue truncation),
+``solve_svd`` (minimum-norm solve of the stacked system) and ``combine``
+(the merge of partial normal equations).
 
 The Cholesky factorisation runs one column at a time with vector ops:
 on CUDA every tensor op is one launch, so a column loop costs ~90
@@ -15,9 +18,31 @@ operations it took before batching existed.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 _PIVOT_FLOOR = 1e-20
+
+
+class NormalEquations(NamedTuple):
+    """A x = b with A [6, 6] symmetric PSD and b [6]; ``error`` carries the
+    accumulated weighted squared residual, ``num_constraints`` the count."""
+
+    A: torch.Tensor
+    b: torch.Tensor
+    error: torch.Tensor
+    num_constraints: torch.Tensor
+
+
+def combine(a: NormalEquations, b: NormalEquations) -> NormalEquations:
+    """Merge two partial accumulations."""
+    return NormalEquations(
+        A=a.A + b.A,
+        b=a.b + b.b,
+        error=a.error + b.error,
+        num_constraints=a.num_constraints + b.num_constraints,
+    )
 
 
 def _matvec(M, v):
@@ -65,3 +90,30 @@ def solve_ldlt(A, b):
     b_s = b * d_inv
     y = _cholesky_solve_unrolled(A_s, b_s)
     return y * d_inv
+
+
+def solve_evd(A, b, rel_threshold=1e-6):
+    """Eigendecomposition solve of A x = b (or a batch), dropping the
+    eigenvalues at or below ``rel_threshold`` x the largest magnitude:
+    unobservable directions are left out instead of amplified."""
+    w, V = torch.linalg.eigh(A)
+    w_max = torch.amax(w.abs(), dim=-1, keepdim=True)
+    keep = w > rel_threshold * w_max
+    inv_w = torch.where(keep, 1.0 / torch.where(keep, w, torch.ones_like(w)), torch.zeros_like(w))
+    return _matvec(V, inv_w * _matvec(V.transpose(-1, -2), b))
+
+
+def solve_svd(J, r, w=None):
+    """Minimum-norm least-squares solve of J x = -r by SVD, ``J`` [M, 6],
+    ``r`` [M], optional weights [M] applied as sqrt(w) row scaling.
+    Singular values at or below eps * max(M, 6) x the largest are dropped
+    (the cut of ``jnp.linalg.lstsq``)."""
+    if w is not None:
+        sw = torch.sqrt(w)
+        J = J * sw.unsqueeze(-1)
+        r = r * sw
+    U, s, Vh = torch.linalg.svd(J, full_matrices=False)
+    cut = torch.finfo(J.dtype).eps * max(J.shape[-2:]) * torch.amax(s, dim=-1, keepdim=True)
+    keep = s > cut
+    inv_s = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)), torch.zeros_like(s))
+    return _matvec(Vh.transpose(-1, -2), inv_s * _matvec(U.transpose(-1, -2), -r))

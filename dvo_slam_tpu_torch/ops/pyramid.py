@@ -163,6 +163,18 @@ def build_pyramid(
     return tuple(levels)
 
 
+def build_acceleration(level: PyramidLevel):
+    """Channel-last acceleration tensor [..., H, W, 8] of the modular path
+    and the warps: (intensity, depth, idx, idy, zdx, zdy, zvalid, 0), the
+    transpose of :func:`build_acceleration_cm`."""
+    i = level.intensity
+    return torch.stack(
+        [i, level.depth, level.idx, level.idy, level.zdx, level.zdy,
+         level.zvalid.to(i.dtype), torch.zeros_like(i)],
+        dim=-1,
+    )
+
+
 def build_acceleration_cm(level: PyramidLevel):
     """Channel-major acceleration pack [..., 8, H*W] for the fused solver
     path."""

@@ -17,10 +17,13 @@ Two schedules, as in the reference:
   * ``lockstep``: all streams together (the live multi-camera shape);
   * ``sequential``: the streams one after another through the
     single-stream tracker (``match_pyramids``), for batch reprocessing.
-The reference's other lockstep form (``_track_streams_vmapped``) has the
-same per-stream maths and is this one batched form here; its switch from
-the Pallas kernel to the XLA twin under ``vmap`` works around the TPU and
-has no counterpart: CUDA tensors take the batched kernel.
+The reference's two lockstep forms are this one batched form here: its
+standalone-table form (the fused backends, with a switch from the Pallas
+kernel to the XLA twin under ``vmap`` that works around the TPU and has
+no counterpart: CUDA tensors take the batched kernel) and
+``_track_streams_vmapped`` (the modular backend: ``match_prepared`` on
+batched frames prepared for it runs the modular evaluation on [B, ...]
+tensors, a finished stream's carry frozen as on the fused path).
 
 With a mesh each rank tracks its contiguous B / world streams and one
 all-gather returns every stream's results to every rank (the reference's

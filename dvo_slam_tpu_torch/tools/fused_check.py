@@ -18,7 +18,10 @@ evaluation (``warp_fused_partials``) is run for every rank on one device,
 with the blocks' sums added in rank order where the ranks all-reduce
 (``sharded_on_one_device``), and held the same way: its stash with the gate
 weights > 0 (``twin_sharded_stash``), its 136 packed sums
-(``compare_packed_sums``) and its tail.
+(``compare_packed_sums``) and its tail.  The folded call is also held
+against an oracle other than its own twin, the modular evaluation of the
+``xla`` backend (``compare_modular_to_kernel``), at the reference's own
+tolerances for that pair.
 """
 
 from __future__ import annotations
@@ -28,9 +31,12 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+import dataclasses
+
+from ..models import dense_tracker
 from ..models.dense_tracker import prepare_frame
-from ..ops import fused_kernels, se3
-from ..ops.residuals import warp_and_sample_cm
+from ..ops import fused_kernels, robust, se3
+from ..ops.residuals import compute_residuals, normal_equations, warp_and_sample_cm
 from ..parallel.mesh import BATCH_AXIS, Mesh, local_block
 
 # the reference's own kernel-vs-twin tolerances (tests/test_pallas.py); the
@@ -53,6 +59,15 @@ CHECK_PRECISION = (4000.0, 10.0, 1.5e5)
 # the folded call's tail against the plain version's, each quantity relative
 # to the scale its float32 rounding follows (see compare_warp_fused_stats)
 EVAL_RTOL = 1e-5
+# the folded kernel against the modular evaluation: the reference's own
+# tolerances for its kernel against its modular path (tests/test_pallas.py)
+MODULAR_RESIDUAL_ATOL = 2e-5
+MODULAR_NE_RTOL = 2e-3  # A and b
+MODULAR_B_ATOL = 1e-2
+MODULAR_SCALE_RTOL = 2e-3  # the scale numerator sum w r r^T
+MODULAR_SCALE_ATOL = 1e-7
+# an arbitrary new precision for the normal equations (tests/test_pallas.py)
+CHECK_P_NEW = ((5000.0, -30.0), (-30.0, 1.0e5))
 
 
 def require(condition, message):
@@ -378,3 +393,66 @@ def assert_bit_identical(a, b):
     named tuples of tensors or plain tuples of tensors."""
     for field, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
         require(torch.equal(x, y), f"two kernel runs differ in {field}")
+
+
+def compare_modular_to_kernel(cfg, intrinsics, ref_levels, cur_levels, level: int, first: bool,
+                              P_prev, twist=CHECK_TWIST):
+    """The folded kernel (``warp_fused_stats_rows_cuda``, depth-buffered)
+    against the modular evaluation (``compute_residuals``, the configured
+    weights, ``tdist_scale``, ``normal_equations``) on the same warp
+    exp(twist) and previous precision at one level, on CUDA tensors.  The
+    folded kernel emits no per-pixel weights: they are held through the
+    normal equations and the scale numerator.  Raises unless n and the
+    mask are equal, the stashed residuals within atol 2e-5 of the modular
+    ones, A and b (for ``CHECK_P_NEW``) within rtol 2e-3 (b also atol
+    1e-2) and the scale numerator within rtol 2e-3; returns the errors."""
+    fused_cfg = dataclasses.replace(cfg, kernel_backend="auto", depth_buffered_sampling=True)
+    xla = dataclasses.replace(cfg, kernel_backend="xla")
+    ref_f, cur_f = (prepare_frame(fused_cfg, intrinsics, lv) for lv in (ref_levels, cur_levels))
+    ref_m, cur_m = (prepare_frame(xla, intrinsics, lv) for lv in (ref_levels, cur_levels))
+    device = ref_f.refpack[level].device
+    T = se3.exp_se3(torch.tensor(twist, dtype=torch.float32, device=device))
+    k = intrinsics.at_level(level)
+    shape = tuple(ref_f.sel[level].shape)
+    dof = cfg.influence_function_param
+    kernel, stats, stash = fused_kernels.warp_fused_stats_rows_cuda(
+        ref_f.refpack[level], cur_f.quad[level], shape, k, T, P_prev, first, dof, True)
+    rows = ref_m.refpack[level].unflatten(-1, shape)
+    rd = compute_residuals(rows[0], rows[1], rows[2], rows[3], ref_m.sel[level],
+                           cur_m.accel[level], k, T)
+    weights = (rd.mask.to(torch.float32) if first
+               else dense_tracker._weights_for(xla, rd.residuals, P_prev, rd.mask))
+    P_new = torch.tensor(CHECK_P_NEW, dtype=torch.float32, device=device)
+    A_k, b_k = fused_kernels.assemble_normal_equations(stats, P_new)
+    A_m, b_m = normal_equations(rd, weights, P_new)
+    n = int(rd.num_valid)
+    S_k = fused_kernels.scale_matrix(stats)
+    S_m = robust.tdist_scale(rd.residuals, weights, rd.num_valid) * max(n - 3, 1)
+    host = lambda t: t.detach().double().cpu()  # noqa: E731
+    mask_differ = int((stash[2].cpu() > 0.5).ne(rd.mask.cpu()).sum())
+    r_err = float((host(stash[:2]).T - host(rd.residuals)).abs().max())
+
+    def rel(a, b, rtol, atol=0.0):
+        """The worst |a - b| / (atol + rtol |b|): <= 1 passes (equal zeros
+        pass, any other difference from a zero fails)."""
+        diff, tol = (host(a) - host(b)).abs(), atol + rtol * host(b).abs()
+        ratio = torch.where(tol > 0, diff / torch.where(tol > 0, tol, torch.ones_like(tol)),
+                            torch.where(diff > 0, float("inf"), 0.0))
+        return float(ratio.max())
+
+    errors = {
+        "level": level, "first": int(bool(first)), "n": int(kernel.n), "modular_n": n,
+        "mask_differ": mask_differ, "residual_max_abs_err": r_err,
+        "A_worst_over_tol": rel(A_k, A_m, MODULAR_NE_RTOL),
+        "b_worst_over_tol": rel(b_k, b_m, MODULAR_NE_RTOL, MODULAR_B_ATOL),
+        "scale_worst_over_tol": rel(S_k, S_m, MODULAR_SCALE_RTOL, MODULAR_SCALE_ATOL),
+    }
+    require(int(kernel.n) == n > 0 and mask_differ == 0,
+            f"kernel vs modular: n {int(kernel.n)} vs {n}, {mask_differ} mask pixels differ "
+            f"(level {level}, first {first})")
+    require(r_err <= MODULAR_RESIDUAL_ATOL,
+            f"kernel vs modular: residuals differ by {r_err} (level {level}, first {first})")
+    for key in ("A_worst_over_tol", "b_worst_over_tol", "scale_worst_over_tol"):
+        require(errors[key] <= 1.0, f"kernel vs modular: {key} {errors[key]} "
+                                    f"(level {level}, first {first})")
+    return errors

@@ -14,13 +14,14 @@
   reference's CLI on the same arguments (the same report keys, every
   number within 2e-5 but the rotational RPE, an arccos near 1, within 1e-4), and on a TUM directory written with the benchmark's sensor noise
   (odometry against the reference's, every mode within the reference
-  test's 10 mm ATE gate); ``--interactive-html`` exits 2 naming the missing modules.
+  test's 10 mm ATE gate); ``--interactive-html`` writes the viewer.
 """
 
 import contextlib
 import io
 import json
 import os
+import re
 import shutil
 
 import numpy as np
@@ -444,9 +445,26 @@ def test_cli_on_tum_directory(mode, tum_dirs, tmp_path):
 
 def test_cli_refuses_what_it_cannot_do(capsys):
     assert t_cli.main([]) == 2
-    assert t_cli.main(["--synthetic", "4", "--interactive-html", "g.html", "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "interactive_viz" in err and "ops.warp" in err
+    assert "--dataset or --synthetic" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("engine", ["loop", "streaming"])
+def test_cli_writes_the_interactive_viewer(engine, tmp_path):
+    """``--interactive-html g.html`` in SLAM mode exits 0 and writes the
+    viewer into the output directory: one HTML file whose embedded payload
+    parses, with the reference's keys, a keyframe entry per keyframe of
+    the trajectory's graph and an edge per graph edge."""
+    rc, report = _cli(t_cli.main, ["--synthetic", "8", "--shape", "60x80", "--mode", "slam",
+                                   "--engine", engine, "--interactive-html", "g.html",
+                                   "--device", "cpu",
+                                   "--output-dir", str(tmp_path)])
+    assert rc == 0 and report["frames"] == 8
+    html = (tmp_path / "g.html").read_text()
+    assert "<canvas" in html and not os.path.exists(tmp_path / "g.html.tmp")
+    payload = json.loads(re.search(r"const D = (.*?);\n", html).group(1))
+    assert set(payload) == {"title", "trajectory", "keyframes", "edges", "clouds", "errimgs"}
+    assert len(payload["keyframes"]) >= 2 and len(payload["edges"]) >= 1
+    assert len(payload["trajectory"]) >= len(payload["keyframes"])
 
 
 def test_cli_profile_dir(tmp_path):

@@ -164,16 +164,22 @@ def test_dispatch_by_device():
 
 
 def test_backend_resolution():
-    cpu = torch.device("cpu")
+    """The reference's resolution: ``xla`` and ``auto`` without
+    t-distribution weights take the modular path on either device;
+    ``fused`` and ``pallas`` without them raise ``ValueError``."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
     cfg = TrackerConfig()
     assert t_dt._resolve_backend(cfg, cpu) == "fused"
-    assert t_dt._resolve_backend(cfg, torch.device("cuda")) == "pallas"
+    assert t_dt._resolve_backend(cfg, cuda) == "pallas"
     with pytest.raises(ValueError, match="CUDA tensors"):
         t_dt._resolve_backend(dataclasses.replace(cfg, kernel_backend="pallas"), cpu)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dt._resolve_backend(dataclasses.replace(cfg, kernel_backend="xla"), cpu)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dt._resolve_backend(dataclasses.replace(cfg, use_weighting=False), cpu)
+    for device in (cpu, cuda):
+        assert t_dt._resolve_backend(dataclasses.replace(cfg, kernel_backend="xla"), device) == "xla"
+        unweighted = dataclasses.replace(cfg, use_weighting=False)
+        assert t_dt._resolve_backend(unweighted, device) == "xla"
+        for backend in ("fused", "pallas"):
+            with pytest.raises(ValueError, match="requires t-distribution"):
+                t_dt._resolve_backend(dataclasses.replace(unweighted, kernel_backend=backend), device)
 
 
 def test_kernel_check_against_the_xla_twin():

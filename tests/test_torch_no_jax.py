@@ -6,7 +6,9 @@ and the tools included) and ``chip_smoke.py`` import, and a tiny CPU
 schedules, the temporal tracker, the gather probe's check and the ATE
 metric run, a tiny CPU ``KeyframeTracker`` (the back end included)
 tracks, finishes and exports its trajectory, a tiny CPU ``StreamingSLAM``
-tracks in chunks and its graph is checkpointed, a tiny CPU
+tracks in chunks and its graph is checkpointed and exported as the
+interactive viewer, the modular tracker path and the error-image warp run,
+a tiny CPU
 ``DataParallelSLAM`` tracks two streams, and the benchmark CLI runs
 odometry.  The C++ source and build of ``native`` are not taken for
 modules.  Afterwards no ``jax`` and no
@@ -34,7 +36,9 @@ parallel = {"dvo_slam_tpu_torch.parallel." + m
             for m in ("mesh", "distributed", "sharded_alignment", "multistream", "temporal",
                       "dp_slam", "distributed_ba")}
 tools = {"dvo_slam_tpu_torch.tools." + m for m in ("gather_probe", "multistream_bench")}
-ops = {"dvo_slam_tpu_torch.ops.table_copy"}
+ops = {"dvo_slam_tpu_torch.ops.table_copy", "dvo_slam_tpu_torch.ops.warp"}
+viewers = {"dvo_slam_tpu_torch.utils." + m
+           for m in ("histogram", "visualization", "interactive_viz")}
 back_end = {"dvo_slam_tpu_torch.models." + m
             for m in ("constraints", "keyframe_graph", "keyframe_tracker", "pose_graph")}
 back_end.add("dvo_slam_tpu_torch.utils.timers")
@@ -42,7 +46,7 @@ drivers = {"dvo_slam_tpu_torch.models.streaming", "dvo_slam_tpu_torch.cli.benchm
            "dvo_slam_tpu_torch.native", "dvo_slam_tpu_torch.bench"}
 drivers |= {"dvo_slam_tpu_torch.utils." + m
             for m in ("dataset", "metrics", "serialization", "synthetic_tum", "trajectory")}
-wanted = parallel | tools | ops | back_end | drivers
+wanted = parallel | tools | ops | back_end | drivers | viewers
 assert wanted <= set(names), sorted(wanted - set(names))
 # the native extension's C++ source and its build are not Python modules
 assert not [n for n in names if "ingest" in n or ".build" in n], names
@@ -62,6 +66,14 @@ for pose in (np.eye(4), synthetic.circular_trajectory(50)[1]):
                                 torch.from_numpy(v), cfg.num_levels))
 result = match_pyramids(cfg, K, levels[0], levels[1])
 assert torch.isfinite(result.transformation).all()
+import dataclasses
+from dvo_slam_tpu_torch.config import InfluenceFunction, ScaleEstimator
+from dvo_slam_tpu_torch.ops import warp
+modular = dataclasses.replace(cfg, influence_function=InfluenceFunction.HUBER,
+                              scale_estimator=ScaleEstimator.MAD)
+assert torch.isfinite(match_pyramids(modular, K, levels[0], levels[1]).transformation).all()
+err, ok = warp.intensity_error_image(levels[0][0], levels[1][0], K, result.transformation)
+assert err.shape == (24, 32) and bool(ok.any())
 
 import tempfile
 from dvo_slam_tpu_torch.parallel import distributed, mesh, sharded_alignment
@@ -111,6 +123,10 @@ with tempfile.TemporaryDirectory() as out:
     from dvo_slam_tpu_torch.cli import benchmark
     assert benchmark.main(["--synthetic", "3", "--shape", "60x80", "--mode", "odometry",
                            "--device", "cpu", "--output-dir", out]) == 0
+    from dvo_slam_tpu_torch.utils import interactive_viz
+    interactive_viz.export_interactive_graph(out + "/graph.html", ss.graph, intrinsics=K,
+                                             cloud_level=1)
+    assert "const D = " in open(out + "/graph.html").read()
 ss.graph.shutdown()
 from dvo_slam_tpu_torch.parallel.dp_slam import DataParallelSLAM
 dp = DataParallelSLAM(K, SlamConfig(tracker=cfg), device="cpu")
