@@ -5,7 +5,15 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero.
+Every solve runs the IRLS loop in chunks of K steps (``dense_tracker
+.CHUNK_STEPS``), one CUDA graph replay and one host read per chunk (the
+pixel-sharded path of phase 6 stays eager at K = 1).  A step past a
+level's ``done`` is inert but still launches, so wherever a phase below
+holds a kernel's launches (or the modular evaluations) to solver
+iterations, it holds them to the executed steps: per level K *
+ceil(iterations / K), the slowest stream's iterations in lockstep; the
+iterations themselves are printed beside them.
 
 1. Device: a CUDA card is required (there is no CPU fallback).  Prints
    its name and ``nvidia-smi``'s name and power limit.
@@ -220,12 +228,25 @@ their frames/s compare with phase 4's:
    beside kernel 1's.  Then 4 streams of phase 7 (10 frames) in lockstep
    under (Huber, MAD) against the sequential schedule: iterations and
    terminations per stream, frame and level (flips counted; more than 5 %
-   fail).  (c) ``intensity_error_image`` on phase 4's first pair at L1 on
+   fail); the same run again on the eager loop with each batched
+   evaluation repeated stream by stream (``fused_check.solo_evaluations``):
+   the counts equal the graph run's, and per flip b's largest difference
+   at that level solve is printed (ROADMAP C (g)).  (c) ``intensity_error_image`` on phase 4's first pair at L1 on
    the card: mean error at the true transform below the identity's; against
    the same call on CPU copies, at most 0.1 % of the valid pixels differ
    and the values agree within 1e-4 where both are valid;
    ``warp_depth_forward_advanced`` and ``compute_normals`` once each, finite
    where valid.  Prints the phase's seconds.
+17. The IRLS loop's CUDA graphs (``models/irls_graph``; run after phase
+   16), on phase 4's first 20 frames and 4 of phase 7's streams x 10
+   frames in lockstep: (a) the modular path (t-distribution and (Huber,
+   MAD)) under graphs at the card's K against the eager loop at K = 1,
+   (b) kernels 1 and 1b (``tools/chunk_sweep.sweep``): the eager loop,
+   then the graph loop at K = 1, 2, 3 and 4; every level's carry, level
+   statistics and counts bit-equal to the eager loop's.  Prints each
+   mode's frames/s, ms per iteration, executed steps and host reads per
+   frame, the graph cache (keys, graphs, capture ms, the captures' pool
+   bytes, the static buffers' bytes) and the phase's seconds.
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
@@ -287,6 +308,10 @@ MODULAR_FRAMES = 20  # phase 16(b): phase 4's first 20 frames
 MODULAR_ATE_GAP_M = 1e-3  # phase 16(b): the xla route's ATE against phase 4's on them
 MODULAR_STREAMS = 4  # phase 16(b): streams of phase 7 in lockstep under (Huber, MAD)
 MODULAR_STREAM_FRAMES = 10
+GRAPH_FRAMES = 20  # phase 17: phase 4's first 20 frames
+GRAPH_STREAMS = 4  # phase 17: 4 of phase 7's streams x 10 frames in lockstep
+GRAPH_STREAM_FRAMES = 10
+CHUNK_SWEEP = (1, 2, 3, 4)  # phase 17: the chunk sizes K measured
 WARP_MASK_SHARE = 1e-3  # phase 16(c): valid pixels that may differ from the CPU's
 WARP_VALUE_ATOL = 1e-4
 STREAMS = 8  # the reference's stream count (tests/test_parallel.py, tools/gather_probe.py)
@@ -1049,13 +1074,37 @@ def _launches():
     return driver_launches.launches()
 
 
+def _chunk():
+    """K: the card's IRLS loop steps per chunk (one host read per chunk)."""
+    from dvo_slam_tpu_torch.models import dense_tracker
+
+    return dense_tracker.CHUNK_STEPS
+
+
+def _steps(level_stats):
+    """Executed steps of the IRLS loop, which are its kernel's launches,
+    for an iterable of match calls' level statistics: per level K *
+    ceil(iterations / K), the slowest stream's iterations in lockstep."""
+    from dvo_slam_tpu_torch.tools.driver_launches import executed_steps
+
+    return sum(executed_steps(ls) for ls in level_stats)
+
+
+def _reads(level_stats):
+    """The IRLS loop's host reads for the same calls: one per chunk."""
+    from dvo_slam_tpu_torch.tools import graph_check
+
+    return graph_check.counts([s for ls in level_stats for s in ls], _chunk())[2]
+
+
 def _require_only(counts, name, expected, what):
-    """The tracker path went through kernel ``name`` ``expected`` times and
-    through no other statistics kernel, nor ``warp_and_sample_cm``."""
+    """The tracker path went through kernel ``name`` ``expected`` times (its
+    executed steps) and through no other statistics kernel, nor
+    ``warp_and_sample_cm``."""
     from dvo_slam_tpu_torch.tools.fused_check import require
 
     require(counts[name] == expected > 0,
-            f"{what}: {name} launches {counts[name]} != solver iterations {expected}")
+            f"{what}: {name} launches {counts[name]} != executed steps {expected}")
     others = {k: v for k, v in counts.items() if k not in (name, "table_copy") and v}
     require(not others, f"{what}: other statistics kernels or warp_and_sample_cm ran: {others}")
 
@@ -1063,6 +1112,7 @@ def _require_only(counts, name, expected, what):
 def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
     """Phase 7b: B streams in lockstep.  Returns the batched folded
     kernel's launches and the phase's summary."""
+    from dvo_slam_tpu_torch.models import dense_tracker
     from dvo_slam_tpu_torch.parallel.multistream import make_multistream_tracker
     from dvo_slam_tpu_torch.tools.fused_check import require
     from dvo_slam_tpu_torch.tools.multistream_bench import stream_ates
@@ -1074,7 +1124,9 @@ def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
     tracks, seconds = _synchronized_seconds(lambda: run.tracks(d_i, d_d))
     counts = _launches()
     batched = counts["warp_fused_stats_batched"]
-    _require_only(counts, "warp_fused_stats_batched", tracks.loop_iterations, "lockstep")
+    slowest = tracks.iterations.amax(dim=0)  # [T-1, levels]
+    steps = dense_tracker.executed_steps(slowest, _chunk())
+    _require_only(counts, "warp_fused_stats_batched", steps, "lockstep")
     ates = stream_ates(tracks.poses.cpu().numpy(), gt)
     require(np.isfinite(ates).all() and max(ates) < STREAM_ATE_GATE_M,
             f"stream ATE-RMSE {ates} (gate {STREAM_ATE_GATE_M} m)")
@@ -1085,7 +1137,9 @@ def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
     summary = {
         "streams": streams, "frames": frames, "seconds": seconds,
         "aggregate_frames_per_s": fps, "single_stream_frames_per_s_phase4": single_fps,
-        "lockstep_iterations": tracks.loop_iterations, "launches": counts,
+        "lockstep_iterations": tracks.loop_iterations, "executed_steps": steps,
+        "chunk_steps": _chunk(), "launches": counts,
+        "irls_reads_per_frame": int((-(-slowest // _chunk())).sum()) / (frames - 1),
         "ms_per_lockstep_iteration": 1000.0 * seconds / tracks.loop_iterations,
         "levels": list(range(cfg.first_level, cfg.last_level - 1, -1)),
         "max_over_streams_iterations_per_level": iterations.max(axis=0).sum(axis=0).tolist(),
@@ -1196,7 +1250,8 @@ def check_camera_tracker(cfg, intrinsics, d_i, d_d, odometry_results, gt, odomet
     (poses, results), seconds = _synchronized_seconds(lambda: run(NUM_FRAMES))
     counts, prepares = _launches(), dense_tracker.prepare_frame.calls
     iterations = sum(s.iterations for r in results for s in r.level_stats)
-    _require_only(counts, "warp_fused_stats", iterations, "phase 11")
+    steps = _steps(r.level_stats for r in results)
+    _require_only(counts, "warp_fused_stats", steps, "phase 11")
     require(prepares == NUM_FRAMES, f"phase 11: prepare_frame ran {prepares} times")
     expected = [r.transformation.cpu().numpy() for r in odometry_results]
     got = [r.transformation.astype(np.float32) for r in results]
@@ -1211,7 +1266,8 @@ def check_camera_tracker(cfg, intrinsics, d_i, d_d, odometry_results, gt, odomet
     summary = {
         "frames": NUM_FRAMES, "ate_rmse_m": ate, "tracked_frames_per_s": (NUM_FRAMES - 1) / seconds,
         "phase4_tracked_frames_per_s": odometry_fps, "seconds": seconds,
-        "solver_iterations": iterations, "launches": counts, "prepare_frame_calls": prepares,
+        "solver_iterations": iterations, "executed_steps": steps, "launches": counts,
+        "prepare_frame_calls": prepares,
         "phase4_prepare_frame_calls": 2 * (NUM_FRAMES - 1), "max_transform_err": err,
         "frames_not_bit_equal": not_bit_equal,
     }
@@ -1224,6 +1280,7 @@ def check_local_tracker(cfg, intrinsics, d_i, d_d, gt, odometry_fps):
     Returns (one-stream launches, batched launches, the phase's summary)."""
     import torch
 
+    from dvo_slam_tpu_torch.models import dense_tracker
     from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
     from dvo_slam_tpu_torch.models.local_tracker import LocalTracker
     from dvo_slam_tpu_torch.tools.fused_check import require
@@ -1276,13 +1333,16 @@ def check_local_tracker(cfg, intrinsics, d_i, d_d, gt, odometry_fps):
     (poses, log), seconds = _synchronized_seconds(lambda: run(NUM_FRAMES))
     counts = _launches()
     init_iterations = sum(s.iterations for s in log["init"][0].level_stats)
-    lockstep = sum(max(a.iterations, b.iterations) for r_kf, r_odo in log["dual"]
-                   for a, b in zip(r_kf.level_stats, r_odo.level_stats))
-    require(counts["warp_fused_stats"] == init_iterations > 0,
+    slowest = [max(a.iterations, b.iterations) for r_kf, r_odo in log["dual"]
+               for a, b in zip(r_kf.level_stats, r_odo.level_stats)]
+    lockstep = sum(slowest)
+    init_steps = _steps([log["init"][0].level_stats])
+    dual_steps = dense_tracker.executed_steps(slowest, _chunk())
+    require(counts["warp_fused_stats"] == init_steps > 0,
             f"phase 12: one-stream launches {counts['warp_fused_stats']} != the initial "
-            f"match's iterations {init_iterations}")
+            f"match's executed steps {init_steps}")
     _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
-                  "warp_fused_stats_batched", lockstep, "phase 12")
+                  "warp_fused_stats_batched", dual_steps, "phase 12")
     completed = len(log["histories"])
     require(completed == (NUM_FRAMES - 1) // LOCAL_MAP_FRAMES, f"phase 12: {completed} maps completed")
     for h in log["histories"]:
@@ -1313,6 +1373,7 @@ def check_local_tracker(cfg, intrinsics, d_i, d_d, gt, odometry_fps):
         "phase4_tracked_frames_per_s": odometry_fps, "seconds": seconds,
         "maps_completed": completed, "launches": counts,
         "initial_match_iterations": init_iterations, "dual_lockstep_iterations": lockstep,
+        "initial_match_steps": init_steps, "dual_steps": dual_steps,
         "dual_stream_iterations": sum(s.iterations for pair in log["dual"] for r in pair
                                       for s in r.level_stats),
         "ms_per_frame": {
@@ -1474,15 +1535,17 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
     fallbacks = [str(w.message) for w in caught if "falling back" in str(w.message)]
     require(not fallbacks, f"phase 13: a graph solve fell back: {fallbacks}")
 
-    # the kernels' launches against the solves' lockstep iterations
+    # the kernels' launches against the solves' executed steps
     one_stream = sum(lockstep_iterations(ls) for wave, ls in calls if streams(ls) == 1)
     dual = sum(lockstep_iterations(ls) for wave, ls in calls if not wave and streams(ls) > 1)
     wave_iterations = sum(lockstep_iterations(ls) for wave, ls in calls if wave)
-    require(counts["warp_fused_stats"] == one_stream > 0,
+    one_steps = _steps(ls for wave, ls in calls if streams(ls) == 1)
+    batched_steps = _steps(ls for wave, ls in calls if streams(ls) > 1)
+    require(counts["warp_fused_stats"] == one_steps > 0,
             f"phase 13: kernel 1 launches {counts['warp_fused_stats']} != the initial match's "
-            f"iterations {one_stream}")
+            f"executed steps {one_steps}")
     _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
-                  "warp_fused_stats_batched", dual + wave_iterations, "phase 13")
+                  "warp_fused_stats_batched", batched_steps, "phase 13")
     require(wave_iterations > 0 and waves, "phase 13: no validation wave ran")
 
     # accuracy and the back end's results
@@ -1543,6 +1606,7 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
         "launches": counts,
         "initial_match_iterations": one_stream, "dual_lockstep_iterations": dual,
         "wave_lockstep_iterations": wave_iterations,
+        "executed_steps": {"kernel_1": one_steps, "kernel_1b": batched_steps},
         "online_latency_ms": _percentiles(latency[2:]),
         "online_latency_ms_keyframe_event": _percentiles(keyframe_ms),
         "online_latency_ms_no_event": _percentiles(other_ms),
@@ -1552,7 +1616,8 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
         "final_pass_vertices": n, "host_routes": cross,
     }
     print("phase 13:", json.dumps(summary), flush=True)
-    return one_stream, dual + wave_iterations, wave_rows, summary, online
+    return (counts["warp_fused_stats"], counts["warp_fused_stats_batched"], wave_rows, summary,
+            online)
 
 
 def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframes13):
@@ -1614,9 +1679,10 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
         return out
 
     def expected_launches(what):
-        """(kernel 1, kernel 1b) launches the recorded solves imply."""
-        one = sum(lockstep_iterations(ls) for _, ls in calls if streams(ls) == 1)
-        batched = sum(lockstep_iterations(ls) for _, ls in calls if streams(ls) > 1)
+        """(kernel 1, kernel 1b) launches the recorded solves imply: their
+        executed steps."""
+        one = _steps(ls for _, ls in calls if streams(ls) == 1)
+        batched = _steps(ls for _, ls in calls if streams(ls) > 1)
         others = [kind for kind, ls in calls if kind == "other"]
         require(not others, f"{what}: {len(others)} matches outside the front end and the waves")
         return one, batched
@@ -1710,7 +1776,7 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     for name, (counts, (one, batched), _) in runs.items():
         require(counts["warp_fused_stats"] == one > 0,
                 f"phase 14 {name}: kernel 1 launches {counts['warp_fused_stats']} != the "
-                f"bootstrap's iterations {one}")
+                f"bootstrap's executed steps {one}")
         _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
                       "warp_fused_stats_batched", batched, f"phase 14 {name}")
         launches[name] = (counts["warp_fused_stats"], counts["warp_fused_stats_batched"])
@@ -1742,6 +1808,7 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     frontend_iterations = {
         name: sum(lockstep_iterations(ls) for kind, ls in run[2] if kind == "frontend")
         for name, run in runs.items()}
+    frontend_reads = _reads(ls for kind, ls in runs["pipelined"][2] if kind == "frontend")
     chunks = -(-NUM_FRAMES // STREAM_PIPELINE_CHUNK)
 
     require(rc == 0, f"phase 14: the CLI exited {rc}")
@@ -1767,9 +1834,9 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
             name: 1000.0 * t["total_s"] / NUM_FRAMES for name, t in timers.items()},
         "launches": {name: run[0] for name, run in runs.items()},
         "frontend_lockstep_iterations": frontend_iterations,
-        "wave_lockstep_iterations": wave_iterations,
+        "wave_lockstep_iterations": wave_iterations, "chunk_steps": _chunk(),
         "host_readbacks_per_frame": {
-            "irls_done_reads": frontend_iterations["pipelined"] / NUM_FRAMES,
+            "irls_done_reads": frontend_reads / NUM_FRAMES,
             "record_copies": chunks / NUM_FRAMES},
         "graph_solves": len(optimizes),
         "records_sha256": _records_digest(records),
@@ -1865,7 +1932,7 @@ def check_dp_slam_and_driver(slam_cfg, intrinsics, easy_i, easy_d, easy_poses):
             mesh = mesh_lib.make_mesh(1)
             device = mesh.device
             dp = DataParallelSLAM(intrinsics, slam_cfg, mesh=mesh)
-            with driver_launches.counting() as iterations:
+            with driver_launches.counting() as solves:
                 _reset_counts()
                 online, dp_seconds = _synchronized_seconds(
                     lambda: dp.track_sequences(iu, du, stamps))
@@ -1875,10 +1942,10 @@ def check_dp_slam_and_driver(slam_cfg, intrinsics, easy_i, easy_d, easy_poses):
             dp.shutdown()
         finally:
             distributed.shutdown()
-    one, batched = iterations.one, iterations.batched
+    one, batched = solves.one, solves.batched  # executed steps
     require(counts["warp_fused_stats"] == one > 0,
             f"phase 15: kernel 1 launches {counts['warp_fused_stats']} != the bootstraps' "
-            f"iterations {one}")
+            f"executed steps {one}")
     _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
                   "warp_fused_stats_batched", batched, "phase 15")
     require(online.shape == (DP_STREAMS, DP_FRAMES, 4, 4) and len(trajectories) == DP_STREAMS,
@@ -1926,7 +1993,7 @@ def check_dp_slam_and_driver(slam_cfg, intrinsics, easy_i, easy_d, easy_poses):
     require(set(record) == expected,
             f"phase 15: driver keys {sorted(set(record) ^ expected)} differ from bench.py's")
     wrong = driver_launches.mismatches(sections)
-    require(not wrong, f"phase 15: the driver's launches differ from its iterations: {wrong}")
+    require(not wrong, f"phase 15: the driver's launches differ from its executed steps: {wrong}")
     nobuf = sections["multistream"]["nobuf_launches"]
     require(nobuf > 0, "phase 15: the lockstep_nobuf runs launched kernel 1b no time")
 
@@ -1936,7 +2003,9 @@ def check_dp_slam_and_driver(slam_cfg, intrinsics, easy_i, easy_d, easy_poses):
         "max_pose_diff_vs_one_stream": solo_diff,
         "e2e_aggregate_frames_per_s": DP_STREAMS * DP_FRAMES / dp_seconds,
         "e2e_seconds": dp_seconds, "launches": counts,
-        "bootstrap_iterations": one, "lockstep_iterations": batched,
+        "bootstrap_iterations": solves.one_iterations,
+        "lockstep_iterations": solves.batched_iterations,
+        "executed_steps": {"kernel_1": one, "kernel_1b": batched},
         "driver": {"frames": n, "stream_frames": DRIVER_STREAM_FRAMES,
                    "sweep": DRIVER_SWEEP, "seconds": driver_seconds, "exit_rule": passed,
                    "launches": {k: driver_counts[k] for k in
@@ -1973,7 +2042,7 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
     from dvo_slam_tpu_torch.odometry import track_sequence
     from dvo_slam_tpu_torch.ops import residuals, warp
     from dvo_slam_tpu_torch.parallel.multistream import make_multistream_tracker
-    from dvo_slam_tpu_torch.tools import fused_check
+    from dvo_slam_tpu_torch.tools import fused_check, graph_check
     from dvo_slam_tpu_torch.tools.fused_check import require
     from dvo_slam_tpu_torch.utils import trajectory
 
@@ -2017,19 +2086,25 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
     try:
         track_sequence(configs["huber_mad"], intrinsics, d_i[:3], d_d[:3])  # warm-up
         _reset_counts()
-        _, kernel_iterations, kernel_seconds = track_sequence(cfg, intrinsics, sub_i, sub_d)
+        results = []
+        _, kernel_iterations, kernel_seconds = track_sequence(cfg, intrinsics, sub_i, sub_d,
+                                                              on_result=results.append)
         kernel_counts = _launches()
-        _require_only(kernel_counts, "warp_fused_stats", kernel_iterations, "phase 16b kernel 1")
+        _require_only(kernel_counts, "warp_fused_stats", _steps(r.level_stats for r in results),
+                      "phase 16b kernel 1")
         tracking = {}
         for name, c in configs.items():
             _reset_counts()
             before = residuals.compute_residuals.calls
-            poses, iterations, seconds = track_sequence(c, intrinsics, sub_i, sub_d)
+            results = []
+            poses, iterations, seconds = track_sequence(c, intrinsics, sub_i, sub_d,
+                                                        on_result=results.append)
             counts = _launches()
             evaluations = residuals.compute_residuals.calls - before
+            steps = _steps(r.level_stats for r in results)
             require(not any(counts.values()), f"phase 16b {name}: kernels ran: {counts}")
-            require(evaluations == iterations > 0,
-                    f"phase 16b {name}: {evaluations} modular evaluations, {iterations} iterations")
+            require(evaluations == steps > 0,
+                    f"phase 16b {name}: {evaluations} modular evaluations, {steps} executed steps")
             require(np.isfinite(poses).all(), f"phase 16b {name}: non-finite poses")
             tracking[name] = {
                 "ate_rmse_m": trajectory.ate_rmse(stamps, poses, stamps, gt),
@@ -2058,10 +2133,30 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
     flips = [tuple(int(i) for i in at) for at in torch.nonzero(differ).tolist()]
     require(len(flips) <= SCHEDULE_FLIP_SHARE * differ.numel(),
             f"phase 16b lockstep: {len(flips)} of {differ.numel()} stream-frame-levels differ")
+    # ROADMAP C (g): the same run on the eager loop, each batched
+    # evaluation repeated stream by stream: do the flips fall at level
+    # solves whose b parted?
+    with graph_check.loop_mode(False, 1), fused_check.solo_evaluations() as rows:
+        again = make_multistream_tracker(huber_mad, intrinsics).tracks(*sub)
+    require(torch.equal(again.iterations, lock.iterations)
+            and torch.equal(again.termination, lock.termination),
+            "phase 16b lockstep: the eager rerun's counts differ from the graph run's")
+    levels = cfg.first_level - cfg.last_level + 1
+    b_parted = {}  # level solve -> per stream, b's largest difference over its largest entry
+    not_bit_equal = {field: 0 for field in ("n", "precision", "ll", "A")}
+    for row in rows:
+        b_parted[row["solve"]] = np.maximum(b_parted.get(row["solve"], 0.0), row["b_scaled"])
+        for field in not_bit_equal:
+            not_bit_equal[field] += sum(not same for same in row[field])
     lockstep = {
         "streams": MODULAR_STREAMS, "frames": MODULAR_STREAM_FRAMES,
         "stream_frame_levels": differ.numel(), "flips": len(flips),
         "flips_at_stream_frame_level": flips,
+        "b_scaled_at_flips": [float(b_parted[f * levels + lv][b]) for b, f, lv in flips],
+        "stream_level_solves_with_b_parted": int(sum((v > 0).sum() for v in b_parted.values())),
+        "stream_level_solves": MODULAR_STREAMS * len(b_parted),
+        "max_b_scaled": float(max(v.max() for v in b_parted.values())),
+        "evaluations_not_bit_equal": not_bit_equal,
         "max_pose_err_vs_solo": float(_pose_errors(lock.poses.cpu().numpy(),
                                                    solo.poses.cpu().numpy()).max()),
         "lockstep_iterations": lock.loop_iterations, "solo_iterations": solo.loop_iterations,
@@ -2114,6 +2209,58 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
     }
     print("phase 16:", json.dumps({k: v for k, v in summary.items() if k != "per_evaluation"}),
           flush=True)
+    return summary
+
+
+def check_graph_loop(cfg, intrinsics, d_i, d_d, s_i, s_d):
+    """Phase 17: the IRLS loop's CUDA graphs against the eager loop, then
+    the chunk sizes K.  Returns the summary."""
+    import dataclasses
+
+    import torch
+
+    from dvo_slam_tpu_torch.config import InfluenceFunction, ScaleEstimator
+    from dvo_slam_tpu_torch.models import irls_graph
+    from dvo_slam_tpu_torch.tools import chunk_sweep, graph_check
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    started = time.perf_counter()
+    one = (d_i[:GRAPH_FRAMES], d_d[:GRAPH_FRAMES])
+    many = (s_i[:GRAPH_STREAMS, :GRAPH_STREAM_FRAMES], s_d[:GRAPH_STREAMS, :GRAPH_STREAM_FRAMES])
+    k = _chunk()
+
+    # (a) the modular path: the graph loop at the card's K against the
+    # eager loop at K = 1, every level's carry and counts bit for bit
+    xla = dataclasses.replace(cfg, kernel_backend="xla")
+    modular = {"xla_tdist": xla,
+               "xla_huber_mad": dataclasses.replace(xla, influence_function=InfluenceFunction.HUBER,
+                                                    scale_estimator=ScaleEstimator.MAD)}
+    equal = {}
+    for name, c in modular.items():
+        for workload, fn, args in (("one_stream", chunk_sweep.one_stream, one),
+                                   ("lockstep", chunk_sweep.lockstep, many)):
+            _, eager = fn(c, intrinsics, *args, graphs=False, chunk=1, warm=False)
+            row, levels = fn(c, intrinsics, *args, graphs=True, chunk=k, warm=False)
+            diffs = graph_check.differences(levels, eager)
+            require(not diffs, f"phase 17 {name} {workload}: the graph loop parts from the "
+                               f"eager loop: {diffs[:5]}")
+            equal[f"{name}_{workload}"] = {"level_solves": len(levels),
+                                           "executed_steps": row["executed_steps"]}
+
+    # (b) kernels 1 and 1b: the eager loop, then the graph loop at each K,
+    # each held bit-equal to the eager loop's levels
+    rows = chunk_sweep.sweep(cfg, intrinsics, *one, *many, CHUNK_SWEEP)
+    for (workload, mode), row in rows.items():
+        require(row.get("bit_equal_to_eager", True),
+                f"phase 17 {workload} {mode}: the graph loop parts from the eager loop: "
+                f"{row.get('differences')}")
+        print("phase 17:", json.dumps({"workload": workload, "mode": mode, **row}), flush=True)
+    summary = {"chunk_steps": k, "frames": GRAPH_FRAMES, "streams": GRAPH_STREAMS,
+               "stream_frames": GRAPH_STREAM_FRAMES, "modular_bit_equal": equal,
+               "graph_cache": irls_graph.stats(),
+               "memory_reserved_bytes": torch.cuda.memory_reserved(),
+               "seconds": time.perf_counter() - started}
+    print("phase 17:", json.dumps(summary), flush=True)
     return summary
 
 
@@ -2265,14 +2412,17 @@ def main() -> int:
                                               on_result=odometry_results.append)
     counts = _launches()
     launches = counts["warp_fused_stats"]
-    _require_only(counts, "warp_fused_stats", iterations, "phase 4")
+    level_stats = [r.level_stats for r in odometry_results]
+    _require_only(counts, "warp_fused_stats", _steps(level_stats), "phase 4")
     stamps = np.arange(NUM_FRAMES) / 30.0
     ate = trajectory.ate_rmse(stamps, est, stamps, easy_poses)
     fps = (NUM_FRAMES - 1) / seconds
     require(np.isfinite(est).all() and np.isfinite(ate), "non-finite odometry")
     print("phase 4:", json.dumps({
         "frames": NUM_FRAMES, "ate_rmse_m": ate, "tracked_frames_per_s": fps,
-        "seconds": seconds, "solver_iterations": iterations, "launches": counts,
+        "seconds": seconds, "solver_iterations": iterations, "chunk_steps": _chunk(),
+        "executed_steps": _steps(level_stats), "launches": counts,
+        "irls_reads_per_frame": _reads(level_stats) / (NUM_FRAMES - 1),
         "ms_per_iteration": 1000.0 * seconds / iterations,
     }), flush=True)
 
@@ -2286,16 +2436,21 @@ def main() -> int:
     )
     h_i, h_d = upload_sequence(hard_i, hard_d, device)
     _reset_counts()
-    hard_est, hard_iterations, hard_seconds = track_sequence(cfg, TUM_FR1, h_i, h_d)
+    hard_results = []
+    hard_est, hard_iterations, hard_seconds = track_sequence(cfg, TUM_FR1, h_i, h_d,
+                                                             on_result=hard_results.append)
     hard_counts = _launches()
     hard_launches = hard_counts["warp_fused_stats"]
-    _require_only(hard_counts, "warp_fused_stats", hard_iterations, "phase 5")
+    hard_stats = [r.level_stats for r in hard_results]
+    _require_only(hard_counts, "warp_fused_stats", _steps(hard_stats), "phase 5")
     hard_ate = trajectory.ate_rmse(stamps, hard_est, stamps, hard_poses)
     print("phase 5:", json.dumps({
         "frames": NUM_FRAMES, "ate_rmse_m": hard_ate,
         "tracked_frames_per_s": (NUM_FRAMES - 1) / hard_seconds,
         "seconds": hard_seconds, "solver_iterations": hard_iterations,
-        "launches": hard_counts,
+        "executed_steps": _steps(hard_stats), "launches": hard_counts,
+        "irls_reads_per_frame": _reads(hard_stats) / (NUM_FRAMES - 1),
+        "ms_per_iteration": 1000.0 * hard_seconds / hard_iterations,
     }), flush=True)
     require(hard_ate < HARD_ATE_GATE_M, f"hard-scene ATE {hard_ate} m >= {HARD_ATE_GATE_M} m")
     elapsed("phases 4-5")
@@ -2350,6 +2505,10 @@ def main() -> int:
     # streams it reads, and before phase 10's profiler sessions)
     check_modular_and_warps(cfg, TUM_FR1, frames, d_i, d_d, easy_poses, est, s_i, s_d)
     elapsed("phase 16")
+
+    # phase 17: the IRLS loop's CUDA graphs against the eager loop, and K
+    check_graph_loop(cfg, TUM_FR1, d_i, d_d, s_i, s_d)
+    elapsed("phase 17")
 
     # phase 10: the copy kernel and the gather probe
     copy_row = check_copy_and_probe()

@@ -20,16 +20,22 @@ them:
     log-likelihood and ``residuals.normal_equations``, plain PyTorch on
     the tensors' device, as it is XLA code in the reference.
 
-The reference's ``lax.while_loop`` is a Python loop here that reads the
-``done`` flag back to the host once per iteration; everything else stays
-on the tensors' device.  Iteration counts and termination codes are
-therefore those of the reference.  The accept/revert logic keeps the
-reference's form: a rejected step keeps the previous carry.
+The reference's ``lax.while_loop`` carries the iteration counter on the
+device, and so does this loop: the iteration cap and the trace row are
+device values, ``first`` is the first step of a level (iteration 0), and a
+step past ``done`` is inert (the carry freezes, as under the reference's
+``vmap``).  The loop runs K steps (``CHUNK_STEPS``), then reads the
+``done`` flag back once, so the level's iterations are the reference's and
+it executes K * ceil(iterations / K) steps (``executed_steps``).  On the card each chunk is one CUDA graph replay
+(``irls_graph``: a head chunk that starts the level, a tail chunk that
+continues it); elsewhere, or with ``CUDA_GRAPHS`` off, the same steps run
+eagerly.  The accept/revert logic keeps the reference's form: a rejected
+step keeps the previous carry.
 
 Lockstep batching: prepared frames whose artifacts carry a leading stream
 axis [B, ...] (``prepare_frame`` on batched pyramids) align B independent
 pairs at once.  Each iteration runs every op once on [B, ...] tensors and
-reads back one [B] ``done`` mask (``done.all()``); a stream's carry
+reads back ``done.all()`` once per chunk; a stream's carry
 freezes as soon as that stream is done, which is what the reference's
 ``lax.while_loop`` does under ``vmap`` with a batched predicate (the
 body's output is selected away for finished elements).  So each stream's
@@ -53,7 +59,8 @@ from ..ops.pyramid import (
     build_pyramid,
     selection_mask,
 )
-from ..ops.residuals import compute_residuals, normal_equations
+from ..ops.residuals import compute_residuals, normal_equations, warp_and_sample_cm
+from . import irls_graph
 
 # Termination criteria (reference: dense_tracking.h TerminationCriteria).
 TERM_NONE = 0
@@ -68,8 +75,8 @@ INFORMATION_SCALE = 0.008 * 0.008
 
 class LevelStats(NamedTuple):
     """Per-level statistics.  One stream: ``iterations`` is a Python int
-    (the loop that counts them runs on the host; the reference's is an
-    int32 array, and ``frames._flatten_result`` takes either).  B streams in
+    (read back with the loop's ``done`` flag; the reference's is an int32
+    array, and ``frames._flatten_result`` takes either).  B streams in
     lockstep: every field is a [B] int32 tensor."""
 
     valid_pixels: torch.Tensor  # [] int32, selected reference points
@@ -121,6 +128,7 @@ class _Carry(NamedTuple):
     A: torch.Tensor  # [6, 6] information of the last accepted iteration
     ll: torch.Tensor  # [] log-likelihood of the last accepted iteration
     n: torch.Tensor  # [] int32 valid constraints of the last accepted iteration
+    iteration: torch.Tensor  # [] int32 iterations run
     termination: torch.Tensor  # [] int32
     done: torch.Tensor  # [] bool
 
@@ -248,35 +256,35 @@ def _match_level(
     (the fused path) or acceleration tensor [..., H, W, 8] (the modular
     path).  With a leading stream axis on every input, B levels solve in
     lockstep."""
-    backend = _resolve_backend(cfg, sel_mask.device)
-    dof = cfg.influence_function_param
+    device = sel_mask.device
+    backend = _resolve_backend(cfg, device)
     level_shape = tuple(sel_mask.shape[-2:])
     if backend == "xla":
-        evaluate = _modular_evaluation(cfg, intrinsics, sel_mask, refpack, accel)
+        if refpack is None or accel is None:
+            raise ValueError(
+                "the modular 'xla' path needs the reference frame's refpack and the "
+                "current frame's acceleration tensor: prepare both frames under the "
+                "xla config (prepare_frame)"
+            )
+        inputs = (sel_mask, refpack, accel)
     else:
         if quad is None:
             raise ValueError(
                 "the fused path needs the current frame's quad table: prepare "
                 "the frame under a t-distribution config"
             )
-        fused = (
-            fused_kernels.warp_fused_stats_plain if backend == "fused"
-            else fused_kernels.warp_fused_stats
+        inputs = (refpack, quad)
+    chunk = CHUNK_STEPS
+    if torch.device(device).type == "cuda" and CUDA_GRAPHS:
+        carry, iterations, trace = _graph_level(
+            cfg, backend, intrinsics, level_shape, inputs, x0, T0, initial0, precision0,
+            collect_stats, chunk,
         )
-
-        def evaluate(T, P_prev, first: bool):
-            """One IRLS evaluation in one call (the folded kernel on the
-            card, the plain version on the CPU or where ``fused`` is
-            named): warp and sample, statistics, new precision,
-            log-likelihood and normal equations."""
-            return fused(
-                refpack, quad, level_shape, intrinsics, T, P_prev, first, dof,
-                cfg.depth_buffered_sampling,
-            )
-
-    carry, iterations, trace = _irls_level(
-        cfg, evaluate, x0, T0, initial0, precision0, collect_stats
-    )
+    else:
+        evaluate = _evaluation(cfg, backend, intrinsics, level_shape, inputs)
+        carry, iterations, trace = _irls_level(
+            cfg, evaluate, x0, T0, initial0, precision0, collect_stats, chunk
+        )
     stats = LevelStats(
         valid_pixels=sel_mask.sum(dim=(-2, -1), dtype=torch.int32),
         valid_constraints=carry.n,
@@ -284,6 +292,32 @@ def _match_level(
         termination=carry.termination,
     )
     return carry, stats, trace
+
+
+def _evaluation(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level_shape, inputs):
+    """``evaluate(T, P_prev, first) -> (n, precision_new, ll, A, b)`` of
+    one level on ``inputs``: (refpack, quad) on the fused path, (sel_mask,
+    refpack, accel) on the modular one."""
+    if backend == "xla":
+        return _modular_evaluation(cfg, intrinsics, *inputs)
+    refpack, quad = inputs
+    dof = cfg.influence_function_param
+    fused = (
+        fused_kernels.warp_fused_stats_plain if backend == "fused"
+        else fused_kernels.warp_fused_stats
+    )
+
+    def evaluate(T, P_prev, first: bool):
+        """One IRLS evaluation in one call (the folded kernel on the
+        card, the plain version on the CPU or where ``fused`` is named):
+        warp and sample, statistics, new precision, log-likelihood and
+        normal equations."""
+        return fused(
+            refpack, quad, level_shape, intrinsics, T, P_prev, first, dof,
+            cfg.depth_buffered_sampling,
+        )
+
+    return evaluate
 
 
 def _modular_evaluation(cfg: TrackerConfig, intrinsics: Intrinsics, sel_mask, refpack, accel):
@@ -294,12 +328,6 @@ def _modular_evaluation(cfg: TrackerConfig, intrinsics: Intrinsics, sel_mask, re
     t-distribution log-likelihood at it (whatever the influence function:
     the reference's), and the normal equations.  The reference level's
     intensity, depth and gradients are rows 0-3 of its refpack."""
-    if refpack is None or accel is None:
-        raise ValueError(
-            "the modular 'xla' path needs the reference frame's refpack and the "
-            "current frame's acceleration tensor: prepare both frames under the "
-            "xla config (prepare_frame)"
-        )
     dof = cfg.influence_function_param
     rows = refpack.unflatten(-1, tuple(sel_mask.shape[-2:]))  # [..., 8, H, W]
     ref_i, ref_z, ref_idx, ref_idy = (rows[..., c, :, :] for c in range(4))
@@ -324,135 +352,279 @@ def _where(cond, new, old):
     return torch.where(cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim())), new, old)
 
 
-def _irls_level(
-    cfg: TrackerConfig, evaluate, x0, T0, initial0, precision0, collect_stats: bool = False
-):
-    """The IRLS loop of one level around ``evaluate(T, P_prev, first) ->
-    (n, precision_new, ll, A, b)``: apply the increment, evaluate, accept
-    or revert, smooth toward the prior, solve, test termination.  Returns
-    (final carry, iterations, iteration trace or None).
+# K, the steps of the IRLS loop between two reads of its ``done`` flags, on
+# every device.  One: the loop reads after every step, as it did before the
+# chunks, and under the card's graphs K = 1 tracked the most frames/s, one
+# stream and 8 in lockstep alike, since an inert step costs more device
+# time than a read costs the host (PERF.md, PR 11; ``tools/chunk_sweep.py``
+# sets other values).  Not a TrackerConfig field: the reference has none,
+# its loop never reads back.
+CHUNK_STEPS = 1
+# Whether the card runs the chunks as CUDA graphs (``irls_graph``); off, it
+# runs the same chunked loop eagerly (the graphs' reference in the checks).
+CUDA_GRAPHS = True
 
-    One stream: ``x0`` [6], the loop stops when ``done``; ``iterations`` is
-    a Python int.  B streams in lockstep: ``x0`` [B, 6], the loop stops
-    when every stream is done, a finished stream's carry is frozen (its
-    evaluation still runs with the batch, and is discarded); ``iterations``
-    is a [B] int32 tensor."""
+
+def executed_steps(iterations, chunk: int) -> int:
+    """Steps the chunked loop executes for per-level loop iterations (an
+    int, or a sequence or tensor of per-level counts; in lockstep a level's
+    count is its slowest stream's): K * ceil(iterations / K) per level,
+    since the loop reads ``done`` after every K steps."""
+    its = torch.as_tensor(iterations, dtype=torch.int64)
+    return int(((its + chunk - 1) // chunk * chunk).sum())
+
+
+class _Constants(NamedTuple):
+    """Tensors every step of a level reads."""
+
+    eye6: torch.Tensor  # [6, 6]
+    codes: torch.Tensor  # [5] int32, the termination codes
+    rows: torch.Tensor  # [max_iterations, 1...] the trace's row numbers
+
+
+def _constants(cfg: TrackerConfig, x0) -> _Constants:
+    batch = x0.dim() - 1
+    return _Constants(
+        eye6=torch.eye(6, dtype=x0.dtype, device=x0.device),
+        codes=torch.arange(5, dtype=torch.int32, device=x0.device),
+        rows=torch.arange(cfg.max_iterations_per_level, device=x0.device).reshape(
+            (-1,) + (1,) * batch),
+    )
+
+
+def _initial_carry(x0, T0, initial0, precision0, consts: _Constants) -> _Carry:
     dtype, device = x0.dtype, x0.device
     batch = tuple(x0.shape[:-1])
-    eye6 = torch.eye(6, dtype=dtype, device=device)
-
-    def step(c: _Carry, iteration: int):
-        inc = se3.exp_se3(c.x)
-        T_new = inc @ c.T
-        initial_new = se3.inverse(inc) @ c.initial
-
-        n, precision_new, ll, A, b = evaluate(T_new, c.precision, iteration == 0)
-        too_few = n < 6
-        error = -ll
-
-        accept = error < c.error
-        reject = too_few | ~accept
-
-        if cfg.use_estimate_smoothing:
-            # prior toward the initial guess
-            A = A + cfg.mu * eye6
-            b = b + cfg.mu * se3.log_se3(initial_new)
-        x_new = least_squares.solve_ldlt(A, b)
-
-        converged = torch.amax(torch.abs(x_new), dim=-1) <= cfg.precision
-        exceeded = iteration + 1 >= cfg.max_iterations_per_level
-
-        code = lambda k: torch.full((), k, dtype=torch.int32, device=device)  # noqa: E731
-        termination = torch.where(
-            too_few,
-            code(TERM_TOO_FEW_CONSTRAINTS),
-            torch.where(
-                ~accept,
-                code(TERM_LOG_LIKELIHOOD_DECREASED),
-                torch.where(
-                    converged,
-                    code(TERM_INCREMENT_TOO_SMALL),
-                    code(TERM_ITERATIONS_EXCEEDED if exceeded else TERM_NONE),
-                ),
-            ),
-        )
-
-        # on reject keep the previous estimate and the previous accepted
-        # statistics; the loop then stops
-        def keep(new, old):
-            return _where(reject, old, new)
-
-        new_c = _Carry(
-            x=keep(x_new, c.x),
-            T=keep(T_new, c.T),
-            initial=keep(initial_new, c.initial),
-            inc_applied=keep(inc, c.inc_applied),
-            precision=keep(precision_new, c.precision),
-            error=keep(error, c.error),
-            A=keep(A, c.A),
-            ll=keep(ll, c.ll),
-            n=keep(n, c.n),
-            termination=termination,
-            done=reject | converged | exceeded,
-        )
-        # telemetry of the iteration as executed (before any revert)
-        row = IterationStats(
-            valid_constraints=n.to(dtype),
-            log_likelihood=ll,
-            precision=precision_new,
-            increment=x_new,
-            information=A,
-        )
-        return new_c, row
-
-    carry = _Carry(
+    return _Carry(
         x=x0,
         T=T0,
         initial=initial0,
         inc_applied=se3.exp_se3(x0),
         precision=precision0,
         error=torch.full(batch, float("inf"), dtype=dtype, device=device),
-        A=eye6.expand(batch + (6, 6)),
+        A=consts.eye6.expand(batch + (6, 6)),
         ll=torch.full(batch, float("-inf"), dtype=dtype, device=device),
         n=torch.zeros(batch, dtype=torch.int32, device=device),
+        iteration=torch.zeros(batch, dtype=torch.int32, device=device),
         termination=torch.full(batch, TERM_NONE, dtype=torch.int32, device=device),
         done=torch.zeros(batch, dtype=torch.bool, device=device),
     )
-    trace = None
-    if collect_stats:
-        max_it = cfg.max_iterations_per_level
-        zeros = lambda *s: torch.zeros((max_it,) + batch + s, dtype=dtype, device=device)  # noqa: E731
-        trace = IterationStats(
-            valid_constraints=zeros(),
-            log_likelihood=zeros(),
-            precision=zeros(2, 2),
-            increment=zeros(6),
-            information=zeros(6, 6),
-        )
-    iterations = torch.zeros(batch, dtype=torch.int32, device=device) if batch else 0
-    iteration = 0
-    while True:
-        stepped, row = step(carry, iteration)
-        if batch:
-            # freeze the streams that were already done
-            active = ~carry.done
-            carry = _Carry(*(_where(active, new, old) for new, old in zip(stepped, carry)))
-            if trace is not None:
-                row = IterationStats(*(_where(active, r, torch.zeros_like(r)) for r in row))
-            iterations = iterations + active.to(torch.int32)
-        else:
-            carry = stepped
-            iterations += 1
+
+
+def _empty_trace(cfg: TrackerConfig, x0) -> IterationStats:
+    """Trace buffers [max_iterations, *batch, ...] of zeros."""
+    batch = tuple(x0.shape[:-1])
+    zeros = lambda *s: torch.zeros(  # noqa: E731
+        (cfg.max_iterations_per_level,) + batch + s, dtype=x0.dtype, device=x0.device)
+    return IterationStats(
+        valid_constraints=zeros(),
+        log_likelihood=zeros(),
+        precision=zeros(2, 2),
+        increment=zeros(6),
+        information=zeros(6, 6),
+    )
+
+
+def _step(cfg: TrackerConfig, evaluate, c: _Carry, first: bool, consts: _Constants):
+    """One IRLS iteration from ``c``: apply the increment, evaluate, accept
+    or revert, smooth toward the prior, solve, test termination.  Returns
+    (the new carry, the iteration's trace row as executed)."""
+    inc = se3.exp_se3(c.x)
+    T_new = inc @ c.T
+    initial_new = se3.inverse(inc) @ c.initial
+
+    n, precision_new, ll, A, b = evaluate(T_new, c.precision, first)
+    too_few = n < 6
+    error = -ll
+
+    accept = error < c.error
+    reject = too_few | ~accept
+
+    if cfg.use_estimate_smoothing:
+        # prior toward the initial guess
+        A = A + cfg.mu * consts.eye6
+        b = b + cfg.mu * se3.log_se3(initial_new)
+    x_new = least_squares.solve_ldlt(A, b)
+
+    converged = torch.amax(torch.abs(x_new), dim=-1) <= cfg.precision
+    exceeded = c.iteration + 1 >= cfg.max_iterations_per_level
+
+    code = consts.codes
+    termination = torch.where(
+        too_few,
+        code[TERM_TOO_FEW_CONSTRAINTS],
+        torch.where(
+            ~accept,
+            code[TERM_LOG_LIKELIHOOD_DECREASED],
+            torch.where(
+                converged,
+                code[TERM_INCREMENT_TOO_SMALL],
+                torch.where(exceeded, code[TERM_ITERATIONS_EXCEEDED], code[TERM_NONE]),
+            ),
+        ),
+    )
+
+    # on reject keep the previous estimate and the previous accepted
+    # statistics; the loop then stops
+    def keep(new, old):
+        return _where(reject, old, new)
+
+    new_c = _Carry(
+        x=keep(x_new, c.x),
+        T=keep(T_new, c.T),
+        initial=keep(initial_new, c.initial),
+        inc_applied=keep(inc, c.inc_applied),
+        precision=keep(precision_new, c.precision),
+        error=keep(error, c.error),
+        A=keep(A, c.A),
+        ll=keep(ll, c.ll),
+        n=keep(n, c.n),
+        iteration=c.iteration + 1,
+        termination=termination,
+        done=reject | converged | exceeded,
+    )
+    # telemetry of the iteration as executed (before any revert)
+    row = IterationStats(
+        valid_constraints=n.to(A.dtype),
+        log_likelihood=ll,
+        precision=precision_new,
+        increment=x_new,
+        information=A,
+    )
+    return new_c, row
+
+
+def _chunk(cfg: TrackerConfig, evaluate, carry: _Carry, trace, steps: int, first: bool,
+           consts: _Constants):
+    """``steps`` IRLS steps from ``carry`` (the first with ``first``), each
+    frozen where the carry is already done: a step past ``done`` leaves the
+    carry, its iteration count and the trace as they were.  An active
+    step writes its trace row at its stream's iteration.  Returns (carry,
+    trace).
+
+    A chunk of one step of one stream has nothing to freeze: the loop runs
+    it only from a carry that is not done (it reads ``done`` after every
+    step), so it takes the step as it is."""
+    freeze = steps > 1 or carry.done.dim() > 0
+    for k in range(steps):
+        stepped, row = _step(cfg, evaluate, carry, first and k == 0, consts)
+        active = ~carry.done if freeze else None
         if trace is not None:
-            for buf, value in zip(trace, row):
-                buf[iteration] = value
-        iteration += 1
-        # the one host read-back per iteration
-        if bool(carry.done.all() if batch else carry.done):
-            break
-    if trace is not None and batch:
-        trace = IterationStats(*(buf.movedim(0, len(batch)) for buf in trace))
-    return carry, iterations, trace
+            hit = consts.rows == carry.iteration  # [max_iterations, *batch]
+            if freeze:
+                hit = hit & active
+            trace = IterationStats(*(_where(hit, r.unsqueeze(0), buf) for r, buf in zip(row, trace)))
+        if freeze:
+            stepped = _Carry(*(_where(active, new, old) for new, old in zip(stepped, carry)))
+        carry = stepped
+    return carry, trace
+
+
+def _read_back(carry: _Carry, chunk: int, steps: int):
+    """The loop's one host read per chunk -> (every stream done, the
+    iterations: a Python int for one stream, the carry's [B] counts in
+    lockstep).  One stream with K > 1 reads its count in the same copy;
+    with K = 1 the count is the steps run, and only ``done`` is read."""
+    if carry.done.dim():
+        return bool(carry.done.all()), carry.iteration
+    if chunk == 1:
+        return bool(carry.done), steps
+    done, iterations = torch.stack((carry.done.to(torch.int32), carry.iteration)).tolist()
+    return bool(done), iterations
+
+
+def _trace_out(trace, batch: int):
+    """The trace with the stream axis first: [*batch, max_iterations, ...]."""
+    if trace is None or not batch:
+        return trace
+    return IterationStats(*(buf.movedim(0, batch) for buf in trace))
+
+
+def _irls_level(
+    cfg: TrackerConfig, evaluate, x0, T0, initial0, precision0, collect_stats: bool = False,
+    chunk: int = 1,
+):
+    """The IRLS loop of one level around ``evaluate(T, P_prev, first) ->
+    (n, precision_new, ll, A, b)``, run eagerly in chunks of ``chunk``
+    steps with one host read after each (``_read_back``).  Returns (final
+    carry, iterations, iteration trace or None).
+
+    One stream: ``x0`` [6], the loop stops when ``done``; ``iterations`` is
+    a Python int.  B streams in lockstep: ``x0`` [B, 6], the loop stops
+    when every stream is done, a finished stream's carry is frozen (its
+    evaluation still runs with the batch, and is discarded); ``iterations``
+    is a [B] int32 tensor.  With ``chunk`` = 1 this is the loop read for
+    read; a larger chunk runs up to ``chunk`` - 1 inert steps past the
+    last ``done`` and gives the same carry, counts and trace."""
+    consts = _constants(cfg, x0)
+    carry = _initial_carry(x0, T0, initial0, precision0, consts)
+    trace = _empty_trace(cfg, x0) if collect_stats else None
+    steps = 0
+    while True:
+        carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, steps == 0, consts)
+        steps += chunk
+        done, iterations = _read_back(carry, chunk, steps)
+        if done:
+            return carry, iterations, _trace_out(trace, x0.dim() - 1)
+
+
+# the kernel wrappers' and plain functions' call counts that a step moves:
+# a graph replay adds what its capture would have added
+_COUNTERS = (
+    (fused_kernels.warp_fused_stats_cuda, "launches"),
+    (fused_kernels.warp_fused_stats_batched_cuda, "launches"),
+    (warp_and_sample_cm, "calls"),
+    (compute_residuals, "calls"),
+)
+_CARRY_FIELDS = len(_Carry._fields)
+
+
+def _graph_level(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level_shape, inputs,
+                 x0, T0, initial0, precision0, collect_stats: bool, chunk: int):
+    """The chunked loop of one level on the card, each chunk one replay of
+    a CUDA graph (``irls_graph``); the same returns as ``_irls_level``,
+    bit for bit."""
+    start = (x0, T0, initial0, precision0)
+    key = (
+        backend, level_shape, chunk, collect_stats, tuple(intrinsics),
+        tuple((tuple(t.shape), t.dtype) for t in inputs + start),
+        cfg.max_iterations_per_level, cfg.precision, cfg.mu, cfg.use_weighting,
+        cfg.influence_function, cfg.influence_function_param, cfg.scale_estimator,
+        cfg.depth_buffered_sampling,
+    )
+    level_inputs = len(inputs)
+
+    def program(static, state):
+        """One chunk over the static buffers: the level's start (``state``
+        None: the head) or its continuation (the tail)."""
+        evaluate = _evaluation(cfg, backend, intrinsics, level_shape, static[:level_inputs])
+        x, T, initial, precision = static[level_inputs:]
+        consts = _constants(cfg, x)
+        if state is None:
+            carry = _initial_carry(x, T, initial, precision, consts)
+            trace = _empty_trace(cfg, x) if collect_stats else None
+        else:
+            carry = _Carry(*state[:_CARRY_FIELDS])
+            trace = IterationStats(*state[_CARRY_FIELDS:]) if collect_stats else None
+        carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, state is None, consts)
+        return tuple(carry) + (tuple(trace) if collect_stats else ())
+
+    graphs = irls_graph.graphs_for(key, torch.device(x0.device))
+    with graphs.lock:
+        graphs.load(inputs + start)
+        state = graphs.run_head(program, _COUNTERS)
+        steps = chunk
+        done, iterations = _read_back(_Carry(*state[:_CARRY_FIELDS]), chunk, steps)
+        while not done:
+            state = graphs.run_tail(_COUNTERS)
+            steps += chunk
+            done, iterations = _read_back(_Carry(*state[:_CARRY_FIELDS]), chunk, steps)
+        out = tuple(t.clone() for t in state)
+    carry = _Carry(*out[:_CARRY_FIELDS])
+    if isinstance(iterations, torch.Tensor):
+        iterations = carry.iteration
+    trace = IterationStats(*out[_CARRY_FIELDS:]) if collect_stats else None
+    return carry, iterations, _trace_out(trace, x0.dim() - 1)
 
 
 class PreparedFrame(NamedTuple):

@@ -322,7 +322,8 @@ def warp_fused_stats_plain(
         refpack, quad, shape, intrinsics, T, depth_buffered=depth_buffered
     )
     p3 = torch.stack([P_prev[..., 0, 0], P_prev[..., 0, 1], P_prev[..., 1, 1]], dim=-1)
-    first_flag = torch.tensor(int(bool(first)), dtype=torch.int32, device=refpack.device)
+    # a fill on the device, not a host copy: the loop's CUDA graphs capture it
+    first_flag = torch.full((), int(bool(first)), dtype=torch.int32, device=refpack.device)
     stats = fused_stats_plain(sampled, refpack, p3, first_flag, intrinsics, dof)
     n = stats.num_valid.to(torch.int32)
     denom = torch.clamp(stats.num_valid - 3.0, min=1.0)
@@ -442,6 +443,7 @@ def _kernel_library():
 
 
 _tickets = {}
+_retired_tickets = []  # replaced buffers, never freed: CUDA graphs hold their addresses
 _tickets_lock = threading.Lock()
 
 
@@ -451,11 +453,19 @@ def _ticket_buffer(device, stream, batch):
     stream, allocated once and grown for a call with more streams.  Two
     threads may launch (the tracker and the keyframe graph's worker): the
     create-or-grow is locked, and their launches on one stream run in
-    order, so a ticket is never shared by two running launches."""
+    order, so a ticket is never shared by two running launches.
+
+    A grown buffer's predecessor stays allocated for the life of the
+    process: a CUDA graph captured on that stream (``models/irls_graph``)
+    launches with its address baked in and keeps replaying on it, and
+    freed, the allocator could hand it to a tensor whose writes break the
+    zero-between-launches rule."""
     key = (device.index, stream)
     with _tickets_lock:
         buf = _tickets.get(key)
         if buf is None or buf.numel() < batch:
+            if buf is not None:
+                _retired_tickets.append(buf)
             buf = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
             _tickets[key] = buf
         return buf

@@ -65,7 +65,9 @@ def _eye3(like):
 def _homogeneous(top):
     """[..., 3, 4] -> [..., 4, 4] with the (0, 0, 0, 1) bottom row."""
     bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype, device=top.device)
-    bottom[..., 0, 3] = 1.0
+    # a fill on the device: assigning a Python number copies a host tensor,
+    # which the IRLS loop's CUDA graphs cannot capture
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

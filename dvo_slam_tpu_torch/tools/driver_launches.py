@@ -8,19 +8,27 @@ Run on a machine with a CUDA card, from the repository root:
 Runs the driver's sections one at a time through ``bench.run_sections``,
 at their default sizes (every section, ``bsweep`` included, unless named),
 and counts for each section the launches of every kernel wrapper and the
-solver loop iterations of the solves that reach kernels 1 and 1b:
+solver loop iterations of the solves that reach kernels 1 and 1b.  The
+IRLS loop runs in chunks of K steps (``dense_tracker.CHUNK_STEPS``; a step
+past a level's ``done`` is inert but still evaluates), so a kernel
+launches once per executed step: per level K * ceil(iterations / K), the
+level's slowest stream's iterations in lockstep.  The rule held is
+launches = executed steps, with the iterations reported beside them:
 
-  * ``odometry.track_sequence`` (``tracker``, ``hard``): its iterations,
-    one launch of kernel 1 each;
+  * ``odometry.track_sequence`` (``tracker``, ``hard``): each match's
+    levels, kernel 1;
   * the runs of ``make_multistream_tracker`` (``multistream``,
-    ``bsweep``): their loop iterations, kernel 1b in lockstep (the runs
-    without depth-buffered sampling also apart) and kernel 1 in sequence;
+    ``bsweep``): per frame and level the slowest stream's iterations,
+    kernel 1b in lockstep (the runs without depth-buffered sampling also
+    apart), and every stream's own in sequence, kernel 1;
   * every ``match_prepared`` call of the streaming front end and of the
     SLAM models (``e2e``, ``latency``, ``frontend``): per level its slowest
     stream's iterations, kernel 1 for one stream and kernel 1b for more.
 
-Prints one JSON line per section, then the driver's record; exits 1 when
-a section failed or its launches differ from its iterations.
+Prints one JSON line per section (on the card with the memory held after
+it: reserved, allocated, the peak, and the IRLS graph cache), then the
+driver's record; exits 1 when a section failed or its launches differ from
+its executed steps.
 """
 
 from __future__ import annotations
@@ -35,10 +43,12 @@ import threading
 import torch
 
 from .. import bench
+from ..models import dense_tracker, irls_graph
 from ..models import frames as frames_mod
 from ..models import streaming
 from ..ops import fused_kernels, residuals, table_copy
 from ..parallel import multistream
+from . import graph_check
 
 ONE, BATCHED = "warp_fused_stats", "warp_fused_stats_batched"
 
@@ -67,8 +77,14 @@ def launches():
 
 def lockstep_iterations(level_stats) -> int:
     """Loop iterations of one ``match_prepared`` call: per level its slowest stream's."""
-    return sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
-               else int(s.iterations) for s in level_stats)
+    return sum(graph_check.slowest(s) for s in level_stats)
+
+
+def executed_steps(level_stats) -> int:
+    """Steps the chunked IRLS loop ran for one ``match_prepared`` call,
+    which is its kernel's launches: per level K * ceil(iterations / K),
+    with the slowest stream's iterations and K = ``dense_tracker.CHUNK_STEPS``."""
+    return graph_check.counts(level_stats, dense_tracker.CHUNK_STEPS)[1]
 
 
 def streams(level_stats) -> int:
@@ -78,35 +94,46 @@ def streams(level_stats) -> int:
 
 
 class Iterations:
-    """Solver loop iterations that kernel 1 (``one``) and kernel 1b
-    (``batched``) should have launched for; ``nobuf_iterations`` and
-    ``nobuf_launches`` are those of the lockstep runs without depth-buffered
-    sampling (kernel 1b's other template)."""
+    """Executed steps that kernel 1 (``one``) and kernel 1b (``batched``)
+    should have launched for, and the solver loop iterations beside them
+    (``*_iterations``); ``nobuf_steps`` and ``nobuf_launches`` are those of
+    the lockstep runs without depth-buffered sampling (kernel 1b's other
+    template)."""
+
+    FIELDS = ("one", "batched", "one_iterations", "batched_iterations", "nobuf_steps",
+              "nobuf_launches")
 
     def __init__(self):
-        self.one = self.batched = self.nobuf_iterations = self.nobuf_launches = 0
+        for name in self.FIELDS:
+            setattr(self, name, 0)
         self._lock = threading.Lock()  # the graph's worker thread matches too
 
-    def add(self, one=0, batched=0, nobuf_iterations=0, nobuf_launches=0):
+    def add(self, **counts):
         with self._lock:
-            self.one += one
-            self.batched += batched
-            self.nobuf_iterations += nobuf_iterations
-            self.nobuf_launches += nobuf_launches
+            for name, value in counts.items():
+                setattr(self, name, getattr(self, name) + value)
 
 
 @contextlib.contextmanager
 def counting():
-    """Counts the solver iterations of the driver's solves while open
-    (patches ``bench.track_sequence``, ``multistream.make_multistream_tracker``
-    and the ``match_prepared`` of ``models.streaming`` and ``models.frames``)."""
+    """Counts the executed steps and solver iterations of the driver's
+    solves while open (patches ``bench.track_sequence``,
+    ``multistream.make_multistream_tracker`` and the ``match_prepared`` of
+    ``models.streaming`` and ``models.frames``)."""
     counter = Iterations()
     track_sequence = bench.track_sequence
     make_tracker = multistream.make_multistream_tracker
 
-    def counted_sequence(*args, **kwargs):
-        out = track_sequence(*args, **kwargs)
-        counter.add(one=out[1])
+    def counted_sequence(*args, on_result=None, **kwargs):
+        steps = []
+
+        def record(result):
+            steps.append(executed_steps(result.level_stats))
+            if on_result is not None:
+                on_result(result)
+
+        out = track_sequence(*args, on_result=record, **kwargs)
+        counter.add(one=sum(steps), one_iterations=out[1])
         return out
 
     def counted_tracker(cfg, intrinsics, *args, **kwargs):
@@ -116,13 +143,16 @@ def counting():
         def counted_run(intensity_u8, depth_u16):
             before = wrappers()[BATCHED].launches
             tracks = run.tracks(intensity_u8, depth_u16)
-            loop = tracks.loop_iterations
+            its = tracks.iterations  # [B, T - 1, levels]
+            chunk = dense_tracker.CHUNK_STEPS
             if not lockstep:
-                counter.add(one=loop)
-            elif cfg.depth_buffered_sampling:
-                counter.add(batched=loop)
-            else:
-                counter.add(batched=loop, nobuf_iterations=loop,
+                counter.add(one=dense_tracker.executed_steps(its, chunk),
+                            one_iterations=tracks.loop_iterations)
+                return tracks.poses
+            steps = dense_tracker.executed_steps(its.amax(dim=0), chunk)
+            counter.add(batched=steps, batched_iterations=tracks.loop_iterations)
+            if not cfg.depth_buffered_sampling:
+                counter.add(nobuf_steps=steps,
                             nobuf_launches=wrappers()[BATCHED].launches - before)
             return tracks.poses
 
@@ -132,8 +162,11 @@ def counting():
     def counted_match(fn):
         def match(*args, **kwargs):
             result = fn(*args, **kwargs)
-            n = lockstep_iterations(result.level_stats)
-            counter.add(**({"one": n} if streams(result.level_stats) == 1 else {"batched": n}))
+            ls = result.level_stats
+            if streams(ls) == 1:
+                counter.add(one=executed_steps(ls), one_iterations=lockstep_iterations(ls))
+            else:
+                counter.add(batched=executed_steps(ls), batched_iterations=lockstep_iterations(ls))
             return result
         return match
 
@@ -166,24 +199,37 @@ def count_sections(setup: bench.Setup, wanted=(), rep=None, **kwargs):
         after = launches()
         per_section[name] = {
             "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
-            "kernel_1_iterations": counter.one, "kernel_1b_iterations": counter.batched,
-            "nobuf_iterations": counter.nobuf_iterations,
-            "nobuf_launches": counter.nobuf_launches,
+            "kernel_1_steps": counter.one, "kernel_1b_steps": counter.batched,
+            "kernel_1_iterations": counter.one_iterations,
+            "kernel_1b_iterations": counter.batched_iterations,
+            "nobuf_steps": counter.nobuf_steps, "nobuf_launches": counter.nobuf_launches,
         }
+        if torch.device(setup.device).type == "cuda":
+            per_section[name]["memory"] = memory(setup.device)
     return rep, verdict, per_section
 
 
+def memory(device) -> dict:
+    """The card's memory after a section: the allocator's reserved and
+    allocated bytes, its peak reservation, and the IRLS graph cache
+    (``irls_graph.stats()``)."""
+    return {"reserved_bytes": torch.cuda.memory_reserved(device),
+            "allocated_bytes": torch.cuda.memory_allocated(device),
+            "max_reserved_bytes": torch.cuda.max_memory_reserved(device),
+            "graph_cache": irls_graph.stats()}
+
+
 def mismatches(per_section) -> list:
-    """Each section whose launches differ from its iterations, or that
+    """Each section whose launches differ from its executed steps, or that
     launched another kernel than 1 and 1b (the copy kernel aside)."""
     out = []
     for name, s in per_section.items():
         got = s["launches"]
-        for kernel, want in ((ONE, s["kernel_1_iterations"]), (BATCHED, s["kernel_1b_iterations"]),
-                             ("nobuf", s["nobuf_iterations"])):
+        for kernel, want in ((ONE, s["kernel_1_steps"]), (BATCHED, s["kernel_1b_steps"]),
+                             ("nobuf", s["nobuf_steps"])):
             have = s["nobuf_launches"] if kernel == "nobuf" else got.get(kernel, 0)
             if have != want:
-                out.append(f"{name}: {kernel} launched {have} times for {want} iterations")
+                out.append(f"{name}: {kernel} launched {have} times for {want} executed steps")
         others = {k: v for k, v in got.items() if k not in (ONE, BATCHED, "table_copy")}
         if others:
             out.append(f"{name}: other kernels or warp_and_sample_cm ran: {others}")

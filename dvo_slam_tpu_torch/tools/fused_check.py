@@ -21,11 +21,14 @@ weights > 0 (``twin_sharded_stash``), its 136 packed sums
 (``compare_packed_sums``) and its tail.  The folded call is also held
 against an oracle other than its own twin, the modular evaluation of the
 ``xla`` backend (``compare_modular_to_kernel``), at the reference's own
-tolerances for that pair.
+tolerances for that pair.  ``solo_evaluations`` repeats each batched
+modular evaluation stream by stream and records where the two part (the
+lockstep tracker's ``b``, ROADMAP C (g)).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -456,3 +459,50 @@ def compare_modular_to_kernel(cfg, intrinsics, ref_levels, cur_levels, level: in
         require(errors[key] <= 1.0, f"kernel vs modular: {key} {errors[key]} "
                                     f"(level {level}, first {first})")
     return errors
+
+
+@contextlib.contextmanager
+def solo_evaluations():
+    """While open, every batched modular evaluation (``xla`` lockstep, run
+    by the eager loop: under a CUDA graph the evaluation runs only at
+    capture) is repeated for each stream alone, on that stream's inputs,
+    previous precision, warp and ``first``.  Yields a list with one row per
+    batched evaluation: ``solve`` (the index of its level solve), ``first``,
+    and per stream whether n, the precision, ll and A are bit-equal and b's
+    largest difference over b's largest entry."""
+    rows = []
+    solves = [-1]
+    original = dense_tracker._modular_evaluation
+
+    def modular_evaluation(cfg, intrinsics, sel_mask, refpack, accel):
+        batched = original(cfg, intrinsics, sel_mask, refpack, accel)
+        if sel_mask.dim() == 2:
+            return batched
+        solves[0] += 1
+        solve = solves[0]
+        solo = [original(cfg, intrinsics, sel_mask[b], refpack[b], accel[b])
+                for b in range(sel_mask.shape[0])]
+
+        def evaluate(T, P_prev, first):
+            out = batched(T, P_prev, first)
+            n, precision, ll, A, b = out
+            row = {"solve": solve, "first": bool(first), "n": [], "precision": [], "ll": [],
+                   "A": [], "b_scaled": []}
+            for k, fn in enumerate(solo):
+                n_k, p_k, ll_k, A_k, b_k = fn(T[k], P_prev[k], first)
+                row["n"].append(bool(torch.equal(n[k], n_k)))
+                row["precision"].append(bool(torch.equal(precision[k], p_k)))
+                row["ll"].append(bool(torch.equal(ll[k], ll_k)))
+                row["A"].append(bool(torch.equal(A[k], A_k)))
+                scale = float(torch.abs(b_k).max())
+                row["b_scaled"].append(float(torch.abs(b[k] - b_k).max()) / max(scale, 1e-30))
+            rows.append(row)
+            return out
+
+        return evaluate
+
+    dense_tracker._modular_evaluation = modular_evaluation
+    try:
+        yield rows
+    finally:
+        dense_tracker._modular_evaluation = original

@@ -284,11 +284,28 @@ def test_reset_after_poisoned_backend_recovers():
     ss.graph.shutdown()
 
 
-def test_frame_loop_reads_back_only_the_irls_flags(monkeypatch):
+def _expected_reads(calls, chunk):
+    """The IRLS loop's reads for the recorded matches at K = ``chunk``: per
+    level one per chunk of its slowest stream's iterations, ``done.all()``
+    in lockstep; one stream reads ``done`` alone at K = 1 and ``done`` with
+    its count (one ``tolist``) at larger K."""
+    reads = []
+    for level_stats in calls:
+        for s in level_stats:
+            batched = isinstance(s.iterations, torch.Tensor)
+            its = int(s.iterations.max()) if batched else s.iterations
+            kind = "tolist" if chunk > 1 and not batched else "__bool__"
+            reads += [kind] * -(-its // chunk)
+    return reads
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+def test_frame_loop_reads_back_only_the_irls_flags(monkeypatch, chunk):
     """Inside the front end's frame loop the only host reads are the IRLS
-    loop's ``done`` flags, one per lockstep iteration: every read of a
-    tensor to the host is counted with a patch and set against the
-    matches' iterations."""
+    loop's ``done`` flags, one per chunk of K lockstep iterations: every
+    read of a tensor to the host is counted with a patch and set against
+    the matches' iterations (at K = 1, one ``done`` read per iteration)."""
+    monkeypatch.setattr(t_dense, "CHUNK_STEPS", chunk)
     iu8, du16 = _raw_sequence(synthetic.circular_trajectory(6, radius=0.04, rot_amplitude=0.02))
     ss = _slam()
     d_i, d_d = ss._upload(iu8, du16)
@@ -317,7 +334,9 @@ def test_frame_loop_reads_back_only_the_irls_flags(monkeypatch):
     lockstep = sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
                    else s.iterations for ls in calls for s in ls)
     assert len(calls) == len(iu8) - 1  # the bootstrap and one dual match per frame
-    assert reads == ["__bool__"] * lockstep
+    if chunk == 1:
+        assert reads == ["__bool__"] * lockstep
+    assert reads == _expected_reads(calls, chunk)
     assert records.shape == (len(iu8), t_streaming.RECORD_WIDTH)
     ss.graph.shutdown()
 
@@ -410,10 +429,12 @@ def test_batched_bootstrap_and_pose_products_part_from_solo():
     np.testing.assert_allclose(batched.numpy(), single.numpy(), atol=1e-5, rtol=0)
 
 
-def test_stream_axis_reads_back_only_the_irls_flags(monkeypatch):
+@pytest.mark.parametrize("chunk", [1, 2, 4])
+def test_stream_axis_reads_back_only_the_irls_flags(monkeypatch, chunk):
     """The B-stream frame loop's only host reads are the IRLS ``done``
-    flags: one per lockstep iteration of the dual matches and of the
-    stream-by-stream bootstrap matches."""
+    flags: one per chunk of K lockstep iterations of the dual matches and
+    of the stream-by-stream bootstrap matches."""
+    monkeypatch.setattr(t_dense, "CHUNK_STEPS", chunk)
     iu, du = _tiny_streams(count=2, frames=5)
     run = _front()
     args = _tensors(iu, du)
@@ -441,4 +462,6 @@ def test_stream_axis_reads_back_only_the_irls_flags(monkeypatch):
     lockstep = sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
                    else s.iterations for ls in calls for s in ls)
     assert len(calls) == 2 + 3  # two bootstrap matches, one dual match per later frame
-    assert reads == ["__bool__"] * lockstep
+    if chunk == 1:
+        assert reads == ["__bool__"] * lockstep
+    assert reads == _expected_reads(calls, chunk)
