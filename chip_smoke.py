@@ -19,8 +19,10 @@ iterations themselves are printed beside them.
    its name and ``nvidia-smi``'s name and power limit.
 2. Build: ``nvcc`` builds ``dvo_slam_tpu_torch/csrc/fused_stats.cu`` (the
    folded, sampled-input, batched and partials entry points) and
-   ``csrc/table_copy.cu`` from the checkout, both at once; prints the build
-   seconds and the compiler's report.
+   ``csrc/table_copy.cu`` from the checkout, both at once, and ``g++`` the
+   native ingest (``native/ingest.cpp``, no libpng) beside them, so that no
+   timed phase pays a build; prints the build seconds and the compiler's
+   report.
 3. Kernels vs plain versions on the card, on a rendered 640x480 sequence
    at levels 3, 2 and 1.  The folded kernel (``dvo_warp_fused_stats``, the
    tracker's evaluation) against ``warp_fused_stats_plain`` on the first
@@ -121,8 +123,8 @@ iterations themselves are printed beside them.
    ``batched``, ms and device ms per iteration each; its ``pcopy`` tables
    are the copy kernel's main path.
 
-Phases 11-15 run after phase 5, before any profiler session, so that
-their frames/s compare with phase 4's:
+Phases 11-15 and 18-19 run after phase 5, before any profiler session, so
+that their frames/s compare with phase 4's:
 
 11. ``CameraTracker``: phase 4's 100 frames as u8/u16 through
    ``Frame.from_raw(prepare_for=(cfg, K))`` and ``CameraTracker.update``:
@@ -247,6 +249,35 @@ their frames/s compare with phase 4's:
    mode's frames/s, ms per iteration, executed steps and host reads per
    frame, the graph cache (keys, graphs, capture ms, the captures' pool
    bytes, the static buffers' bytes) and the phase's seconds.
+18. A recorded sequence (run right after phase 14): phase 5's 100
+   hard-scene frames written as a TUM RGB-D directory by the port's PNG
+   writer (``tools/recorded_sequence.py``: R = G = B, 16-bit depth, every
+   row cycling the five scanline filters, assoc.txt, groundtruth.txt, FR1
+   intrinsics), after printing whether cv2 imports, zlib's version,
+   ``native.build_error()`` (must be None) and ``native.library_path()``.
+   Every frame decoded bit-equal to what was written, serially and through
+   ``RgbdFramePrefetcher`` (ms per frame of each); the native reduction
+   bit-equal to ``reduce_ingest_numpy`` (ms per frame of each, the native
+   path taken).  Then ``cli.benchmark.main(["--dataset", DIR, ...])`` in
+   the three engines (``--mode odometry``, ``--mode slam --engine loop``,
+   ``--engine streaming``): exit 0, every frame decoded natively (no cv2),
+   odometry ATE < 10 mm, the SLAM engines' graph ATE < 5 mm and online ATE
+   < 10 mm, kernels 1 and 1b launched as often as the solves' executed
+   steps and no other kernel, no graph solve falling back, the streaming
+   engine's ingest reduced natively; the streaming engine's online poses and
+   optimized trajectory bit-equal to ``StreamingSLAM.track_sequence`` run
+   here on the same u8 frames and the CLI's u16 round trip of the loader's
+   float depth (the reference's truncation, ``cli/benchmark.py:137``, on
+   purpose).  Prints the phase's seconds.
+19. The back end at scale (run after phase 18): ``tools/backend_scale_probe``
+   at 40 keyframes x 7 frames (60x80) on the card: 241 vertices (past the
+   auto policy's 128) and 481 edges, as the reference's probe gives at this
+   cut, the ATE within 1 mm of its 49.06 mm, the routes of the feed's and
+   the final pass's solves printed, none falling back, kernel 1b launched
+   as often as the validation waves' executed steps and no other kernel;
+   then ``tools/final_pass_profile`` and ``tools/cg_iteration_stats
+   --sizes 512 --gn-steps 4`` (CG on the card): finite rounds and chi2.
+   Prints the phase's seconds.
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
@@ -314,6 +345,16 @@ GRAPH_STREAM_FRAMES = 10
 CHUNK_SWEEP = (1, 2, 3, 4)  # phase 17: the chunk sizes K measured
 WARP_MASK_SHARE = 1e-3  # phase 16(c): valid pixels that may differ from the CPU's
 WARP_VALUE_ATOL = 1e-4
+PROBE_KEYFRAMES = 40  # phase 19: backend_scale_probe cut from 300, past 128 vertices
+PROBE_FRAMES_PER_MAP = 7
+# the reference's tools/backend_scale_probe.py at 40 x 7 on the CPU: 241
+# vertices, 481 edges after the final pass, ATE 0.04906 m (one loop edge is
+# accepted at this cut, keyframes 5.5 cm apart; the port's CPU run gives
+# 0.049060 m)
+PROBE_GRAPH = (241, 481)
+PROBE_ATE_M = 0.04906
+PROBE_ATE_ATOL_M = 1e-3
+PROBE_GN_STEPS = 4  # phase 19: cg_iteration_stats at its smallest size (512), 4 of its 8 GN steps
 STREAMS = 8  # the reference's stream count (tests/test_parallel.py, tools/gather_probe.py)
 STREAM_FRAMES = 30  # the reference benchmark's 50, cut to pay for phase 14
 STREAM_ATE_GATE_M = 0.01
@@ -1895,6 +1936,195 @@ def _records_digest(records):
     return hashlib.sha256(np.concatenate(flat).tobytes()).hexdigest()
 
 
+def check_recorded_sequence(slam_cfg, hard_i, hard_d, gt):
+    """Phase 18: phase 5's frames written as a TUM directory by the port's
+    PNG writer, decoded back (serially and through the prefetcher), reduced
+    natively, then through the benchmark CLI's three engines with
+    ``--dataset``.  Returns ({run: (kernel 1 launches, kernel 1b launches)},
+    the summary)."""
+    import importlib.util
+    import tempfile
+    import zlib
+
+    from dvo_slam_tpu_torch import native
+    from dvo_slam_tpu_torch.models import streaming
+    from dvo_slam_tpu_torch.ops.camera import TUM_FR1
+    from dvo_slam_tpu_torch.tools import recorded_sequence as rs
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    t_phase = time.perf_counter()
+    build = {"cv2_importable": importlib.util.find_spec("cv2") is not None,
+             "zlib_runtime": zlib.ZLIB_RUNTIME_VERSION, "build_error": native.build_error(),
+             "library": native.library_path()}
+    print("phase 18:", json.dumps(build), flush=True)
+    require(build["build_error"] is None, f"phase 18: the native ingest did not build: {build}")
+
+    decoded = []  # every native decode of a frame pair, the CLI's included
+    load = native.load_rgbd_native
+
+    def counted_load(*args, **kwargs):
+        decoded.append(args[0])
+        return load(*args, **kwargs)
+
+    kept = {}  # what the CLI's streaming engine handed StreamingSLAM and got back
+    track = streaming.StreamingSLAM.track_sequence
+    traj = streaming.StreamingSLAM.trajectory
+
+    def kept_track(self, iu8, du16, stamps, *args, **kwargs):
+        est = track(self, iu8, du16, stamps, *args, **kwargs)
+        kept.update(iu8=iu8.copy(), du16=du16.copy(), stamps=np.asarray(stamps), est=est)
+        return est
+
+    def kept_trajectory(self):
+        out = traj(self)
+        kept["trajectory"] = out
+        return out
+
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "rgbd_dataset_fr1_synthetic")
+        # every row cycles the five filters, so every unfilter path decodes
+        written = rs.write_sequence(root, hard_i, hard_d, gt, filters="cycle",
+                                    workers=RENDER_WORKERS)
+        decode = rs.check_decode(root, hard_i, hard_d)
+        reduce = rs.time_reduction(hard_i, hard_d, slam_cfg.tracker.last_level)
+        require(reduce["path"] == "native", f"phase 18: the reduction took {reduce}")
+        native.load_rgbd_native = counted_load
+        streaming.StreamingSLAM.track_sequence = kept_track
+        streaming.StreamingSLAM.trajectory = kept_trajectory
+        try:
+            for engine in ("odometry", "keyframe", "streaming"):
+                decoded.clear()
+                _reset_counts()
+                runs[engine] = rs.run_engine(root, engine, os.path.join(tmp, engine))
+                runs[engine]["native_decodes"] = len(decoded)
+        finally:
+            native.load_rgbd_native = load
+            streaming.StreamingSLAM.track_sequence = track
+            streaming.StreamingSLAM.trajectory = traj
+        ingest_path = streaming.host_reduce_ingest.last_path
+
+    for engine, run in runs.items():
+        require(run["rc"] == 0, f"phase 18 {engine}: the CLI exited {run['rc']}")
+        require(run["native_decodes"] >= NUM_FRAMES,
+                f"phase 18 {engine}: {run['native_decodes']} native decodes (cv2 taken?)")
+        require(not run["fallbacks"], f"phase 18 {engine}: a graph solve fell back: "
+                f"{run['fallbacks']}")
+        one, batched = run["launches"]["warp_fused_stats"], run["launches"][
+            "warp_fused_stats_batched"]
+        require(one == run["one_steps"] and batched == run["batched_steps"],
+                f"phase 18 {engine}: launches {run['launches']} != executed steps "
+                f"{run['one_steps']} / {run['batched_steps']}")
+        require(one > 0 and (batched > 0) == (engine != "odometry"),
+                f"phase 18 {engine}: launches {run['launches']}")
+        require(not run["other_launches"],
+                f"phase 18 {engine}: other kernels or warp_and_sample_cm ran: {run['other_launches']}")
+        launches[engine] = (one, batched)
+        require(run["report"]["frames"] == NUM_FRAMES, f"phase 18 {engine}: {run['report']}")
+    require(runs["odometry"]["report"]["ate_rmse_m"] < HARD_ATE_GATE_M,
+            f"phase 18: odometry ATE {runs['odometry']['report']['ate_rmse_m']} m")
+    for engine in ("keyframe", "streaming"):
+        report = runs[engine]["report"]
+        require(report["ate_rmse_m"] < ONLINE_ATE_GATE_M and
+                report["ate_rmse_optimized_m"] < E2E_ATE_GATE_M,
+                f"phase 18 {engine}: online ATE {report['ate_rmse_m']} m, graph ATE "
+                f"{report['ate_rmse_optimized_m']} m")
+    require(ingest_path == "native", f"phase 18: the streaming engine's ingest took {ingest_path}")
+
+    # (a) the CLI's streaming engine against StreamingSLAM in this process on
+    # the same u8 frames and the CLI's u16 round trip of the loader's float
+    # depth, applied here on purpose: it is the reference's defect
+    # (cli/benchmark.py:137), which truncates 4,580 of the 65,535 values
+    stamps = np.array([float(f"{k / 30.0:.6f}") for k in range(NUM_FRAMES)])
+    require(np.array_equal(kept["iu8"], hard_i) and
+            np.array_equal(kept["du16"], rs.roundtrip_u16(hard_d)) and
+            np.array_equal(kept["stamps"], stamps),
+            "phase 18: the CLI handed StreamingSLAM other frames than the round trip gives")
+    slam = streaming.StreamingSLAM(TUM_FR1, slam_cfg)
+    _reset_counts()
+    with rs.counted_solves() as calls:
+        est = slam.track_sequence(hard_i, rs.roundtrip_u16(hard_d), stamps)
+        trajectory_in_process = slam.trajectory()
+    slam.graph.shutdown()
+    counts = _launches()
+    steps = rs.steps_of(calls)
+    require(counts["warp_fused_stats"] == steps["one_steps"] > 0 and
+            counts["warp_fused_stats_batched"] == steps["batched_steps"] > 0,
+            f"phase 18 in-process: launches {counts} != executed steps {steps}")
+    launches["in_process"] = (counts["warp_fused_stats"], counts["warp_fused_stats_batched"])
+    require(np.array_equal(est, kept["est"]), "phase 18: the CLI's online poses differ from "
+            "the in-process StreamingSLAM's")
+    require(all(np.array_equal(a, b) for a, b in zip(trajectory_in_process, kept["trajectory"])),
+            "phase 18: the CLI's optimized trajectory differs from the in-process one")
+
+    summary = {
+        "frames": NUM_FRAMES, "write": written, "decode": decode, "reduce": reduce,
+        "ingest_path": ingest_path, "in_process_bit_equal": True,
+        "engines": {e: {k: v for k, v in r.items() if k != "report"} | {
+            k: r["report"].get(k) for k in ("ate_rmse_m", "ate_rmse_optimized_m",
+                                            "rpe_translational_m", "rpe_rotational_rad")}
+            for e, r in runs.items()},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    print("phase 18:", json.dumps(summary, default=float), flush=True)
+    return launches, summary
+
+
+def check_backend_scale():
+    """Phase 19: the reference's back-end probes on the card at a cut
+    size: ``backend_scale_probe`` at 40 keyframes x 7 frames (60x80; past
+    the auto policy's 128 vertices), ``final_pass_profile`` and
+    ``cg_iteration_stats`` at its smallest default size.  Returns (kernel 1b
+    launches, the summary)."""
+    import contextlib
+    import io
+
+    from dvo_slam_tpu_torch.tools import backend_scale_probe, cg_iteration_stats
+    from dvo_slam_tpu_torch.tools import final_pass_profile
+    from dvo_slam_tpu_torch.tools import recorded_sequence as rs
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    t_phase = time.perf_counter()
+    out = io.StringIO()
+    _reset_counts()
+    with rs.counted_solves() as calls, contextlib.redirect_stdout(out):
+        first, second = backend_scale_probe.main(PROBE_KEYFRAMES, PROBE_FRAMES_PER_MAP)
+    counts = _launches()
+    steps = rs.steps_of(calls)
+    require(counts["warp_fused_stats"] == steps["one_steps"] and
+            counts["warp_fused_stats_batched"] == steps["batched_steps"] > 0,
+            f"phase 19: launches {counts} != the waves' executed steps {steps}")
+    _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
+                  "warp_fused_stats_batched", steps["batched_steps"], "phase 19")
+    require((first["vertices"], second["edges_after_final"]) == PROBE_GRAPH,
+            f"phase 19: vertices and edges {first['vertices']}, {second['edges_after_final']} "
+            f"!= the reference probe's {PROBE_GRAPH}")
+    require(first["vertices"] > 128 and any(r != "dense" for r in second["routes"]),
+            f"phase 19: the final pass did not pass the dense route's line: {first}, {second}")
+    require(not second["fallbacks"], f"phase 19: a graph solve fell back: {second['fallbacks']}")
+    require(np.isfinite(second["ate_m"]) and abs(second["ate_m"] - PROBE_ATE_M) < PROBE_ATE_ATOL_M,
+            f"phase 19: ATE {second['ate_m']} m, the reference probe's {PROBE_ATE_M} m")
+    probe_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        size, rounds, totals = final_pass_profile.main()
+        (cg,) = cg_iteration_stats.main(["--sizes", "512", "--gn-steps", str(PROBE_GN_STEPS)])
+    require(len(rounds) == 10 and all(np.isfinite(r["opt_ms"]) for r in rounds),
+            f"phase 19: final pass rounds {rounds}")
+    require(len(cg["cg_iterations_per_gn_step"]) == PROBE_GN_STEPS and
+            np.isfinite(cg["auto_chi2_history"]).all(), f"phase 19: CG stats {cg}")
+    summary = {
+        "backend_scale_probe": {"feed": first, "final": second, "seconds": probe_s,
+                                "kernel_1b_steps": steps["batched_steps"],
+                                "kernel_1b_iterations": steps["batched_iterations"]},
+        "final_pass_profile": {**size, **totals, "routes": sorted({r["route"] for r in rounds})},
+        "cg_iteration_stats": cg, "other_probes_seconds": time.perf_counter() - t0,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    print("phase 19:", json.dumps(summary, default=float), flush=True)
+    return counts["warp_fused_stats_batched"], summary
+
+
 def check_dp_slam_and_driver(slam_cfg, intrinsics, easy_i, easy_d, easy_poses):
     """Phase 15: ``DataParallelSLAM`` on a one-rank NCCL process group (two
     hard-scene streams of 40 frames rendered as ``bench.py:228-239``
@@ -2341,7 +2571,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
               file=sys.stderr)
         return 2
-    from dvo_slam_tpu_torch import _build, benchmark_config
+    import threading
+
+    from dvo_slam_tpu_torch import _build, benchmark_config, native
     from dvo_slam_tpu_torch.odometry import (
         build_frame,
         render_sequence,
@@ -2372,9 +2604,16 @@ def main() -> int:
           flush=True)
     print(f"phase 1: nvidia-smi name, power.limit: {smi}", flush=True)
 
-    # phase 2: build (both sources at once, one nvcc each)
+    # phase 2: build (both sources at once, one nvcc each, and g++ the
+    # native ingest beside them, so that no timed phase pays its build)
     t0 = time.perf_counter()
+    ingest = threading.Thread(target=native.native_available)
+    ingest.start()
     libraries = _build.load_libraries(["fused_stats", "table_copy"])
+    ingest.join()
+    require(native.build_error() is None, f"the native ingest did not build: "
+            f"{native.build_error()}")
+    print(f"phase 2: {native.library_path()}: g++, built with the kernels", flush=True)
     for name, entries in (
         ("fused_stats", ("dvo_warp_fused_stats", "dvo_fused_stats", "dvo_fused_stats_batched",
                          "dvo_fused_partials", "dvo_warp_fused_partials", "dvo_sharded_loglik",
@@ -2474,6 +2713,15 @@ def main() -> int:
                                             hard_poses, online13, phase13["keyframes"])
     elapsed("phase 14")
 
+    # phase 18: the same frames as a TUM directory on disk through the CLI
+    recorded_launches, _ = check_recorded_sequence(benchmark_config(), hard_i, hard_d,
+                                                   hard_poses)
+    elapsed("phase 18")
+
+    # phase 19: the back-end probes past the dense route's 128 vertices
+    probe_launches, _ = check_backend_scale()
+    elapsed("phase 19")
+
     # phase 15: DataParallelSLAM on a one-rank process group, then the driver
     dp_launches, _ = check_dp_slam_and_driver(benchmark_config(), TUM_FR1, easy_i, easy_d,
                                               easy_poses)
@@ -2537,13 +2785,16 @@ def main() -> int:
                         "14_pipelined": streaming_launches["pipelined"][0],
                         "14_monolithic": streaming_launches["monolithic"][0],
                         "14_cli": streaming_launches["cli"][0],
-                        "15_dp_slam": dp_launches["dp"][0], "15_driver": dp_launches["driver"][0]},
+                        "15_dp_slam": dp_launches["dp"][0], "15_driver": dp_launches["driver"][0],
+                        **{f"18_{run}": n[0] for run, n in recorded_launches.items()}},
         "fused_stats_batched": {"7": batched_launches, "12": dual_launches, "13": slam_batched,
                                 "14_pipelined": streaming_launches["pipelined"][1],
                                 "14_monolithic": streaming_launches["monolithic"][1],
                                 "14_cli": streaming_launches["cli"][1],
                                 "15_dp_slam": dp_launches["dp"][1],
-                                "15_driver": dp_launches["driver"][1]},
+                                "15_driver": dp_launches["driver"][1],
+                                **{f"18_{run}": n[1] for run, n in recorded_launches.items()},
+                                "19_backend_scale_probe": probe_launches},
     }
     for name, replaces, row, worst, sampled_entry, sampled_row, sampled_errors in (
         ("fused_stats", STATS_REPLACES, l1, folded_worst, "dvo_fused_stats", sampled_l1,

@@ -151,9 +151,19 @@ def host_reduce_ingest(intensity_u8, depth_u16, levels: int):
             out = native.reduce_ingest_native(intensity_u8, depth_u16, levels)
             host_reduce_ingest.last_path, host_reduce_ingest.last_reason = "native", None
             return out
-        except Exception as e:  # NumPy oracle below (also the parity reference in tests)
+        except Exception as e:  # the NumPy form (also the parity reference in tests)
             reason = f"{type(e).__name__}: {e}"
     host_reduce_ingest.last_path, host_reduce_ingest.last_reason = "numpy", reason
+    return reduce_ingest_numpy(intensity_u8, depth_u16, levels)
+
+
+host_reduce_ingest.last_path = None
+host_reduce_ingest.last_reason = None
+
+
+def reduce_ingest_numpy(intensity_u8, depth_u16, levels: int):
+    """The NumPy form of :func:`host_reduce_ingest` (its path where the
+    native extension is unavailable, and the oracle of the C++ one)."""
     i = intensity_u8.astype(np.uint16)
     d = depth_u16
     for _ in range(levels):
@@ -167,10 +177,6 @@ def host_reduce_ingest(intensity_u8, depth_u16, levels: int):
         )
         d = d[..., : 2 * h2: 2, : 2 * w2: 2]
     return i, d
-
-
-host_reduce_ingest.last_path = None
-host_reduce_ingest.last_reason = None
 
 
 def _where(cond, a, b):

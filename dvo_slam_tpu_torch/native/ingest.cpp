@@ -1,6 +1,6 @@
-// Native RGB-D ingest: PNG decode + grayscale/depth conversion, and the
+// Native RGB-D ingest: PNG unfilter + grayscale/depth conversion, and the
 // host-side ingest reduction (the port's copy of
-// dvo_slam_tpu/native/ingest.cpp).
+// dvo_slam_tpu/native/ingest.cpp, without libpng).
 //
 // The reference's host-side frame loading uses OpenCV in C++
 // (dvo_benchmark/src/benchmark_slam.cpp:46-93: imread, BGR->gray float,
@@ -9,24 +9,33 @@
 // released so a thread-pool prefetcher overlaps dataset IO with device
 // compute.
 //
+// PNG decoding is split in two: __init__.py parses the chunks, checks the
+// CRCs and inflates the IDAT stream with the standard library's zlib (which
+// releases the GIL); this file undoes the scanline filters (None, Sub, Up,
+// Average, Paeth) and Adam7 interlacing and converts, giving the bytes the
+// reference's libpng transforms give (ingest.cpp:84-150 there): palette
+// expanded, gray 1/2/4 bits scaled to 8, alpha and tRNS dropped for luma,
+// 16-bit samples cut to their high byte for luma (png_set_strip_16).
+//
 // Exposes:
-//   decode_gray_u8(png_bytes)  -> (bytes HxW u8, h, w)
-//       RGB(A)/gray PNG -> 8-bit luma using OpenCV's BT.601 weights
-//       (0.299 R + 0.587 G + 0.114 B), matching cv::cvtColor BGR2GRAY.
-//   decode_depth_u16(png_bytes) -> (bytes HxW u16 native-endian, h, w)
-//       16-bit grayscale PNG (TUM depth) -> u16 array.
+//   unfilter_gray_u8(inflated, w, h, bit_depth, color_type, interlace, plte)
+//       -> (bytes HxW u8, h, w): 8-bit luma with OpenCV's fixed-point BT.601
+//       weights, (4899 R + 9617 G + 1868 B + 8192) >> 14, as
+//       cv::cvtColor BGR2GRAY.
+//   unfilter_depth_u16(inflated, w, h, bit_depth, color_type, interlace)
+//       -> (bytes HxW u16 native-endian, h, w): 16-bit grayscale only.
 //   reduce_ingest(u8 bytes, u16 bytes, t, h, w, levels)
 //       -> (u16 intensity sums, u16 subsampled depth, ho, wo)
 //
-// Built on first use with g++ against libpng (see __init__.py); where the
-// build fails, the callers fall back to cv2 and to the NumPy reduction.
+// Built on first use with g++ and the Python headers alone (see
+// __init__.py); where the build fails, the callers fall back to cv2 and to
+// the NumPy reduction.
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
-#include <png.h>
-
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <string>
 #include <thread>
@@ -34,132 +43,201 @@
 
 namespace {
 
-struct PngReadState {
-  const unsigned char* data;
-  size_t size;
-  size_t offset;
+// A pass of the image: the whole image, or one of Adam7's seven.
+struct Pass {
+  size_t x0, y0, dx, dy;
 };
 
-void png_read_from_memory(png_structp png, png_bytep out, png_size_t count) {
-  PngReadState* state = static_cast<PngReadState*>(png_get_io_ptr(png));
-  if (state->offset + count > state->size) {
-    png_error(png, "read past end of PNG buffer");
+const Pass kWhole[1] = {{0, 0, 1, 1}};
+const Pass kAdam7[7] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                        {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+
+size_t channels_of(int color_type) {
+  switch (color_type) {
+    case 0: return 1;  // gray
+    case 2: return 3;  // RGB
+    case 3: return 1;  // palette index
+    case 4: return 2;  // gray + alpha
+    case 6: return 4;  // RGBA
   }
-  std::memcpy(out, state->data + state->offset, count);
-  state->offset += count;
+  return 0;
+}
+
+inline uint8_t paeth(int a, int b, int c) {
+  int p = a + b - c;
+  int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+  if (pa <= pb && pa <= pc) return static_cast<uint8_t>(a);
+  return static_cast<uint8_t>(pb <= pc ? b : c);
+}
+
+// Undo one scanline's filter in place; prior is the previous unfiltered
+// line of the same pass (nullptr on its first line).
+bool unfilter_row(int filter, uint8_t* row, const uint8_t* prior, size_t n,
+                  size_t bpp) {
+  switch (filter) {
+    case 0:
+      return true;
+    case 1:
+      for (size_t i = bpp; i < n; ++i) row[i] = static_cast<uint8_t>(row[i] + row[i - bpp]);
+      return true;
+    case 2:
+      if (prior)
+        for (size_t i = 0; i < n; ++i) row[i] = static_cast<uint8_t>(row[i] + prior[i]);
+      return true;
+    case 3:
+      for (size_t i = 0; i < n; ++i) {
+        unsigned a = i >= bpp ? row[i - bpp] : 0, b = prior ? prior[i] : 0;
+        row[i] = static_cast<uint8_t>(row[i] + ((a + b) >> 1));
+      }
+      return true;
+    case 4:
+      for (size_t i = 0; i < n; ++i) {
+        int a = i >= bpp ? row[i - bpp] : 0, b = prior ? prior[i] : 0;
+        int c = (prior && i >= bpp) ? prior[i - bpp] : 0;
+        row[i] = static_cast<uint8_t>(row[i] + paeth(a, b, c));
+      }
+      return true;
+  }
+  return false;
+}
+
+// Sample c of pixel x of an unfiltered line.
+inline unsigned sample(const uint8_t* row, size_t x, size_t c, size_t ch, int bit_depth) {
+  if (bit_depth == 8) return row[x * ch + c];
+  if (bit_depth == 16) {
+    const uint8_t* p = row + 2 * (x * ch + c);
+    return (static_cast<unsigned>(p[0]) << 8) | p[1];
+  }
+  // 1, 2 or 4 bits, one channel, most significant bits first
+  size_t bit = x * bit_depth;
+  unsigned shift = 8 - bit_depth - static_cast<unsigned>(bit & 7);
+  return (row[bit >> 3] >> shift) & ((1u << bit_depth) - 1);
+}
+
+inline uint8_t luma(unsigned r, unsigned g, unsigned b) {
+  return static_cast<uint8_t>((4899u * r + 9617u * g + 1868u * b + 8192u) >> 14);
 }
 
 struct DecodeResult {
   std::vector<unsigned char> pixels;
-  png_uint_32 width = 0;
-  png_uint_32 height = 0;
   bool ok = false;
   std::string error;
 };
 
-// Decode a PNG from memory; if want_depth, produce u16 single channel
-// (native endian), else 8-bit luma.
-DecodeResult decode(const unsigned char* bytes, size_t size, bool want_depth) {
+// Unfilter the inflated stream pass by pass and scatter each pixel's
+// converted value into the w x h output.
+DecodeResult decode(const uint8_t* data, size_t size, size_t w, size_t h,
+                    int bit_depth, int color_type, int interlace,
+                    const uint8_t* plte, size_t plte_size, bool want_depth) {
   DecodeResult result;
-  if (size < 8 || png_sig_cmp(bytes, 0, 8) != 0) {
-    result.error = "not a PNG";
+  size_t ch = channels_of(color_type);
+  size_t bits = ch * static_cast<size_t>(bit_depth);
+  size_t bpp = bits >= 8 ? bits / 8 : 1;
+  const Pass* passes = interlace ? kAdam7 : kWhole;
+  size_t n_passes = interlace ? 7 : 1;
+  // the palette as libpng holds it: 256 entries, zero past the chunk's
+  uint8_t palette[256 * 3] = {0};
+  std::memcpy(palette, plte, plte_size < sizeof(palette) ? plte_size : sizeof(palette));
+
+  size_t pw[7], ph[7], needed = 0;
+  for (size_t p = 0; p < n_passes; ++p) {
+    const Pass& ps = passes[p];
+    pw[p] = w > ps.x0 ? (w - ps.x0 + ps.dx - 1) / ps.dx : 0;
+    ph[p] = h > ps.y0 ? (h - ps.y0 + ps.dy - 1) / ps.dy : 0;
+    if (pw[p] && ph[p]) needed += ph[p] * ((pw[p] * bits + 7) / 8 + 1);
+  }
+  // checked before any allocation: the output is then bounded by the input
+  if (size < needed) {
+    result.error = "not enough image data";
     return result;
   }
-  png_structp png =
-      png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-  png_infop info = png ? png_create_info_struct(png) : nullptr;
-  if (!png || !info) {
-    if (png) png_destroy_read_struct(&png, &info, nullptr);
-    result.error = "libpng init failed";
-    return result;
-  }
-  std::vector<png_bytep> rows;
-  if (setjmp(png_jmpbuf(png))) {
-    png_destroy_read_struct(&png, &info, nullptr);
-    result.error = "libpng decode error";
-    return result;
-  }
-
-  PngReadState state{bytes, size, 0};
-  png_set_read_fn(png, &state, png_read_from_memory);
-  png_read_info(png, info);
-
-  png_uint_32 w = png_get_image_width(png, info);
-  png_uint_32 h = png_get_image_height(png, info);
-  int bit_depth = png_get_bit_depth(png, info);
-  int color_type = png_get_color_type(png, info);
-
-  if (color_type == PNG_COLOR_TYPE_PALETTE) png_set_palette_to_rgb(png);
-  if (bit_depth < 8) png_set_expand_gray_1_2_4_to_8(png);
-  if (png_get_valid(png, info, PNG_INFO_tRNS)) png_set_tRNS_to_alpha(png);
-
-  if (want_depth) {
-    // keep 16-bit; PNG is big-endian on the wire
-    if (bit_depth == 16) png_set_swap(png);
-  } else {
-    if (bit_depth == 16) png_set_strip_16(png);
-    png_set_strip_alpha(png);
-  }
-  png_read_update_info(png, info);
-
-  size_t rowbytes = png_get_rowbytes(png, info);
-  std::vector<unsigned char> raw(rowbytes * h);
-  rows.resize(h);
-  for (png_uint_32 y = 0; y < h; ++y) rows[y] = raw.data() + y * rowbytes;
-  png_read_image(png, rows.data());
-  png_read_end(png, nullptr);
-
-  int channels = static_cast<int>(png_get_channels(png, info));
-  png_destroy_read_struct(&png, &info, nullptr);
-
-  result.width = w;
-  result.height = h;
-  if (want_depth) {
-    if (channels != 1 || rowbytes != w * 2) {
-      result.error = "depth PNG is not 16-bit single channel";
-      return result;
-    }
-    result.pixels = std::move(raw);
-    result.ok = true;
-    return result;
-  }
-
-  result.pixels.resize(static_cast<size_t>(w) * h);
-  if (channels == 1) {
-    for (png_uint_32 y = 0; y < h; ++y) {
-      std::memcpy(result.pixels.data() + static_cast<size_t>(y) * w,
-                  raw.data() + y * rowbytes, w);
-    }
-  } else if (channels == 3 || channels == 4) {
-    // BT.601 luma, fixed point, matching OpenCV's RGB2GRAY coefficients
-    // (R*4899 + G*9617 + B*1868 + 8192) >> 14
-    for (png_uint_32 y = 0; y < h; ++y) {
-      const unsigned char* src = raw.data() + y * rowbytes;
-      unsigned char* dst = result.pixels.data() + static_cast<size_t>(y) * w;
-      for (png_uint_32 x = 0; x < w; ++x) {
-        const unsigned char* p = src + x * channels;
-        uint32_t luma = 4899u * p[0] + 9617u * p[1] + 1868u * p[2] + 8192u;
-        dst[x] = static_cast<unsigned char>(luma >> 14);
+  result.pixels.resize(w * h * (want_depth ? 2 : 1));
+  uint8_t* gray = result.pixels.data();
+  uint16_t* depth = reinterpret_cast<uint16_t*>(result.pixels.data());
+  std::vector<uint8_t> lines;
+  size_t offset = 0;
+  for (size_t p = 0; p < n_passes; ++p) {
+    const Pass& ps = passes[p];
+    if (pw[p] == 0 || ph[p] == 0) continue;
+    size_t rowbytes = (pw[p] * bits + 7) / 8;
+    lines.assign(ph[p] * rowbytes, 0);
+    for (size_t y = 0; y < ph[p]; ++y) {
+      const uint8_t* src = data + offset + y * (rowbytes + 1);
+      uint8_t* row = lines.data() + y * rowbytes;
+      std::memcpy(row, src + 1, rowbytes);
+      if (!unfilter_row(src[0], row, y ? row - rowbytes : nullptr, rowbytes, bpp)) {
+        result.error = "bad adaptive filter value";
+        return result;
       }
     }
-  } else {
-    result.error = "unsupported channel count";
-    return result;
+    offset += ph[p] * (rowbytes + 1);
+    for (size_t y = 0; y < ph[p]; ++y) {
+      const uint8_t* row = lines.data() + y * rowbytes;
+      size_t base = (ps.y0 + y * ps.dy) * w + ps.x0;
+      if (want_depth) {  // 16-bit gray, checked by the caller
+        for (size_t x = 0; x < pw[p]; ++x)
+          depth[base + x * ps.dx] = static_cast<uint16_t>(sample(row, x, 0, 1, 16));
+        continue;
+      }
+      unsigned shift = bit_depth == 16 ? 8 : 0;
+      for (size_t x = 0; x < pw[p]; ++x) {
+        uint8_t v;
+        if (color_type == 0) {
+          unsigned s = sample(row, x, 0, 1, bit_depth);
+          // png_set_expand_gray_1_2_4_to_8 replicates the bits
+          v = static_cast<uint8_t>(bit_depth < 8 ? s * (255u / ((1u << bit_depth) - 1))
+                                                 : s >> shift);
+        } else if (color_type == 4) {
+          v = static_cast<uint8_t>(sample(row, x, 0, 2, bit_depth) >> shift);
+        } else if (color_type == 3) {
+          const uint8_t* rgb = palette + 3 * sample(row, x, 0, 1, bit_depth);
+          v = luma(rgb[0], rgb[1], rgb[2]);
+        } else {  // 2 or 6
+          v = luma(sample(row, x, 0, ch, bit_depth) >> shift,
+                   sample(row, x, 1, ch, bit_depth) >> shift,
+                   sample(row, x, 2, ch, bit_depth) >> shift);
+        }
+        gray[base + x * ps.dx] = v;
+      }
+    }
   }
   result.ok = true;
   return result;
 }
 
 PyObject* decode_common(PyObject* args, bool want_depth) {
-  Py_buffer buf;
-  if (!PyArg_ParseTuple(args, "y*", &buf)) return nullptr;
-
+  Py_buffer buf, plte{};
+  unsigned long w, h;
+  int bit_depth, color_type, interlace;
+  if (want_depth) {
+    if (!PyArg_ParseTuple(args, "y*kkiii", &buf, &w, &h, &bit_depth, &color_type,
+                          &interlace))
+      return nullptr;
+  } else if (!PyArg_ParseTuple(args, "y*kkiiiy*", &buf, &w, &h, &bit_depth,
+                               &color_type, &interlace, &plte)) {
+    return nullptr;
+  }
+  size_t ch = channels_of(color_type);
+  bool valid = ch != 0 && w > 0 && h > 0 && w <= 1000000 && h <= 1000000 &&
+               (bit_depth == 8 || bit_depth == 16 ||
+                ((color_type == 0 || color_type == 3) &&
+                 (bit_depth == 1 || bit_depth == 2 || bit_depth == 4))) &&
+               !(color_type == 3 && bit_depth == 16) && (interlace == 0 || interlace == 1) &&
+               (!want_depth || (color_type == 0 && bit_depth == 16));
   DecodeResult result;
-  Py_BEGIN_ALLOW_THREADS
-  result = decode(static_cast<const unsigned char*>(buf.buf),
-                  static_cast<size_t>(buf.len), want_depth);
-  Py_END_ALLOW_THREADS
+  if (valid) {
+    Py_BEGIN_ALLOW_THREADS
+    result = decode(static_cast<const uint8_t*>(buf.buf), static_cast<size_t>(buf.len), w, h,
+                    bit_depth, color_type, interlace,
+                    static_cast<const uint8_t*>(plte.buf), static_cast<size_t>(plte.len),
+                    want_depth);
+    Py_END_ALLOW_THREADS
+  } else {
+    result.error = want_depth ? "depth PNG is not 16-bit single channel"
+                              : "unsupported PNG header";
+  }
   PyBuffer_Release(&buf);
+  if (!want_depth) PyBuffer_Release(&plte);
 
   if (!result.ok) {
     PyErr_SetString(PyExc_ValueError, result.error.c_str());
@@ -169,15 +247,14 @@ PyObject* decode_common(PyObject* args, bool want_depth) {
       reinterpret_cast<const char*>(result.pixels.data()),
       static_cast<Py_ssize_t>(result.pixels.size()));
   if (!bytes) return nullptr;
-  return Py_BuildValue("(Nkk)", bytes, static_cast<unsigned long>(result.height),
-                       static_cast<unsigned long>(result.width));
+  return Py_BuildValue("(Nkk)", bytes, h, w);
 }
 
-PyObject* py_decode_gray(PyObject*, PyObject* args) {
+PyObject* py_unfilter_gray(PyObject*, PyObject* args) {
   return decode_common(args, /*want_depth=*/false);
 }
 
-PyObject* py_decode_depth(PyObject*, PyObject* args) {
+PyObject* py_unfilter_depth(PyObject*, PyObject* args) {
   return decode_common(args, /*want_depth=*/true);
 }
 
@@ -291,10 +368,10 @@ PyObject* py_reduce_ingest(PyObject*, PyObject* args) {
 }
 
 PyMethodDef methods[] = {
-    {"decode_gray_u8", py_decode_gray, METH_VARARGS,
-     "Decode PNG bytes to (u8 luma bytes, h, w)."},
-    {"decode_depth_u16", py_decode_depth, METH_VARARGS,
-     "Decode 16-bit PNG bytes to (u16 bytes, h, w)."},
+    {"unfilter_gray_u8", py_unfilter_gray, METH_VARARGS,
+     "Unfilter an inflated PNG stream to (u8 luma bytes, h, w)."},
+    {"unfilter_depth_u16", py_unfilter_depth, METH_VARARGS,
+     "Unfilter an inflated 16-bit gray PNG stream to (u16 bytes, h, w)."},
     {"reduce_ingest", py_reduce_ingest, METH_VARARGS,
      "Reduce [T,H,W] u8 intensity + u16 depth to level L (u16 sums, "
      "subsampled depth)."},

@@ -49,9 +49,11 @@ def load_tum_image_pair(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Load one RGB + depth PNG pair in the reference's conventions.
 
-    Prefers the native C++ decoder (``dvo_slam_tpu_torch.native``, the
-    analog of the reference's OpenCV C++ loading path); falls back to cv2
-    where it could not be built (``native.build_error()`` says why).
+    Prefers the native decoder (``dvo_slam_tpu_torch.native``, the analog
+    of the reference's OpenCV C++ loading path: the standard library's
+    zlib and a g++-built extension, no image library); falls back to cv2,
+    as the reference does, only where the extension could not be built
+    (no ``g++`` or Python headers; ``native.build_error()`` says why).
     """
     from .. import native
 

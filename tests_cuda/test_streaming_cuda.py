@@ -4,16 +4,18 @@
 intrinsics and config, 10 noisy frames) on the card against the same call
 on the CPU (the plain version): accept, divergence and force flags equal on
 every frame, poses within 1e-4; the dual matches run the batched kernel and
-the bootstrap the one-stream kernel, the plain version never.  The native
-ingest extension builds into the package's ``build/`` directory (or its
-build error is recorded).  The CLI runs the streaming engine with the
-default device, the card.
+the bootstrap the one-stream kernel, the plain version never.  The CLI
+runs the streaming engine with the default device, the card.  The native
+ingest extension builds into the package's ``build/`` directory (it needs
+no libpng), the ingest reduction takes it, and the port's writer's files
+decode through it with each scanline filter.
 """
 
 import contextlib
 import io
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -22,10 +24,11 @@ import torch
 from dvo_slam_tpu_torch import native
 from dvo_slam_tpu_torch.cli import benchmark
 from dvo_slam_tpu_torch.config import GraphConfig, KeyframeConfig, SlamConfig, TrackerConfig
+from dvo_slam_tpu_torch.models import streaming
 from dvo_slam_tpu_torch.models.streaming import StreamingSLAM
 from dvo_slam_tpu_torch.ops import fused_kernels
 from dvo_slam_tpu_torch.ops.camera import Intrinsics
-from dvo_slam_tpu_torch.utils import synthetic
+from dvo_slam_tpu_torch.utils import dataset, synthetic, synthetic_tum
 
 pytestmark = pytest.mark.cuda
 
@@ -75,12 +78,36 @@ def test_frontend_on_the_card_matches_the_cpu():
 
 
 def test_native_build_lands_in_the_package_build_directory():
+    """The extension needs g++ and the Python headers alone, so it builds on
+    the card's machine; the ingest reduction and the dataset loader take
+    it, not their NumPy and cv2 fallbacks."""
     build = os.path.join(os.path.dirname(os.path.dirname(native.__file__)), "build")
-    if native.native_available():
-        assert os.path.dirname(native.library_path()) == build
-        assert os.path.exists(native.library_path())
-    else:  # no g++/libpng here: the NumPy and cv2 fallbacks run, and say why
-        assert native.build_error()
+    assert native.build_error() is None, native.build_error()
+    assert os.path.dirname(native.library_path()) == build
+    assert os.path.exists(native.library_path())
+    iu8, du16 = _raw(2)
+    i_out, d_out = streaming.host_reduce_ingest(iu8, du16, 1)
+    assert streaming.host_reduce_ingest.last_path == "native", \
+        streaming.host_reduce_ingest.last_reason
+    i_ref, d_ref = streaming.reduce_ingest_numpy(iu8, du16, 1)
+    assert np.array_equal(i_out, i_ref) and np.array_equal(d_out, d_ref)
+
+
+def test_the_writers_five_filters_decode_on_the_card_host(tmp_path, monkeypatch):
+    """Files of the port's writer, one per scanline filter and one cycling
+    all five, decode bit-equal through ``load_tum_image_pair`` with the
+    native decoder (``import cv2`` is made to fail)."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    iu8, du16 = _raw(1)
+    for filters in (0, 1, 2, 3, 4, "cycle"):
+        rgb, dep = str(tmp_path / f"rgb{filters}.png"), str(tmp_path / f"depth{filters}.png")
+        synthetic_tum._write_png(rgb, np.repeat(iu8[0][..., None], 3, axis=-1), filters)
+        synthetic_tum._write_png(dep, du16[0], filters)
+        gray, depth, valid = dataset.load_tum_image_pair(rgb, dep)
+        assert np.array_equal(gray, iu8[0].astype(np.float32)), filters
+        assert np.array_equal(valid, du16[0] > 0), filters
+        assert np.array_equal(depth, np.where(valid, du16[0].astype(np.float32) / 5000.0,
+                                              0.0)), filters
 
 
 def test_cli_streaming_on_the_default_device(tmp_path):
