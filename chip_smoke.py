@@ -7,8 +7,9 @@ Run from the repository root, with no arguments:
 
 Phases, in order; any failure raises and the script exits non-zero.
 Every solve runs the IRLS loop in chunks of K steps (``dense_tracker
-.CHUNK_STEPS``), one CUDA graph replay and one host read per chunk (the
-pixel-sharded path of phase 6 stays eager at K = 1).  A step past a
+.CHUNK_STEPS``; the pixel-sharded level ``sharded_alignment.CHUNK_STEPS``,
+its NCCL all-reduces captured), one CUDA graph replay and one host read
+per chunk.  A step past a
 level's ``done`` is inert but still launches, so wherever a phase below
 holds a kernel's launches (or the modular evaluations) to solver
 iterations, it holds them to the executed steps: per level K *
@@ -72,11 +73,17 @@ iterations themselves are printed beside them.
    the same counts as phase 4.
 6. Sharded paths: a one-rank NCCL process group (``file://`` rendezvous
    in a temporary directory) and its mesh.  The pixel-sharded matcher on
-   the first 20 easy pairs from the identity: each pair within 5e-3 of
-   the ground truth (max |log(T_gt^-1 T)|), each of the sharded
-   evaluation's three kernels launched once per solver iteration, and
+   the first 20 easy pairs from the identity, each level's chunks CUDA
+   graph replays with the two all-reduces captured: each pair within 5e-3
+   of the ground truth (max |log(T_gt^-1 T)|), each of the sharded
+   evaluation's three kernels launched once per executed step, and
    ``dvo_fused_partials``, the statistics kernels and
-   ``warp_and_sample_cm`` not at all.  With
+   ``warp_and_sample_cm`` not at all; the group's graph keys built.  The
+   same pairs with ``dense_tracker.CUDA_GRAPHS`` off: every level's carry
+   and iterations and every result bit-equal.  After the checks below,
+   ``shutdown()`` drops the group's keys and no other, and a new group
+   (``initialize()``, a new key generation) solves the first pair to the
+   same bits.  With
    mu = 0, where the sharded and single paths coincide, one pair against
    ``match_pyramids``: per-level iterations and terminations equal,
    estimate within 1e-4, information within rtol 2e-3 / atol 1e-3.  The
@@ -84,8 +91,9 @@ iterations themselves are printed beside them.
    call) against ``match_pyramids`` pair by pair: level statistics equal,
    estimates within 1e-5 and information within 1e-5 of its largest entry
    (the batched 6x6 solve's tolerance); the pairs that are not bit-equal
-   are counted.  Prints ms per iteration and pairs/s of the sharded path and
-   of ``match_pyramids`` on the same 20 pairs; after phase 10 (so that no
+   are counted.  Prints ms per iteration and pairs/s of the sharded path
+   under graphs and eagerly and of ``match_pyramids`` on the same 20
+   pairs; after phase 10 (so that no
    profiler is attached to the timed phases) the device kernels per
    iteration of both under ``torch.profiler``
    (``tools/sharded_bench.kernels_per_iteration``).
@@ -276,8 +284,11 @@ that their frames/s compare with phase 4's:
    the final pass's solves printed, none falling back, kernel 1b launched
    as often as the validation waves' executed steps and no other kernel;
    then ``tools/final_pass_profile`` and ``tools/cg_iteration_stats
-   --sizes 512 --gn-steps 4`` (CG on the card): finite rounds and chi2.
-   Prints the phase's seconds.
+   --sizes 512 --gn-steps 4`` (CG on the card): finite rounds and chi2;
+   the CG loop in chunks of ``pose_graph.CG_CHUNK_STEPS`` steps, each
+   chunk a CUDA graph replay, against the same loop run eagerly: equal
+   iterations and x bit-equal at every GN step; ms per CG iteration and
+   host reads per GN step of both printed.  Prints the phase's seconds.
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
@@ -863,51 +874,85 @@ def _synchronized_seconds(fn):
     return out, time.perf_counter() - t0
 
 
+def _result_bits(results):
+    """Per result the bytes of its transformation, information and
+    negative log-likelihood, and its level statistics."""
+    return [(tuple(t.cpu().numpy().tobytes()
+                   for t in (r.transformation, r.information, r.neg_log_likelihood)),
+             [(int(s.valid_constraints), s.iterations, int(s.termination)) for s in r.level_stats])
+            for r in results]
+
+
+def _same_results(a, b) -> bool:
+    return _result_bits(a) == _result_bits(b)
+
+
 def check_sharded(cfg, intrinsics, frames, poses):
     """Phase 6: the pixel-sharded and pair-parallel matchers on a one-rank
-    NCCL process group.  Returns the sharded run's launches of the folded
-    partials kernel and the phase's summary."""
+    NCCL process group; the sharded level under CUDA graphs against its
+    eager loop, then again after ``shutdown()`` and ``initialize()``.
+    Returns the graph run's launches of the folded partials kernel and the
+    phase's summary."""
     import dataclasses
     import tempfile
 
     import torch
 
+    from dvo_slam_tpu_torch.models import irls_graph
     from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
     from dvo_slam_tpu_torch.ops import fused_kernels
     from dvo_slam_tpu_torch.ops.pyramid import PyramidLevel
     from dvo_slam_tpu_torch.parallel import distributed, mesh as mesh_lib, sharded_alignment
+    from dvo_slam_tpu_torch.tools import graph_check
     from dvo_slam_tpu_torch.tools.fused_check import require
 
     device = frames[0][cfg.first_level].intensity.device
     eye = torch.eye(4, dtype=torch.float32, device=device)
     pairs = [(frames[k], frames[k + 1]) for k in range(SHARDED_PAIRS)]
+    chunk = sharded_alignment.CHUNK_STEPS
     with tempfile.TemporaryDirectory() as store:
         distributed.initialize(init_method=f"file://{store}/rendezvous", world_size=1,
                                rank=0, backend="nccl")
         try:
             mesh = mesh_lib.make_mesh(1)
             require(mesh.device.type == "cuda", f"the mesh's rank runs on {mesh.device}")
+            group = irls_graph.group_key()
             run = sharded_alignment.make_pixel_sharded_matcher(cfg, intrinsics, mesh)
-            run(*pairs[0], eye)  # warm-up (the communicator), not counted
+            for graphs in (True, False):  # warm-up (the communicator, the captures), not counted
+                with graph_check.loop_mode(graphs):
+                    run(*pairs[0], eye)
 
-            # the sharded path, with every kernel count at 0
+            # the sharded path under graphs, with every kernel count at 0
             _reset_counts()
-            results, sharded_s = _synchronized_seconds(lambda: [run(r, c, eye) for r, c in pairs])
+            with graph_check.sharded_recording() as levels:
+                results, sharded_s = _synchronized_seconds(
+                    lambda: [run(r, c, eye) for r, c in pairs])
             partials_launches = fused_kernels.warp_fused_partials_cuda.launches
             stats_launches = _launches()
             sharded_launches = {name: stats_launches.pop(name) for name in SHARDED_KERNELS}
             del stats_launches["table_copy"]
             iterations = sum(s.iterations for r in results for s in r.level_stats)
-            require(all(count == iterations > 0 for count in sharded_launches.values()),
-                    f"sharded launches {sharded_launches} != solver iterations {iterations}")
+            steps = sum(graph_check.counts([s], chunk)[1] for _, s, _ in levels)
+            require(all(count == steps > 0 for count in sharded_launches.values()),
+                    f"sharded launches {sharded_launches} != executed steps {steps}")
             require(not any(stats_launches.values()),
                     "the sampled-input partials kernel, a statistics kernel or "
                     f"warp_and_sample_cm ran on the sharded path: {stats_launches}")
+            keys = [k for k in irls_graph._cache if k[1] == "sharded"]
+            require(keys and all(group in k for k in keys),
+                    f"the sharded level built no graph key of the group: {keys}")
             errors = [
                 _pose_error(np.linalg.inv(poses[k]) @ poses[k + 1], r.transformation)
                 for k, r in enumerate(results)
             ]
             require(max(errors) < POSE_GATE, f"sharded pose errors {errors} (gate {POSE_GATE})")
+
+            # the same pairs with the level's chunks run eagerly: the same bits
+            with graph_check.loop_mode(False), graph_check.sharded_recording() as eager_levels:
+                eager, eager_s = _synchronized_seconds(lambda: [run(r, c, eye) for r, c in pairs])
+            parted = graph_check.differences(levels, eager_levels)
+            require(not parted, f"sharded graphs vs eager: {parted[:5]}")
+            require(_same_results(results, eager), "sharded results under graphs != eager")
 
             # match_pyramids on the same pairs, for the time per iteration
             singles, single_s = _synchronized_seconds(
@@ -960,13 +1005,31 @@ def check_sharded(cfg, intrinsics, frames, poses):
                             f"pair-parallel pair {b} level stats differ")
             require(wave_err <= WAVE_ATOL,
                     f"pair-parallel estimates {wave_err} from match_pyramids (tolerance {WAVE_ATOL})")
+            others = [k for k in irls_graph._cache if group not in k]
+        finally:
+            distributed.shutdown()
+        left = list(irls_graph._cache)
+        require(left == others, f"shutdown left {[k for k in left if k not in others]} or "
+                f"dropped {[k for k in others if k not in left]}")
+
+        # a new group: a new generation of keys, the same bits
+        distributed.initialize(init_method=f"file://{store}/again", world_size=1, rank=0,
+                               backend="nccl")
+        try:
+            require(irls_graph.group_key() != group, "initialize did not start a new generation")
+            again = sharded_alignment.make_pixel_sharded_matcher(
+                cfg, intrinsics, mesh_lib.make_mesh(1))(*pairs[0], eye)
+            require(_same_results([again], results[:1]),
+                    "the sharded pair after shutdown and initialize != the first run's")
         finally:
             distributed.shutdown()
     summary = {
-        "pairs": SHARDED_PAIRS, "max_pose_err": max(errors),
-        "solver_iterations": iterations, "sharded_launches": sharded_launches,
-        "other_launches": stats_launches,
+        "pairs": SHARDED_PAIRS, "max_pose_err": max(errors), "chunk": chunk,
+        "solver_iterations": iterations, "executed_steps": steps,
+        "sharded_launches": sharded_launches, "other_launches": stats_launches,
+        "graph_keys": len(keys), "graphs_bit_equal_eager": True, "after_restart_bit_equal": True,
         "sharded_ms_per_iteration": 1000.0 * sharded_s / iterations,
+        "sharded_eager_ms_per_iteration": 1000.0 * eager_s / iterations,
         "sharded_pairs_per_s": SHARDED_PAIRS / sharded_s,
         "single_ms_per_iteration": 1000.0 * single_s / single_iterations,
         "single_pairs_per_s": SHARDED_PAIRS / single_s,
@@ -2074,7 +2137,8 @@ def check_backend_scale():
     """Phase 19: the reference's back-end probes on the card at a cut
     size: ``backend_scale_probe`` at 40 keyframes x 7 frames (60x80; past
     the auto policy's 128 vertices), ``final_pass_profile`` and
-    ``cg_iteration_stats`` at its smallest default size.  Returns (kernel 1b
+    ``cg_iteration_stats`` at its smallest default size, its CG under CUDA
+    graphs and eagerly (the same iterations and bits).  Returns (kernel 1b
     launches, the summary)."""
     import contextlib
     import io
@@ -2113,6 +2177,10 @@ def check_backend_scale():
             f"phase 19: final pass rounds {rounds}")
     require(len(cg["cg_iterations_per_gn_step"]) == PROBE_GN_STEPS and
             np.isfinite(cg["auto_chi2_history"]).all(), f"phase 19: CG stats {cg}")
+    runs = cg["runs"]
+    require(runs["graphs_equal_eager"] and runs["graphs"]["cg_iterations_per_gn_step"]
+            == runs["eager"]["cg_iterations_per_gn_step"],
+            f"phase 19: CG under graphs != eager: {runs}")
     summary = {
         "backend_scale_probe": {"feed": first, "final": second, "seconds": probe_s,
                                 "kernel_1b_steps": steps["batched_steps"],

@@ -584,20 +584,36 @@ def _graph_level(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level
     """The chunked loop of one level on the card, each chunk one replay of
     a CUDA graph (``irls_graph``); the same returns as ``_irls_level``,
     bit for bit."""
-    start = (x0, T0, initial0, precision0)
     key = (
         backend, level_shape, chunk, collect_stats, tuple(intrinsics),
-        tuple((tuple(t.shape), t.dtype) for t in inputs + start),
+        tuple((tuple(t.shape), t.dtype) for t in inputs + (x0, T0, initial0, precision0)),
         cfg.max_iterations_per_level, cfg.precision, cfg.mu, cfg.use_weighting,
         cfg.influence_function, cfg.influence_function_param, cfg.scale_estimator,
         cfg.depth_buffered_sampling,
     )
+    return graph_irls_level(
+        cfg, lambda static: _evaluation(cfg, backend, intrinsics, level_shape, static),
+        key, _COUNTERS, inputs, x0, T0, initial0, precision0, collect_stats, chunk,
+    )
+
+
+def graph_irls_level(cfg: TrackerConfig, make_evaluate, key: tuple, counters, inputs,
+                     x0, T0, initial0, precision0, collect_stats: bool, chunk: int):
+    """The runner of a level's chunked loop as CUDA graphs: the head and
+    tail graphs of ``key`` (``irls_graph``) over static copies of
+    ``inputs`` and the start values, ``make_evaluate(static inputs) ->
+    evaluate`` building the step's evaluation on those copies, and one
+    read of the carry after each replay.  ``counters`` are the (object,
+    attribute) launch counts that a step moves: a replay adds what its
+    capture would have added.  Returns what ``_irls_level`` returns with
+    the same evaluation on ``inputs``, bit for bit."""
+    start = (x0, T0, initial0, precision0)
     level_inputs = len(inputs)
 
     def program(static, state):
         """One chunk over the static buffers: the level's start (``state``
         None: the head) or its continuation (the tail)."""
-        evaluate = _evaluation(cfg, backend, intrinsics, level_shape, static[:level_inputs])
+        evaluate = make_evaluate(static[:level_inputs])
         x, T, initial, precision = static[level_inputs:]
         consts = _constants(cfg, x)
         if state is None:
@@ -611,12 +627,12 @@ def _graph_level(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level
 
     graphs = irls_graph.graphs_for(key, torch.device(x0.device))
     with graphs.lock:
-        graphs.load(inputs + start)
-        state = graphs.run_head(program, _COUNTERS)
+        graphs.load(tuple(inputs) + start)
+        state = graphs.run_head(program, counters)
         steps = chunk
         done, iterations = _read_back(_Carry(*state[:_CARRY_FIELDS]), chunk, steps)
         while not done:
-            state = graphs.run_tail(_COUNTERS)
+            state = graphs.run_tail(counters)
             steps += chunk
             done, iterations = _read_back(_Carry(*state[:_CARRY_FIELDS]), chunk, steps)
         out = tuple(t.clone() for t in state)

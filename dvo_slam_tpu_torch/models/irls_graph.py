@@ -31,9 +31,19 @@ The cache is bounded (``CACHE_BYTES``, the captures' pools and the static
 buffers of the keys it holds): past it, the least recently used keys that
 no thread is solving are dropped, and a key that comes back is captured
 anew.  ``release()`` drops every key, for a process that is done with the
-card.  No tracker calls it: the cache serves every tracker of the process,
-and the driver resets its SLAM between timed runs, which would then
-capture every key again inside each run.
+card, and ``release(where=...)`` the keys that match.  No tracker calls it:
+the cache serves every tracker of the process, and the driver resets its
+SLAM between timed runs, which would then capture every key again inside
+each run.
+
+The same cache serves the multi-rank loops (the pixel-sharded IRLS level,
+block-CG), whose graphs hold NCCL collectives: a captured collective keeps
+its communicator baked in.  Their keys carry ``group_key(group)``: the
+group's backend, size and rank, and the generation that each
+``parallel.distributed.initialize`` starts (``new_generation``), so that a
+group made after another never replays the other's graphs; and
+``parallel.distributed.shutdown`` releases the group's keys before it
+destroys the group.
 
 Threads: the keyframe graph's worker solves validation waves while the
 tracker solves its matches, both on the device's default stream.
@@ -58,9 +68,10 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 # The cache's bound: the bytes that its keys' captures added to the reserved
 # memory plus their static buffers.  A full driver run holds less (PERF.md,
@@ -72,6 +83,31 @@ _lock = threading.RLock()  # warm-ups, captures, replay enqueues, counts, the ca
 _cache: "OrderedDict[tuple, LevelGraphs]" = OrderedDict()  # least recently used first
 _evicted = [0]  # keys dropped to keep the cache within CACHE_BYTES
 _capture_streams: Dict[int, torch.cuda.Stream] = {}
+_generation = [0]  # process groups started by parallel.distributed.initialize
+
+
+def new_generation():
+    """A new process group was started: the keys ``group_key`` gives from
+    now on differ from every earlier group's."""
+    _generation[0] += 1
+
+
+def group_key(group=None) -> tuple:
+    """The part of a graph key that names a process group (None: the
+    default group): its backend, size, rank and generation."""
+    return ("group", str(dist.get_backend(group)), dist.get_world_size(group),
+            dist.get_rank(group), _generation[0])
+
+
+def graph_group(device, group=None, enabled: bool = True) -> Optional[tuple]:
+    """How a loop with ``group``'s collectives runs on ``device``, chosen up
+    front: as CUDA graphs on the card with graphs ``enabled`` over NCCL
+    (then the group part of its keys, ``group_key``), else eagerly (None):
+    on the CPU, with graphs off, or over gloo, whose collectives are host
+    code that a graph cannot hold."""
+    if torch.device(device).type != "cuda" or not enabled or dist.get_backend(group) != "nccl":
+        return None
+    return group_key(group)
 
 
 def _capture_stream(device: torch.device) -> torch.cuda.Stream:
@@ -168,8 +204,9 @@ class LevelGraphs:
                 graph.capture_end()
             except RuntimeError:
                 pass  # the capture is void; the program's own error names the op
+            loop = "CG" if self.key[1] == "cg" else "IRLS"
             raise RuntimeError(
-                f"capturing the IRLS chunk as a CUDA graph failed (key {self.key}): {exc}"
+                f"capturing the {loop} chunk as a CUDA graph failed (key {self.key}): {exc}"
             ) from exc
         graph.capture_end()
         after = _read_counters(counters)
@@ -218,7 +255,7 @@ def graphs_for(key: tuple, device: torch.device) -> LevelGraphs:
 def _drop(victims):
     """Free keys taken out of the cache, each under its lock (held by the
     caller), after the devices finish what they have queued."""
-    for index in {g.device.index for g in victims}:
+    for index in {g.device.index for g in victims if g.device.type == "cuda"}:
         torch.cuda.synchronize(index)
     for g in victims:
         g.drop()
@@ -245,12 +282,15 @@ def _evict(keep: LevelGraphs):
     _evicted[0] += len(victims)
 
 
-def release():
-    """Drop every key: its graphs, their pool and its static buffers (each
-    once no thread is solving it).  A later solve captures anew."""
+def release(where: Optional[Callable[[tuple], bool]] = None):
+    """Drop every key, or those whose key (the caller's, without the
+    device) ``where`` holds for: its graphs, their pool and its static
+    buffers (each once no thread is solving it).  A later solve captures
+    anew."""
     with _lock:
-        graphs = list(_cache.values())
-        _cache.clear()
+        graphs = [g for full, g in _cache.items() if where is None or where(full[1:])]
+        for g in graphs:
+            del _cache[g.key]
     for g in graphs:
         with g.lock:
             _drop([g])

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops import se3
+from . import dense_tracker, irls_graph
 
 CAUCHY_DELTA = 5.0  # reference: keyframe_graph.cpp:845 (setDelta(5))
 GAUGE_DAMPING = 1e-6  # numerical-safety floor of every solver's damping
@@ -102,8 +103,8 @@ def assemble_blocks(n, ei, ej, H_ii, H_ij, H_jj, b_i, b_j):
     H.index_put_((ej, ei), H_ij.transpose(-1, -2), accumulate=True)
     H.index_put_((ej, ej), H_jj, accumulate=True)
     b = torch.zeros((n, 6), dtype=b_i.dtype, device=b_i.device)
-    b.index_add_(0, ei, b_i)
-    b.index_add_(0, ej, b_j)
+    _scatter_add(b, ei, b_i)
+    _scatter_add(b, ej, b_j)
     return H, b
 
 
@@ -175,13 +176,25 @@ def _masked_sum(values, mask):
 def _gradient(graph: GraphArrays, b_i, b_j):
     """The per-vertex gradient [N, 6] of the per-edge blocks."""
     b = torch.zeros((graph.poses.shape[0], 6), dtype=b_i.dtype, device=b_i.device)
-    b.index_add_(0, graph.edge_i, b_i)
-    b.index_add_(0, graph.edge_j, b_j)
+    _scatter_add(b, graph.edge_i, b_i)
+    _scatter_add(b, graph.edge_j, b_j)
     return b
 
 
 def _vdot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def _scatter_add(out, index, src):
+    """``out[index[e]] += src[e]`` along dim 0, in place.  On the CPU
+    ``index_add_``, which adds in edge order.  On the card the sort-based
+    ``index_put_(accumulate=True)``: it adds each row's entries in edge
+    order too, where ``index_add_``'s atomics add them in whatever order
+    they land, so that two runs of a solve (a CUDA graph and its eager
+    loop) give the same bits."""
+    if out.is_cuda:
+        return out.index_put_((index,), src, accumulate=True)
+    return out.index_add_(0, index, src)
 
 
 # ------------------------------------------------------------ block CG
@@ -198,8 +211,8 @@ def block_diag_preconditioner(n, ei, ej, H_ii, H_jj, free, dtype, damping=GAUGE_
     eye = torch.eye(6, dtype=dtype, device=H_ii.device)
     freef = free.to(dtype)
     D = torch.zeros((n, 6, 6), dtype=dtype, device=H_ii.device)
-    D.index_add_(0, ei, H_ii)
-    D.index_add_(0, ej, H_jj)
+    _scatter_add(D, ei, H_ii)
+    _scatter_add(D, ej, H_jj)
     if all_reduce is not None:
         D = all_reduce(D)
     D = D * freef[:, None, None] + (1.0 - freef)[:, None, None] * eye
@@ -217,8 +230,8 @@ def edge_matvec_partial(ei, ej, H_ii, H_ij, H_jj, free, x):
     yi = torch.einsum("eab,eb->ea", H_ii, xi) + torch.einsum("eab,eb->ea", H_ij, xj)
     yj = torch.einsum("eba,eb->ea", H_ij, xi) + torch.einsum("eab,eb->ea", H_jj, xj)
     y = torch.zeros_like(x)
-    y.index_add_(0, ei, yi)
-    y.index_add_(0, ej, yj)
+    _scatter_add(y, ei, yi)
+    _scatter_add(y, ej, yj)
     return y * freef
 
 
@@ -237,56 +250,165 @@ def edge_matvec(ei, ej, H_ii, H_ij, H_jj, free, x, damping=GAUGE_DAMPING):
     return edge_matvec_partial(ei, ej, H_ii, H_ij, H_jj, free, x) + _gauge_terms(x, free, damping)
 
 
+# K, the CG steps between two host reads of the loop's ``active`` flag on
+# the card (on the CPU: 1, one read per iteration as the keyframe graph's
+# host solves always did).  PERF.md §6: K = 8 ran fastest in the sweep on the card.
+CG_CHUNK_STEPS = 8
+
+
+def _precond(L, r):
+    """The block-Jacobi preconditioner's solve (L L^T)^-1 r per vertex, as
+    the reference's two triangular solves (``torch.cholesky_solve`` goes
+    through MAGMA on the card, which a CUDA graph cannot capture)."""
+    y = torch.linalg.solve_triangular(L, r[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
+
+
+def _live_edges(ei, ej, H_ii, H_ij, H_jj):
+    """The edges with a nonzero entry in one of their three blocks (a NaN
+    counts as nonzero), in their order."""
+    def nonzero(H):
+        return (H != 0).flatten(1).any(dim=1)
+
+    live = nonzero(H_ii) | nonzero(H_ij) | nonzero(H_jj)
+    return tuple(t[live] for t in (ei, ej, H_ii, H_ij, H_jj))
+
+
+def _cg_active(k, r, iterations: int, stop2):
+    """The reference's loop condition, on the device: (k < iterations) and
+    |r|^2 > stop2."""
+    return (k < iterations) & (_vdot(r, r) > stop2)
+
+
+def _cg_chunk(matvec, L, carry, steps: int, iterations: int, stop2):
+    """``steps`` CG iterations from ``carry`` = (x, r, z, p, rz, k,
+    active); a step taken where ``active`` is false leaves the carry as it
+    was, so K steps then one read give the result of K = 1."""
+    x, r, z, p, rz, k, active = carry
+    for _ in range(steps):
+        Hp = matvec(p)
+        alpha = rz / torch.clamp(_vdot(p, Hp), min=1e-30)
+        x_new = x + alpha * p
+        r_new = r - alpha * Hp
+        z_new = _precond(L, r_new)
+        rz_new = _vdot(r_new, z_new)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p_new = z_new + beta * p
+        x, r, z, p, rz, k = (torch.where(active, new, old) for new, old in zip(
+            (x_new, r_new, z_new, p_new, rz_new, k + 1), (x, r, z, p, rz, k)))
+        active = _cg_active(k, r, iterations, stop2)
+    return x, r, z, p, rz, k, active
+
+
+def _cg_graph_group(device, all_reduce):
+    """How a CG solve runs, chosen up front: None for the eager loop (the
+    CPU, ``dense_tracker.CUDA_GRAPHS`` off, or a reduction that is not a
+    NCCL group's), else the group part of its graph key (``()`` without
+    a reduction).  A reduction names its group in ``group``
+    (``parallel/distributed_ba``'s does); one that does not runs eagerly."""
+    if all_reduce is None:
+        on_card = torch.device(device).type == "cuda" and dense_tracker.CUDA_GRAPHS
+        return () if on_card else None
+    if not hasattr(all_reduce, "group"):
+        return None
+    return irls_graph.graph_group(device, all_reduce.group, dense_tracker.CUDA_GRAPHS)
+
+
 def solve_blocks_cg(
     n, ei, ej, H_ii, H_ij, H_jj, rhs, free, iterations: int = 100, tol: float = 1e-6,
     damping=GAUGE_DAMPING, return_iterations: bool = False, all_reduce=None,
+    chunk: Optional[int] = None,
 ):
     """Preconditioned conjugate gradients on the block-sparse gauged normal
     equations ``rhs`` [N, 6] (the replacement for the dense [6N, 6N]
     Cholesky on large graphs; O(E) per iteration).  Stops after
-    ``iterations`` or once |r| <= tol |rhs|; one read of |r|^2 per
-    iteration.
+    ``iterations`` or once |r| <= tol |rhs|.
+
+    The reference's ``lax.while_loop`` carries (x, r, z, p, rz, k) and its
+    condition on the device, and so does this loop: it runs K steps
+    (``chunk``; by default ``CG_CHUNK_STEPS`` on the card, 1 on the CPU)
+    between two host reads of (active, k), each step inert once the
+    condition fails, so every K gives the K = 1 result bit for bit (one
+    read before the first step, then one per chunk).  On the card each
+    chunk is one CUDA graph replay (``irls_graph``), the reduction's
+    all-reduce captured in it where it is a NCCL group's
+    (``_cg_graph_group``); elsewhere the same chunks run eagerly.
 
     With ``all_reduce`` (a function that sums a tensor over the ranks) the
     edge arrays are this rank's shard and ``rhs`` is already summed: each
     iteration sums ONE [N, 6] partial product over the ranks (the
     reference's ``axis_name`` form), and every rank holds the same
-    iterate, so all take the same stopping decision."""
+    iterate, so all take the same stopping decision.
+
+    Edges whose three blocks are all zero (the unused slots of a graph's
+    edge storage, masked out by ``edge_blocks``) add nothing to any sum and
+    are dropped first (one host read per solve): on the card they would
+    all land on one vertex, whose contributions the deterministic scatter
+    (``_scatter_add``) adds one after another."""
     dtype = rhs.dtype
     rhs = rhs * free.to(dtype)[:, None]
+    ei, ej, H_ii, H_ij, H_jj = _live_edges(ei, ej, H_ii, H_ij, H_jj)
     L = block_diag_preconditioner(n, ei, ej, H_ii, H_jj, free, dtype, damping, all_reduce)
-    if all_reduce is None:
-        def matvec(v):
-            return edge_matvec(ei, ej, H_ii, H_ij, H_jj, free, v, damping)
-    else:
+    if chunk is None:
+        chunk = CG_CHUNK_STEPS if rhs.is_cuda else 1
+    stop2 = tol * tol * torch.clamp(_vdot(rhs, rhs), min=1e-30)
+    r = rhs  # b - H @ 0
+    z = _precond(L, r)
+    k = torch.zeros((), dtype=torch.int64, device=rhs.device)
+    carry = (torch.zeros_like(rhs), r, z, z, _vdot(r, z), k, _cg_active(k, r, iterations, stop2))
+
+    def matvec_on(ei, ej, H_ii, H_ij, H_jj, free):
+        if all_reduce is None:
+            return lambda v: edge_matvec(ei, ej, H_ii, H_ij, H_jj, free, v, damping)
+
         def matvec(v):
             part = edge_matvec_partial(ei, ej, H_ii, H_ij, H_jj, free, v)
             return all_reduce(part) + _gauge_terms(v, free, damping)
 
-    def precond(r):
-        return torch.cholesky_solve(r[..., None], L)[..., 0]
+        return matvec
 
-    x = torch.zeros_like(rhs)
-    r = rhs  # b - H @ 0
-    z = precond(r)
-    p = z
-    rz = _vdot(r, z)
-    stop2 = tol * tol * torch.clamp(_vdot(rhs, rhs), min=1e-30)
-    k = 0
-    while k < iterations and bool(_vdot(r, r) > stop2):
-        Hp = matvec(p)
-        alpha = rz / torch.clamp(_vdot(p, Hp), min=1e-30)
-        x = x + alpha * p
-        r = r - alpha * Hp
-        z = precond(r)
-        rz_new = _vdot(r, z)
-        beta = rz_new / torch.clamp(rz, min=1e-30)
-        p = z + beta * p
-        rz = rz_new
-        k += 1
+    edges = (ei, ej, H_ii, H_ij, H_jj, free)
+    group = _cg_graph_group(rhs.device, all_reduce)
+    active, k = _cg_read(carry)  # the reference's condition before its first step
+    if active and group is None:
+        matvec = matvec_on(*edges)
+        while active:
+            carry = _cg_chunk(matvec, L, carry, chunk, iterations, stop2)
+            active, k = _cg_read(carry)
+    elif active:
+        carry, k = _graph_cg(edges, L, stop2, carry, matvec_on, chunk, iterations, damping, group)
     if return_iterations:
-        return x, k
-    return x
+        return carry[0], k
+    return carry[0]
+
+
+def _cg_read(carry):
+    """The loop's one host read per chunk: (active, k)."""
+    active, k = torch.stack((carry[6].to(torch.int64), carry[5])).tolist()
+    return bool(active), k
+
+
+def _graph_cg(edges, L, stop2, carry, matvec_on, chunk: int, iterations: int, damping, group):
+    """The CG loop on the card, each chunk one replay of a CUDA graph: the
+    head chunk from the static copy of the start ``carry``, the tail from
+    the state buffers.  Returns (the final carry, cloned; k)."""
+    static = tuple(edges) + (L, stop2) + tuple(carry)
+    solve = len(edges)  # static[solve]: L; static[solve + 1]: stop2
+
+    def program(static, state):
+        start = static[solve + 2:] if state is None else state
+        return _cg_chunk(matvec_on(*static[:solve]), static[solve], start, chunk, iterations,
+                         static[solve + 1])
+
+    key = ("cg", group, chunk, iterations, damping,
+           tuple((tuple(t.shape), t.dtype) for t in static))
+    graphs = irls_graph.graphs_for(key, L.device)
+    with graphs.lock:
+        graphs.load(static)
+        active, k = _cg_read(graphs.run_head(program, ()))
+        while active:
+            active, k = _cg_read(graphs.run_tail(()))
+        return tuple(t.clone() for t in graphs.state), k
 
 
 # ------------------------------------------------------------ Schur chains
@@ -519,8 +641,8 @@ def schur_chain_solve(struct: ChainStructure, n, H_ii, H_ij, H_jj, b, free,
     S.index_put_((seg_b, seg_a), -corr_b[..., :6], accumulate=True)
     S.index_put_((seg_b, seg_b), Dq[rows, seg_len] * segw - corr_b[..., 6:12], accumulate=True)
     rhs_seg = torch.zeros((s_count, 6), dtype=dtype, device=device)
-    rhs_seg.index_add_(0, seg_a, -corr_a[..., 12])
-    rhs_seg.index_add_(0, seg_b, -corr_b[..., 12])
+    _scatter_add(rhs_seg, seg_a, -corr_a[..., 12])
+    _scatter_add(rhs_seg, seg_b, -corr_b[..., 12])
     if all_reduce is not None:
         S = all_reduce(S)
         rhs_seg = all_reduce(rhs_seg)
@@ -546,10 +668,10 @@ def schur_chain_solve(struct: ChainStructure, n, H_ii, H_ij, H_jj, b, free,
         - torch.einsum("gkab,gb->gka", X[..., 6:12], x_sep[seg_b])
     ) * valid_t[..., None]
     dx = torch.zeros((n, 6), dtype=dtype, device=device)
-    dx.index_add_(0, seg_vert.reshape(-1), x_int.reshape(-1, 6))
+    _scatter_add(dx, seg_vert.reshape(-1), x_int.reshape(-1, 6))
     if all_reduce is not None:
         dx = all_reduce(dx)
-    dx.index_add_(0, sep_ids, x_sep)
+    _scatter_add(dx, sep_ids, x_sep)
     return dx * freef[:, None]
 
 

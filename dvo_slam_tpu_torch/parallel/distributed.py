@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..models import irls_graph
 from .mesh import rank_device
 
 
@@ -33,7 +34,9 @@ def initialize(
     rank runs on its card (``mesh.rank_device``) and raises where none is
     visible; only ``device="cpu"`` starts a CPU rank.  The backend is
     ``nccl`` for a card and ``gloo`` for the CPU, unless it is named; a
-    rank on a card first makes it the current device."""
+    rank on a card first makes it the current device.  Each group started
+    here is a new generation of ``irls_graph.group_key``: no CUDA graph of
+    an earlier group is replayed on it."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     if init_method is None:
@@ -55,12 +58,20 @@ def initialize(
     dist.init_process_group(
         backend, init_method=init_method, world_size=world_size, rank=rank
     )
+    irls_graph.new_generation()
     return world_size > 1
 
 
 def shutdown() -> None:
-    """Destroy the process group, if one is initialised."""
+    """Destroy the process group, if one is initialised.  First the CUDA
+    graphs captured over it (the pixel-sharded level's and block-CG's,
+    whose collectives keep its communicator baked in) are released, once
+    the card has finished what it queued."""
     if dist.is_initialized():
+        tag = irls_graph.group_key()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        irls_graph.release(where=lambda key: tag in key)
         dist.destroy_process_group()
 
 

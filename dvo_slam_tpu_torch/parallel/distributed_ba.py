@@ -56,12 +56,16 @@ def _on_mesh(graph: pg.GraphArrays, mesh: Mesh) -> pg.GraphArrays:
 
 
 def _all_reduce(mesh: Mesh):
-    """A function that sums a tensor over the mesh's ranks."""
+    """A function that sums a tensor over the mesh's ranks; its ``group``
+    tells ``pose_graph.solve_blocks_cg`` which group it reduces over, so
+    that on the card over NCCL the CG loop's reduction is captured in its
+    CUDA graphs."""
     def reduce(x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         dist.all_reduce(x, group=mesh.group)
         return x
 
+    reduce.group = mesh.group
     return reduce
 
 
@@ -121,7 +125,10 @@ def distributed_gauss_newton_cg(graph: pg.GraphArrays, mesh: Mesh, iterations: i
     """Edge-sharded GN whose solve is distributed block-CG: the Hessian is
     never formed; each CG iteration sums one [N, 6] partial product over
     the ranks, and each GN iteration the gradient, chi2 and one
-    [N, 6, 6] preconditioner.  Returns (graph, chi2_history)."""
+    [N, 6, 6] preconditioner.  On the card over NCCL the CG loop runs as
+    chunked CUDA graphs with that all-reduce captured, one host read per
+    chunk (``pose_graph.solve_blocks_cg``); over gloo, eagerly.  Returns
+    (graph, chi2_history)."""
     _check_axis(mesh, axis)
     g = _on_mesh(graph, mesh)
     local = _edge_shard(g, mesh)

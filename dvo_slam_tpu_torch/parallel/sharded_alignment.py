@@ -21,8 +21,19 @@
          that scalar;
       3. ``dvo_sharded_tail``: the log-likelihood and the normal equations;
     then, replicated in PyTorch, the smoothing, the 6x6 solve, termination
-    and revert.  So three launches, two collectives and one host read-back
-    (``done``) per iteration.  The launches take 256 pixels per block in
+    and revert.  So three launches and two collectives per iteration.  The
+    level runs the reference's device loop as ``dense_tracker``'s does: in
+    chunks of K steps (``CHUNK_STEPS``) with one host read of ``done``
+    after each, K * ceil(iterations / K) executed steps, each one
+    evaluation.  How a chunk runs is chosen up front from the device and
+    the group's backend (``irls_graph.graph_group``), never by trying: on the
+    card over NCCL each chunk is one CUDA graph replay
+    (``dense_tracker.graph_irls_level``, with the two all-reduces captured
+    in it; the keys carry the group, and ``distributed.shutdown``
+    releases them); on the CPU, over gloo (whose collectives are host code
+    and cannot be captured, as when two ranks share a card) or with
+    ``dense_tracker.CUDA_GRAPHS`` off, the same chunks run eagerly.  The
+    launches take 256 pixels per block in
     clusters of 8 blocks (the tracker's evaluation takes 512), so that a
     rank's share of a level still fills the card; a pixel of the shard
     moves at most 152 bytes (28 of the refpack, 112 of the quad table, 12
@@ -53,6 +64,7 @@ import torch.distributed as dist
 
 from ..config import TrackerConfig
 from ..models import dense_tracker as dt
+from ..models import irls_graph
 from ..models.dense_tracker import LevelStats, TrackingResult, match_prepared, prepare_frame
 from ..ops import fused_kernels, se3
 from ..ops.camera import Intrinsics
@@ -65,22 +77,53 @@ def _check_mesh(mesh: Mesh, axis: str):
         raise ValueError(f"mesh axis is {mesh.axis!r}, not {axis!r}")
 
 
+# K, the steps of the pixel-sharded level's loop between two reads of
+# ``done``: one, as the tracker's (PERF.md §6: the sweep on the card).
+CHUNK_STEPS = 1
+
+# the sharded evaluation's launch counts: a graph replay adds what its
+# capture would have added
+_COUNTERS = (
+    (fused_kernels.warp_fused_partials_cuda, "launches"),
+    (fused_kernels.sharded_loglik_cuda, "launches"),
+    (fused_kernels.sharded_tail_cuda, "launches"),
+)
+
+
 def _match_level_sharded(cfg, intrinsics, mesh: Mesh, refpack, quad, shape, x0, T0, precision0):
     """One pyramid level of the pixel-sharded IRLS solve: ``refpack`` is
     this rank's pixel shard [8, N_local], ``quad`` the whole table.
     Returns (final carry, iterations)."""
     device = refpack.device
     dof = cfg.influence_function_param
+    chunk = CHUNK_STEPS
 
-    def evaluate(T, P_prev, first: bool):
-        """One IRLS evaluation with its two collectives: (c) always
-        depth-buffered, (d) by the device."""
-        return fused_kernels.warp_fused_partials(
-            refpack, quad, shape, intrinsics, T, P_prev, first, dof, group=mesh.group
-        )
+    def evaluation(refpack, quad):
+        def evaluate(T, P_prev, first: bool):
+            """One IRLS evaluation with its two collectives: (c) always
+            depth-buffered, (d) by the device."""
+            return fused_kernels.warp_fused_partials(
+                refpack, quad, shape, intrinsics, T, P_prev, first, dof, group=mesh.group
+            )
+
+        return evaluate
 
     identity = se3.identity(x0.dtype, device)  # (a)
-    carry, iterations, _ = dt._irls_level(cfg, evaluate, x0, T0, identity, precision0)
+    group = irls_graph.graph_group(device, mesh.group, dt.CUDA_GRAPHS)
+    if group is not None:
+        key = (
+            "sharded", group, tuple(shape), chunk, tuple(intrinsics),
+            tuple((tuple(t.shape), t.dtype) for t in (refpack, quad, x0, T0, identity, precision0)),
+            cfg.max_iterations_per_level, cfg.precision, cfg.mu, dof,
+        )
+        carry, iterations, _ = dt.graph_irls_level(
+            cfg, lambda static: evaluation(*static), key, _COUNTERS, (refpack, quad),
+            x0, T0, identity, precision0, False, chunk,
+        )
+    else:
+        carry, iterations, _ = dt._irls_level(
+            cfg, evaluation(refpack, quad), x0, T0, identity, precision0, chunk=chunk
+        )
     return carry, iterations
 
 

@@ -5,6 +5,7 @@ Run from the repository root (the card by default):
 
     python -m dvo_slam_tpu_torch.tools.cg_iteration_stats [--sizes 512,2048]
         [--gn-steps 8] [--loop-every 7] [--cap 8192] [--device cpu]
+        [--sweep 1,8,32,128] [--profile]
 
 The distributed block-CG back end (``parallel/distributed_ba``) pays one
 [N, 6] all-reduce per CG iteration, so the communication cost of a GN step
@@ -14,11 +15,20 @@ vertices with a robust loop closure every ``--loop-every`` vertices
 (keyframe_graph.cpp:257-281's dense graph), runs ``--gn-steps`` GN steps
 whose block-Jacobi preconditioned CG solve (tol 1e-6, at most ``--cap``
 iterations) runs in float64 on the device, as ``distributed_ba`` runs it,
-and records each step's CG iterations and the chi2 before it.  Then the
-``auto`` route on the same graph (host-pinned, the port's ``PoseGraph``):
-its Schur separator count, the route the reference's policy names and the
-one taken, its seconds and chi2 history.  One JSON line per size, the
-reference's keys plus the device and ``auto_route``.
+and records each step's CG iterations and the chi2 before it.  The CG
+loop reads (active, k) once per chunk of K steps (``pose_graph
+.CG_CHUNK_STEPS`` on the card, 1 on the CPU).  On the card the
+steps run twice, with each chunk a CUDA graph replay and eagerly
+(``dense_tracker.CUDA_GRAPHS`` off): for each, ms per CG iteration (the
+solve's time between two synchronises over its iterations, the
+preconditioner's set-up included) and host reads per GN step (the live
+edges' compaction and one per chunk), and whether
+the two runs gave the same iterations and bits.  With ``--sweep``, the
+graph run again at each K listed.  Then the ``auto`` route on the same
+graph (host-pinned, the port's ``PoseGraph``): its Schur separator count,
+the route the reference's policy names and the one taken, its seconds
+and chi2 history.  One JSON line per size, the reference's keys plus the
+device, the runs and ``auto_route``.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch
 from .. import default_device
 from ..models import pose_graph as pg
 from ..ops import se3
+from . import graph_check
 
 
 def _exp(xi):
@@ -68,19 +79,89 @@ def loopy_graph(n: int, loop_every: int):
     return g, n_loops
 
 
-def gn_step_counted(arrays: pg.GraphArrays, cap: int):
+def gn_step_counted(arrays: pg.GraphArrays, cap: int, chunk=None):
     """One GN step with the block-CG solve -> (arrays, CG iterations, chi2
-    before the step)."""
+    before the step, the solve's seconds between two synchronises, its
+    host reads, the step dx)."""
     H_ii, H_ij, H_jj, b_i, b_j, chi2 = pg.edge_blocks(arrays)
     nv = arrays.poses.shape[0]
     free = arrays.vertex_mask & ~arrays.fixed_mask
     b = torch.zeros((nv, 6), dtype=b_i.dtype, device=b_i.device)
-    b = b.index_add(0, arrays.edge_i, b_i).index_add(0, arrays.edge_j, b_j)
-    dx, k = pg.solve_blocks_cg(nv, arrays.edge_i, arrays.edge_j, H_ii, H_ij, H_jj, -b, free,
-                               iterations=cap, return_iterations=True)
+    pg._scatter_add(pg._scatter_add(b, arrays.edge_i, b_i), arrays.edge_j, b_j)
+    # the solve's host reads: the live edges' compaction, then one per chunk
+    reads, read, live = [], pg._cg_read, pg._live_edges
+    pg._cg_read = lambda carry: reads.append(1) or read(carry)
+    pg._live_edges = lambda *edges: reads.append(1) or live(*edges)
+    try:
+        _synchronize(b.device)
+        t0 = time.perf_counter()
+        dx, k = pg.solve_blocks_cg(nv, arrays.edge_i, arrays.edge_j, H_ii, H_ij, H_jj, -b, free,
+                                   iterations=cap, return_iterations=True, chunk=chunk)
+        _synchronize(b.device)
+        seconds = time.perf_counter() - t0
+    finally:
+        pg._cg_read, pg._live_edges = read, live
     dx = torch.where(free[:, None], dx, torch.zeros_like(dx))
     out = arrays._replace(poses=arrays.poses @ se3.exp_se3(dx))
-    return out, k, float(torch.sum(torch.where(arrays.edge_mask, chi2, torch.zeros_like(chi2))))
+    chi2 = float(torch.sum(torch.where(arrays.edge_mask, chi2, torch.zeros_like(chi2))))
+    return out, k, chi2, seconds, len(reads), dx
+
+
+def _synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cg_run(arrays: pg.GraphArrays, gn_steps: int, cap: int, chunk=None):
+    """``gn_steps`` GN steps from ``arrays``: per step the CG iterations,
+    chi2 before it, solve seconds, host reads and dx."""
+    steps = []
+    for _ in range(gn_steps):
+        arrays, *step = gn_step_counted(arrays, cap, chunk)
+        steps.append(step)
+    return steps
+
+
+def _summary(steps, chunk):
+    """A run's numbers: iterations per step, ms per CG iteration, host
+    reads per GN step."""
+    iterations = sum(s[0] for s in steps)
+    seconds = sum(s[2] for s in steps)
+    return {
+        "chunk": chunk,
+        "cg_iterations_per_gn_step": [s[0] for s in steps],
+        "cg_seconds": seconds,
+        "ms_per_cg_iteration": 1000.0 * seconds / iterations if iterations else None,
+        "host_reads_per_gn_step": [s[3] for s in steps],
+    }
+
+
+PROFILE_CAP = 256  # CG iterations of the profiled solve: enough for a per-iteration mean
+
+
+def kernel_profile(arrays: pg.GraphArrays, cap: int, chunk: int, top: int = 8):
+    """One GN step's CG solve, cut to ``PROFILE_CAP`` iterations, run
+    eagerly under ``torch.profiler``: its CG iterations, device ms per CG
+    iteration (the step's few kernels outside the loop included), and the
+    ``top`` kernels by device time per CG iteration (None where the
+    profiler records no device event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with graph_check.loop_mode(False):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, k, *_ = gn_step_counted(arrays, min(cap, PROFILE_CAP), chunk)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not by_name or not k:
+        return None
+    ranked = sorted(by_name.items(), key=lambda item: -item[1])[:top]
+    return {
+        "cg_iterations": k,
+        "device_ms_per_cg_iteration": sum(by_name.values()) / 1000.0 / k,
+        "top_kernels_ms_per_cg_iteration": [[name[:96], us / 1000.0 / k] for name, us in ranked],
+    }
 
 
 def main(argv=None):
@@ -93,18 +174,45 @@ def main(argv=None):
     ap.add_argument("--cap", type=int, default=8192)
     ap.add_argument("--device", default=None,
                     help="device of the CG solves (default: the card; 'cpu')")
+    ap.add_argument("--sweep", default="", help="more chunk sizes to time under graphs, e.g. 1,8,32")
+    ap.add_argument("--profile", action="store_true",
+                    help="device time per CG iteration by kernel, one eager GN step under torch.profiler")
     args = ap.parse_args(argv)
     device = default_device(args.device)
+    chunk = pg.CG_CHUNK_STEPS if device.type == "cuda" else 1
 
     records = []
     for n in [int(s) for s in args.sizes.split(",")]:
         g, n_loops = loopy_graph(n, args.loop_every)
         arrays = pg.GraphArrays(*(t.to(device) for t in g.to_arrays()))
-        counts, chi2s = [], []
-        for _ in range(args.gn_steps):
-            arrays, k, chi2 = gn_step_counted(arrays, args.cap)
-            counts.append(int(k))
-            chi2s.append(chi2)
+        modes = (True, False) if device.type == "cuda" else (False,)
+        runs = {}
+        for graphs in modes:
+            with graph_check.loop_mode(graphs):
+                runs["graphs" if graphs else "eager"] = cg_run(arrays, args.gn_steps, args.cap,
+                                                               chunk)
+        main_run = next(iter(runs.values()))
+        counts = [s[0] for s in main_run]
+        chi2s = [s[1] for s in main_run]
+        record_runs = {name: _summary(steps, chunk) for name, steps in runs.items()}
+        if len(runs) == 2:
+            record_runs["graphs_equal_eager"] = all(
+                a[0] == b[0] and torch.equal(a[4], b[4])
+                for a, b in zip(runs["graphs"], runs["eager"]))
+        chunks = [int(c) for c in args.sweep.split(",") if c]
+        sweep_runs = {k: [] for k in chunks}
+        for order in (chunks, chunks[::-1]):  # in turns, so that drift reaches every K alike
+            for k in order:
+                with graph_check.loop_mode(True):
+                    sweep_runs[k].append(cg_run(arrays, args.gn_steps, args.cap, k))
+        sweep = []
+        for k, both in sweep_runs.items():
+            row = _summary(both[0], k)
+            row["cg_seconds"] = float(np.mean([sum(s[2] for s in steps) for steps in both]))
+            row["ms_per_cg_iteration"] = 1000.0 * row["cg_seconds"] / sum(
+                row["cg_iterations_per_gn_step"])
+            sweep.append(row)
+        profile = kernel_profile(arrays, args.cap, chunk) if args.profile else None
 
         # the auto path on the same problem: chain elimination reduces the
         # loopy graph onto its separator set (loop-closure endpoints) and
@@ -130,6 +238,9 @@ def main(argv=None):
             "auto_wall_s": auto_s,
             "auto_chi2_history": [float(c) for c in hist],
             "device": str(device),
+            "runs": record_runs,
+            "sweep": sweep,
+            "profile": profile,
         }
         print(json.dumps(record), flush=True)
         records.append(record)

@@ -1,11 +1,16 @@
-"""Checks of the IRLS loop's CUDA graphs (``models/irls_graph``) against
-the eager loop, for ``tests_cuda/test_irls_graph_cuda.py`` and
-``chip_smoke.py`` phase 17.
+"""Checks of the device loops' CUDA graphs (``models/irls_graph``) against
+the eager loops, for ``tests_cuda/test_irls_graph_cuda.py``,
+``tests_cuda/test_sharded_graph_cuda.py`` and ``chip_smoke.py`` phases 6,
+17 and 19.
 
-  * ``loop_mode(graphs, chunk)``: run the card's loop with or without
-    graphs at K = ``chunk`` (the module settings are restored after);
+  * ``loop_mode(graphs, chunk=None, sharded=None)``: run the card's loops
+    (the tracker's, the pixel-sharded level's, block-CG's) with or without
+    graphs, the tracker's at K = ``chunk`` and the pixel-sharded level's
+    at K = ``sharded`` (None: as they are; the module settings are
+    restored after; block-CG takes its K as an argument);
   * ``recording()``: every level solve of the calling thread, with its
-    final carry, level statistics and trace;
+    final carry, level statistics and trace; ``sharded_recording()`` the
+    same for the pixel-sharded levels (carry and iterations);
   * ``differences(a, b)``: the fields in which two recordings part, bit
     for bit (NaNs by their bits);
   * ``counting_reads()``: the host reads of tensors (``bool``, ``tolist``
@@ -18,23 +23,33 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..models import dense_tracker
+from ..parallel import sharded_alignment
 
 _READS = ("__bool__", "item", "cpu", "numpy", "tolist", "__int__", "__float__", "__index__")
 
 
 @contextlib.contextmanager
-def loop_mode(graphs: bool, chunk: int):
-    """The card's IRLS loop as graphs (True) or eager, at K = ``chunk``."""
-    saved = dense_tracker.CUDA_GRAPHS, dense_tracker.CHUNK_STEPS
-    dense_tracker.CUDA_GRAPHS, dense_tracker.CHUNK_STEPS = graphs, chunk
+def loop_mode(graphs: bool, chunk: Optional[int] = None, sharded: Optional[int] = None):
+    """The card's device loops as graphs (True) or eager, the tracker's
+    IRLS loop at K = ``chunk`` and the pixel-sharded level's at K =
+    ``sharded`` (None leaves a K as it is)."""
+    modules = (dense_tracker, sharded_alignment)
+    saved = dense_tracker.CUDA_GRAPHS, [m.CHUNK_STEPS for m in modules]
+    dense_tracker.CUDA_GRAPHS = graphs
+    for module, value in zip(modules, (chunk, sharded)):
+        if value is not None:
+            module.CHUNK_STEPS = value
     try:
         yield
     finally:
-        dense_tracker.CUDA_GRAPHS, dense_tracker.CHUNK_STEPS = saved
+        dense_tracker.CUDA_GRAPHS = saved[0]
+        for module, value in zip(modules, saved[1]):
+            module.CHUNK_STEPS = value
 
 
 @contextlib.contextmanager
@@ -56,6 +71,34 @@ def recording():
         yield levels
     finally:
         dense_tracker._match_level = original
+
+
+class ShardedLevel(NamedTuple):
+    """What a pixel-sharded level returns beside its carry."""
+
+    iterations: int
+
+
+@contextlib.contextmanager
+def sharded_recording():
+    """Yields a list that collects (carry, ``ShardedLevel``, None) of each
+    pixel-sharded level that the calling thread solves while open, in the
+    form ``differences`` compares."""
+    levels = []
+    me = threading.get_ident()
+    original = sharded_alignment._match_level_sharded
+
+    def match_level(*args, **kwargs):
+        carry, iterations = original(*args, **kwargs)
+        if threading.get_ident() == me:
+            levels.append((carry, ShardedLevel(iterations), None))
+        return carry, iterations
+
+    sharded_alignment._match_level_sharded = match_level
+    try:
+        yield levels
+    finally:
+        sharded_alignment._match_level_sharded = original
 
 
 def _bits(t):

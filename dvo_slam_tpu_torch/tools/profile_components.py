@@ -20,6 +20,12 @@ distinct rendered frames cycled), and printed as one JSON object per line:
   partials     the fused-partials CUDA kernel and its plain twin, per level;
                also their device time per call under ``torch.profiler``
                (every kernel and copy the call puts on the card)
+  sharded      kernel 2's three folded launches as the pixel-sharded
+               evaluation makes them (``warp_fused_partials_cuda``,
+               ``sharded_loglik_cuda``, ``sharded_tail_cuda``; the whole
+               level as one rank's shard, so no all-reduce between them)
+               and their plain steps, per level, with the three launches'
+               device time per call
   level        one full IRLS level solve (``_match_level``, every iteration)
   match        the full coarse-to-fine ``match_pyramids``
 
@@ -156,6 +162,24 @@ def profile(reps: int):
         row["partials_plain_device_ms"] = device_ms(
             lambda i: fused_kernels.fused_partials_plain(*args(i)), reps)
 
+        def sharded_args(i):
+            ref, cur = prepared[i % FRAMES], prepared[(i + 1) % FRAMES]
+            return (ref.refpack[level], cur.quad[level], shape, k, T, P, False, dof)
+
+        def sharded(partials, loglik, tail):
+            return lambda i: tail(loglik(partials(*sharded_args(i))))
+
+        three = sharded(fused_kernels.warp_fused_partials_cuda, fused_kernels.sharded_loglik_cuda,
+                        fused_kernels.sharded_tail_cuda)
+        three_plain = sharded(fused_kernels.warp_fused_partials_plain,
+                              fused_kernels.sharded_loglik_plain, fused_kernels.sharded_tail_plain)
+        # one card, in turns: plain, kernels, kernels, plain
+        plain = [median_ms(three_plain, reps)]
+        kernel = [median_ms(three, reps) for _ in range(2)]
+        plain.append(median_ms(three_plain, reps))
+        row["sharded_kernels_ms"], row["sharded_plain_ms"] = min(kernel), min(plain)
+        row["sharded_kernels_device_ms"] = device_ms(three, reps)
+
         def level_solve(i):
             ref, cur = prepared[i % FRAMES], prepared[(i + 1) % FRAMES]
             _match_level(cfg, k, ref.sel[level], ref.refpack[level], cur.quad[level],
@@ -185,6 +209,9 @@ def table(rows) -> str:
                        ("partials_plain_ms", "partials, plain twin"),
                        ("partials_kernel_device_ms", "partials, CUDA kernel, device"),
                        ("partials_plain_device_ms", "partials, plain twin, device"),
+                       ("sharded_kernels_ms", "sharded evaluation, three kernels"),
+                       ("sharded_plain_ms", "sharded evaluation, plain steps"),
+                       ("sharded_kernels_device_ms", "sharded evaluation, three kernels, device"),
                        ("level_solve_ms", "one level solve")):
         lines.append(f"| {label} | " + " | ".join(f"{r[key]:.3f}" for r in levels) + " |")
     pyramid = next(r for r in rows if r["stage"] == "pyramid")["ms"]

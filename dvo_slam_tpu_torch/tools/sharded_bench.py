@@ -1,23 +1,31 @@
-"""ms per solver iteration of the pixel-sharded matcher against
-``match_pyramids`` on one rank (the timing of ``chip_smoke.py``'s phase 6,
-alone in its process).
+"""ms per solver iteration of the pixel-sharded matcher, under CUDA
+graphs and eagerly, against ``match_pyramids`` (the timing of
+``chip_smoke.py``'s phase 6, alone in its process).
 
 Run on a machine with a CUDA card, from the repository root:
 
     python -m dvo_slam_tpu_torch.tools.sharded_bench [--pairs 20] [--reps 3] [--world 1]
+        [--sweep 1,2,3,4]
 
 The pairs are consecutive frames of phase 6's easy sequence (640x480,
 ``TUM_FR1``, radius 0.05, rotation amplitude 0.02, seed 0), prepared on the
-card at ``benchmark_config().tracker``.  On a one-rank NCCL group, after one
-untimed pair through each path, every round times the sharded matcher and
-then ``match_pyramids`` over all pairs on the host clock, each ending in a
-synchronise.  Then, so that no profiler is attached to the timed rounds,
-the device kernels per solver iteration of both paths over three pairs
-under ``torch.profiler``.  Prints one JSON object per line: the device, one
-per round, the median of the rounds, the kernel counts.  With ``--world
-N`` the script starts N ranks of itself (``tcp://localhost`` rendezvous on
-a free port, rank r on card r over NCCL; ``--device cpu``: CPU ranks over
-gloo), every rank runs both paths, and rank 0 reports.
+card at ``benchmark_config().tracker``.  On a NCCL group, after one
+untimed pair through each path, every round times the sharded matcher with
+its level's chunks as CUDA graphs (the all-reduces captured), the same
+matcher eagerly (``dense_tracker.CUDA_GRAPHS`` off) and ``match_pyramids``
+over all pairs on the host clock, each ending in a synchronise.  Then the
+K sweep: the sharded matcher under graphs at each K of ``--sweep``
+(``sharded_alignment.CHUNK_STEPS``), one untimed pair first, then each
+round over all pairs: ms per iteration, executed steps and host reads.
+Then the graph cache's ``stats()``, and, so that no profiler is attached
+to the timed rounds, the device kernels per solver iteration of both
+paths over three pairs under ``torch.profiler`` (None where it records no
+device event).  Prints one JSON object per line: the device, one per
+round, the medians, the sweep, the cache, the kernel counts.  With
+``--world N`` the script starts N ranks of itself (``tcp://localhost``
+rendezvous on a free port, rank r on card r over NCCL, the captures on
+every rank; ``--device cpu``: CPU ranks over gloo, which run eagerly),
+every rank runs every path, and rank 0 reports.
 """
 
 from __future__ import annotations
@@ -34,11 +42,13 @@ import numpy as np
 import torch
 
 from .. import benchmark_config, default_device
-from ..models.dense_tracker import match_pyramids
+from ..models import irls_graph
+from ..models.dense_tracker import executed_steps, match_pyramids
 from ..odometry import build_frame, render_sequence, upload_sequence
 from ..ops.camera import TUM_FR1
 from ..parallel import distributed, mesh as mesh_lib, sharded_alignment
 from ..utils import synthetic
+from . import graph_check
 
 SHAPE = (480, 640)
 SEQUENCE_FRAMES = 100  # phase 6 takes its pairs from the head of this trajectory
@@ -76,13 +86,17 @@ def kernels_per_iteration(run):
 
 
 def bench(pairs: int, reps: int, device=None, profiled_pairs: int = 0, world: int = 1,
-          rank: int = 0, init_method=None):
-    """The rounds' summaries: seconds and ms per solver iteration of both
-    paths, with their iteration counts; with ``profiled_pairs``, a last
-    entry with both paths' device kernels per iteration over that many
-    pairs.  The card over NCCL unless the caller asks for the CPU (over
-    gloo), as the tests do.  One of ``world`` ranks when ``init_method``
-    names their rendezvous (rank r on card r); alone otherwise."""
+          rank: int = 0, init_method=None, sweep=(), cache_stats: bool = False):
+    """The rounds' summaries: seconds and ms per solver iteration of the
+    sharded path under graphs and eagerly and of ``match_pyramids``, with
+    their iteration counts; then one entry per K of ``sweep`` (the sharded
+    path under graphs at that K, the median of ``reps`` rounds); with
+    ``cache_stats``, the graph cache's stats before the group's shutdown
+    releases its keys; with ``profiled_pairs``, a last entry with both
+    paths' device kernels per iteration over that many pairs.  The card
+    over NCCL unless the caller asks for the CPU (over gloo), as the tests
+    do.  One of ``world`` ranks when ``init_method`` names their
+    rendezvous (rank r on card r); alone otherwise."""
     cfg = benchmark_config().tracker
     poses = synthetic.circular_trajectory(SEQUENCE_FRAMES, radius=0.05, rot_amplitude=0.02)
     intensity, depth = render_sequence(poses[:pairs + 1], SHAPE, TUM_FR1, seed0=0)
@@ -98,21 +112,49 @@ def bench(pairs: int, reps: int, device=None, profiled_pairs: int = 0, world: in
         try:
             run = sharded_alignment.make_pixel_sharded_matcher(
                 cfg, TUM_FR1, mesh_lib.make_mesh(world, device=device))
-            run(frames[0], frames[1], eye)  # warm-up (the communicator), not timed
+            sharded = lambda: [run(frames[k], frames[k + 1], eye) for k in range(pairs)]  # noqa: E731
+            for graphs in (True, False):  # warm-up (the communicator, the captures), not timed
+                with graph_check.loop_mode(graphs):
+                    run(frames[0], frames[1], eye)
             match_pyramids(cfg, TUM_FR1, frames[0], frames[1], eye)
             for _ in range(reps):
-                sharded, sharded_s = _timed(
-                    lambda: [run(frames[k], frames[k + 1], eye) for k in range(pairs)], device)
+                with graph_check.loop_mode(True):
+                    graphed, graph_s = _timed(sharded, device)
+                with graph_check.loop_mode(False):
+                    eager, eager_s = _timed(sharded, device)
                 single, single_s = _timed(lambda: [
                     match_pyramids(cfg, TUM_FR1, frames[k], frames[k + 1], eye)
                     for k in range(pairs)], device)
-                n_sharded, n_single = iterations(sharded), iterations(single)
+                n_sharded, n_eager, n_single = iterations(graphed), iterations(eager), iterations(single)
                 rounds.append({
-                    "pairs": pairs, "ranks": world, "sharded_s": sharded_s, "single_s": single_s,
-                    "sharded_iterations": n_sharded, "single_iterations": n_single,
-                    "sharded_ms_per_iteration": 1000.0 * sharded_s / n_sharded,
+                    "pairs": pairs, "ranks": world, "chunk": sharded_alignment.CHUNK_STEPS,
+                    "sharded_s": graph_s, "sharded_eager_s": eager_s, "single_s": single_s,
+                    "sharded_iterations": n_sharded, "sharded_eager_iterations": n_eager,
+                    "single_iterations": n_single,
+                    "sharded_ms_per_iteration": 1000.0 * graph_s / n_sharded,
+                    "sharded_eager_ms_per_iteration": 1000.0 * eager_s / n_eager,
                     "single_ms_per_iteration": 1000.0 * single_s / n_single,
                 })
+            for chunk in sweep:  # the captures of each K, not timed
+                with graph_check.loop_mode(True, sharded=chunk):
+                    run(frames[0], frames[1], eye)
+            timed = {chunk: [] for chunk in sweep}
+            for rep in range(reps):  # in turns: K forward, then backward
+                for chunk in (sweep if rep % 2 == 0 else sweep[::-1]):
+                    with graph_check.loop_mode(True, sharded=chunk):
+                        timed[chunk].append(_timed(sharded, device))
+            for chunk, runs in timed.items():
+                stats = [s for r in runs[0][0] for s in r.level_stats]
+                n = sum(s.iterations for s in stats)
+                seconds = float(np.median([t for _, t in runs]))
+                rounds.append({
+                    "sweep_chunk": chunk, "iterations": n,
+                    "executed_steps": executed_steps([s.iterations for s in stats], chunk),
+                    "host_reads": sum(-(-s.iterations // chunk) for s in stats),
+                    "seconds": seconds, "ms_per_iteration": 1000.0 * seconds / n,
+                })
+            if cache_stats:
+                rounds.append({"graph_cache": irls_graph.stats()})
             if profiled_pairs:
                 rounds.append({
                     "profiled_pairs": profiled_pairs,
@@ -136,7 +178,7 @@ def _launch_ranks(args) -> int:
         port = s.getsockname()[1]
     command = [sys.executable, "-m", "dvo_slam_tpu_torch.tools.sharded_bench",
                "--pairs", str(args.pairs), "--reps", str(args.reps), "--world", str(args.world),
-               "--init-method", f"tcp://localhost:{port}"]
+               "--sweep", args.sweep, "--init-method", f"tcp://localhost:{port}"]
     if args.device:
         command += ["--device", args.device]
     procs = [subprocess.Popen(command + ["--rank", str(rank)]) for rank in range(args.world)]
@@ -159,6 +201,8 @@ def main():
     ap.add_argument("--pairs", type=int, default=20)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--world", type=int, default=1, help="ranks, one process each")
+    ap.add_argument("--sweep", default="1,2,3,4",
+                    help="chunk sizes K of the sharded level under graphs ('' for none)")
     ap.add_argument("--device", default=None, help="'cpu' for CPU ranks over gloo")
     ap.add_argument("--rank", type=int, default=None, help="(set by the launcher)")
     ap.add_argument("--init-method", default=None, help="(set by the launcher)")
@@ -177,18 +221,22 @@ def main():
         ).stdout.strip().splitlines()
         print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
     profiled_pairs = min(3, args.pairs) if on_card else 0  # the profiler counts device kernels
+    sweep = [int(k) for k in args.sweep.split(",") if k]
     rounds = bench(args.pairs, args.reps, device=args.device, world=args.world, rank=rank,
-                   init_method=args.init_method, profiled_pairs=profiled_pairs)
+                   init_method=args.init_method, profiled_pairs=profiled_pairs, sweep=sweep,
+                   cache_stats=True)
     if rank != 0:
         return
-    profiled = rounds.pop() if profiled_pairs else None
+    timed = [r for r in rounds if "sharded_s" in r]
     for r in rounds:
-        print(json.dumps(r), flush=True)
-    print(json.dumps({key: float(np.median([r[key] for r in rounds]))
-                      for key in ("sharded_ms_per_iteration", "single_ms_per_iteration")}),
-          flush=True)
-    if profiled is not None:
-        print(json.dumps(profiled), flush=True)
+        if r in timed:
+            print(json.dumps(r), flush=True)
+    print(json.dumps({key: float(np.median([r[key] for r in timed])) for key in (
+        "sharded_ms_per_iteration", "sharded_eager_ms_per_iteration", "single_ms_per_iteration")}),
+        flush=True)
+    for r in rounds:
+        if r not in timed:
+            print(json.dumps(r), flush=True)
 
 
 if __name__ == "__main__":
