@@ -7,20 +7,26 @@ Run from the repository root, with no arguments:
 
 Phases, in order; any failure raises and the script exits non-zero.
 Every solve runs the IRLS loop in chunks of K steps (``dense_tracker
-.CHUNK_STEPS``; the pixel-sharded level ``sharded_alignment.CHUNK_STEPS``,
-its NCCL all-reduces captured), one CUDA graph replay and one host read
-per chunk.  A step past a
-level's ``done`` is inert but still launches, so wherever a phase below
-holds a kernel's launches (or the modular evaluations) to solver
+.CHUNK_STEPS``).  A tracker level is one launch of a CUDA graph that holds
+the whole ``while ~done`` loop (``csrc/while_graph.cu``: the head chunk,
+then a WHILE node around the tail chunk, its condition set on the card by
+``set_while``), with no host read; the pixel-sharded level
+(``sharded_alignment.CHUNK_STEPS``, its NCCL all-reduces captured) and
+block-CG replay one graph per chunk and read the host after each.  A step
+past a level's ``done`` is inert but still launches, so wherever a phase
+below holds a kernel's launches (or the modular evaluations) to solver
 iterations, it holds them to the executed steps: per level K *
 ceil(iterations / K), the slowest stream's iterations in lockstep; the
-iterations themselves are printed beside them.
+iterations themselves are printed beside them.  The while graphs count
+their chunks on the card (``set_while``), and the counts are folded into
+the launch counters when a phase reads them.
 
 1. Device: a CUDA card is required (there is no CPU fallback).  Prints
    its name and ``nvidia-smi``'s name and power limit.
 2. Build: ``nvcc`` builds ``dvo_slam_tpu_torch/csrc/fused_stats.cu`` (the
-   folded, sampled-input, batched and partials entry points) and
-   ``csrc/table_copy.cu`` from the checkout, both at once, and ``g++`` the
+   folded, sampled-input, batched and partials entry points),
+   ``csrc/table_copy.cu`` and ``csrc/while_graph.cu`` from the checkout,
+   the three at once, and ``g++`` the
    native ingest (``native/ingest.cpp``, no libpng) beside them, so that no
    timed phase pays a build; prints the build seconds and the compiler's
    report.
@@ -67,8 +73,9 @@ iterations themselves are printed beside them.
    u8/u16 frames through ``convert_raw_depth`` -> ``build_pyramid`` ->
    ``match_pyramids``.  The folded kernel's launch count must equal the
    number of solver iterations; the sampled-input kernels and
-   ``warp_and_sample_cm`` run 0 times.  Prints ATE-RMSE and tracked
-   frames/s.
+   ``warp_and_sample_cm`` run 0 times; every level one while-graph launch,
+   ``set_while`` once per executed chunk and no host read of ``done``
+   (``irls_reads_per_frame`` 0).  Prints ATE-RMSE and tracked frames/s.
 5. Hard scene: the occluded scene under a 30 cm loop; ATE-RMSE < 10 mm;
    the same counts as phase 4.
 6. Sharded paths: a one-rank NCCL process group (``file://`` rendezvous
@@ -107,7 +114,8 @@ iterations themselves are printed beside them.
    twin per stream as phase 3 holds it; times of kernel and twin at L1.
    Then the run: batched folded launches equal to the lockstep loop
    iterations, no one-stream or sampled-input launch and no
-   ``warp_and_sample_cm`` call, every stream's ATE-RMSE < 10 mm.  Prints
+   ``warp_and_sample_cm`` call, the levels as while graphs with no read of
+   ``done`` (as phase 4), every stream's ATE-RMSE < 10 mm.  Prints
    aggregate frames/s, ms per lockstep iteration, the max-over-streams
    iterations per level and the device's busy share (``torch.profiler``
    over 6 frames; null where the profiler records no device event).
@@ -184,10 +192,13 @@ that their frames/s compare with phase 4's:
    ATE < 10 mm, every graph solve's chi2 finite; in each run kernel 1's
    launches equal the bootstrap match's iterations and kernel 1b's the dual
    matches' plus the validation waves' lockstep iterations, no other
-   kernel.  Prints keyframes, loop edges, e2e frames/s (``slam_e2e_fps``'s
-   definition, ``bench.py:313-331``) and the front end's frames/s, the
-   back end's phase ms per frame, the pipelined run's split (front-end
-   runs, record feed, final pass) and the host read-backs per frame.  Then
+   kernel; every level of every run (the worker's waves too) a while graph
+   with no read of ``done``, so the record copy per chunk is the front
+   end's only read.  Prints keyframes, loop edges, e2e frames/s
+   (``slam_e2e_fps``'s definition, ``bench.py:313-331``) and the front
+   end's frames/s, the back end's phase ms per frame, the pipelined run's
+   split (front-end runs, record feed, final pass) and the host read-backs
+   per frame.  Then
    the slice's main path, ``cli.benchmark.main(["--synthetic", "20",
    "--engine", "streaming", "--timing", "--interactive-html", "graph.html",
    ...])`` at 480x640 on the card: exit 0, the report's ATE and RPE keys
@@ -247,16 +258,24 @@ that their frames/s compare with phase 4's:
    and the values agree within 1e-4 where both are valid;
    ``warp_depth_forward_advanced`` and ``compute_normals`` once each, finite
    where valid.  Prints the phase's seconds.
-17. The IRLS loop's CUDA graphs (``models/irls_graph``; run after phase
-   16), on phase 4's first 20 frames and 4 of phase 7's streams x 10
+17. The IRLS loop's forms on the card (``models/irls_graph``; run after
+   phase 16), on phase 4's first 20 frames and 4 of phase 7's streams x 10
    frames in lockstep: (a) the modular path (t-distribution and (Huber,
-   MAD)) under graphs at the card's K against the eager loop at K = 1,
-   (b) kernels 1 and 1b (``tools/chunk_sweep.sweep``): the eager loop,
-   then the graph loop at K = 1, 2, 3 and 4; every level's carry, level
-   statistics and counts bit-equal to the eager loop's.  Prints each
-   mode's frames/s, ms per iteration, executed steps and host reads per
-   frame, the graph cache (keys, graphs, capture ms, the captures' pool
-   bytes, the static buffers' bytes) and the phase's seconds.
+   MAD)) as while graphs and as host-polled graphs at the card's K against
+   the eager loop at K = 1, (b) kernels 1 and 1b (``tools/chunk_sweep
+   .sweep``): the eager loop, the host-polled graphs at K = 1, 2, 3 and 4
+   and the while graph, each twice, in turns; every level's carry, level
+   statistics and counts bit-equal to the eager loop's, and the while
+   graph reading nothing.  Prints each mode's frames/s, ms per iteration,
+   executed steps and host reads per frame, the node types of the head and
+   tail chunks (the while body's child graph), the graph cache (keys,
+   graphs, while graphs, capture ms, the captures' pool bytes, the static
+   buffers' bytes); then (c) ``set_while`` against its plain loop
+   (``tools/graph_check.set_while_check``: a loop of known length at 1, 2,
+   8 and 136 streams, the even streams done at the head; the tail chunks
+   counted and the final state equal; ms per step of a 1,000-step while
+   graph against the plain loop's host-read steps) and the phase's
+   seconds.
 18. A recorded sequence (run right after phase 14): phase 5's 100
    hard-scene frames written as a TUM RGB-D directory by the port's PNG
    writer (``tools/recorded_sequence.py``: R = G = B, 16-bit depth, every
@@ -294,7 +313,8 @@ The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
 plain version, kernel and plain ms at L1, the bound from this run's
 tensor sizes at the card's 3.35 TB/s and 67 TFLOP/s, and the one PyTorch
-call that computes the same function where there is one),
+call that computes the same function where there is one; ``set_while``
+with its runs in phases 4, 7 and 14 and its ms per loop step),
 ``nvidia-smi``'s name and power limit, then ``{"ok": true, "device":
 {...}}``.
 """
@@ -378,6 +398,8 @@ TEMPORAL_POSE_GATE = 1e-3  # tests/test_parallel.py: chunked vs sequential
 BUSY_FRAMES = 6
 BATCHED_REPLACES = "dvo_slam_tpu/ops/pallas_kernels.py:413"  # vmapped (multistream.py:217-227)
 COPY_SOURCE = "dvo_slam_tpu_torch/csrc/table_copy.cu"
+WHILE_SOURCE = "dvo_slam_tpu_torch/csrc/while_graph.cu"
+WHILE_REPLACES = "dvo_slam_tpu/models/dense_tracker.py:445"  # the level's lax.while_loop
 COPY_REPLACES = "tools/gather_probe.py:382"
 COPY_SHAPES = {"l1_table": (32, 76800), "ragged": (7, 1001), "chunk_straddle": (3, 2731),
                "beyond_l2": (32, 460800)}
@@ -879,7 +901,8 @@ def _result_bits(results):
     negative log-likelihood, and its level statistics."""
     return [(tuple(t.cpu().numpy().tobytes()
                    for t in (r.transformation, r.information, r.neg_log_likelihood)),
-             [(int(s.valid_constraints), s.iterations, int(s.termination)) for s in r.level_stats])
+             [(int(s.valid_constraints), int(s.iterations), int(s.termination))
+              for s in r.level_stats])
             for r in results]
 
 
@@ -931,7 +954,7 @@ def check_sharded(cfg, intrinsics, frames, poses):
             stats_launches = _launches()
             sharded_launches = {name: stats_launches.pop(name) for name in SHARDED_KERNELS}
             del stats_launches["table_copy"]
-            iterations = sum(s.iterations for r in results for s in r.level_stats)
+            iterations = sum(int(s.iterations) for r in results for s in r.level_stats)
             steps = sum(graph_check.counts([s], chunk)[1] for _, s, _ in levels)
             require(all(count == steps > 0 for count in sharded_launches.values()),
                     f"sharded launches {sharded_launches} != executed steps {steps}")
@@ -958,14 +981,14 @@ def check_sharded(cfg, intrinsics, frames, poses):
             singles, single_s = _synchronized_seconds(
                 lambda: [match_pyramids(cfg, intrinsics, r, c, eye) for r, c in pairs]
             )
-            single_iterations = sum(s.iterations for r in singles for s in r.level_stats)
+            single_iterations = sum(int(s.iterations) for r in singles for s in r.level_stats)
 
             # mu = 0: the sharded and single paths coincide by construction
             cfg0 = dataclasses.replace(cfg, mu=0.0)
             sharded0 = sharded_alignment.make_pixel_sharded_matcher(cfg0, intrinsics, mesh)(
                 *pairs[0], eye)
             single0 = match_pyramids(cfg0, intrinsics, *pairs[0], eye)
-            counts = lambda r: [(s.iterations, int(s.termination)) for s in r.level_stats]  # noqa: E731
+            counts = lambda r: [(int(s.iterations), int(s.termination)) for s in r.level_stats]  # noqa: E731
             require(counts(sharded0) == counts(single0),
                     f"mu=0 levels: sharded {counts(sharded0)} vs single {counts(single0)}")
             mu0_err = _pose_error(single0.transformation.cpu().numpy(), sharded0.transformation)
@@ -1001,7 +1024,7 @@ def check_sharded(cfg, intrinsics, frames, poses):
                     require([int(s_wave.valid_pixels[b]), int(s_wave.valid_constraints[b]),
                              int(s_wave.iterations[b]), int(s_wave.termination[b])]
                             == [int(s_one.valid_pixels), int(s_one.valid_constraints),
-                                s_one.iterations, int(s_one.termination)],
+                                int(s_one.iterations), int(s_one.termination)],
                             f"pair-parallel pair {b} level stats differ")
             require(wave_err <= WAVE_ATOL,
                     f"pair-parallel estimates {wave_err} from match_pyramids (tolerance {WAVE_ATOL})")
@@ -1162,13 +1185,12 @@ SHARDED_KERNELS = ("warp_fused_partials", "sharded_loglik", "sharded_tail")
 
 
 def _reset_counts():
-    """Every kernel's launch count, and warp_and_sample_cm's call count, to 0."""
-    from dvo_slam_tpu_torch.ops import residuals
+    """Every kernel's launch count, warp_and_sample_cm's and
+    compute_residuals' calls, the IRLS loop's ``done`` reads and the while
+    form's counts to 0 (the while graphs' launches folded in first)."""
     from dvo_slam_tpu_torch.tools import driver_launches
 
-    for wrapper in driver_launches.wrappers().values():
-        wrapper.launches = 0
-    residuals.warp_and_sample_cm.calls = 0
+    driver_launches.reset_counts()
 
 
 def _launches():
@@ -1194,11 +1216,39 @@ def _steps(level_stats):
     return sum(executed_steps(ls) for ls in level_stats)
 
 
-def _reads(level_stats):
-    """The IRLS loop's host reads for the same calls: one per chunk."""
-    from dvo_slam_tpu_torch.tools import graph_check
+def _done_reads():
+    """The IRLS loop's host reads of ``done`` since the last reset, in any
+    thread: the eager and host-polled forms read once per chunk, the while
+    graphs never."""
+    from dvo_slam_tpu_torch.models import dense_tracker
 
-    return graph_check.counts([s for ls in level_stats for s in ls], _chunk())[2]
+    return dense_tracker.read_done.calls
+
+
+def _require_while(iterations, what):
+    """The tracker levels of a run ran as while graphs: ``iterations`` holds
+    each level solve's iteration counts (a tensor per solve, its slowest
+    stream's taken).  Since the last reset (the counts folded by
+    ``_launches()``): one launch per level solve, ``set_while`` once per
+    executed chunk (its head's and each tail's), no read of ``done``.
+    Returns ``{"set_while_runs": n, "irls_done_reads": reads}``."""
+    from dvo_slam_tpu_torch.models import irls_graph
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    slowest = [int(it.max()) for it in iterations]
+    chunks = sum(-(-it // _chunk()) for it in slowest)
+    counts = irls_graph.while_counts
+    require(counts.launches == len(slowest) and counts.set_while == chunks > 0,
+            f"{what}: {counts.launches} while-graph launches for {len(slowest)} level solves, "
+            f"set_while ran {counts.set_while} times for {chunks} chunks")
+    reads = _done_reads()
+    require(reads == 0, f"{what}: {reads} host reads of the IRLS loop's done")
+    return {"set_while_runs": counts.set_while, "irls_done_reads": reads}
+
+
+def _iterations(level_stats):
+    """The per-level iteration tensors of an iterable of calls' level statistics."""
+    return [s.iterations for ls in level_stats for s in ls]
 
 
 def _require_only(counts, name, expected, what):
@@ -1215,7 +1265,7 @@ def _require_only(counts, name, expected, what):
 
 def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
     """Phase 7b: B streams in lockstep.  Returns the batched folded
-    kernel's launches and the phase's summary."""
+    kernel's launches, ``set_while``'s runs and the phase's summary."""
     from dvo_slam_tpu_torch.models import dense_tracker
     from dvo_slam_tpu_torch.parallel.multistream import make_multistream_tracker
     from dvo_slam_tpu_torch.tools.fused_check import require
@@ -1231,6 +1281,7 @@ def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
     slowest = tracks.iterations.amax(dim=0)  # [T-1, levels]
     steps = dense_tracker.executed_steps(slowest, _chunk())
     _require_only(counts, "warp_fused_stats_batched", steps, "lockstep")
+    while_7 = _require_while(list(slowest.flatten()), "phase 7")
     ates = stream_ates(tracks.poses.cpu().numpy(), gt)
     require(np.isfinite(ates).all() and max(ates) < STREAM_ATE_GATE_M,
             f"stream ATE-RMSE {ates} (gate {STREAM_ATE_GATE_M} m)")
@@ -1242,8 +1293,8 @@ def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
         "streams": streams, "frames": frames, "seconds": seconds,
         "aggregate_frames_per_s": fps, "single_stream_frames_per_s_phase4": single_fps,
         "lockstep_iterations": tracks.loop_iterations, "executed_steps": steps,
-        "chunk_steps": _chunk(), "launches": counts,
-        "irls_reads_per_frame": int((-(-slowest // _chunk())).sum()) / (frames - 1),
+        "chunk_steps": _chunk(), "launches": counts, "set_while_runs": while_7["set_while_runs"],
+        "irls_reads_per_frame": while_7["irls_done_reads"] / (frames - 1),
         "ms_per_lockstep_iteration": 1000.0 * seconds / tracks.loop_iterations,
         "levels": list(range(cfg.first_level, cfg.last_level - 1, -1)),
         "max_over_streams_iterations_per_level": iterations.max(axis=0).sum(axis=0).tolist(),
@@ -1252,7 +1303,7 @@ def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
         "busy_window_s": busy_wall,
     }
     print("phase 7:", json.dumps(summary), flush=True)
-    return batched, summary
+    return batched, while_7["set_while_runs"], summary
 
 
 def check_schedules(cfg, intrinsics, d_i, d_d):
@@ -1728,7 +1779,8 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     """Phase 14: ``StreamingSLAM`` (the scanned front end, its host-reduced
     ingest and the replayed back end) on phase 5's frames, pipelined and
     monolithic, against phase 13; then the benchmark CLI's streaming engine.
-    Returns ({run: (kernel 1 launches, kernel 1b launches)}, the summary)."""
+    Returns ({run: (kernel 1 launches, kernel 1b launches, set_while's
+    runs)}, the summary)."""
     import contextlib
     import io
     import tempfile
@@ -1833,7 +1885,8 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
                     hard_i, hard_d, stamps_gt, pipeline_chunk=STREAM_PIPELINE_CHUNK))
             finally:
                 streaming._ReplayFeeder.feed = feed
-            runs["pipelined"] = (_launches(), expected_launches("phase 14 pipelined"), list(calls))
+            runs["pipelined"] = (_launches(), expected_launches("phase 14 pipelined"), list(calls),
+                                 _require_while(_iterations(ls for _, ls in calls), "phase 14 pipelined"))
             ingest = {"level": slam.ingest_level, "path": streaming.host_reduce_ingest.last_path,
                       "why_not_native": streaming.host_reduce_ingest.last_reason,
                       "native_build_error": native.build_error()}
@@ -1850,7 +1903,8 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
             _reset_counts()
             (records, mono_online), seconds["monolithic_frontend"] = _synchronized_seconds(
                 lambda: mono.track_frontend(hard_i, hard_d))
-            runs["monolithic"] = (_launches(), expected_launches("phase 14 monolithic"), list(calls))
+            runs["monolithic"] = (_launches(), expected_launches("phase 14 monolithic"), list(calls),
+                                 _require_while(_iterations(ls for _, ls in calls), "phase 14 monolithic"))
             mono.graph.shutdown()
 
             # the CLI's streaming engine on the card, at the default 480x640,
@@ -1865,7 +1919,8 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
                                    "--timing", "--interactive-html", VIEWER_FILE,
                                    "--output-dir", out_dir])
                 cli_seconds = time.perf_counter() - t0
-                runs["cli"] = (_launches(), expected_launches("phase 14 CLI"), list(calls))
+                runs["cli"] = (_launches(), expected_launches("phase 14 CLI"), list(calls),
+                                 _require_while(_iterations(ls for _, ls in calls), "phase 14 CLI"))
                 report = json.loads(out.getvalue())
                 written = sorted(os.listdir(out_dir))
                 with open(os.path.join(out_dir, VIEWER_FILE)) as f:
@@ -1877,13 +1932,14 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     require(not fallbacks, f"phase 14: a graph solve fell back: {fallbacks}")
 
     launches = {}
-    for name, (counts, (one, batched), _) in runs.items():
+    for name, (counts, (one, batched), _, _) in runs.items():
         require(counts["warp_fused_stats"] == one > 0,
                 f"phase 14 {name}: kernel 1 launches {counts['warp_fused_stats']} != the "
                 f"bootstrap's executed steps {one}")
         _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
                       "warp_fused_stats_batched", batched, f"phase 14 {name}")
-        launches[name] = (counts["warp_fused_stats"], counts["warp_fused_stats_batched"])
+        launches[name] = (counts["warp_fused_stats"], counts["warp_fused_stats_batched"],
+                          runs[name][3]["set_while_runs"])
     pipelined_calls = runs["pipelined"][2]
     wave_iterations = sum(lockstep_iterations(ls) for kind, ls in pipelined_calls if kind == "wave")
     require(wave_iterations > 0, "phase 14: no validation wave ran")
@@ -1912,7 +1968,6 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     frontend_iterations = {
         name: sum(lockstep_iterations(ls) for kind, ls in run[2] if kind == "frontend")
         for name, run in runs.items()}
-    frontend_reads = _reads(ls for kind, ls in runs["pipelined"][2] if kind == "frontend")
     chunks = -(-NUM_FRAMES // STREAM_PIPELINE_CHUNK)
 
     require(rc == 0, f"phase 14: the CLI exited {rc}")
@@ -1939,8 +1994,9 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
         "launches": {name: run[0] for name, run in runs.items()},
         "frontend_lockstep_iterations": frontend_iterations,
         "wave_lockstep_iterations": wave_iterations, "chunk_steps": _chunk(),
+        "set_while_runs": {name: run[3]["set_while_runs"] for name, run in runs.items()},
         "host_readbacks_per_frame": {
-            "irls_done_reads": frontend_reads / NUM_FRAMES,
+            "irls_done_reads": runs["pipelined"][3]["irls_done_reads"] / NUM_FRAMES,
             "record_copies": chunks / NUM_FRAMES},
         "graph_solves": len(optimizes),
         "records_sha256": _records_digest(records),
@@ -2511,15 +2567,17 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
 
 
 def check_graph_loop(cfg, intrinsics, d_i, d_d, s_i, s_d):
-    """Phase 17: the IRLS loop's CUDA graphs against the eager loop, then
-    the chunk sizes K.  Returns the summary."""
+    """Phase 17: the IRLS loop's forms on the card against the eager loop:
+    the while graph, the host-polled graphs at each K; then ``set_while``
+    against its plain version.  Returns (the summary, ``set_while``'s rows
+    by stream count)."""
     import dataclasses
 
     import torch
 
     from dvo_slam_tpu_torch.config import InfluenceFunction, ScaleEstimator
     from dvo_slam_tpu_torch.models import irls_graph
-    from dvo_slam_tpu_torch.tools import chunk_sweep, graph_check
+    from dvo_slam_tpu_torch.tools import chunk_sweep, graph_check, profile_odometry
     from dvo_slam_tpu_torch.tools.fused_check import require
 
     started = time.perf_counter()
@@ -2527,8 +2585,9 @@ def check_graph_loop(cfg, intrinsics, d_i, d_d, s_i, s_d):
     many = (s_i[:GRAPH_STREAMS, :GRAPH_STREAM_FRAMES], s_d[:GRAPH_STREAMS, :GRAPH_STREAM_FRAMES])
     k = _chunk()
 
-    # (a) the modular path: the graph loop at the card's K against the
-    # eager loop at K = 1, every level's carry and counts bit for bit
+    # (a) the modular path: the while graph and the host-polled graphs at
+    # the card's K against the eager loop at K = 1, every level's carry and
+    # counts bit for bit
     xla = dataclasses.replace(cfg, kernel_backend="xla")
     modular = {"xla_tdist": xla,
                "xla_huber_mad": dataclasses.replace(xla, influence_function=InfluenceFunction.HUBER,
@@ -2538,28 +2597,47 @@ def check_graph_loop(cfg, intrinsics, d_i, d_d, s_i, s_d):
         for workload, fn, args in (("one_stream", chunk_sweep.one_stream, one),
                                    ("lockstep", chunk_sweep.lockstep, many)):
             _, eager = fn(c, intrinsics, *args, graphs=False, chunk=1, warm=False)
-            row, levels = fn(c, intrinsics, *args, graphs=True, chunk=k, warm=False)
-            diffs = graph_check.differences(levels, eager)
-            require(not diffs, f"phase 17 {name} {workload}: the graph loop parts from the "
-                               f"eager loop: {diffs[:5]}")
-            equal[f"{name}_{workload}"] = {"level_solves": len(levels),
-                                           "executed_steps": row["executed_steps"]}
+            for form, polled in (("while", False), ("polled", True)):
+                row, levels = fn(c, intrinsics, *args, graphs=True, chunk=k, warm=False,
+                                 polled=polled)
+                diffs = graph_check.differences(levels, eager)
+                require(not diffs, f"phase 17 {name} {workload} {form}: the graph loop parts "
+                                   f"from the eager loop: {diffs[:5]}")
+                equal[f"{name}_{workload}_{form}"] = {
+                    "level_solves": len(levels), "executed_steps": row["executed_steps"],
+                    "irls_reads_per_frame": row["irls_reads_per_frame"]}
 
-    # (b) kernels 1 and 1b: the eager loop, then the graph loop at each K,
-    # each held bit-equal to the eager loop's levels
+    # (b) kernels 1 and 1b: the eager loop, the host-polled graphs at each K
+    # and the while graph, in turns, each held bit-equal to the eager loop
     rows = chunk_sweep.sweep(cfg, intrinsics, *one, *many, CHUNK_SWEEP)
     for (workload, mode), row in rows.items():
-        require(row.get("bit_equal_to_eager", True),
+        require(row["bit_equal_to_eager"],
                 f"phase 17 {workload} {mode}: the graph loop parts from the eager loop: "
-                f"{row.get('differences')}")
+                f"{row['differences']}")
+        require(mode != "while K=1" or row["irls_reads_per_frame"] == 0,
+                f"phase 17 {workload}: the while graph read done {row['irls_reads_per_frame']} "
+                "times per frame")
         print("phase 17:", json.dumps({"workload": workload, "mode": mode, **row}), flush=True)
+
+    # (c) the node types the while bodies hold, one entry per backend and
+    # stream count (the levels' captures hold the same types)
+    nodes = {}
+    for entry in profile_odometry.graph_nodes():
+        nodes.setdefault(f"{entry['backend']} streams={entry['streams'] or 1}",
+                         {"head": entry["head"], "tail": entry["tail"]})
+
+    # (d) set_while against its plain version
+    set_while = graph_check.set_while_check(torch.device("cuda", 0))
+    for row in set_while:
+        require(row["abs_err"] == 0, f"phase 17: set_while against its plain loop: {row}")
     summary = {"chunk_steps": k, "frames": GRAPH_FRAMES, "streams": GRAPH_STREAMS,
                "stream_frames": GRAPH_STREAM_FRAMES, "modular_bit_equal": equal,
+               "graph_nodes": nodes, "set_while": set_while,
                "graph_cache": irls_graph.stats(),
                "memory_reserved_bytes": torch.cuda.memory_reserved(),
                "seconds": time.perf_counter() - started}
     print("phase 17:", json.dumps(summary), flush=True)
-    return summary
+    return summary, {row["streams"]: row for row in set_while}
 
 
 def check_copy_and_probe():
@@ -2672,12 +2750,12 @@ def main() -> int:
           flush=True)
     print(f"phase 1: nvidia-smi name, power.limit: {smi}", flush=True)
 
-    # phase 2: build (both sources at once, one nvcc each, and g++ the
+    # phase 2: build (the three sources at once, one nvcc each, and g++ the
     # native ingest beside them, so that no timed phase pays its build)
     t0 = time.perf_counter()
     ingest = threading.Thread(target=native.native_available)
     ingest.start()
-    libraries = _build.load_libraries(["fused_stats", "table_copy"])
+    libraries = _build.load_libraries(["fused_stats", "table_copy", "while_graph"])
     ingest.join()
     require(native.build_error() is None, f"the native ingest did not build: "
             f"{native.build_error()}")
@@ -2687,10 +2765,12 @@ def main() -> int:
                          "dvo_fused_partials", "dvo_warp_fused_partials", "dvo_sharded_loglik",
                          "dvo_sharded_tail")),
         ("table_copy", ("dvo_table_copy",)),
+        ("while_graph", ("dvo_while_graph_build", "dvo_while_graph_launch",
+                         "dvo_while_graph_destroy", "dvo_graph_node_census")),
     ):
         for entry in entries:
             require(hasattr(libraries[name].lib, entry), f"the {name} library lacks {entry}")
-    print(f"phase 2: built both libraries in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"phase 2: built the three libraries in {time.perf_counter() - t0:.2f} s", flush=True)
     for library in libraries.values():
         print(f"phase 2: {library.path}: nvcc {library.build_seconds:.2f} s", flush=True)
         for line in library.compiler_log.strip().splitlines():
@@ -2721,6 +2801,7 @@ def main() -> int:
     launches = counts["warp_fused_stats"]
     level_stats = [r.level_stats for r in odometry_results]
     _require_only(counts, "warp_fused_stats", _steps(level_stats), "phase 4")
+    while_4 = _require_while(_iterations(level_stats), "phase 4")
     stamps = np.arange(NUM_FRAMES) / 30.0
     ate = trajectory.ate_rmse(stamps, est, stamps, easy_poses)
     fps = (NUM_FRAMES - 1) / seconds
@@ -2729,7 +2810,8 @@ def main() -> int:
         "frames": NUM_FRAMES, "ate_rmse_m": ate, "tracked_frames_per_s": fps,
         "seconds": seconds, "solver_iterations": iterations, "chunk_steps": _chunk(),
         "executed_steps": _steps(level_stats), "launches": counts,
-        "irls_reads_per_frame": _reads(level_stats) / (NUM_FRAMES - 1),
+        "set_while_runs": while_4["set_while_runs"],
+        "irls_reads_per_frame": while_4["irls_done_reads"] / (NUM_FRAMES - 1),
         "ms_per_iteration": 1000.0 * seconds / iterations,
     }), flush=True)
 
@@ -2756,7 +2838,7 @@ def main() -> int:
         "tracked_frames_per_s": (NUM_FRAMES - 1) / hard_seconds,
         "seconds": hard_seconds, "solver_iterations": hard_iterations,
         "executed_steps": _steps(hard_stats), "launches": hard_counts,
-        "irls_reads_per_frame": _reads(hard_stats) / (NUM_FRAMES - 1),
+        "irls_reads_per_frame": _done_reads() / (NUM_FRAMES - 1),
         "ms_per_iteration": 1000.0 * hard_seconds / hard_iterations,
     }), flush=True)
     require(hard_ate < HARD_ATE_GATE_M, f"hard-scene ATE {hard_ate} m >= {HARD_ATE_GATE_M} m")
@@ -2809,7 +2891,7 @@ def main() -> int:
         for b in range(STREAMS)
     ]
     batched_rows, batched_worst = check_batched_kernel(cfg, TUM_FR1, first_pairs)
-    batched_launches, _ = check_lockstep(cfg, TUM_FR1, s_i, s_d, stream_gt, fps)
+    batched_launches, set_while_7, _ = check_lockstep(cfg, TUM_FR1, s_i, s_d, stream_gt, fps)
     elapsed("phase 7")
 
     # phase 8: schedules; phase 9: temporal chunks of phase 4's sequence
@@ -2822,8 +2904,8 @@ def main() -> int:
     check_modular_and_warps(cfg, TUM_FR1, frames, d_i, d_d, easy_poses, est, s_i, s_d)
     elapsed("phase 16")
 
-    # phase 17: the IRLS loop's CUDA graphs against the eager loop, and K
-    check_graph_loop(cfg, TUM_FR1, d_i, d_d, s_i, s_d)
+    # phase 17: the IRLS loop's forms against the eager loop, and set_while
+    _, set_while_rows = check_graph_loop(cfg, TUM_FR1, d_i, d_d, s_i, s_d)
     elapsed("phase 17")
 
     # phase 10: the copy kernel and the gather probe
@@ -2920,6 +3002,26 @@ def main() -> int:
                           **{k: l1[k] for k in timing_keys}, **worst},
     })
     kernels.append(copy_row)
+    # the while graph's set_while: one run per executed chunk of every
+    # tracker level on the card (phases 4, 7 and 14 counted), held against
+    # its plain loop in phase 17 at phase 4's one stream, phase 7's 8
+    # streams and beyond; ms per step of the timed loop (a tail of two tiny
+    # kernels and set_while) against the plain loop's host-read step
+    by_phase = {"4": while_4["set_while_runs"], "7": set_while_7,
+                **{f"14_{run}": n[2] for run, n in streaming_launches.items()}}
+    one_stream, eight = set_while_rows[1], set_while_rows[STREAMS]
+    bound_ms, bound_by = _bound(1 + 16)  # one flag read, the run counter read and written
+    kernels.append({
+        "name": "set_while", "route": "cuda", "source": WHILE_SOURCE,
+        "replaces": WHILE_REPLACES, "entry": "dvo_while_graph_build",
+        "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+        "max_abs_err": max(r["abs_err"] for r in set_while_rows.values()),
+        "ms": one_stream["ms_per_step"], "plain_ms": one_stream["plain_ms_per_step"],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "by_streams": set_while_rows,
+        "eight_streams": {"ms": eight["ms_per_step"], "plain_ms": eight["plain_ms_per_step"],
+                          "bound_ms": _bound(STREAMS + 16)[0]},
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,20 +22,25 @@ them:
 
 The reference's ``lax.while_loop`` carries the iteration counter on the
 device, and so does this loop: the iteration cap and the trace row are
-device values, ``first`` is the first step of a level (iteration 0), and a
+device values, ``first`` is the first step of a level (iteration 0), a
 step past ``done`` is inert (the carry freezes, as under the reference's
-``vmap``).  The loop runs K steps (``CHUNK_STEPS``), then reads the
-``done`` flag back once, so the level's iterations are the reference's and
-it executes K * ceil(iterations / K) steps (``executed_steps``).  On the card each chunk is one CUDA graph replay
-(``irls_graph``: a head chunk that starts the level, a tail chunk that
-continues it); elsewhere, or with ``CUDA_GRAPHS`` off, the same steps run
-eagerly.  The accept/revert logic keeps the reference's form: a rejected
-step keeps the previous carry.
+``vmap``), and a level's ``iterations`` is the carry's int32 count, as the
+reference's ``final.iteration`` is.  The loop runs in chunks of K steps
+(``CHUNK_STEPS``), so a level executes K * ceil(iterations / K) steps
+(``executed_steps``).  On the card a tracker level is one launch of a CUDA
+graph that holds the whole ``while ~done`` loop (``irls_graph``: a head
+chunk that starts the level, then a conditional WHILE node around a tail
+chunk), with no host read from the level's copy-in to its result; the
+multi-rank loops, whose graphs hold collectives, replay a graph per chunk
+and read ``done`` after each, and so does the card with ``WHILE_GRAPHS``
+off.  Elsewhere, or with ``CUDA_GRAPHS`` off, the same chunks run eagerly
+and read ``done`` once per chunk (``read_done``).  The accept/revert logic
+keeps the reference's form: a rejected step keeps the previous carry.
 
 Lockstep batching: prepared frames whose artifacts carry a leading stream
 axis [B, ...] (``prepare_frame`` on batched pyramids) align B independent
 pairs at once.  Each iteration runs every op once on [B, ...] tensors and
-reads back ``done.all()`` once per chunk; a stream's carry
+the loop goes on while any stream is not done; a stream's carry
 freezes as soon as that stream is done, which is what the reference's
 ``lax.while_loop`` does under ``vmap`` with a batched predicate (the
 body's output is selected away for finished elements).  So each stream's
@@ -74,14 +79,13 @@ INFORMATION_SCALE = 0.008 * 0.008
 
 
 class LevelStats(NamedTuple):
-    """Per-level statistics.  One stream: ``iterations`` is a Python int
-    (read back with the loop's ``done`` flag; the reference's is an int32
-    array, and ``frames._flatten_result`` takes either).  B streams in
-    lockstep: every field is a [B] int32 tensor."""
+    """Per-level statistics, device tensors: [] int32 for one stream, [B]
+    int32 in lockstep.  ``iterations`` is the loop's carried count (the
+    reference's ``final.iteration``)."""
 
     valid_pixels: torch.Tensor  # [] int32, selected reference points
     valid_constraints: torch.Tensor  # [] int32, constraints of the last accepted iteration
-    iterations: int
+    iterations: torch.Tensor  # [] int32, loop iterations run
     termination: torch.Tensor  # [] int32
 
 
@@ -352,17 +356,21 @@ def _where(cond, new, old):
     return torch.where(cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim())), new, old)
 
 
-# K, the steps of the IRLS loop between two reads of its ``done`` flags, on
-# every device.  One: the loop reads after every step, as it did before the
-# chunks, and under the card's graphs K = 1 tracked the most frames/s, one
-# stream and 8 in lockstep alike, since an inert step costs more device
-# time than a read costs the host (PERF.md, PR 11; ``tools/chunk_sweep.py``
-# sets other values).  Not a TrackerConfig field: the reference has none,
-# its loop never reads back.
+# K, the steps of the IRLS loop per chunk (between two reads of its ``done``
+# flags where the loop reads them), on every device.  One: under the card's
+# host-polled graphs K = 1 tracked the most frames/s, one stream and 8 in
+# lockstep alike, since an inert step costs more device time than a read
+# costs the host (PERF.md §6; ``tools/chunk_sweep.py`` sets other values),
+# and in the while form a larger K only adds inert steps.  Not a
+# TrackerConfig field: the reference has none.
 CHUNK_STEPS = 1
-# Whether the card runs the chunks as CUDA graphs (``irls_graph``); off, it
+# Whether the card runs the loops as CUDA graphs (``irls_graph``); off, it
 # runs the same chunked loop eagerly (the graphs' reference in the checks).
 CUDA_GRAPHS = True
+# Whether a tracker level on the card (its key carries no process group)
+# runs as one while-graph launch; off, as host-polled chunk replays of the
+# same graphs (the comparison form of the checks and probes).
+WHILE_GRAPHS = True
 
 
 def executed_steps(iterations, chunk: int) -> int:
@@ -504,7 +512,8 @@ def _chunk(cfg: TrackerConfig, evaluate, carry: _Carry, trace, steps: int, first
 
     A chunk of one step of one stream has nothing to freeze: the loop runs
     it only from a carry that is not done (it reads ``done`` after every
-    step), so it takes the step as it is."""
+    step, or the WHILE node tests it before every chunk), so it takes the
+    step as it is."""
     freeze = steps > 1 or carry.done.dim() > 0
     for k in range(steps):
         stepped, row = _step(cfg, evaluate, carry, first and k == 0, consts)
@@ -520,17 +529,14 @@ def _chunk(cfg: TrackerConfig, evaluate, carry: _Carry, trace, steps: int, first
     return carry, trace
 
 
-def _read_back(carry: _Carry, chunk: int, steps: int):
-    """The loop's one host read per chunk -> (every stream done, the
-    iterations: a Python int for one stream, the carry's [B] counts in
-    lockstep).  One stream with K > 1 reads its count in the same copy;
-    with K = 1 the count is the steps run, and only ``done`` is read."""
-    if carry.done.dim():
-        return bool(carry.done.all()), carry.iteration
-    if chunk == 1:
-        return bool(carry.done), steps
-    done, iterations = torch.stack((carry.done.to(torch.int32), carry.iteration)).tolist()
-    return bool(done), iterations
+def read_done(carry: _Carry) -> bool:
+    """The eager and host-polled loops' one host read per chunk: whether
+    every stream is done.  Each call adds one to ``read_done.calls``."""
+    read_done.calls += 1
+    return bool(carry.done.all() if carry.done.dim() else carry.done)
+
+
+read_done.calls = 0
 
 
 def _trace_out(trace, batch: int):
@@ -546,30 +552,28 @@ def _irls_level(
 ):
     """The IRLS loop of one level around ``evaluate(T, P_prev, first) ->
     (n, precision_new, ll, A, b)``, run eagerly in chunks of ``chunk``
-    steps with one host read after each (``_read_back``).  Returns (final
-    carry, iterations, iteration trace or None).
+    steps with one host read after each (``read_done``).  Returns (final
+    carry, iterations: the carry's int32 count, iteration trace or None).
 
-    One stream: ``x0`` [6], the loop stops when ``done``; ``iterations`` is
-    a Python int.  B streams in lockstep: ``x0`` [B, 6], the loop stops
-    when every stream is done, a finished stream's carry is frozen (its
-    evaluation still runs with the batch, and is discarded); ``iterations``
-    is a [B] int32 tensor.  With ``chunk`` = 1 this is the loop read for
-    read; a larger chunk runs up to ``chunk`` - 1 inert steps past the
-    last ``done`` and gives the same carry, counts and trace."""
+    One stream: ``x0`` [6], the loop stops when ``done``.  B streams in
+    lockstep: ``x0`` [B, 6], the loop stops when every stream is done, a
+    finished stream's carry is frozen (its evaluation still runs with the
+    batch, and is discarded).  With ``chunk`` = 1 this is the loop read for
+    read; a larger chunk runs up to ``chunk`` - 1 inert steps past the last
+    ``done`` and gives the same carry, counts and trace."""
     consts = _constants(cfg, x0)
     carry = _initial_carry(x0, T0, initial0, precision0, consts)
     trace = _empty_trace(cfg, x0) if collect_stats else None
-    steps = 0
+    first = True
     while True:
-        carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, steps == 0, consts)
-        steps += chunk
-        done, iterations = _read_back(carry, chunk, steps)
-        if done:
-            return carry, iterations, _trace_out(trace, x0.dim() - 1)
+        carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, first, consts)
+        first = False
+        if read_done(carry):
+            return carry, carry.iteration, _trace_out(trace, x0.dim() - 1)
 
 
 # the kernel wrappers' and plain functions' call counts that a step moves:
-# a graph replay adds what its capture would have added
+# a graph's chunk adds what its capture would have added
 _COUNTERS = (
     (fused_kernels.warp_fused_stats_cuda, "launches"),
     (fused_kernels.warp_fused_stats_batched_cuda, "launches"),
@@ -577,13 +581,14 @@ _COUNTERS = (
     (compute_residuals, "calls"),
 )
 _CARRY_FIELDS = len(_Carry._fields)
+_DONE = _Carry._fields.index("done")
 
 
 def _graph_level(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level_shape, inputs,
                  x0, T0, initial0, precision0, collect_stats: bool, chunk: int):
-    """The chunked loop of one level on the card, each chunk one replay of
-    a CUDA graph (``irls_graph``); the same returns as ``_irls_level``,
-    bit for bit."""
+    """The loop of one level on the card as CUDA graphs (``irls_graph``):
+    one while-graph launch (host-polled replays with ``WHILE_GRAPHS``
+    off); the same returns as ``_irls_level``, bit for bit."""
     key = (
         backend, level_shape, chunk, collect_stats, tuple(intrinsics),
         tuple((tuple(t.shape), t.dtype) for t in inputs + (x0, T0, initial0, precision0)),
@@ -599,14 +604,18 @@ def _graph_level(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level
 
 def graph_irls_level(cfg: TrackerConfig, make_evaluate, key: tuple, counters, inputs,
                      x0, T0, initial0, precision0, collect_stats: bool, chunk: int):
-    """The runner of a level's chunked loop as CUDA graphs: the head and
-    tail graphs of ``key`` (``irls_graph``) over static copies of
-    ``inputs`` and the start values, ``make_evaluate(static inputs) ->
-    evaluate`` building the step's evaluation on those copies, and one
-    read of the carry after each replay.  ``counters`` are the (object,
-    attribute) launch counts that a step moves: a replay adds what its
-    capture would have added.  Returns what ``_irls_level`` returns with
-    the same evaluation on ``inputs``, bit for bit."""
+    """The runner of a level's loop as CUDA graphs: the head and tail graphs
+    of ``key`` (``irls_graph``) over static copies of ``inputs`` and the
+    start values, ``make_evaluate(static inputs) -> evaluate`` building the
+    step's evaluation on those copies.  A key without a process group runs
+    as one while-graph launch, which reads nothing back (with
+    ``WHILE_GRAPHS`` on); a key with one (the pixel-sharded level, whose
+    chunks hold NCCL all-reduces) replays the head, then the tail, reading
+    ``done`` after each.  ``counters`` are the (object, attribute) launch
+    counts that a step moves: each chunk adds what its capture would have
+    added (the while form when ``irls_graph.fold_counts`` runs).  Returns
+    what ``_irls_level`` returns with the same evaluation on ``inputs``,
+    bit for bit."""
     start = (x0, T0, initial0, precision0)
     level_inputs = len(inputs)
 
@@ -625,22 +634,20 @@ def graph_irls_level(cfg: TrackerConfig, make_evaluate, key: tuple, counters, in
         carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, state is None, consts)
         return tuple(carry) + (tuple(trace) if collect_stats else ())
 
+    polled = not WHILE_GRAPHS or irls_graph.has_group(key)
     graphs = irls_graph.graphs_for(key, torch.device(x0.device))
     with graphs.lock:
         graphs.load(tuple(inputs) + start)
-        state = graphs.run_head(program, counters)
-        steps = chunk
-        done, iterations = _read_back(_Carry(*state[:_CARRY_FIELDS]), chunk, steps)
-        while not done:
-            state = graphs.run_tail(counters)
-            steps += chunk
-            done, iterations = _read_back(_Carry(*state[:_CARRY_FIELDS]), chunk, steps)
+        if polled:
+            state = graphs.run_head(program, counters)
+            while not read_done(_Carry(*state[:_CARRY_FIELDS])):
+                state = graphs.run_tail(counters)
+        else:
+            state = graphs.run_level(program, counters, _DONE)
         out = tuple(t.clone() for t in state)
     carry = _Carry(*out[:_CARRY_FIELDS])
-    if isinstance(iterations, torch.Tensor):
-        iterations = carry.iteration
     trace = IterationStats(*out[_CARRY_FIELDS:]) if collect_stats else None
-    return carry, iterations, _trace_out(trace, x0.dim() - 1)
+    return carry, carry.iteration, _trace_out(trace, x0.dim() - 1)
 
 
 class PreparedFrame(NamedTuple):

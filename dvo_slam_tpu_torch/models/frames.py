@@ -153,17 +153,10 @@ _FLAT_BASE = 53
 
 
 def _flatten_result(r: TrackingResult) -> torch.Tensor:
-    """A result as float32 [..., 53 + 4 * levels] on its device.  A level's
-    ``iterations`` may be a Python int (one stream) or an int32 tensor."""
+    """A result as float32 [..., 53 + 4 * levels] on its device."""
     batch = tuple(r.transformation.shape[:-2])
     f32 = torch.float32
-
-    def column(field):
-        if isinstance(field, torch.Tensor):
-            return field.to(f32).expand(batch)
-        return torch.full(batch, field, dtype=f32, device=r.transformation.device)
-
-    stats = [torch.stack([column(f) for f in s], dim=-1) for s in r.level_stats]
+    stats = [torch.stack([f.to(f32).expand(batch) for f in s], dim=-1) for s in r.level_stats]
     return torch.cat(
         [
             r.transformation.reshape(batch + (16,)).to(f32),

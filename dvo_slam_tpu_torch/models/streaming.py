@@ -21,9 +21,11 @@ host until the whole sequence (or chunk) is done:
     host once.
 
 The reference runs this loop as one ``lax.scan``; eager PyTorch runs it as
-a Python loop over the same step.  The only host read-backs inside a frame
-are the IRLS loop's ``done`` reads, one per lockstep iteration of the dual
-match (``dense_tracker._irls_level``).
+a Python loop over the same step.  On the card nothing inside a frame is
+read back: each IRLS level is one while-graph launch
+(``dense_tracker.graph_irls_level``), so the record copy is the chunk's
+only read.  On the CPU the eager loop reads its ``done`` flags once per
+lockstep iteration (``dense_tracker.read_done``).
 
 The host then replays the recorded decisions through the
 ``LocalMap``/``KeyframeGraph`` back end (``_ReplayFeeder``): the graph

@@ -80,16 +80,17 @@ def track_sequence(cfg, intrinsics, intensity, depth, on_result=None):
     prev = build_frame(cfg, intensity[0], depth[0])
     pose, rel = eye, eye
     poses = [eye]
-    iterations = 0
+    iterations = []
     for k in range(1, intensity.shape[0]):
         cur = build_frame(cfg, intensity[k], depth[k])
         result = match_pyramids(cfg, intrinsics, prev, cur, rel)
         if on_result is not None:
             on_result(result)
-        iterations += sum(s.iterations for s in result.level_stats)
+        iterations += [s.iterations for s in result.level_stats]
         rel = result.transformation
         pose = pose @ rel
         poses.append(pose)
         prev = cur
     out = torch.stack(poses).cpu().numpy().astype(np.float64)
-    return out, iterations, time.perf_counter() - t0
+    total = int(torch.stack(iterations).sum()) if iterations else 0  # one read, at the end
+    return out, total, time.perf_counter() - t0

@@ -62,21 +62,32 @@ def _dot(a, b):
 def _cholesky_solve_unrolled(A, b, n: int = 6):
     """Cholesky solve of a tiny SPD system (or a batch of them).  Diagonal
     pivots are floored at 1e-20, so a singular system yields large but
-    finite steps."""
+    finite steps.  The empty products of the first column and of each
+    substitution's first row are left out (x - 0 is x, bit for bit): on
+    the card cuBLAS writes an empty dot product's zero by a copy from the
+    host, which a CUDA graph's conditional body refuses."""
     L = torch.zeros_like(A)
     for j in range(n):
-        s = A[..., j:, j] - _matvec(L[..., j:, :j], L[..., j, :j])
+        s = A[..., j:, j]
+        if j:
+            s = s - _matvec(L[..., j:, :j], L[..., j, :j])
         pivot = torch.sqrt(torch.clamp(s[..., 0], min=_PIVOT_FLOOR))
         L[..., j, j] = pivot
         L[..., j + 1 :, j] = s[..., 1:] / pivot.unsqueeze(-1)
     # forward substitution L y = b
     y = torch.zeros_like(b)
     for i in range(n):
-        y[..., i] = (b[..., i] - _dot(L[..., i, :i], y[..., :i])) / L[..., i, i]
+        r = b[..., i]
+        if i:
+            r = r - _dot(L[..., i, :i], y[..., :i])
+        y[..., i] = r / L[..., i, i]
     # back substitution L^T x = y
     x = torch.zeros_like(b)
     for i in reversed(range(n)):
-        x[..., i] = (y[..., i] - _dot(L[..., i + 1 :, i], x[..., i + 1 :])) / L[..., i, i]
+        r = y[..., i]
+        if i + 1 < n:
+            r = r - _dot(L[..., i + 1 :, i], x[..., i + 1 :])
+        x[..., i] = r / L[..., i, i]
     return x
 
 

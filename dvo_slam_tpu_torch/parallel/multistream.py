@@ -2,13 +2,12 @@
 of ``dvo_slam_tpu.parallel.multistream``).
 
 One 640x480 stream leaves the card idle most of the time: every solver
-iteration is a few hundred small launches and one host read-back.  B
-independent streams that advance in lockstep share one Python iteration,
-one set of launches on [B, ...] tensors and one read-back of a [B] done
-mask per iteration (``match_prepared`` on batched prepared frames: the
-warp gathers every stream's quad table with one ``torch.gather``, and the
-statistics are one call of the batched CUDA entry point
-``dvo_fused_stats_batched``).  A stream that has converged keeps its
+iteration is a few hundred small kernels.  B independent streams that
+advance in lockstep share one set of kernels on [B, ...] tensors per
+iteration and one loop over a [B] done mask (``match_prepared`` on
+batched prepared frames: on the card each level one while-graph launch
+around the batched folded kernel, on the CPU one read of the mask per
+iteration).  A stream that has converged keeps its
 estimate while the others iterate, as in the reference's vmapped
 ``lax.while_loop``, so each stream's iterations, terminations and poses
 are those of its single-stream solve.
@@ -87,14 +86,9 @@ def as_frames(intensity_u8, depth_u16, device=None):
 def _level_counts(result):
     """A result's per-level iterations and terminations, stacked on the
     last axis (device tensors: no read-back)."""
-    device = result.transformation.device
 
     def stack(field):
-        return torch.stack(
-            [torch.as_tensor(getattr(s, field), dtype=torch.int32, device=device)
-             for s in result.level_stats],
-            dim=-1,
-        )
+        return torch.stack([getattr(s, field) for s in result.level_stats], dim=-1)
 
     return stack("iterations"), stack("termination")
 

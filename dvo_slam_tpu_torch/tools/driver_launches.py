@@ -12,8 +12,10 @@ solver loop iterations of the solves that reach kernels 1 and 1b.  The
 IRLS loop runs in chunks of K steps (``dense_tracker.CHUNK_STEPS``; a step
 past a level's ``done`` is inert but still evaluates), so a kernel
 launches once per executed step: per level K * ceil(iterations / K), the
-level's slowest stream's iterations in lockstep.  The rule held is
-launches = executed steps, with the iterations reported beside them:
+level's slowest stream's iterations in lockstep.  On the card a level is
+one while-graph launch, whose chunks are counted on the card and folded
+into the launch counts when they are read (``launches``).  The rule held
+is launches = executed steps, with the iterations reported beside them:
 
   * ``odometry.track_sequence`` (``tracker``, ``hard``): each match's
     levels, kernel 1;
@@ -69,10 +71,26 @@ def wrappers():
 
 
 def launches():
-    """{name: launches so far} of every wrapper, with ``warp_and_sample_cm``'s calls."""
+    """{name: launches so far} of every wrapper, with ``warp_and_sample_cm``'s
+    calls; the while graphs' launches folded in first (a host read)."""
+    irls_graph.fold_counts()
     counts = {name: wrapper.launches for name, wrapper in wrappers().items()}
     counts["warp_and_sample_cm_calls"] = residuals.warp_and_sample_cm.calls
     return counts
+
+
+def reset_counts():
+    """Every kernel's launch count, ``warp_and_sample_cm``'s and
+    ``compute_residuals``' calls, the IRLS loop's ``done`` reads and the
+    while form's counts to 0 (the while graphs' launches folded in first,
+    so that none from before lands after)."""
+    irls_graph.fold_counts()
+    for wrapper in wrappers().values():
+        wrapper.launches = 0
+    residuals.warp_and_sample_cm.calls = 0
+    residuals.compute_residuals.calls = 0
+    dense_tracker.read_done.calls = 0
+    irls_graph.while_counts.launches = irls_graph.while_counts.set_while = 0
 
 
 def lockstep_iterations(level_stats) -> int:
@@ -89,8 +107,7 @@ def executed_steps(level_stats) -> int:
 
 def streams(level_stats) -> int:
     """The stream count of a ``match_prepared`` call's level statistics."""
-    it = level_stats[0].iterations
-    return int(it.numel()) if isinstance(it, torch.Tensor) else 1
+    return int(level_stats[0].iterations.numel())
 
 
 class Iterations:
@@ -139,9 +156,10 @@ def counting():
     def counted_tracker(cfg, intrinsics, *args, **kwargs):
         run = make_tracker(cfg, intrinsics, *args, **kwargs)
         lockstep = kwargs.get("schedule", "lockstep") == "lockstep"
+        nobuf = lockstep and not cfg.depth_buffered_sampling
 
         def counted_run(intensity_u8, depth_u16):
-            before = wrappers()[BATCHED].launches
+            before = launches()[BATCHED] if nobuf else 0  # a fold: a host read
             tracks = run.tracks(intensity_u8, depth_u16)
             its = tracks.iterations  # [B, T - 1, levels]
             chunk = dense_tracker.CHUNK_STEPS
@@ -151,9 +169,8 @@ def counting():
                 return tracks.poses
             steps = dense_tracker.executed_steps(its.amax(dim=0), chunk)
             counter.add(batched=steps, batched_iterations=tracks.loop_iterations)
-            if not cfg.depth_buffered_sampling:
-                counter.add(nobuf_steps=steps,
-                            nobuf_launches=wrappers()[BATCHED].launches - before)
+            if nobuf:
+                counter.add(nobuf_steps=steps, nobuf_launches=launches()[BATCHED] - before)
             return tracks.poses
 
         counted_run.tracks = run.tracks

@@ -3,11 +3,13 @@ the eager loops, for ``tests_cuda/test_irls_graph_cuda.py``,
 ``tests_cuda/test_sharded_graph_cuda.py`` and ``chip_smoke.py`` phases 6,
 17 and 19.
 
-  * ``loop_mode(graphs, chunk=None, sharded=None)``: run the card's loops
-    (the tracker's, the pixel-sharded level's, block-CG's) with or without
-    graphs, the tracker's at K = ``chunk`` and the pixel-sharded level's
-    at K = ``sharded`` (None: as they are; the module settings are
-    restored after; block-CG takes its K as an argument);
+  * ``loop_mode(graphs, chunk=None, sharded=None, polled=None)``: run the
+    card's loops (the tracker's, the pixel-sharded level's, block-CG's)
+    with or without graphs, the tracker's at K = ``chunk`` and the
+    pixel-sharded level's at K = ``sharded``, the tracker's levels as
+    host-polled chunk replays (``polled`` True) or one while-graph launch
+    each (False) (None: as they are; the module settings are restored
+    after; block-CG takes its K as an argument);
   * ``recording()``: every level solve of the calling thread, with its
     final carry, level statistics and trace; ``sharded_recording()`` the
     same for the pixel-sharded levels (carry and iterations);
@@ -15,40 +17,51 @@ the eager loops, for ``tests_cuda/test_irls_graph_cuda.py``,
     for bit (NaNs by their bits);
   * ``counting_reads()``: the host reads of tensors (``bool``, ``tolist``
     and the like) made while open, by this thread;
+  * ``set_while_check(device)``: the while graph's ``set_while`` kernel
+    against its plain version on a loop of known length, with times;
   * ``counts(level_stats, chunk)``: the loop's iterations, executed steps
-    and host reads for levels' statistics at K = ``chunk``.
+    and the host-polled form's reads for levels' statistics at K =
+    ``chunk`` (the while form reads none; ``dense_tracker.read_done.calls``
+    counts the reads a run made).
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import NamedTuple, Optional
 
 import torch
 
-from ..models import dense_tracker
+from ..models import dense_tracker, irls_graph
 from ..parallel import sharded_alignment
 
 _READS = ("__bool__", "item", "cpu", "numpy", "tolist", "__int__", "__float__", "__index__")
 
 
 @contextlib.contextmanager
-def loop_mode(graphs: bool, chunk: Optional[int] = None, sharded: Optional[int] = None):
+def loop_mode(graphs: bool, chunk: Optional[int] = None, sharded: Optional[int] = None,
+              polled: Optional[bool] = None):
     """The card's device loops as graphs (True) or eager, the tracker's
     IRLS loop at K = ``chunk`` and the pixel-sharded level's at K =
-    ``sharded`` (None leaves a K as it is)."""
+    ``sharded`` (None leaves a K as it is), the tracker's graph levels
+    host-polled (``polled`` True) or as while graphs (False; None leaves
+    the form as it is)."""
     modules = (dense_tracker, sharded_alignment)
-    saved = dense_tracker.CUDA_GRAPHS, [m.CHUNK_STEPS for m in modules]
+    saved = (dense_tracker.CUDA_GRAPHS, dense_tracker.WHILE_GRAPHS,
+             [m.CHUNK_STEPS for m in modules])
     dense_tracker.CUDA_GRAPHS = graphs
+    if polled is not None:
+        dense_tracker.WHILE_GRAPHS = not polled
     for module, value in zip(modules, (chunk, sharded)):
         if value is not None:
             module.CHUNK_STEPS = value
     try:
         yield
     finally:
-        dense_tracker.CUDA_GRAPHS = saved[0]
-        for module, value in zip(modules, saved[1]):
+        dense_tracker.CUDA_GRAPHS, dense_tracker.WHILE_GRAPHS = saved[:2]
+        for module, value in zip(modules, saved[2]):
             module.CHUNK_STEPS = value
 
 
@@ -76,7 +89,7 @@ def recording():
 class ShardedLevel(NamedTuple):
     """What a pixel-sharded level returns beside its carry."""
 
-    iterations: int
+    iterations: torch.Tensor  # [] int32
 
 
 @contextlib.contextmanager
@@ -161,15 +174,15 @@ def counting_reads():
 
 def slowest(stats) -> int:
     """A level's loop iterations: its slowest stream's in lockstep."""
-    its = stats.iterations
-    return int(its.max()) if isinstance(its, torch.Tensor) else int(its)
+    return int(torch.as_tensor(stats.iterations).max())
 
 
 def counts(level_stats, chunk: int):
-    """(iterations, executed steps, host reads) of the IRLS loop at K =
-    ``chunk`` for an iterable of ``LevelStats``: per level the slowest
+    """(iterations, executed steps, host-polled reads) of the IRLS loop at
+    K = ``chunk`` for an iterable of ``LevelStats``: per level the slowest
     stream's iterations, K * ceil(iterations / K) steps (each one
-    evaluation, the kernel's launch) and ceil(iterations / K) reads."""
+    evaluation, the kernel's launch) and the ceil(iterations / K) reads of
+    the eager and host-polled forms."""
     its = [slowest(s) for s in level_stats]
     return (sum(its), dense_tracker.executed_steps(its, chunk),
             sum(-(-it // chunk) for it in its))
@@ -178,3 +191,91 @@ def counts(level_stats, chunk: int):
 def stats_of(levels):
     """The ``LevelStats`` of recorded levels."""
     return [stats for _, stats, _ in levels]
+
+
+# set_while_check: the stream counts B and the steps of the timed loop
+SET_WHILE_BATCHES = (1, 2, 8, 136)
+SET_WHILE_STEPS = 1000
+
+
+def _set_while_graphs(start, limit, x, done):
+    """Head (x = start, done = x >= limit) and tail (x += 1, done again),
+    captured with ``keep_graph=True`` on a side stream."""
+    side = torch.cuda.Stream(start.device)
+    side.wait_stream(torch.cuda.current_stream(start.device))
+    head = torch.cuda.CUDAGraph(keep_graph=True)
+    tail = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(side):
+        x.copy_(start)
+        torch.ge(x, limit, out=done)
+        side.synchronize()
+        head.capture_begin(capture_error_mode="thread_local")
+        x.copy_(start)
+        torch.ge(x, limit, out=done)
+        head.capture_end()
+        tail.capture_begin(pool=head.pool(), capture_error_mode="thread_local")
+        x.add_(1)
+        torch.ge(x, limit, out=done)
+        tail.capture_end()
+    torch.cuda.current_stream(start.device).wait_stream(side)
+    return head, tail
+
+
+def _plain_loop(start, limit):
+    """The same loop eagerly, the condition read on the host each step ->
+    (final x, tail steps)."""
+    x = start.clone()
+    done = x >= limit
+    steps = 0
+    while bool((~done).any()):
+        x.add_(1)
+        done = x >= limit
+        steps += 1
+    return x, steps
+
+
+def set_while_check(device, batches=SET_WHILE_BATCHES, steps=SET_WHILE_STEPS) -> list:
+    """``set_while`` (``csrc/while_graph.cu``) against its plain version on
+    the card, for each B of ``batches``: a while graph whose head sets x =
+    start and done = x >= limit and whose tail adds one to x and sets done
+    again (stream b needs limit_b - start_b tail steps, some none), against
+    the same loop run eagerly with a host read of ``(~done).any()`` per
+    step.  Per B: the tail chunks ``set_while`` counted and the plain
+    loop's steps, the largest difference of the final x (``abs_err``: both
+    differences added), and, at ``steps`` steps, ms per step of the while
+    graph (CUDA events around one launch) and of the plain loop (host
+    clock between two synchronizations)."""
+    rows = []
+    for batch in batches:
+        b = torch.arange(batch, dtype=torch.int32, device=device)
+        start = (7 * b) % 5
+        limit = start + (5 * b) % 7 * (b % 2)  # the even streams done at the head
+        x = torch.zeros(batch, dtype=torch.int32, device=device)
+        done = torch.zeros(batch, dtype=torch.bool, device=device)
+        runs = torch.zeros(2, dtype=torch.int64, device=device)
+        head, tail = _set_while_graphs(start, limit, x, done)
+        exec_ = irls_graph.build_while(head, tail, done, runs)
+        try:
+            irls_graph.launch_while(exec_, device)
+            want_x, want_steps = _plain_loop(start, limit)
+            heads, tails = runs.tolist()
+            err = abs(tails - want_steps) + abs(heads - 1) + int((x - want_x).abs().max())
+            limit.copy_(start + steps)  # the timed loop: every stream `steps` steps
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            irls_graph.launch_while(exec_, device)  # warm
+            events[0].record()
+            irls_graph.launch_while(exec_, device)
+            events[1].record()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            _plain_loop(start, limit)
+            torch.cuda.synchronize(device)
+            plain_s = time.perf_counter() - t0
+            rows.append({"streams": batch, "tail_chunks": tails, "plain_steps": want_steps,
+                         "abs_err": err,
+                         "ms_per_step": events[0].elapsed_time(events[1]) / (steps + 1),
+                         "plain_ms_per_step": 1000.0 * plain_s / steps})
+        finally:
+            torch.cuda.synchronize(device)
+            irls_graph.destroy_while(exec_)
+    return rows

@@ -2,10 +2,11 @@
 and the steps each chunk size K of the IRLS loop would execute (port of
 the reference's ``tools/iteration_stats.py``).
 
-The per-frame cost is per level (steps x the cost of a step) plus one host
-read per chunk; a level's loop runs K * ceil(iterations / K) steps, of which
-the last K - 1 at most are inert.  These counts are the data behind
-``dense_tracker.CHUNK_STEPS``.
+The per-frame cost is per level (steps x the cost of a step), plus one host
+read per chunk where the loop is host-polled (the eager loop; on the card
+the while graph reads none); a level's loop runs K * ceil(iterations / K)
+steps, of which the last K - 1 at most are inert.  These counts are the
+data behind ``dense_tracker.CHUNK_STEPS``.
 
 Run from the repository root (the card by default):
 
@@ -16,7 +17,7 @@ frame i from seed i), tracks it frame to frame with a constant-velocity
 guess at ``benchmark_config().tracker``, prints one line per frame (per
 level: iterations, termination, valid constraints), then one JSON line:
 per level the iterations' mean and histogram, and per K the steps, the
-inert steps and the host reads per frame.
+inert steps and the host-polled form's reads per frame.
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ def track_levels(cfg, intrinsics, intensity, depth):
 
 def summarize(per_frame, chunks=CHUNKS) -> dict:
     """Per level the iterations' mean and histogram; per K the executed
-    steps, the inert steps and the host reads, each per frame."""
+    steps, the inert steps and the host-polled form's reads, each per
+    frame."""
     frames = len(per_frame)
     its = [it for rows in per_frame for _, it, _, _ in rows]
     by_level = {}

@@ -76,7 +76,7 @@ def kernels_per_iteration(run):
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
-    iterations = sum(s.iterations for r in results for s in r.level_stats)
+    iterations = int(sum(s.iterations for r in results for s in r.level_stats))
     readbacks = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
     return {
         "device_kernels": len(kernels) or None, "solver_iterations": iterations,
@@ -104,7 +104,7 @@ def bench(pairs: int, reps: int, device=None, profiled_pairs: int = 0, world: in
     d_i, d_d = upload_sequence(intensity, depth, device)
     frames = [build_frame(cfg, d_i[k], d_d[k]) for k in range(pairs + 1)]
     eye = torch.eye(4, dtype=torch.float32, device=device)
-    iterations = lambda results: sum(s.iterations for r in results for s in r.level_stats)  # noqa: E731
+    iterations = lambda results: int(sum(s.iterations for r in results for s in r.level_stats))  # noqa: E731
     rounds = []
     with tempfile.TemporaryDirectory() as store:
         distributed.initialize(init_method=init_method or f"file://{store}/rendezvous",
@@ -144,13 +144,13 @@ def bench(pairs: int, reps: int, device=None, profiled_pairs: int = 0, world: in
                     with graph_check.loop_mode(True, sharded=chunk):
                         timed[chunk].append(_timed(sharded, device))
             for chunk, runs in timed.items():
-                stats = [s for r in runs[0][0] for s in r.level_stats]
-                n = sum(s.iterations for s in stats)
+                its = [int(s.iterations) for r in runs[0][0] for s in r.level_stats]
+                n = sum(its)
                 seconds = float(np.median([t for _, t in runs]))
                 rounds.append({
                     "sweep_chunk": chunk, "iterations": n,
-                    "executed_steps": executed_steps([s.iterations for s in stats], chunk),
-                    "host_reads": sum(-(-s.iterations // chunk) for s in stats),
+                    "executed_steps": executed_steps(its, chunk),
+                    "host_reads": sum(-(-it // chunk) for it in its),
                     "seconds": seconds, "ms_per_iteration": 1000.0 * seconds / n,
                 })
             if cache_stats:

@@ -199,12 +199,13 @@ def test_host_result_decoding(frames):
     result's fields (float32 values, integer counts)."""
     ref, cur = (t_dt.prepare_frame(T_CFG, K, frames[k][1].levels) for k in (0, 1))
     one = t_dt.match_prepared(T_CFG, K, ref, cur)
-    assert isinstance(one.level_stats[0].iterations, int)
+    its = one.level_stats[0].iterations  # the carry's count, as the reference's
+    assert its.dtype == torch.int32 and its.dim() == 0
     host = t_frames._decode_result(t_frames._flatten_result(one).numpy())
     np.testing.assert_array_equal(host.transformation, one.transformation.numpy())
     np.testing.assert_array_equal(host.information, one.information.numpy())
     assert host.neg_log_likelihood == float(one.neg_log_likelihood)
-    assert _counts(host) == [(int(s.valid_pixels), int(s.valid_constraints), s.iterations,
+    assert _counts(host) == [(int(s.valid_pixels), int(s.valid_constraints), int(s.iterations),
                               int(s.termination)) for s in one.level_stats]
     assert host.last_level == host.level_stats[-1] and not host.is_nan()
     nan = host._replace(transformation=np.full((4, 4), np.nan))

@@ -288,16 +288,12 @@ def test_reset_after_poisoned_backend_recovers():
 
 def _expected_reads(calls, chunk):
     """The IRLS loop's reads for the recorded matches at K = ``chunk``: per
-    level one per chunk of its slowest stream's iterations, ``done.all()``
-    in lockstep; one stream reads ``done`` alone at K = 1 and ``done`` with
-    its count (one ``tolist``) at larger K."""
+    level one ``done`` read (``done.all()`` in lockstep) per chunk of its
+    slowest stream's iterations; the count is the carry's, never read."""
     reads = []
     for level_stats in calls:
         for s in level_stats:
-            batched = isinstance(s.iterations, torch.Tensor)
-            its = int(s.iterations.max()) if batched else s.iterations
-            kind = "tolist" if chunk > 1 and not batched else "__bool__"
-            reads += [kind] * -(-its // chunk)
+            reads += ["__bool__"] * -(-int(s.iterations.max()) // chunk)
     return reads
 
 
@@ -333,8 +329,7 @@ def test_frame_loop_reads_back_only_the_irls_flags(monkeypatch, chunk):
     monkeypatch.setattr(t_streaming, "match_prepared", counted_match)
     records = ss._run(d_i, d_d, force, torch.eye(4))
     monkeypatch.undo()
-    lockstep = sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
-                   else s.iterations for ls in calls for s in ls)
+    lockstep = sum(int(s.iterations.max()) for ls in calls for s in ls)
     assert len(calls) == len(iu8) - 1  # the bootstrap and one dual match per frame
     if chunk == 1:
         assert reads == ["__bool__"] * lockstep
@@ -461,8 +456,7 @@ def test_stream_axis_reads_back_only_the_irls_flags(monkeypatch, chunk):
     monkeypatch.setattr(t_streaming, "match_prepared", counted_match)
     run(*args)
     monkeypatch.undo()
-    lockstep = sum(int(s.iterations.max()) if isinstance(s.iterations, torch.Tensor)
-                   else s.iterations for ls in calls for s in ls)
+    lockstep = sum(int(s.iterations.max()) for ls in calls for s in ls)
     assert len(calls) == 2 + 3  # two bootstrap matches, one dual match per later frame
     if chunk == 1:
         assert reads == ["__bool__"] * lockstep

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from dvo_slam_tpu_torch import benchmark_config, odometry
+from dvo_slam_tpu_torch.models import irls_graph
 from dvo_slam_tpu_torch.models.constraints import (
     constraint_tracker_config,
     validation_tracker_config,
@@ -28,6 +29,7 @@ from dvo_slam_tpu_torch.models.frames import Frame, TwoStageMatcher
 from dvo_slam_tpu_torch.models.keyframe_tracker import KeyframeTracker
 from dvo_slam_tpu_torch.ops import fused_kernels
 from dvo_slam_tpu_torch.ops.camera import TUM_FR1
+from dvo_slam_tpu_torch.tools import driver_launches
 from dvo_slam_tpu_torch.utils import synthetic, trajectory
 
 pytestmark = pytest.mark.cuda
@@ -73,10 +75,10 @@ def test_two_stage_matcher_on_the_card_against_the_cpu(easy):
     ids = (0, 4, 8, 16, 20)
     matcher = TwoStageMatcher(validation_tracker_config(CFG), constraint_tracker_config(CFG),
                               TUM_FR1)
-    fused_kernels.warp_fused_stats_cuda.launches = 0
-    fused_kernels.warp_fused_stats_batched_cuda.launches = 0
+    driver_launches.reset_counts()
     card = matcher.match_pairs(_requests(_frames(raw, "cuda", ids), poses))
     host = matcher.match_pairs(_requests(_frames(raw, "cpu", ids), poses))
+    irls_graph.fold_counts()  # the while graphs' launches, counted on the card
     assert fused_kernels.warp_fused_stats_cuda.launches == 0
     coarse = sum(max(max(q[0].level_stats[i].iterations, q[1].level_stats[i].iterations)
                      for q in card) for i in range(len(card[0][0].level_stats)))
@@ -100,7 +102,7 @@ def test_threaded_keyframe_tracker_on_the_card(hard, monkeypatch):
     plain = fused_kernels.warp_fused_stats_plain
     monkeypatch.setattr(fused_kernels, "warp_fused_stats_plain",
                         lambda *a, **k: (plain_calls.append(1), plain(*a, **k))[1])
-    fused_kernels.warp_fused_stats_batched_cuda.launches = 0
+    driver_launches.reset_counts()
     kt = KeyframeTracker(TUM_FR1, SLAM)
     assert kt.graph._thread is not None and kt.device.type == "cuda"
     kt.init()
@@ -110,7 +112,7 @@ def test_threaded_keyframe_tracker_on_the_card(hard, monkeypatch):
     stamps, est = kt.trajectory()
     kt.graph.shutdown()
     assert plain_calls == []
-    assert fused_kernels.warp_fused_stats_batched_cuda.launches > 0
+    assert driver_launches.launches()[driver_launches.BATCHED] > 0
     assert len(stamps) == FRAMES and len(kt.graph.keyframes) >= 2
     gt = np.arange(FRAMES) / 30.0
     assert trajectory.ate_rmse(stamps, est, gt, poses) < 0.01

@@ -29,7 +29,6 @@ import torch
 from dvo_slam_tpu_torch import bench
 from dvo_slam_tpu_torch.config import GraphConfig, KeyframeConfig, SlamConfig, TrackerConfig
 from dvo_slam_tpu_torch.models.streaming import make_streaming_frontend
-from dvo_slam_tpu_torch.ops import fused_kernels
 from dvo_slam_tpu_torch.ops.camera import Intrinsics
 from dvo_slam_tpu_torch.tools import driver_launches
 from dvo_slam_tpu_torch.utils import synthetic
@@ -160,9 +159,9 @@ def test_stream_axis_on_the_card_bit_equal_to_solo():
     init = torch.eye(4, device=dev).expand(3, 4, 4).contiguous()
     d_i = torch.from_numpy(iu).to(dev)
     d_d = torch.from_numpy(du.astype(np.int32)).to(dev)
-    fused_kernels.warp_fused_stats_batched_cuda.launches = 0
+    driver_launches.reset_counts()
     records = run(d_i, d_d, force, init).cpu().numpy()
-    assert fused_kernels.warp_fused_stats_batched_cuda.launches > 0
+    assert driver_launches.launches()[driver_launches.BATCHED] > 0
     for b in range(3):
         solo = run(d_i[b], d_d[b], force[b], init[b]).cpu().numpy()
         np.testing.assert_array_equal(records[b], solo)

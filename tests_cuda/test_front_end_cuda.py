@@ -22,12 +22,14 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from dvo_slam_tpu_torch import benchmark_config, odometry
+from dvo_slam_tpu_torch.models import irls_graph
 from dvo_slam_tpu_torch.models.camera_tracker import CameraTracker
 from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
 from dvo_slam_tpu_torch.models.frames import BatchedMatcher, Frame
 from dvo_slam_tpu_torch.models.local_tracker import LocalTracker
 from dvo_slam_tpu_torch.ops import fused_kernels
 from dvo_slam_tpu_torch.ops.camera import TUM_FR1
+from dvo_slam_tpu_torch.tools import driver_launches
 from dvo_slam_tpu_torch.utils import synthetic
 
 pytestmark = pytest.mark.cuda
@@ -61,17 +63,18 @@ def _counts(result):
 def test_batched_matcher_b2_against_one_stream_calls(raw):
     f = _frames(raw)
     matcher = BatchedMatcher(CFG, TUM_FR1)
-    fused_kernels.warp_fused_stats_cuda.launches = 0
-    fused_kernels.warp_fused_stats_batched_cuda.launches = 0
+    driver_launches.reset_counts()
     wave = matcher.match_many([(f[0], f[2], None), (f[1], f[2], None)])
     lockstep = sum(max(a.iterations, b.iterations)
                    for a, b in zip(wave[0].level_stats, wave[1].level_stats))
+    irls_graph.fold_counts()  # the while graphs' launches, counted on the card
     assert fused_kernels.warp_fused_stats_batched_cuda.launches == lockstep > 0
     assert fused_kernels.warp_fused_stats_cuda.launches == 0
     for ref, result in zip(f[:2], wave):
         one = matcher.match(ref, f[2])
         assert _counts(one) == _counts(result)
         np.testing.assert_allclose(result.transformation, one.transformation, atol=1e-5)
+    irls_graph.fold_counts()
     assert fused_kernels.warp_fused_stats_cuda.launches == sum(
         s.iterations for r in wave for s in r.level_stats)
 
@@ -79,13 +82,15 @@ def test_batched_matcher_b2_against_one_stream_calls(raw):
 def test_fused_backend_runs_the_twin_on_the_card(raw):
     f = _frames(raw, 2)
     eye = torch.eye(4, device="cuda")
-    fused_kernels.warp_fused_stats_cuda.launches = 0
+    driver_launches.reset_counts()
     twin = match_pyramids(dataclasses.replace(CFG, kernel_backend="fused"), TUM_FR1,
                           f[0].levels, f[1].levels, eye)
+    irls_graph.fold_counts()
     assert fused_kernels.warp_fused_stats_cuda.launches == 0
     assert twin.transformation.is_cuda
     kernel = match_pyramids(dataclasses.replace(CFG, kernel_backend="pallas"), TUM_FR1,
                             f[0].levels, f[1].levels, eye)
+    irls_graph.fold_counts()
     assert fused_kernels.warp_fused_stats_cuda.launches == sum(
         s.iterations for s in kernel.level_stats) > 0
     assert [(s.iterations, int(s.termination)) for s in twin.level_stats] == [

@@ -123,9 +123,7 @@ def test_folded_kernel_against_the_modular_evaluation(pair, first):
 
 def test_modular_match_launches_no_kernel(pair):
     (ref_levels, cur_levels), _ = pair
-    for wrapper in driver_launches.wrappers().values():
-        wrapper.launches = 0
-    residuals.warp_and_sample_cm.calls = 0
+    driver_launches.reset_counts()
     result = dense_tracker.match_pyramids(MODULAR, TUM_FR1, ref_levels, cur_levels)
     assert result.transformation.device.type == "cuda"
     assert not any(driver_launches.launches().values())

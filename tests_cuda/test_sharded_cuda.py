@@ -42,14 +42,14 @@ mesh = mesh_lib.make_mesh(world)
 assert mesh.device == torch.device("cuda", 0), mesh.device
 run = sharded_alignment.make_pixel_sharded_matcher(cfg, TUM_FR1, mesh)
 result = run(frames[0], frames[1], torch.eye(4, device="cuda"))
-iterations = sum(s.iterations for s in result.level_stats)
+iterations = sum(int(s.iterations) for s in result.level_stats)
 launches = [w.launches for w in (fused_kernels.warp_fused_partials_cuda,
                                  fused_kernels.sharded_loglik_cuda,
                                  fused_kernels.sharded_tail_cuda)]
 assert launches == [iterations] * 3, (launches, iterations)
 assert fused_kernels.fused_partials_cuda.launches == 0
 np.savez(f"{work}/out_w{world}_r{rank}.npz", T=result.transformation.cpu().numpy(),
-         counts=np.array([[s.iterations, int(s.termination)] for s in result.level_stats]))
+         counts=np.array([[int(s.iterations), int(s.termination)] for s in result.level_stats]))
 distributed.shutdown()
 """
 

@@ -108,7 +108,7 @@ if backend == "nccl" and not (keys and all(group in k for k in keys)):
     problem(f"no graph key of the group: {keys}")
 if backend == "gloo" and irls_graph.stats()["keys"]:
     problem(f"gloo built graphs: {list(irls_graph._cache)}")
-report["iterations"] = [s.iterations for _, s, _ in first_levels]
+report["iterations"] = [int(s.iterations) for _, s, _ in first_levels]
 
 if backend == "nccl":
     # block-CG: one solve under graphs and eagerly, then distributed GN-CG

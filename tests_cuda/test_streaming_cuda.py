@@ -26,8 +26,8 @@ from dvo_slam_tpu_torch.cli import benchmark
 from dvo_slam_tpu_torch.config import GraphConfig, KeyframeConfig, SlamConfig, TrackerConfig
 from dvo_slam_tpu_torch.models import streaming
 from dvo_slam_tpu_torch.models.streaming import StreamingSLAM
-from dvo_slam_tpu_torch.ops import fused_kernels
 from dvo_slam_tpu_torch.ops.camera import Intrinsics
+from dvo_slam_tpu_torch.tools import driver_launches
 from dvo_slam_tpu_torch.utils import dataset, synthetic, synthetic_tum
 
 pytestmark = pytest.mark.cuda
@@ -61,13 +61,12 @@ def _raw(n):
 
 def test_frontend_on_the_card_matches_the_cpu():
     iu8, du16 = _raw(10)
-    kernels = (fused_kernels.warp_fused_stats_cuda, fused_kernels.warp_fused_stats_batched_cuda)
-    for k in kernels:
-        k.launches = 0
+    driver_launches.reset_counts()
     card = StreamingSLAM(K, CFG)
     assert card.device.type == "cuda"
     rec_card, poses_card = card.track_frontend(iu8, du16)
-    assert kernels[0].launches > 0 and kernels[1].launches > 0
+    counts = driver_launches.launches()  # the while graphs' launches folded in
+    assert counts[driver_launches.ONE] > 0 and counts[driver_launches.BATCHED] > 0
     cpu = StreamingSLAM(K, CFG, device="cpu")
     rec_cpu, poses_cpu = cpu.track_frontend(iu8, du16)
     for i, (a, b) in enumerate(zip(rec_card, rec_cpu)):
