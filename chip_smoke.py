@@ -10,9 +10,11 @@ Every solve runs the IRLS loop in chunks of K steps (``dense_tracker
 .CHUNK_STEPS``).  A tracker level is one launch of a CUDA graph that holds
 the whole ``while ~done`` loop (``csrc/while_graph.cu``: the head chunk,
 then a WHILE node around the tail chunk, its condition set on the card by
-``set_while``), with no host read; the pixel-sharded level
-(``sharded_alignment.CHUNK_STEPS``, its NCCL all-reduces captured) and
-block-CG replay one graph per chunk and read the host after each.  A step
+``set_while``), with no host read; so are the pixel-sharded level
+(``sharded_alignment.CHUNK_STEPS``, its NCCL all-reduces in the WHILE
+body) and block-CG (``while active``), where the NCCL group's probe
+admitted that form (else they replay one graph per chunk and read the
+host after each).  A step
 past a level's ``done`` is inert but still launches, so wherever a phase
 below holds a kernel's launches (or the modular evaluations) to solver
 iterations, it holds them to the executed steps: per level K *
@@ -79,15 +81,29 @@ the launch counters when a phase reads them.
 5. Hard scene: the occluded scene under a 30 cm loop; ATE-RMSE < 10 mm;
    the same counts as phase 4.
 6. Sharded paths: a one-rank NCCL process group (``file://`` rendezvous
-   in a temporary directory) and its mesh.  The pixel-sharded matcher on
-   the first 20 easy pairs from the identity, each level's chunks CUDA
-   graph replays with the two all-reduces captured: each pair within 5e-3
-   of the ground truth (max |log(T_gt^-1 T)|), each of the sharded
-   evaluation's three kernels launched once per executed step, and
-   ``dvo_fused_partials``, the statistics kernels and
-   ``warp_and_sample_cm`` not at all; the group's graph keys built.  The
-   same pairs with ``dense_tracker.CUDA_GRAPHS`` off: every level's carry
-   and iterations and every result bit-equal.  After the checks below,
+   in a temporary directory) and its mesh.  The form ``initialize``'s
+   probe chose for the group (``irls_graph.group_forms``: a while graph
+   whose body holds the group's all-reduces and kernel 2's clustered
+   launch) is printed with the probe's node census; it must be the while
+   form unless the probe's refusal was recorded (then the loops stay
+   host-polled and the refusal is printed).  The pixel-sharded matcher on
+   the first 20 easy pairs from the identity in that form, each level one
+   while-graph launch with the two all-reduces in its WHILE body: each
+   pair within 5e-3 of the ground truth (max |log(T_gt^-1 T)|), each of
+   the sharded evaluation's three kernels launched once per executed step
+   (folded in from the card), one launch per level, ``set_while`` once
+   per executed chunk and no read of ``done``, and ``dvo_fused_partials``,
+   the statistics kernels and ``warp_and_sample_cm`` not at all; the
+   group's graph keys built.  The same pairs as host-polled graph replays
+   and with ``dense_tracker.CUDA_GRAPHS`` off: every level's carry and
+   iterations and every result bit-equal; each form and
+   ``match_pyramids`` timed twice, in turns; ``done`` reads per pair of
+   each form; the node census of the L1 sharded level's and the
+   distributed CG's captures.  ``distributed_gauss_newton_cg`` on the
+   one-rank mesh (513 vertices of ``tools/cg_iteration_stats``, 2 GN
+   steps) in the three forms: poses, chi2 and every solve's k bit-equal,
+   in the while form one launch per solve and ``set_while`` once per
+   chunk; ms per CG iteration of each.  After the checks below,
    ``shutdown()`` drops the group's keys and no other, and a new group
    (``initialize()``, a new key generation) solves the first pair to the
    same bits.  With
@@ -272,7 +288,9 @@ that their frames/s compare with phase 4's:
    graphs, while graphs, capture ms, the captures' pool bytes, the static
    buffers' bytes); then (c) ``set_while`` against its plain loop
    (``tools/graph_check.set_while_check``: a loop of known length at 1, 2,
-   8 and 136 streams, the even streams done at the head; the tail chunks
+   8 and 136 streams, the even streams done at the head, at both senses
+   of the condition (while a ``done`` flag is false, as the IRLS levels
+   loop; while an ``active`` flag is true, as CG does); the tail chunks
    counted and the final state equal; ms per step of a 1,000-step while
    graph against the plain loop's host-read steps) and the phase's
    seconds.
@@ -304,17 +322,21 @@ that their frames/s compare with phase 4's:
    as often as the validation waves' executed steps and no other kernel;
    then ``tools/final_pass_profile`` and ``tools/cg_iteration_stats
    --sizes 512 --gn-steps 4`` (CG on the card): finite rounds and chi2;
-   the CG loop in chunks of ``pose_graph.CG_CHUNK_STEPS`` steps, each
-   chunk a CUDA graph replay, against the same loop run eagerly: equal
-   iterations and x bit-equal at every GN step; ms per CG iteration and
-   host reads per GN step of both printed.  Prints the phase's seconds.
+   the CG loop in chunks of ``pose_graph.CG_CHUNK_STEPS`` steps as one
+   while-graph launch per solve (``while active``), as host-polled graph
+   replays and eagerly: equal iterations and x bit-equal at every GN step
+   in the three forms, the while form's host reads per GN step the live
+   edges' one, one launch per solve and ``set_while`` once per chunk; ms
+   per CG iteration and host reads per GN step of each printed.  Prints
+   the phase's seconds.
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
 plain version, kernel and plain ms at L1, the bound from this run's
 tensor sizes at the card's 3.35 TB/s and 67 TFLOP/s, and the one PyTorch
 call that computes the same function where there is one; ``set_while``
-with its runs in phases 4, 7 and 14 and its ms per loop step),
+with its runs in phases 4, 6, 7, 14 and 19 and its ms per loop step at
+both senses of its condition),
 ``nvidia-smi``'s name and power limit, then ``{"ok": true, "device":
 {...}}``.
 """
@@ -339,6 +361,11 @@ KERNEL_SOURCE = "dvo_slam_tpu_torch/csrc/fused_stats.cu"
 STATS_REPLACES = "dvo_slam_tpu/ops/pallas_kernels.py:413"
 PARTIALS_REPLACES = "dvo_slam_tpu/ops/pallas_kernels.py:252"
 SHARDED_PAIRS = 20
+# phase 6: the forms of the multi-rank loops (graph_check.loop_mode arguments)
+SHARDED_FORMS = {"while": dict(graphs=True, polled=False), "polled": dict(graphs=True, polled=True),
+                 "eager": dict(graphs=False)}
+SHARDED_CG_VERTICES = 512  # phase 6: the distributed CG on tools/cg_iteration_stats' 513 vertices
+SHARDED_CG_GN_STEPS = 2
 SHARD_WORLDS = (1, 4, 7)  # phase 3: the whole frame, and every block of 4 and of 7 ranks
 SHARD_TIMED = (1, 2, 4)  # phase 3: N, N/2 and N/4 pixels of L1, block 0 of as many ranks
 PROFILED_PAIRS = 3
@@ -400,6 +427,7 @@ BATCHED_REPLACES = "dvo_slam_tpu/ops/pallas_kernels.py:413"  # vmapped (multistr
 COPY_SOURCE = "dvo_slam_tpu_torch/csrc/table_copy.cu"
 WHILE_SOURCE = "dvo_slam_tpu_torch/csrc/while_graph.cu"
 WHILE_REPLACES = "dvo_slam_tpu/models/dense_tracker.py:445"  # the level's lax.while_loop
+CG_WHILE_REPLACES = "dvo_slam_tpu/models/pose_graph.py:310"  # block-CG's lax.while_loop
 COPY_REPLACES = "tools/gather_probe.py:382"
 COPY_SHAPES = {"l1_table": (32, 76800), "ragged": (7, 1001), "chunk_straddle": (3, 2731),
                "beyond_l2": (32, 460800)}
@@ -912,21 +940,24 @@ def _same_results(a, b) -> bool:
 
 def check_sharded(cfg, intrinsics, frames, poses):
     """Phase 6: the pixel-sharded and pair-parallel matchers on a one-rank
-    NCCL process group; the sharded level under CUDA graphs against its
-    eager loop, then again after ``shutdown()`` and ``initialize()``.
-    Returns the graph run's launches of the folded partials kernel and the
-    phase's summary."""
+    NCCL process group; the group's probe and form; the sharded level in
+    that form (while graphs) against the host-polled graphs and its eager
+    loop, the distributed CG likewise, then the sharded level again after
+    ``shutdown()`` and ``initialize()``.  Returns the main run's launches
+    of the folded partials kernel, ``set_while``'s runs in the phase
+    ({"6_sharded": n, "6_cg": n}) and the phase's summary."""
     import dataclasses
     import tempfile
 
     import torch
 
     from dvo_slam_tpu_torch.models import irls_graph
+    from dvo_slam_tpu_torch.models import pose_graph as pg
     from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids
-    from dvo_slam_tpu_torch.ops import fused_kernels
     from dvo_slam_tpu_torch.ops.pyramid import PyramidLevel
-    from dvo_slam_tpu_torch.parallel import distributed, mesh as mesh_lib, sharded_alignment
-    from dvo_slam_tpu_torch.tools import graph_check
+    from dvo_slam_tpu_torch.parallel import distributed, distributed_ba, mesh as mesh_lib
+    from dvo_slam_tpu_torch.parallel import sharded_alignment
+    from dvo_slam_tpu_torch.tools import cg_iteration_stats, graph_check
     from dvo_slam_tpu_torch.tools.fused_check import require
 
     device = frames[0][cfg.first_level].intensity.device
@@ -940,18 +971,28 @@ def check_sharded(cfg, intrinsics, frames, poses):
             mesh = mesh_lib.make_mesh(1)
             require(mesh.device.type == "cuda", f"the mesh's rank runs on {mesh.device}")
             group = irls_graph.group_key()
+            # the group's form, chosen by its probe at initialize: the while
+            # form, or host-polled with CUDA's refusal recorded
+            form = irls_graph.group_forms().get(group)
+            require(form is not None, "initialize probed no form for the NCCL group")
+            require(form.form == "while" or form.refusal,
+                    f"the group's loops are host-polled with no refusal recorded: {form}")
+            admitted = form.form == "while"
+            print("phase 6:", json.dumps({
+                "group_form": form.form, "probe_refusal": form.refusal,
+                "probe_census": form.census}), flush=True)
             run = sharded_alignment.make_pixel_sharded_matcher(cfg, intrinsics, mesh)
-            for graphs in (True, False):  # warm-up (the communicator, the captures), not counted
-                with graph_check.loop_mode(graphs):
+            sharded = lambda: [run(r, c, eye) for r, c in pairs]  # noqa: E731
+            for mode in SHARDED_FORMS.values():  # warm-up (the communicator, the captures)
+                with graph_check.loop_mode(sharded=chunk, **mode):
                     run(*pairs[0], eye)
 
-            # the sharded path under graphs, with every kernel count at 0
+            # the sharded path in the group's form, with every kernel count at 0
             _reset_counts()
             with graph_check.sharded_recording() as levels:
-                results, sharded_s = _synchronized_seconds(
-                    lambda: [run(r, c, eye) for r, c in pairs])
-            partials_launches = fused_kernels.warp_fused_partials_cuda.launches
+                results, sharded_s = _synchronized_seconds(sharded)
             stats_launches = _launches()
+            partials_launches = stats_launches["warp_fused_partials"]
             sharded_launches = {name: stats_launches.pop(name) for name in SHARDED_KERNELS}
             del stats_launches["table_copy"]
             iterations = sum(int(s.iterations) for r in results for s in r.level_stats)
@@ -961,6 +1002,11 @@ def check_sharded(cfg, intrinsics, frames, poses):
             require(not any(stats_launches.values()),
                     "the sampled-input partials kernel, a statistics kernel or "
                     f"warp_and_sample_cm ran on the sharded path: {stats_launches}")
+            level_iterations = [s.iterations for _, s, _ in levels]
+            if admitted:
+                while_6 = _require_while(level_iterations, "phase 6", chunk)
+            else:
+                while_6 = {"set_while_runs": 0, "irls_done_reads": _done_reads()}
             keys = [k for k in irls_graph._cache if k[1] == "sharded"]
             require(keys and all(group in k for k in keys),
                     f"the sharded level built no graph key of the group: {keys}")
@@ -970,18 +1016,79 @@ def check_sharded(cfg, intrinsics, frames, poses):
             ]
             require(max(errors) < POSE_GATE, f"sharded pose errors {errors} (gate {POSE_GATE})")
 
-            # the same pairs with the level's chunks run eagerly: the same bits
-            with graph_check.loop_mode(False), graph_check.sharded_recording() as eager_levels:
-                eager, eager_s = _synchronized_seconds(lambda: [run(r, c, eye) for r, c in pairs])
-            parted = graph_check.differences(levels, eager_levels)
-            require(not parted, f"sharded graphs vs eager: {parted[:5]}")
-            require(_same_results(results, eager), "sharded results under graphs != eager")
-
-            # match_pyramids on the same pairs, for the time per iteration
-            singles, single_s = _synchronized_seconds(
-                lambda: [match_pyramids(cfg, intrinsics, r, c, eye) for r, c in pairs]
-            )
+            # the other forms on the same pairs: the same bits; then every
+            # form and match_pyramids timed in turns (while, polled, eager,
+            # single, then back)
+            seconds = {name: [] for name in list(SHARDED_FORMS) + ["single"]}
+            reads = {}
+            for name, mode in SHARDED_FORMS.items():
+                if name == "while":
+                    continue
+                before = _done_reads()
+                with graph_check.loop_mode(sharded=chunk, **mode), \
+                        graph_check.sharded_recording() as other_levels:
+                    other, other_s = _synchronized_seconds(sharded)
+                reads[name] = _done_reads() - before
+                parted = graph_check.differences(other_levels, levels)
+                require(not parted, f"sharded {name} vs the group's form: {parted[:5]}")
+                require(_same_results(results, other), f"sharded results {name} != while")
+                seconds[name].append(other_s)
+            seconds["while"].append(sharded_s)
+            single = lambda: [match_pyramids(cfg, intrinsics, r, c, eye) for r, c in pairs]  # noqa: E731
+            singles, single_s = _synchronized_seconds(single)
+            seconds["single"].append(single_s)
+            for name in ["single"] + list(SHARDED_FORMS)[::-1]:
+                if name == "single":
+                    seconds[name].append(_synchronized_seconds(single)[1])
+                    continue
+                with graph_check.loop_mode(sharded=chunk, **SHARDED_FORMS[name]):
+                    seconds[name].append(_synchronized_seconds(sharded)[1])
             single_iterations = sum(int(s.iterations) for r in singles for s in r.level_stats)
+
+            # the distributed CG (its all-reduce in the WHILE body) in the
+            # three forms: the same bits, ms per CG iteration
+            graph, _ = cg_iteration_stats.loopy_graph(SHARDED_CG_VERTICES, 7)
+            arrays = pg.GraphArrays(*(t.to(device) for t in graph.to_arrays()))
+            cg_runs, cg_k = {}, []
+            solve = pg.solve_blocks_cg
+
+            def counted_solve(*args, **kwargs):
+                x, k = solve(*args, **kwargs, return_iterations=True)
+                cg_k.append(k)
+                return x
+
+            pg.solve_blocks_cg = counted_solve
+            try:
+                for name, mode in SHARDED_FORMS.items():
+                    with graph_check.loop_mode(**mode):  # the captures, then the timed run
+                        distributed_ba.distributed_gauss_newton_cg(arrays, mesh, iterations=1)
+                        _reset_counts()
+                        cg_k.clear()
+                        (out, hist), cg_s = _synchronized_seconds(
+                            lambda: distributed_ba.distributed_gauss_newton_cg(
+                                arrays, mesh, iterations=SHARDED_CG_GN_STEPS))
+                        _launches()
+                    cg_runs[name] = {"poses": out.poses, "chi2": hist, "k": list(cg_k),
+                                     "seconds": cg_s,
+                                     "set_while_runs": irls_graph.while_counts.set_while,
+                                     "while_launches": irls_graph.while_counts.launches}
+            finally:
+                pg.solve_blocks_cg = solve
+            for name, r in cg_runs.items():
+                require(r["k"] == cg_runs["eager"]["k"]
+                        and torch.equal(r["poses"], cg_runs["eager"]["poses"])
+                        and torch.equal(r["chi2"], cg_runs["eager"]["chi2"]),
+                        f"phase 6: distributed GN-CG {name} != eager")
+            cg_chunks = sum(-(-k // pg.CG_CHUNK_STEPS) for k in cg_runs["while"]["k"])
+            if admitted:
+                require(cg_runs["while"]["while_launches"] == SHARDED_CG_GN_STEPS
+                        and cg_runs["while"]["set_while_runs"] == cg_chunks,
+                        f"phase 6: the distributed CG's while graphs: {cg_runs['while']}")
+            cg_keys = [k for k in irls_graph._cache if k[1] == "cg" and group in k]
+            require(cg_keys, "the distributed CG built no graph key of the group")
+            census = {"sharded_L1": irls_graph._cache[max(
+                keys, key=lambda k: k[3][0] * k[3][1])].census(),
+                "cg": irls_graph._cache[cg_keys[0]].census()}
 
             # mu = 0: the sharded and single paths coincide by construction
             cfg0 = dataclasses.replace(cfg, mu=0.0)
@@ -1046,23 +1153,36 @@ def check_sharded(cfg, intrinsics, frames, poses):
                     "the sharded pair after shutdown and initialize != the first run's")
         finally:
             distributed.shutdown()
+    ms = lambda name, n: [1000.0 * t / n for t in seconds[name]]  # noqa: E731
     summary = {
         "pairs": SHARDED_PAIRS, "max_pose_err": max(errors), "chunk": chunk,
+        "group_form": form.form, "probe_refusal": form.refusal,
         "solver_iterations": iterations, "executed_steps": steps,
         "sharded_launches": sharded_launches, "other_launches": stats_launches,
-        "graph_keys": len(keys), "graphs_bit_equal_eager": True, "after_restart_bit_equal": True,
+        "set_while_runs": while_6["set_while_runs"],
+        "done_reads_per_pair": {"while": while_6["irls_done_reads"] / SHARDED_PAIRS,
+                                **{name: n / SHARDED_PAIRS for name, n in reads.items()}},
+        "graph_keys": len(keys), "forms_bit_equal": True, "after_restart_bit_equal": True,
+        "census": census,
+        "ms_per_iteration": {**{name: ms(name, iterations) for name in SHARDED_FORMS},
+                             "match_pyramids": ms("single", single_iterations)},
         "sharded_ms_per_iteration": 1000.0 * sharded_s / iterations,
-        "sharded_eager_ms_per_iteration": 1000.0 * eager_s / iterations,
         "sharded_pairs_per_s": SHARDED_PAIRS / sharded_s,
-        "single_ms_per_iteration": 1000.0 * single_s / single_iterations,
         "single_pairs_per_s": SHARDED_PAIRS / single_s,
         "single_iterations": single_iterations,
+        "distributed_cg": {
+            "vertices": SHARDED_CG_VERTICES + 1, "gn_steps": SHARDED_CG_GN_STEPS,
+            "cg_iterations": cg_runs["eager"]["k"], "chunk": pg.CG_CHUNK_STEPS,
+            "set_while_runs": cg_runs["while"]["set_while_runs"], "forms_bit_equal": True,
+            "ms_per_cg_iteration": {name: 1000.0 * r["seconds"] / sum(r["k"])
+                                    for name, r in cg_runs.items()}},
         "mu0_levels": counts(sharded0), "mu0_pose_err": mu0_err,
         "wave_pairs": WAVE_PAIRS, "wave_pairs_not_bit_equal": wave_not_bit_equal,
         "wave_max_transform_err": wave_err,
     }
     print("phase 6:", json.dumps(summary), flush=True)
-    return partials_launches, summary
+    return partials_launches, {"6_sharded": while_6["set_while_runs"],
+                               "6_cg": cg_runs["while"]["set_while_runs"]}, summary
 
 
 def count_sharded_kernels(cfg, intrinsics, frames):
@@ -1225,18 +1345,19 @@ def _done_reads():
     return dense_tracker.read_done.calls
 
 
-def _require_while(iterations, what):
-    """The tracker levels of a run ran as while graphs: ``iterations`` holds
-    each level solve's iteration counts (a tensor per solve, its slowest
+def _require_while(iterations, what, chunk=None):
+    """The levels of a run ran as while graphs: ``iterations`` holds each
+    level solve's iteration counts (a tensor per solve, its slowest
     stream's taken).  Since the last reset (the counts folded by
     ``_launches()``): one launch per level solve, ``set_while`` once per
-    executed chunk (its head's and each tail's), no read of ``done``.
-    Returns ``{"set_while_runs": n, "irls_done_reads": reads}``."""
+    executed chunk of K = ``chunk`` steps (its head's and each tail's; by
+    default the tracker's K), no read of ``done``.  Returns
+    ``{"set_while_runs": n, "irls_done_reads": reads}``."""
     from dvo_slam_tpu_torch.models import irls_graph
     from dvo_slam_tpu_torch.tools.fused_check import require
 
     slowest = [int(it.max()) for it in iterations]
-    chunks = sum(-(-it // _chunk()) for it in slowest)
+    chunks = sum(-(-it // (chunk or _chunk())) for it in slowest)
     counts = irls_graph.while_counts
     require(counts.launches == len(slowest) and counts.set_while == chunks > 0,
             f"{what}: {counts.launches} while-graph launches for {len(slowest)} level solves, "
@@ -2193,12 +2314,16 @@ def check_backend_scale():
     """Phase 19: the reference's back-end probes on the card at a cut
     size: ``backend_scale_probe`` at 40 keyframes x 7 frames (60x80; past
     the auto policy's 128 vertices), ``final_pass_profile`` and
-    ``cg_iteration_stats`` at its smallest default size, its CG under CUDA
-    graphs and eagerly (the same iterations and bits).  Returns (kernel 1b
-    launches, the summary)."""
+    ``cg_iteration_stats`` at its smallest default size, its CG as while
+    graphs, as host-polled graphs and eagerly (the same iterations and
+    bits; the while form's host reads per GN step the live edges' one).
+    Returns (kernel 1b launches, ``set_while``'s runs in the while-form
+    CG solves, the summary)."""
     import contextlib
     import io
 
+    from dvo_slam_tpu_torch.models import irls_graph
+    from dvo_slam_tpu_torch.models import pose_graph as pg
     from dvo_slam_tpu_torch.tools import backend_scale_probe, cg_iteration_stats
     from dvo_slam_tpu_torch.tools import final_pass_profile
     from dvo_slam_tpu_torch.tools import recorded_sequence as rs
@@ -2228,25 +2353,38 @@ def check_backend_scale():
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         size, rounds, totals = final_pass_profile.main()
+        _reset_counts()
         (cg,) = cg_iteration_stats.main(["--sizes", "512", "--gn-steps", str(PROBE_GN_STEPS)])
+        _launches()
+    set_while_runs = irls_graph.while_counts.set_while
     require(len(rounds) == 10 and all(np.isfinite(r["opt_ms"]) for r in rounds),
             f"phase 19: final pass rounds {rounds}")
     require(len(cg["cg_iterations_per_gn_step"]) == PROBE_GN_STEPS and
             np.isfinite(cg["auto_chi2_history"]).all(), f"phase 19: CG stats {cg}")
     runs = cg["runs"]
-    require(runs["graphs_equal_eager"] and runs["graphs"]["cg_iterations_per_gn_step"]
-            == runs["eager"]["cg_iterations_per_gn_step"],
-            f"phase 19: CG under graphs != eager: {runs}")
+    require(runs["forms_bit_equal"] and all(
+        runs[name]["cg_iterations_per_gn_step"] == runs["eager"]["cg_iterations_per_gn_step"]
+        for name in ("while", "polled")), f"phase 19: CG forms differ: {runs}")
+    require(runs["while"]["host_reads_per_gn_step"] == [1] * PROBE_GN_STEPS,
+            f"phase 19: the while form's host reads per GN step: {runs['while']}")
+    # the while form's solves: its untimed first GN step (the captures),
+    # which repeats the first timed step's solve, then the timed steps
+    its = runs["while"]["cg_iterations_per_gn_step"]
+    chunks = sum(-(-k // pg.CG_CHUNK_STEPS) for k in its[:1] + its)
+    require(irls_graph.while_counts.launches == PROBE_GN_STEPS + 1 and set_while_runs == chunks,
+            f"phase 19: {irls_graph.while_counts.launches} CG while-graph launches, set_while "
+            f"{set_while_runs} runs for {chunks} chunks")
     summary = {
         "backend_scale_probe": {"feed": first, "final": second, "seconds": probe_s,
                                 "kernel_1b_steps": steps["batched_steps"],
                                 "kernel_1b_iterations": steps["batched_iterations"]},
         "final_pass_profile": {**size, **totals, "routes": sorted({r["route"] for r in rounds})},
-        "cg_iteration_stats": cg, "other_probes_seconds": time.perf_counter() - t0,
+        "cg_iteration_stats": cg, "cg_set_while_runs": set_while_runs,
+        "other_probes_seconds": time.perf_counter() - t0,
         "seconds": time.perf_counter() - t_phase,
     }
     print("phase 19:", json.dumps(summary, default=float), flush=True)
-    return counts["warp_fused_stats_batched"], summary
+    return counts["warp_fused_stats_batched"], set_while_runs, summary
 
 
 def check_dp_slam_and_driver(slam_cfg, intrinsics, easy_i, easy_d, easy_poses):
@@ -2637,7 +2775,7 @@ def check_graph_loop(cfg, intrinsics, d_i, d_d, s_i, s_d):
                "memory_reserved_bytes": torch.cuda.memory_reserved(),
                "seconds": time.perf_counter() - started}
     print("phase 17:", json.dumps(summary), flush=True)
-    return summary, {row["streams"]: row for row in set_while}
+    return summary, {(row["streams"], row["loop_on"]): row for row in set_while}
 
 
 def check_copy_and_probe():
@@ -2869,7 +3007,7 @@ def main() -> int:
     elapsed("phase 18")
 
     # phase 19: the back-end probes past the dense route's 128 vertices
-    probe_launches, _ = check_backend_scale()
+    probe_launches, set_while_19, _ = check_backend_scale()
     elapsed("phase 19")
 
     # phase 15: DataParallelSLAM on a one-rank process group, then the driver
@@ -2879,7 +3017,7 @@ def main() -> int:
 
     # phase 6: the sharded paths on a one-rank process group
     frames += [build_frame(cfg, d_i[k], d_d[k]) for k in range(len(frames), SHARDED_PAIRS + 1)]
-    partials_launches, _ = check_sharded(cfg, TUM_FR1, frames, easy_poses)
+    partials_launches, set_while_6, _ = check_sharded(cfg, TUM_FR1, frames, easy_poses)
     elapsed("phase 6")
 
     # phase 7: B streams in lockstep, the batched kernel first
@@ -3002,14 +3140,19 @@ def main() -> int:
                           **{k: l1[k] for k in timing_keys}, **worst},
     })
     kernels.append(copy_row)
-    # the while graph's set_while: one run per executed chunk of every
-    # tracker level on the card (phases 4, 7 and 14 counted), held against
-    # its plain loop in phase 17 at phase 4's one stream, phase 7's 8
+    # the while graph's set_while: one run per executed chunk of every loop
+    # on the card (the tracker levels of phases 4, 7 and 14, the sharded
+    # level and the distributed CG of phase 6, block-CG of phase 19
+    # counted), held against its plain loop in phase 17 at both senses of
+    # its condition (loop_on False: while a done flag is false, the IRLS
+    # levels; True: while active, CG) at phase 4's one stream, phase 7's 8
     # streams and beyond; ms per step of the timed loop (a tail of two tiny
     # kernels and set_while) against the plain loop's host-read step
     by_phase = {"4": while_4["set_while_runs"], "7": set_while_7,
-                **{f"14_{run}": n[2] for run, n in streaming_launches.items()}}
-    one_stream, eight = set_while_rows[1], set_while_rows[STREAMS]
+                **{f"14_{run}": n[2] for run, n in streaming_launches.items()},
+                **set_while_6, "19_cg": set_while_19}
+    one_stream, eight = set_while_rows[1, False], set_while_rows[STREAMS, False]
+    active = set_while_rows[1, True]
     bound_ms, bound_by = _bound(1 + 16)  # one flag read, the run counter read and written
     kernels.append({
         "name": "set_while", "route": "cuda", "source": WHILE_SOURCE,
@@ -3018,9 +3161,11 @@ def main() -> int:
         "max_abs_err": max(r["abs_err"] for r in set_while_rows.values()),
         "ms": one_stream["ms_per_step"], "plain_ms": one_stream["plain_ms_per_step"],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "by_streams": set_while_rows,
+        "by_streams_and_sense": list(set_while_rows.values()),
         "eight_streams": {"ms": eight["ms_per_step"], "plain_ms": eight["plain_ms_per_step"],
                           "bound_ms": _bound(STREAMS + 16)[0]},
+        "loop_on_active": {"replaces": CG_WHILE_REPLACES, "ms": active["ms_per_step"],
+                           "plain_ms": active["plain_ms_per_step"], "bound_ms": bound_ms},
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

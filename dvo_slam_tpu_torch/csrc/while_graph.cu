@@ -1,37 +1,44 @@
-// One tracker IRLS level as one CUDA graph: the reference's
-// `jax.lax.while_loop(lambda c: ~c.done, step, init)`
-// (dvo_slam_tpu/models/dense_tracker.py:445-449) with no host read.
+// A device loop as one CUDA graph: the reference's `jax.lax.while_loop`
+// with no host read.  Three loops take this form: a tracker IRLS level
+// (`lax.while_loop(lambda c: ~c.done, step, init)`,
+// dvo_slam_tpu/models/dense_tracker.py:445-449), the pixel-sharded level
+// (dvo_slam_tpu/parallel/sharded_alignment.py:200, the same loop with its
+// all-reduces) and block-CG (dvo_slam_tpu/models/pose_graph.py:294-311,
+// looping while its carry's `active` is true).
 //
 // The caller (models/irls_graph.py) captures two PyTorch CUDA graphs over
-// one set of static buffers: the head (the level's initial carry, then K
+// one set of static buffers: the head (the loop's initial carry, then K
 // steps) and the tail (K more steps from the carry buffers).  Each ends by
-// copying its carry into the state buffers, whose `done` flags ([B] bools,
-// one byte each) this file reads.  dvo_while_graph_build nests them as
+// copying its carry into the state buffers, whose [B] byte flags this file
+// reads.  dvo_while_graph_build nests them as
 //
 //     child graph (head) -> set_while -> WHILE { child graph (tail) -> set_while }
 //
-// so one launch runs the head and then the tail for as long as a stream is
-// not done.  The loop always ends: every step sets `done` once its stream
-// has run max_iterations_per_level steps, and a NaN increment stops it too
-// (its log-likelihood does not decrease, so the step is rejected).
+// so one launch runs the head and then the tail for as long as the loop's
+// condition holds.  The condition's sense is the build's `loop_on`: the
+// loop goes on while one of the B flags equals it (0 for the IRLS levels'
+// `done` flags, 1 for CG's `active`).  The loops always end: an IRLS step
+// sets `done` once its stream has run max_iterations_per_level steps, and
+// a NaN increment stops it too (its log-likelihood does not decrease, so
+// the step is rejected); CG's `active` is false from its iteration cap on.
 //
 // set_while is this file's kernel: one thread reads the B flags in stream
 // order (a fixed-order reduction), sets the WHILE node's condition to 1
-// while any stream is not done (cudaGraphSetConditional, CUDA >= 12.4) and
-// adds one to its run counter: runs[0] counts the heads, runs[1] the tail
-// chunks, so the host can count the kernels the level launched without a
-// read per level (irls_graph.fold_counts reads them when a count is asked
-// for).  What bounds it: one launch on one SM, B bytes read; its cost is the
-// launch latency between two chunks inside the graph, which replaces a host
-// round trip per chunk.
+// while one of them equals `loop_on` (cudaGraphSetConditional, CUDA >=
+// 12.4) and adds one to its run counter: runs[0] counts the heads, runs[1]
+// the tail chunks, so the host can count the kernels the loop launched
+// without a read per loop (irls_graph.fold_counts reads them when a count
+// is asked for).  What bounds it: one launch on one SM, B bytes read; its
+// cost is the launch latency between two chunks inside the graph, which
+// replaces a host round trip per chunk.
 //
 // A conditional body takes kernel, empty, child-graph, device memcpy and
 // memset, and conditional nodes; it refuses host and event nodes.  A build
 // that CUDA refuses returns CUDA's error with the step that failed, and the
-// caller raises: there is no fallback to the host-polled chunks.
-// dvo_graph_node_census counts a graph's nodes by type (recursing into child
-// graphs), which the caller prints with such an error and the smoke run
-// records.
+// caller raises (or, for a process group's probe, records the refusal and
+// keeps that group's loops host-polled).  dvo_graph_node_census counts a
+// graph's nodes by type (recursing into child graphs), which the caller
+// prints with such an error and the smoke run records.
 
 #include <cuda_runtime.h>
 
@@ -42,10 +49,10 @@ namespace {
 
 constexpr int kNodeTypes = 16;  // census slots: cudaGraphNodeType values 0..15
 
-__global__ void set_while(cudaGraphConditionalHandle handle, const unsigned char* done,
-                          int batch, unsigned long long* runs) {
+__global__ void set_while(cudaGraphConditionalHandle handle, const unsigned char* flags,
+                          int batch, int loop_on, unsigned long long* runs) {
   unsigned int more = 0;
-  for (int b = 0; b < batch; ++b) more |= done[b] ? 0u : 1u;
+  for (int b = 0; b < batch; ++b) more |= (flags[b] != 0) == (loop_on != 0) ? 1u : 0u;
   cudaGraphSetConditional(handle, more);
   *runs += 1ull;
 }
@@ -57,9 +64,9 @@ int report(cudaError_t e, const char* what, char* err, int errlen) {
 }
 
 cudaError_t add_set_while(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep,
-                          cudaGraphConditionalHandle handle, const unsigned char* done,
-                          int batch, unsigned long long* runs) {
-  void* args[] = {&handle, &done, &batch, &runs};
+                          cudaGraphConditionalHandle handle, const unsigned char* flags,
+                          int batch, int loop_on, unsigned long long* runs) {
+  void* args[] = {&handle, &flags, &batch, &loop_on, &runs};
   cudaKernelNodeParams p = {};
   p.func = reinterpret_cast<void*>(set_while);
   p.gridDim = dim3(1);
@@ -96,14 +103,17 @@ extern "C" {
 
 // head, tail: cudaGraph_t of the two captured chunks (PyTorch's
 // CUDAGraph(keep_graph=True).raw_cuda_graph()); they are cloned, so the
-// caller may keep or drop its own.  done: the state buffers' [batch] flags.
+// caller may keep or drop its own.  flags: the state buffers' [batch] byte
+// flags; the loop goes on while one of them equals loop_on (0 or 1).
 // runs: two uint64 counters on the device (heads, tail chunks).  On
 // success *exec is the instantiated graph; on failure it is null and err
 // holds the step that failed and CUDA's text.  Returns a cudaError_t.
-int dvo_while_graph_build(void* head, void* tail, const void* done, int batch, void* runs,
-                          void** exec, char* err, int errlen) {
+int dvo_while_graph_build(void* head, void* tail, const void* done, int batch, int loop_on,
+                          void* runs, void** exec, char* err, int errlen) {
   *exec = nullptr;
   if (batch < 1) return report(cudaErrorInvalidValue, "dvo_while_graph_build: batch < 1", err, errlen);
+  if (loop_on != 0 && loop_on != 1)
+    return report(cudaErrorInvalidValue, "dvo_while_graph_build: loop_on is not 0 or 1", err, errlen);
   const unsigned char* flags = static_cast<const unsigned char*>(done);
   unsigned long long* counters = static_cast<unsigned long long*>(runs);
   cudaGraph_t graph = nullptr;
@@ -123,7 +133,7 @@ int dvo_while_graph_build(void* head, void* tail, const void* done, int batch, v
                                         static_cast<cudaGraph_t>(head))))
       break;
     what = "cudaGraphAddKernelNode (set_while after the head)";
-    if ((e = add_set_while(&set_head, graph, &head_node, handle, flags, batch, counters))) break;
+    if ((e = add_set_while(&set_head, graph, &head_node, handle, flags, batch, loop_on, counters))) break;
     cudaGraphNodeParams cond = {};
     cond.type = cudaGraphNodeTypeConditional;
     cond.conditional.handle = handle;
@@ -141,7 +151,8 @@ int dvo_while_graph_build(void* head, void* tail, const void* done, int batch, v
                                         static_cast<cudaGraph_t>(tail))))
       break;
     what = "cudaGraphAddKernelNode (set_while in the WHILE body)";
-    if ((e = add_set_while(&set_tail, body, &tail_node, handle, flags, batch, counters + 1)))
+    if ((e = add_set_while(&set_tail, body, &tail_node, handle, flags, batch, loop_on,
+                            counters + 1)))
       break;
     cudaGraphInstantiateParams params = {};
     what = "cudaGraphInstantiateWithParams";

@@ -27,14 +27,16 @@ step past ``done`` is inert (the carry freezes, as under the reference's
 ``vmap``), and a level's ``iterations`` is the carry's int32 count, as the
 reference's ``final.iteration`` is.  The loop runs in chunks of K steps
 (``CHUNK_STEPS``), so a level executes K * ceil(iterations / K) steps
-(``executed_steps``).  On the card a tracker level is one launch of a CUDA
-graph that holds the whole ``while ~done`` loop (``irls_graph``: a head
-chunk that starts the level, then a conditional WHILE node around a tail
-chunk), with no host read from the level's copy-in to its result; the
-multi-rank loops, whose graphs hold collectives, replay a graph per chunk
-and read ``done`` after each, and so does the card with ``WHILE_GRAPHS``
-off.  Elsewhere, or with ``CUDA_GRAPHS`` off, the same chunks run eagerly
-and read ``done`` once per chunk (``read_done``).  The accept/revert logic
+(``executed_steps``).  On the card a level is one launch of a CUDA graph
+that holds the whole ``while ~done`` loop (``irls_graph``: a head chunk
+that starts the level, then a conditional WHILE node around a tail chunk),
+with no host read from the level's copy-in to its result; the
+pixel-sharded level's graphs hold its NCCL all-reduces, and its group's
+probe (``irls_graph.probe_group``) decides up front whether they take that
+form or replay a graph per chunk and read ``done`` after each, as every
+level does with ``WHILE_GRAPHS`` off.  Elsewhere, or with ``CUDA_GRAPHS``
+off, the same chunks run eagerly and read ``done`` once per chunk
+(``read_done``).  The accept/revert logic
 keeps the reference's form: a rejected step keeps the previous carry.
 
 Lockstep batching: prepared frames whose artifacts carry a leading stream
@@ -367,9 +369,10 @@ CHUNK_STEPS = 1
 # Whether the card runs the loops as CUDA graphs (``irls_graph``); off, it
 # runs the same chunked loop eagerly (the graphs' reference in the checks).
 CUDA_GRAPHS = True
-# Whether a tracker level on the card (its key carries no process group)
+# Whether a loop on the card (a tracker or pixel-sharded level, block-CG)
 # runs as one while-graph launch; off, as host-polled chunk replays of the
-# same graphs (the comparison form of the checks and probes).
+# same graphs (the comparison form of the checks and probes).  A loop over a
+# process group whose probe was refused replays host-polled either way.
 WHILE_GRAPHS = True
 
 
@@ -603,19 +606,21 @@ def _graph_level(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level
 
 
 def graph_irls_level(cfg: TrackerConfig, make_evaluate, key: tuple, counters, inputs,
-                     x0, T0, initial0, precision0, collect_stats: bool, chunk: int):
+                     x0, T0, initial0, precision0, collect_stats: bool, chunk: int,
+                     group: tuple = ()):
     """The runner of a level's loop as CUDA graphs: the head and tail graphs
     of ``key`` (``irls_graph``) over static copies of ``inputs`` and the
     start values, ``make_evaluate(static inputs) -> evaluate`` building the
-    step's evaluation on those copies.  A key without a process group runs
-    as one while-graph launch, which reads nothing back (with
-    ``WHILE_GRAPHS`` on); a key with one (the pixel-sharded level, whose
-    chunks hold NCCL all-reduces) replays the head, then the tail, reading
-    ``done`` after each.  ``counters`` are the (object, attribute) launch
-    counts that a step moves: each chunk adds what its capture would have
-    added (the while form when ``irls_graph.fold_counts`` runs).  Returns
-    what ``_irls_level`` returns with the same evaluation on ``inputs``,
-    bit for bit."""
+    step's evaluation on those copies.  ``group`` is the part of ``key``
+    that names the process group whose collectives the chunks hold (``()``
+    for none).  The form is chosen up front (``irls_graph.while_form``):
+    one while-graph launch, which reads nothing back, or (``WHILE_GRAPHS``
+    off, or a group whose probe was refused) a replay of the head, then of
+    the tail, reading ``done`` after each.  ``counters`` are the (object,
+    attribute) launch counts that a step moves: each chunk adds what its
+    capture would have added (the while form when
+    ``irls_graph.fold_counts`` runs).  Returns what ``_irls_level``
+    returns with the same evaluation on ``inputs``, bit for bit."""
     start = (x0, T0, initial0, precision0)
     level_inputs = len(inputs)
 
@@ -634,7 +639,7 @@ def graph_irls_level(cfg: TrackerConfig, make_evaluate, key: tuple, counters, in
         carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, state is None, consts)
         return tuple(carry) + (tuple(trace) if collect_stats else ())
 
-    polled = not WHILE_GRAPHS or irls_graph.has_group(key)
+    polled = not irls_graph.while_form(group, WHILE_GRAPHS)
     graphs = irls_graph.graphs_for(key, torch.device(x0.device))
     with graphs.lock:
         graphs.load(tuple(inputs) + start)

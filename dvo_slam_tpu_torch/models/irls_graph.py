@@ -1,5 +1,6 @@
-"""The IRLS loop as CUDA graphs: the card's form of the reference's
-device-resident ``lax.while_loop`` (``dvo_slam_tpu/models/dense_tracker.py``).
+"""The device loops as CUDA graphs: the card's form of the reference's
+device-resident ``lax.while_loop`` (``dvo_slam_tpu/models/dense_tracker.py``
+for the IRLS levels, ``models/pose_graph.py`` for block-CG).
 
 For each key (the backend, the inputs' shapes and types, K, the
 configuration fields and intrinsics that a step bakes in) this module
@@ -15,14 +16,16 @@ Each graph's last ops copy the new state into the state buffers, so the
 chunks chain.  A level copies its inputs into the static input buffers and
 then runs in one of two forms:
 
-  * the *while form* (``run_level``, every tracker level without a process
-    group): one launch of a graph built by ``csrc/while_graph.cu`` from the
-    two captures, head -> ``set_while`` -> WHILE { tail -> ``set_while`` },
-    which loops on the card while a stream's ``done`` flag is false, so the
-    level reads nothing back before the caller's clone;
-  * the *host-polled form* (``run_head`` / ``run_tail``, the loops whose
-    graphs hold NCCL collectives, and the comparison form): one replay per
-    chunk, the caller reading the state buffers between replays.
+  * the *while form* (``run_level``): one launch of a graph built by
+    ``csrc/while_graph.cu`` from the two captures, head -> ``set_while`` ->
+    WHILE { tail -> ``set_while`` }, which loops on the card while one of
+    the state's flags has the loop's value (a stream's ``done`` false for
+    the IRLS levels, ``active`` true for CG), so the loop reads nothing
+    back before the caller's clone;
+  * the *host-polled form* (``run_head`` / ``run_tail``: the comparison
+    form, and the loops of a process group whose probe was refused): one
+    replay per chunk, the caller reading the state buffers between
+    replays.
 
 Both forms share the captures (``keep_graph=True``): the while graph is
 built at the first ``run_level`` of a key, the PyTorch graphs are
@@ -49,13 +52,19 @@ of the process, and the benchmark (``bench.py``) resets its SLAM between
 timed runs, which would then capture every key again inside each run.
 
 The same cache serves the multi-rank loops (the pixel-sharded IRLS level,
-block-CG), whose graphs hold NCCL collectives: a captured collective keeps
-its communicator baked in.  Their keys carry ``group_key(group)``: the
-group's backend, size and rank, and the generation that each
-``parallel.distributed.initialize`` starts (``new_generation``), so that a
-group made after another never replays the other's graphs; and
-``parallel.distributed.shutdown`` releases the group's keys before it
-destroys the group.  They run host-polled.
+block-CG over the ranks), whose graphs hold NCCL collectives: a captured
+collective keeps its communicator baked in.  Their keys carry
+``group_key(group)``: the group's backend, size and rank, and the
+generation that each ``parallel.distributed.initialize`` starts
+(``new_generation``), so that a group made after another never replays the
+other's graphs; and ``parallel.distributed.shutdown`` releases the group's
+keys before it destroys the group.  Their form is chosen once per group, up
+front: ``initialize`` builds a probe on the group (``probe_group``: a while
+graph whose body holds the group's all-reduces and kernel 2's clustered
+launches) and records its form under the group's key (``group_forms``):
+the while form where CUDA admitted and ran the probe, else host-polled,
+with CUDA's refusal kept and reported by ``stats()``.  A group that
+``initialize`` did not start has no probe and runs host-polled.
 
 Threads: the keyframe graph's worker solves validation waves while the
 tracker solves its matches, both on the device's default stream.
@@ -73,7 +82,9 @@ tracker solves its matches, both on the device's default stream.
 
 There is no fallback: a capture that fails raises, naming the op that
 broke it, and a while graph that CUDA refuses to build or launch raises
-with CUDA's text, the key and the node types of the two captures.
+with CUDA's text, the key and the node types of the two captures.  The one
+choice made from what CUDA admits is the per-group form above, made once
+when the group starts and reported.
 """
 
 from __future__ import annotations
@@ -84,7 +95,7 @@ import threading
 import time
 import types
 from collections import OrderedDict
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -108,6 +119,7 @@ _generation = [0]  # process groups started by parallel.distributed.initialize
 # after ``fold_counts``)
 while_counts = types.SimpleNamespace(launches=0, set_while=0)
 _dropped_tallies = []  # the tallies of dropped keys, until the next fold_counts
+_group_forms: "Dict[tuple, GroupForm]" = {}  # group_key -> the group's probed form
 
 
 def new_generation():
@@ -125,8 +137,17 @@ def group_key(group=None) -> tuple:
 
 def has_group(key: tuple) -> bool:
     """Whether a graph key carries a process group (``group_key``): such a
-    loop holds collectives and runs host-polled."""
+    loop holds that group's collectives."""
     return any(isinstance(part, tuple) and part[:1] == ("group",) for part in key)
+
+
+class GroupForm(NamedTuple):
+    """How the loops whose graphs hold a process group's collectives run on
+    the card, as the group's probe found it (``probe_group``)."""
+
+    form: str  # "while" where the probe was admitted and ran, else "polled"
+    refusal: Optional[str]  # why not: CUDA's text, or the probe's mismatch
+    census: Dict[str, Dict[str, int]]  # the probe's head and tail node types
 
 
 def graph_group(device, group=None, enabled: bool = True) -> Optional[tuple]:
@@ -138,6 +159,32 @@ def graph_group(device, group=None, enabled: bool = True) -> Optional[tuple]:
     if torch.device(device).type != "cuda" or not enabled or dist.get_backend(group) != "nccl":
         return None
     return group_key(group)
+
+
+def while_form(part: tuple, enabled: bool = True) -> bool:
+    """Whether a loop on the card whose key carries ``part`` (``()`` for a
+    loop without collectives, else a ``group_key``) runs as one while-graph
+    launch (True) or as host-polled replays: the while form where it is
+    ``enabled`` and the loop holds no collective or its group's probe was
+    admitted (``group_forms``)."""
+    if not enabled:
+        return False
+    if part == ():
+        return True
+    form = _group_forms.get(part)
+    return form is not None and form.form == "while"
+
+
+def group_forms() -> Dict[tuple, GroupForm]:
+    """The probed form of each process group (by ``group_key``)."""
+    with _lock:
+        return dict(_group_forms)
+
+
+def forget_group(part: tuple):
+    """Drop a destroyed group's probed form."""
+    with _lock:
+        _group_forms.pop(part, None)
 
 
 # cudaGraphNodeType values (CUDA's driver_types.h), for the node census
@@ -153,7 +200,7 @@ def _while_library():
     (built by nvcc at the first call in a process)."""
     lib = _build.load_library("while_graph").lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dvo_while_graph_build.argtypes = [p, p, p, i, p, ctypes.POINTER(p), ctypes.c_char_p, i]
+    lib.dvo_while_graph_build.argtypes = [p, p, p, i, i, p, ctypes.POINTER(p), ctypes.c_char_p, i]
     lib.dvo_while_graph_launch.argtypes = [p, p]
     lib.dvo_while_graph_destroy.argtypes = [p]
     lib.dvo_graph_node_census.argtypes = [p, ctypes.POINTER(ctypes.c_int)]
@@ -172,20 +219,21 @@ def _cuda_error(code: int) -> str:
 
 
 def build_while(head: "torch.cuda.CUDAGraph", tail: "torch.cuda.CUDAGraph",
-                flags: torch.Tensor, runs: torch.Tensor) -> int:
+                flags: torch.Tensor, runs: torch.Tensor, loop_on: bool = False) -> int:
     """The while graph (a cudaGraphExec_t) over two graphs captured with
     ``keep_graph=True``: head -> ``set_while`` -> WHILE { tail ->
     ``set_while`` }, looping while one of ``flags`` (bool, [B] or [], on the
-    card) is false; ``set_while`` adds one to ``runs[0]`` after the head and
-    to ``runs[1]`` after each tail (int64 [2] on the card).  Raises with
-    CUDA's text where CUDA refuses the graph."""
+    card) equals ``loop_on`` (False: while a stream is not done; True:
+    while CG is active); ``set_while`` adds one to ``runs[0]`` after the
+    head and to ``runs[1]`` after each tail (int64 [2] on the card).
+    Raises with CUDA's text where CUDA refuses the graph."""
     if flags.dtype != torch.bool or runs.dtype != torch.int64 or runs.numel() != 2:
         raise ValueError("build_while: flags must be bool and runs int64 [2]")
     exec_ = ctypes.c_void_p()
     err = ctypes.create_string_buffer(_ERROR_TEXT)
     code = _while_library().dvo_while_graph_build(
         head.raw_cuda_graph(), tail.raw_cuda_graph(), flags.data_ptr(), flags.numel(),
-        runs.data_ptr(), ctypes.byref(exec_), err, _ERROR_TEXT)
+        int(bool(loop_on)), runs.data_ptr(), ctypes.byref(exec_), err, _ERROR_TEXT)
     if code:
         raise RuntimeError(err.value.decode())
     return exec_.value
@@ -285,21 +333,28 @@ class LevelGraphs:
         for buf, t in zip(self.inputs, inputs):
             buf.copy_(t)
 
-    def run_level(self, program: Callable, counters, done: int) -> Tuple[torch.Tensor, ...]:
-        """The whole level in the while form: one launch of the while graph
-        over ``program``'s head and tail, looping while a stream's flag in
-        ``state[done]`` is false.  Reads nothing back; the launch counts
-        reach ``counters`` through ``fold_counts``."""
+    @property
+    def loop(self) -> str:
+        """The loop's name in messages."""
+        return "CG loop" if self.key[1] == "cg" else "IRLS level"
+
+    def run_level(self, program: Callable, counters, flag: int,
+                  loop_on: bool = False) -> Tuple[torch.Tensor, ...]:
+        """The whole loop in the while form: one launch of the while graph
+        over ``program``'s head and tail, looping while one of the flags in
+        ``state[flag]`` equals ``loop_on`` (a stream's ``done`` false, or
+        CG's ``active`` true).  Reads nothing back; the launch counts reach
+        ``counters`` through ``fold_counts``."""
         _require_default_stream(self.device)
         with _lock:
             if self.head is None:
                 self._build(program, counters)
             if self.exec is None:
-                self._build_while(done)
+                self._build_while(flag, loop_on)
             try:
                 launch_while(self.exec, self.device)
             except RuntimeError as exc:
-                raise RuntimeError(f"launching the IRLS level's while graph failed (key "
+                raise RuntimeError(f"launching the {self.loop}'s while graph failed (key "
                                    f"{self.key}): {exc}; nodes {self.census()}") from None
             while_counts.launches += 1
         return self.state
@@ -383,12 +438,12 @@ class LevelGraphs:
         self.counters = tuple(counters)
         _evict(keep=self)
 
-    def _build_while(self, done: int):
+    def _build_while(self, flag: int, loop_on: bool):
         runs = torch.zeros(2, dtype=torch.int64, device=self.device)
         try:
-            self.exec = build_while(self.head, self.tail, self.state[done], runs)
+            self.exec = build_while(self.head, self.tail, self.state[flag], runs, loop_on)
         except RuntimeError as exc:
-            raise RuntimeError(f"building the IRLS level's while graph failed (key {self.key}): "
+            raise RuntimeError(f"building the {self.loop}'s while graph failed (key {self.key}): "
                                f"{exc}; nodes {self.census()}") from None
         self.tally = _Tally(runs, self.deltas, self.counters)
         self.static_bytes += runs.numel() * runs.element_size()
@@ -494,11 +549,84 @@ def release(where: Optional[Callable[[tuple], bool]] = None):
             _drop([g])
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bits (NaNs by their bits)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(view), b.contiguous().view(view)
+    return torch.equal(a, b)
+
+
+def _all_ranks(ok: bool, group, device) -> bool:
+    """Whether ``ok`` holds on every rank of ``group`` (an eager all-reduce)."""
+    flag = torch.full((1,), int(ok), dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    return bool(flag.item())
+
+
+def probe_group(device, program: Callable, inputs: Sequence[torch.Tensor], flag: int,
+                tail_chunks: int, counters=(), group=None) -> GroupForm:
+    """Choose, once per process group, the form of the loops whose graphs
+    hold its collectives (``parallel.distributed.initialize`` calls it when
+    the group starts).  Builds a while graph of ``program`` on ``device``
+    (its head and tail over static copies of ``inputs``, holding the
+    group's collectives; ``state[flag]`` is a ``done`` flag that ends the
+    loop after ``tail_chunks`` tail chunks), launches it, and holds it to
+    the same chunks run eagerly: the tail chunks ``set_while`` counted, and
+    every state tensor bit-equal.  Every rank of the group calls it, and
+    the ranks agree on each verdict (an eager all-reduce) before any of
+    them launches, so that they all take one form.  Records and returns
+    the ``GroupForm``: "while" where the probe was admitted and agreed,
+    else "polled" with CUDA's text (or the mismatch), and the captures'
+    node census.  The probe's launches are taken back from ``counters``."""
+    device = torch.device(device)
+    part = group_key(group)
+    saved = _read_counters(counters), (while_counts.launches, while_counts.set_while)
+    graphs = LevelGraphs((device.index, "probe", part), device)
+    refusal, census = None, {}
+    with graphs.lock:
+        graphs.load(inputs)
+        try:
+            with _lock:
+                graphs._build(program, counters)
+                census = graphs.census()
+                graphs._build_while(flag, False)
+        except RuntimeError as exc:
+            refusal = str(exc)
+        if not _all_ranks(refusal is None, group, device):
+            refusal = refusal or "another rank's probe was refused"
+        if refusal is None:
+            got = tuple(t.clone() for t in graphs.run_level(program, counters, flag))
+            heads, tails = graphs.tally.runs.tolist()
+            want = program(graphs.inputs, None)
+            for _ in range(tail_chunks):
+                want = program(graphs.inputs, want)
+            if (heads, tails) != (1, tail_chunks) or not all(
+                    _same_bits(a, b) for a, b in zip(got, want)):
+                refusal = (f"the probe's while graph ran {heads} head and {tails} tail chunks "
+                           f"(expected 1 and {tail_chunks}) or its state differs from the "
+                           f"same chunks run eagerly")
+            if not _all_ranks(refusal is None, group, device):
+                refusal = refusal or "another rank's probe disagreed with its eager run"
+        torch.cuda.synchronize(device)
+        graphs.tally = None  # the probe's launches are not the loops' launches
+        graphs.drop()
+    _set_counters(counters, saved[0])
+    while_counts.launches, while_counts.set_while = saved[1]
+    form = GroupForm("while" if refusal is None else "polled", refusal, census)
+    with _lock:
+        _group_forms[part] = form
+    return form
+
+
 def stats() -> dict:
     """What the process's graph cache holds: keys, captured graphs, while
     graphs built from them, capture ms, the captures' reserved memory and
     the static buffers' bytes, with the bound and the keys dropped to keep
-    within it."""
+    within it; and the form of each process group's loops
+    (``group_forms``: "while", or "polled" with the reason)."""
     with _lock:
         built = [g for g in _cache.values() if g.head is not None]
         return {
@@ -510,4 +638,7 @@ def stats() -> dict:
             "static_bytes": sum(g.static_bytes for g in built),
             "cache_bytes": CACHE_BYTES,
             "evicted": _evicted[0],
+            "group_forms": {repr(part): form.form if form.refusal is None
+                            else f"{form.form}: {form.refusal}"
+                            for part, form in _group_forms.items()},
         }

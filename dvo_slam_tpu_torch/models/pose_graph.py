@@ -250,9 +250,10 @@ def edge_matvec(ei, ej, H_ii, H_ij, H_jj, free, x, damping=GAUGE_DAMPING):
     return edge_matvec_partial(ei, ej, H_ii, H_ij, H_jj, free, x) + _gauge_terms(x, free, damping)
 
 
-# K, the CG steps between two host reads of the loop's ``active`` flag on
-# the card (on the CPU: 1, one read per iteration as the keyframe graph's
-# host solves always did).  PERF.md §6: K = 8 ran fastest in the sweep on the card.
+# K, the CG steps per chunk on the card: in the while form a set_while run
+# between two chunks, in the host-polled form a host read of ``active`` (on
+# the CPU: 1, one read per iteration as the keyframe graph's host solves
+# always did).  PERF.md §6: K = 8 ran fastest in the sweeps on the card.
 CG_CHUNK_STEPS = 8
 
 
@@ -280,10 +281,14 @@ def _cg_active(k, r, iterations: int, stop2):
     return (k < iterations) & (_vdot(r, r) > stop2)
 
 
+_ACTIVE = 6  # the carry's ``active`` flag: (x, r, z, p, rz, k, active)
+
+
 def _cg_chunk(matvec, L, carry, steps: int, iterations: int, stop2):
     """``steps`` CG iterations from ``carry`` = (x, r, z, p, rz, k,
     active); a step taken where ``active`` is false leaves the carry as it
-    was, so K steps then one read give the result of K = 1."""
+    was, so K steps then one read give the result of K = 1, and a chunk
+    from a carry whose condition already failed is inert."""
     x, r, z, p, rz, k, active = carry
     for _ in range(steps):
         Hp = matvec(p)
@@ -304,7 +309,10 @@ def _cg_graph_group(device, all_reduce):
     """How a CG solve runs, chosen up front: None for the eager loop (the
     CPU, ``dense_tracker.CUDA_GRAPHS`` off, or a reduction that is not a
     NCCL group's), else the group part of its graph key (``()`` without
-    a reduction).  A reduction names its group in ``group``
+    a reduction), whose form ``irls_graph.while_form`` gives (one
+    while-graph launch, or host-polled replays with
+    ``dense_tracker.WHILE_GRAPHS`` off or where the group's probe was
+    refused).  A reduction names its group in ``group``
     (``parallel/distributed_ba``'s does); one that does not runs eagerly."""
     if all_reduce is None:
         on_card = torch.device(device).type == "cuda" and dense_tracker.CUDA_GRAPHS
@@ -325,14 +333,20 @@ def solve_blocks_cg(
     ``iterations`` or once |r| <= tol |rhs|.
 
     The reference's ``lax.while_loop`` carries (x, r, z, p, rz, k) and its
-    condition on the device, and so does this loop: it runs K steps
-    (``chunk``; by default ``CG_CHUNK_STEPS`` on the card, 1 on the CPU)
-    between two host reads of (active, k), each step inert once the
-    condition fails, so every K gives the K = 1 result bit for bit (one
-    read before the first step, then one per chunk).  On the card each
-    chunk is one CUDA graph replay (``irls_graph``), the reduction's
-    all-reduce captured in it where it is a NCCL group's
-    (``_cg_graph_group``); elsewhere the same chunks run eagerly.
+    condition on the device, and so does this loop: it runs in chunks of K
+    steps (``chunk``; by default ``CG_CHUNK_STEPS`` on the card, 1 on the
+    CPU), each step inert once the condition fails, so every K gives the
+    K = 1 result bit for bit, and a first chunk from a start whose
+    condition already fails leaves it as it is (k = 0).  On the card the
+    whole loop is one launch of a CUDA graph whose conditional WHILE node
+    repeats the chunk while ``active`` holds (``irls_graph``), the
+    reduction's all-reduce captured in it where it is a NCCL group's
+    (``_cg_graph_group``): nothing is read back from the start to the
+    result.  The host-polled replays (``dense_tracker.WHILE_GRAPHS`` off,
+    or a group whose probe was refused) and the eager loop (the CPU,
+    ``dense_tracker.CUDA_GRAPHS`` off, gloo) read ``active`` once per
+    chunk.  ``k`` is read once, at the end, where ``return_iterations``
+    asks for it.
 
     With ``all_reduce`` (a function that sums a tensor over the ranks) the
     edge arrays are this rank's shard and ``rhs`` is already summed: each
@@ -342,9 +356,11 @@ def solve_blocks_cg(
 
     Edges whose three blocks are all zero (the unused slots of a graph's
     edge storage, masked out by ``edge_blocks``) add nothing to any sum and
-    are dropped first (one host read per solve): on the card they would
-    all land on one vertex, whose contributions the deterministic scatter
-    (``_scatter_add``) adds one after another."""
+    are dropped first (``_live_edges``, one host read per solve, which
+    stays in the while form: the live edges set the chunk's shapes and so
+    its graph key): on the card they would all land on one vertex, whose
+    contributions the deterministic scatter (``_scatter_add``) adds one
+    after another."""
     dtype = rhs.dtype
     rhs = rhs * free.to(dtype)[:, None]
     ei, ej, H_ii, H_ij, H_jj = _live_edges(ei, ej, H_ii, H_ij, H_jj)
@@ -369,29 +385,30 @@ def solve_blocks_cg(
 
     edges = (ei, ej, H_ii, H_ij, H_jj, free)
     group = _cg_graph_group(rhs.device, all_reduce)
-    active, k = _cg_read(carry)  # the reference's condition before its first step
-    if active and group is None:
+    if group is None:
         matvec = matvec_on(*edges)
-        while active:
+        carry = _cg_chunk(matvec, L, carry, chunk, iterations, stop2)
+        while _cg_read(carry):
             carry = _cg_chunk(matvec, L, carry, chunk, iterations, stop2)
-            active, k = _cg_read(carry)
-    elif active:
-        carry, k = _graph_cg(edges, L, stop2, carry, matvec_on, chunk, iterations, damping, group)
+    else:
+        carry = _graph_cg(edges, L, stop2, carry, matvec_on, chunk, iterations, damping, group)
     if return_iterations:
-        return carry[0], k
+        return carry[0], int(carry[5])
     return carry[0]
 
 
-def _cg_read(carry):
-    """The loop's one host read per chunk: (active, k)."""
-    active, k = torch.stack((carry[6].to(torch.int64), carry[5])).tolist()
-    return bool(active), k
+def _cg_read(carry) -> bool:
+    """The eager and host-polled loops' one host read per chunk: whether
+    the loop's condition still holds."""
+    return bool(carry[_ACTIVE])
 
 
 def _graph_cg(edges, L, stop2, carry, matvec_on, chunk: int, iterations: int, damping, group):
-    """The CG loop on the card, each chunk one replay of a CUDA graph: the
-    head chunk from the static copy of the start ``carry``, the tail from
-    the state buffers.  Returns (the final carry, cloned; k)."""
+    """The CG loop on the card as CUDA graphs over static copies of the
+    inputs and the start ``carry``: the head chunk from the start, the tail
+    from the state buffers.  In the while form one launch runs the loop
+    (WHILE ``active``); host-polled, one replay per chunk and a read of
+    ``active`` after each.  Returns the final carry, cloned."""
     static = tuple(edges) + (L, stop2) + tuple(carry)
     solve = len(edges)  # static[solve]: L; static[solve + 1]: stop2
 
@@ -405,10 +422,13 @@ def _graph_cg(edges, L, stop2, carry, matvec_on, chunk: int, iterations: int, da
     graphs = irls_graph.graphs_for(key, L.device)
     with graphs.lock:
         graphs.load(static)
-        active, k = _cg_read(graphs.run_head(program, ()))
-        while active:
-            active, k = _cg_read(graphs.run_tail(()))
-        return tuple(t.clone() for t in graphs.state), k
+        if irls_graph.while_form(group, dense_tracker.WHILE_GRAPHS):
+            state = graphs.run_level(program, (), _ACTIVE, loop_on=True)
+        else:
+            state = graphs.run_head(program, ())
+            while _cg_read(state):
+                state = graphs.run_tail(())
+        return tuple(t.clone() for t in state)
 
 
 # ------------------------------------------------------------ Schur chains

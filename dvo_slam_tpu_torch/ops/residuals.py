@@ -212,7 +212,13 @@ compute_residuals.calls = 0
 def normal_equations(residual_data: ResidualData, weights, precision):
     """The 6x6 normal equations A = sum_i w_i J_i^T P J_i and
     b = -sum_i w_i J_i^T P r_i, as contractions over the pixels; A is
-    symmetrised.  ``weights`` [..., N], ``precision`` [..., 2, 2]."""
+    symmetrised.  ``weights`` [..., N], ``precision`` [..., 2, 2].
+
+    With a leading stream axis, b is contracted stream by stream in the
+    one-stream call's shape (a matrix-vector product; the batched
+    contraction is a batched matrix product, which rounds otherwise), so
+    that each stream's b is its one-stream call's bits; A's batched
+    product already is."""
     J = residual_data.jacobian  # [..., N, 2, 6]
     r = residual_data.residuals  # [..., N, 2]
     wJ = weights[..., None, None] * J
@@ -220,5 +226,8 @@ def normal_equations(residual_data: ResidualData, weights, precision):
     A = torch.einsum("...nai,...naj->...ij", wJ, PJ)
     A = 0.5 * (A + A.transpose(-1, -2))
     Pr = r @ precision.transpose(-1, -2)
-    b = -torch.einsum("...nai,...na->...i", wJ, Pr)
-    return A, b
+    if wJ.dim() == 3:
+        return A, -torch.einsum("...nai,...na->...i", wJ, Pr)
+    streams = zip(wJ.reshape((-1,) + wJ.shape[-3:]), Pr.reshape((-1,) + Pr.shape[-2:]))
+    b = torch.stack([torch.einsum("...nai,...na->...i", wJ_s, Pr_s) for wJ_s, Pr_s in streams])
+    return A, -b.reshape(wJ.shape[:-3] + (6,))

@@ -17,6 +17,7 @@ import torch.distributed as dist
 
 from ..models import irls_graph
 from .mesh import rank_device
+from .sharded_alignment import while_probe
 
 
 def initialize(
@@ -36,7 +37,14 @@ def initialize(
     ``nccl`` for a card and ``gloo`` for the CPU, unless it is named; a
     rank on a card first makes it the current device.  Each group started
     here is a new generation of ``irls_graph.group_key``: no CUDA graph of
-    an earlier group is replayed on it."""
+    an earlier group is replayed on it.  A NCCL group on the card then
+    chooses, once, the form of the loops whose graphs hold its collectives
+    (the pixel-sharded level, block-CG over the ranks): every rank builds
+    the probe of ``sharded_alignment.while_probe`` (a while graph whose
+    body holds the group's all-reduces and kernel 2's clustered launch),
+    and the group's loops run as while graphs where CUDA admitted and ran
+    it, else host-polled; ``irls_graph.stats()["group_forms"]`` reports
+    the form, with CUDA's refusal where there was one."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     if init_method is None:
@@ -59,19 +67,23 @@ def initialize(
         backend, init_method=init_method, world_size=world_size, rank=rank
     )
     irls_graph.new_generation()
+    if device.type == "cuda" and backend == "nccl":
+        while_probe(device)
     return world_size > 1
 
 
 def shutdown() -> None:
     """Destroy the process group, if one is initialised.  First the CUDA
     graphs captured over it (the pixel-sharded level's and block-CG's,
-    whose collectives keep its communicator baked in) are released, once
-    the card has finished what it queued."""
+    whose collectives keep its communicator baked in, their while graphs
+    too) are released, once the card has finished what it queued, and its
+    probed form is dropped."""
     if dist.is_initialized():
         tag = irls_graph.group_key()
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
         irls_graph.release(where=lambda key: tag in key)
+        irls_graph.forget_group(tag)
         dist.destroy_process_group()
 
 

@@ -59,7 +59,7 @@ def _all_reduce(mesh: Mesh):
     """A function that sums a tensor over the mesh's ranks; its ``group``
     tells ``pose_graph.solve_blocks_cg`` which group it reduces over, so
     that on the card over NCCL the CG loop's reduction is captured in its
-    CUDA graphs."""
+    CUDA graphs (in the WHILE body where the group's probe admitted it)."""
     def reduce(x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         dist.all_reduce(x, group=mesh.group)
@@ -125,9 +125,13 @@ def distributed_gauss_newton_cg(graph: pg.GraphArrays, mesh: Mesh, iterations: i
     """Edge-sharded GN whose solve is distributed block-CG: the Hessian is
     never formed; each CG iteration sums one [N, 6] partial product over
     the ranks, and each GN iteration the gradient, chi2 and one
-    [N, 6, 6] preconditioner.  On the card over NCCL the CG loop runs as
-    chunked CUDA graphs with that all-reduce captured, one host read per
-    chunk (``pose_graph.solve_blocks_cg``); over gloo, eagerly.  Returns
+    [N, 6, 6] preconditioner.  On the card over NCCL the CG loop is one
+    launch of a CUDA graph whose WHILE body holds that all-reduce, with no
+    host read from its start to its result, where the group's probe
+    admitted that form (``irls_graph.group_forms``), else chunked graph
+    replays with a read of ``active`` after each
+    (``pose_graph.solve_blocks_cg``); over gloo, eagerly.  Every rank
+    holds the same iterate, so every rank runs the same chunks.  Returns
     (graph, chi2_history)."""
     _check_axis(mesh, axis)
     g = _on_mesh(graph, mesh)

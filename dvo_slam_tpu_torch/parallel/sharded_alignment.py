@@ -22,18 +22,26 @@
       3. ``dvo_sharded_tail``: the log-likelihood and the normal equations;
     then, replicated in PyTorch, the smoothing, the 6x6 solve, termination
     and revert.  So three launches and two collectives per iteration.  The
-    level runs the reference's device loop as ``dense_tracker``'s does: in
-    chunks of K steps (``CHUNK_STEPS``) with one host read of ``done``
-    after each, K * ceil(iterations / K) executed steps, each one
-    evaluation.  How a chunk runs is chosen up front from the device and
-    the group's backend (``irls_graph.graph_group``), never by trying: on the
-    card over NCCL each chunk is one CUDA graph replay
-    (``dense_tracker.graph_irls_level``, with the two all-reduces captured
-    in it; the keys carry the group, and ``distributed.shutdown``
-    releases them); on the CPU, over gloo (whose collectives are host code
-    and cannot be captured, as when two ranks share a card) or with
-    ``dense_tracker.CUDA_GRAPHS`` off, the same chunks run eagerly.  The
-    launches take 256 pixels per block in
+    level runs the reference's device loop (its ``lax.while_loop``,
+    ``dvo_slam_tpu/parallel/sharded_alignment.py:200``) as
+    ``dense_tracker``'s does: in chunks of K steps (``CHUNK_STEPS``), K *
+    ceil(iterations / K) executed steps, each one evaluation.  How it runs
+    is chosen up front from the device, the group's backend
+    (``irls_graph.graph_group``) and the group's probe, never by trying: on
+    the card over NCCL the level is one launch of a CUDA graph whose
+    conditional WHILE node repeats the chunk, both all-reduces captured in
+    its body, with no host read (``dense_tracker.graph_irls_level``; the
+    keys carry the group, and ``distributed.shutdown`` releases them),
+    where the group's probe admitted that form (``while_probe``, built by
+    ``distributed.initialize``); else, and with
+    ``dense_tracker.WHILE_GRAPHS`` off, each chunk is one graph replay
+    followed by a host read of ``done``.  On the CPU, over gloo (whose
+    collectives are host code and cannot be captured, as when two ranks
+    share a card) or with ``dense_tracker.CUDA_GRAPHS`` off, the same
+    chunks run eagerly with a read after each.  Every rank's ``done``
+    comes from the all-reduced sums, so every rank runs the same chunks: a
+    WHILE loop whose ranks disagreed would wait in a collective for ever.
+    The launches take 256 pixels per block in
     clusters of 8 blocks (the tracker's evaluation takes 512), so that a
     rank's share of a level still fills the card; a pixel of the shard
     moves at most 152 bytes (28 of the refpack, 112 of the quad table, 12
@@ -118,13 +126,60 @@ def _match_level_sharded(cfg, intrinsics, mesh: Mesh, refpack, quad, shape, x0, 
         )
         carry, iterations, _ = dt.graph_irls_level(
             cfg, lambda static: evaluation(*static), key, _COUNTERS, (refpack, quad),
-            x0, T0, identity, precision0, False, chunk,
+            x0, T0, identity, precision0, False, chunk, group=group,
         )
     else:
         carry, iterations, _ = dt._irls_level(
             cfg, evaluation(refpack, quad), x0, T0, identity, precision0, chunk=chunk
         )
     return carry, iterations
+
+
+# the group's probe: a 60x80 level (4,800 pixels: kernel 2's first launch
+# on 19 blocks in 3 clusters of 8) and the tail chunks its loop runs
+PROBE_SHAPE = (60, 80)
+PROBE_INTRINSICS = Intrinsics(64.7, 64.6, 39.8, 31.9)  # TUM_FR1 at 80x60
+PROBE_CHUNKS = 3
+
+
+def while_probe(device, group=None):
+    """Choose the form of ``group``'s loops on the card
+    (``irls_graph.probe_group``), once, as the group starts: a while graph
+    whose body is what the pixel-sharded level's is, one evaluation of
+    ``fused_kernels.warp_fused_partials`` (kernel 2's three launches, the
+    first in clusters of 8 blocks, and the two all-reduces on ``group``)
+    on a seeded 60x80 level, and a step counter whose ``done`` flag ends
+    the loop after ``PROBE_CHUNKS`` tail chunks.  Every rank of the group
+    calls it.  Returns the ``irls_graph.GroupForm``."""
+    h, w = PROBE_SHAPE
+    n = h * w
+    gen = torch.Generator().manual_seed(0)
+    noise = lambda: 0.01 * torch.rand(n, generator=gen)  # noqa: E731
+    col = torch.arange(n, dtype=torch.float32) % w
+    row = torch.arange(n, dtype=torch.float32) // w
+    intensity = 0.5 + 0.3 * torch.sin(col / 5) * torch.cos(row / 7)
+    z = 1.0 + 0.05 * torch.sin(col / 9)
+    grads = [0.06 * torch.cos(col / 5) + noise(), -0.04 * torch.sin(row / 7) + noise()]
+    one, zero = torch.ones(n), torch.zeros(n)
+    k = PROBE_INTRINSICS
+    refpack = torch.stack([intensity + noise(), z, *grads, (col - k.ox) / k.fx * z,
+                           (row - k.oy) / k.fy * z, one, zero])
+    accel = torch.stack([intensity, z, *grads, 0.005 * torch.cos(col / 9), zero, one, zero])
+    quad = build_quad_table_cm(accel, w)
+    twist = se3.exp_se3(torch.tensor([0.002, -0.001, 0.003, 0.001, 0.002, -0.001]))
+    limit = torch.full((), PROBE_CHUNKS + 1, dtype=torch.int32)
+    inputs = tuple(t.to(device) for t in (refpack, quad, twist, torch.eye(2), limit))
+    dof = 5.0
+
+    def program(static, state):
+        refpack, quad, T, P, limit = static
+        steps = torch.zeros_like(limit) if state is None else state[0]
+        out = fused_kernels.warp_fused_partials(refpack, quad, PROBE_SHAPE, PROBE_INTRINSICS,
+                                                T, P, state is None, dof, group=group)
+        steps = steps + 1
+        return (steps, steps >= limit) + tuple(out)
+
+    return irls_graph.probe_group(device, program, inputs, 1, PROBE_CHUNKS, _COUNTERS, group)
 
 
 def _solve_pixel_sharded(cfg, intrinsics, mesh: Mesh, ref_levels, cur_levels, initial):

@@ -16,15 +16,21 @@ vertices with a robust loop closure every ``--loop-every`` vertices
 whose block-Jacobi preconditioned CG solve (tol 1e-6, at most ``--cap``
 iterations) runs in float64 on the device, as ``distributed_ba`` runs it,
 and records each step's CG iterations and the chi2 before it.  The CG
-loop reads (active, k) once per chunk of K steps (``pose_graph
-.CG_CHUNK_STEPS`` on the card, 1 on the CPU).  On the card the
-steps run twice, with each chunk a CUDA graph replay and eagerly
-(``dense_tracker.CUDA_GRAPHS`` off): for each, ms per CG iteration (the
+loop runs in chunks of K steps (``pose_graph.CG_CHUNK_STEPS`` on the
+card, 1 on the CPU).  On the card the steps run three times: as one
+while-graph launch per solve (``while``), as one graph replay per chunk
+with a host read of ``active`` after each (``polled``,
+``dense_tracker.WHILE_GRAPHS`` off) and eagerly (``eager``,
+``dense_tracker.CUDA_GRAPHS`` off), each after one untimed GN step that
+captures its graphs: for each, ms per CG iteration (the
 solve's time between two synchronises over its iterations, the
 preconditioner's set-up included) and host reads per GN step (the live
-edges' compaction and one per chunk), and whether
-the two runs gave the same iterations and bits.  With ``--sweep``, the
-graph run again at each K listed.  Then the ``auto`` route on the same
+edges' compaction, then the loop's reads of ``active``: none in the while
+form; the caller's read of k, the result, is not counted), and whether
+the three runs gave the same iterations and bits.  With ``--sweep``, the
+while form again at each K listed (its graphs captured first, untimed),
+in turns, each held to the eager run's bits.  Then the ``auto`` route on
+the same
 graph (host-pinned, the port's ``PoseGraph``): its Schur separator count,
 the route the reference's policy names and the one taken, its seconds
 and chi2 history.  One JSON line per size, the reference's keys plus the
@@ -82,13 +88,14 @@ def loopy_graph(n: int, loop_every: int):
 def gn_step_counted(arrays: pg.GraphArrays, cap: int, chunk=None):
     """One GN step with the block-CG solve -> (arrays, CG iterations, chi2
     before the step, the solve's seconds between two synchronises, its
-    host reads, the step dx)."""
+    host reads (the live edges' compaction and the loop's reads of
+    ``active``), the step dx)."""
     H_ii, H_ij, H_jj, b_i, b_j, chi2 = pg.edge_blocks(arrays)
     nv = arrays.poses.shape[0]
     free = arrays.vertex_mask & ~arrays.fixed_mask
     b = torch.zeros((nv, 6), dtype=b_i.dtype, device=b_i.device)
     pg._scatter_add(pg._scatter_add(b, arrays.edge_i, b_i), arrays.edge_j, b_j)
-    # the solve's host reads: the live edges' compaction, then one per chunk
+    # the solve's host reads: the live edges' compaction, then the loop's
     reads, read, live = [], pg._cg_read, pg._live_edges
     pg._cg_read = lambda carry: reads.append(1) or read(carry)
     pg._live_edges = lambda *edges: reads.append(1) or live(*edges)
@@ -120,6 +127,16 @@ def cg_run(arrays: pg.GraphArrays, gn_steps: int, cap: int, chunk=None):
         arrays, *step = gn_step_counted(arrays, cap, chunk)
         steps.append(step)
     return steps
+
+
+# the timed forms on the card: (name, loop_mode arguments)
+FORMS = (("while", dict(graphs=True, polled=False)), ("polled", dict(graphs=True, polled=True)),
+         ("eager", dict(graphs=False)))
+
+
+def _same_steps(a, b) -> bool:
+    """Whether two runs took the same CG iterations and dx bits at every GN step."""
+    return all(x[0] == y[0] and torch.equal(x[4], y[4]) for x, y in zip(a, b))
 
 
 def _summary(steps, chunk):
@@ -185,25 +202,27 @@ def main(argv=None):
     for n in [int(s) for s in args.sizes.split(",")]:
         g, n_loops = loopy_graph(n, args.loop_every)
         arrays = pg.GraphArrays(*(t.to(device) for t in g.to_arrays()))
-        modes = (True, False) if device.type == "cuda" else (False,)
+        forms = FORMS if device.type == "cuda" else FORMS[2:]
         runs = {}
-        for graphs in modes:
-            with graph_check.loop_mode(graphs):
-                runs["graphs" if graphs else "eager"] = cg_run(arrays, args.gn_steps, args.cap,
-                                                               chunk)
+        for name, mode in forms:
+            with graph_check.loop_mode(**mode):
+                gn_step_counted(arrays, args.cap, chunk)  # the captures, untimed
+                runs[name] = cg_run(arrays, args.gn_steps, args.cap, chunk)
         main_run = next(iter(runs.values()))
         counts = [s[0] for s in main_run]
         chi2s = [s[1] for s in main_run]
         record_runs = {name: _summary(steps, chunk) for name, steps in runs.items()}
-        if len(runs) == 2:
-            record_runs["graphs_equal_eager"] = all(
-                a[0] == b[0] and torch.equal(a[4], b[4])
-                for a, b in zip(runs["graphs"], runs["eager"]))
+        if len(runs) > 1:
+            record_runs["forms_bit_equal"] = all(
+                _same_steps(steps, runs["eager"]) for steps in runs.values())
         chunks = [int(c) for c in args.sweep.split(",") if c]
         sweep_runs = {k: [] for k in chunks}
+        for k in chunks:  # the captures, untimed
+            with graph_check.loop_mode(True, polled=False):
+                gn_step_counted(arrays, args.cap, k)
         for order in (chunks, chunks[::-1]):  # in turns, so that drift reaches every K alike
             for k in order:
-                with graph_check.loop_mode(True):
+                with graph_check.loop_mode(True, polled=False):
                     sweep_runs[k].append(cg_run(arrays, args.gn_steps, args.cap, k))
         sweep = []
         for k, both in sweep_runs.items():
@@ -211,6 +230,7 @@ def main(argv=None):
             row["cg_seconds"] = float(np.mean([sum(s[2] for s in steps) for steps in both]))
             row["ms_per_cg_iteration"] = 1000.0 * row["cg_seconds"] / sum(
                 row["cg_iterations_per_gn_step"])
+            row["bit_equal_to_eager"] = all(_same_steps(steps, runs["eager"]) for steps in both)
             sweep.append(row)
         profile = kernel_profile(arrays, args.cap, chunk) if args.profile else None
 

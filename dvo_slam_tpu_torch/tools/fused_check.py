@@ -22,8 +22,9 @@ weights > 0 (``twin_sharded_stash``), its 136 packed sums
 against an oracle other than its own twin, the modular evaluation of the
 ``xla`` backend (``compare_modular_to_kernel``), at the reference's own
 tolerances for that pair.  ``solo_evaluations`` repeats each batched
-modular evaluation stream by stream and records where the two part (the
-lockstep tracker's ``b``, ROADMAP C (g)).
+modular evaluation stream by stream and records where the two part (on
+the CPU nowhere since the lockstep tracker's ``b`` is contracted stream by
+stream, ROADMAP C (g)).
 """
 
 from __future__ import annotations

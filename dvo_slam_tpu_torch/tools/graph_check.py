@@ -6,10 +6,11 @@ the eager loops, for ``tests_cuda/test_irls_graph_cuda.py``,
   * ``loop_mode(graphs, chunk=None, sharded=None, polled=None)``: run the
     card's loops (the tracker's, the pixel-sharded level's, block-CG's)
     with or without graphs, the tracker's at K = ``chunk`` and the
-    pixel-sharded level's at K = ``sharded``, the tracker's levels as
-    host-polled chunk replays (``polled`` True) or one while-graph launch
-    each (False) (None: as they are; the module settings are restored
-    after; block-CG takes its K as an argument);
+    pixel-sharded level's at K = ``sharded``, the loops as host-polled
+    chunk replays (``polled`` True) or one while-graph launch each (False;
+    a group whose probe was refused replays host-polled either way) (None:
+    as they are; the module settings are restored after; block-CG takes
+    its K as an argument);
   * ``recording()``: every level solve of the calling thread, with its
     final carry, level statistics and trace; ``sharded_recording()`` the
     same for the pixel-sharded levels (carry and iterations);
@@ -18,7 +19,9 @@ the eager loops, for ``tests_cuda/test_irls_graph_cuda.py``,
   * ``counting_reads()``: the host reads of tensors (``bool``, ``tolist``
     and the like) made while open, by this thread;
   * ``set_while_check(device)``: the while graph's ``set_while`` kernel
-    against its plain version on a loop of known length, with times;
+    against its plain version on a loop of known length, at both senses of
+    its condition (while a ``done`` flag is false; while an ``active`` flag
+    is true), with times;
   * ``counts(level_stats, chunk)``: the loop's iterations, executed steps
     and the host-polled form's reads for levels' statistics at K =
     ``chunk`` (the while form reads none; ``dense_tracker.read_done.calls``
@@ -45,9 +48,9 @@ def loop_mode(graphs: bool, chunk: Optional[int] = None, sharded: Optional[int] 
               polled: Optional[bool] = None):
     """The card's device loops as graphs (True) or eager, the tracker's
     IRLS loop at K = ``chunk`` and the pixel-sharded level's at K =
-    ``sharded`` (None leaves a K as it is), the tracker's graph levels
-    host-polled (``polled`` True) or as while graphs (False; None leaves
-    the form as it is)."""
+    ``sharded`` (None leaves a K as it is), the graph loops host-polled
+    (``polled`` True) or as while graphs (False; None leaves the form as
+    it is)."""
     modules = (dense_tracker, sharded_alignment)
     saved = (dense_tracker.CUDA_GRAPHS, dense_tracker.WHILE_GRAPHS,
              [m.CHUNK_STEPS for m in modules])
@@ -114,16 +117,10 @@ def sharded_recording():
         sharded_alignment._match_level_sharded = original
 
 
-def _bits(t):
-    t = torch.as_tensor(t).detach().contiguous()
-    if t.is_floating_point():
-        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
-    return t
-
-
 def _same(a, b) -> bool:
-    a, b = _bits(a), _bits(b)
-    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    """Whether two values hold the same bits (NaNs by their bits)."""
+    return irls_graph._same_bits(torch.as_tensor(a).detach().cpu(),
+                                 torch.as_tensor(b).detach().cpu())
 
 
 def differences(got, want) -> list:
@@ -198,8 +195,14 @@ SET_WHILE_BATCHES = (1, 2, 8, 136)
 SET_WHILE_STEPS = 1000
 
 
-def _set_while_graphs(start, limit, x, done):
-    """Head (x = start, done = x >= limit) and tail (x += 1, done again),
+def _flag(x, limit, flag, loop_on: bool):
+    """The loop's flag: ``active`` (x < limit) where the loop runs while it
+    is true, else ``done`` (x >= limit)."""
+    return torch.lt(x, limit, out=flag) if loop_on else torch.ge(x, limit, out=flag)
+
+
+def _set_while_graphs(start, limit, x, flag, loop_on: bool):
+    """Head (x = start, the flag of x) and tail (x += 1, the flag again),
     captured with ``keep_graph=True`` on a side stream."""
     side = torch.cuda.Stream(start.device)
     side.wait_stream(torch.cuda.current_stream(start.device))
@@ -207,75 +210,81 @@ def _set_while_graphs(start, limit, x, done):
     tail = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.stream(side):
         x.copy_(start)
-        torch.ge(x, limit, out=done)
+        _flag(x, limit, flag, loop_on)
         side.synchronize()
         head.capture_begin(capture_error_mode="thread_local")
         x.copy_(start)
-        torch.ge(x, limit, out=done)
+        _flag(x, limit, flag, loop_on)
         head.capture_end()
         tail.capture_begin(pool=head.pool(), capture_error_mode="thread_local")
         x.add_(1)
-        torch.ge(x, limit, out=done)
+        _flag(x, limit, flag, loop_on)
         tail.capture_end()
     torch.cuda.current_stream(start.device).wait_stream(side)
     return head, tail
 
 
-def _plain_loop(start, limit):
-    """The same loop eagerly, the condition read on the host each step ->
-    (final x, tail steps)."""
+def _plain_loop(start, limit, loop_on: bool):
+    """The same loop eagerly, the condition read on the host each step
+    (``(~done).any()``, or ``active.any()``) -> (final x, tail steps)."""
     x = start.clone()
-    done = x >= limit
     steps = 0
-    while bool((~done).any()):
+
+    def more():
+        return bool((x < limit).any() if loop_on else (~(x >= limit)).any())
+
+    while more():
         x.add_(1)
-        done = x >= limit
         steps += 1
     return x, steps
 
 
 def set_while_check(device, batches=SET_WHILE_BATCHES, steps=SET_WHILE_STEPS) -> list:
     """``set_while`` (``csrc/while_graph.cu``) against its plain version on
-    the card, for each B of ``batches``: a while graph whose head sets x =
-    start and done = x >= limit and whose tail adds one to x and sets done
-    again (stream b needs limit_b - start_b tail steps, some none), against
-    the same loop run eagerly with a host read of ``(~done).any()`` per
-    step.  Per B: the tail chunks ``set_while`` counted and the plain
-    loop's steps, the largest difference of the final x (``abs_err``: both
+    the card, for each B of ``batches`` and each sense of the condition
+    (``loop_on`` False: loop while a ``done`` flag, x >= limit, is false,
+    as the IRLS levels do; True: while an ``active`` flag, x < limit, is
+    true, as CG does): a while graph whose head sets x = start
+    and the flag, and whose tail adds one to x and sets the flag again
+    (stream b needs limit_b - start_b tail steps, some none), against the
+    same loop run eagerly with a host read of the condition per step.  Per
+    B and sense: the tail chunks ``set_while`` counted and the plain loop's
+    steps, the largest difference of the final x (``abs_err``: both
     differences added), and, at ``steps`` steps, ms per step of the while
     graph (CUDA events around one launch) and of the plain loop (host
     clock between two synchronizations)."""
     rows = []
-    for batch in batches:
-        b = torch.arange(batch, dtype=torch.int32, device=device)
-        start = (7 * b) % 5
-        limit = start + (5 * b) % 7 * (b % 2)  # the even streams done at the head
-        x = torch.zeros(batch, dtype=torch.int32, device=device)
-        done = torch.zeros(batch, dtype=torch.bool, device=device)
-        runs = torch.zeros(2, dtype=torch.int64, device=device)
-        head, tail = _set_while_graphs(start, limit, x, done)
-        exec_ = irls_graph.build_while(head, tail, done, runs)
-        try:
-            irls_graph.launch_while(exec_, device)
-            want_x, want_steps = _plain_loop(start, limit)
-            heads, tails = runs.tolist()
-            err = abs(tails - want_steps) + abs(heads - 1) + int((x - want_x).abs().max())
-            limit.copy_(start + steps)  # the timed loop: every stream `steps` steps
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            irls_graph.launch_while(exec_, device)  # warm
-            events[0].record()
-            irls_graph.launch_while(exec_, device)
-            events[1].record()
-            torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            _plain_loop(start, limit)
-            torch.cuda.synchronize(device)
-            plain_s = time.perf_counter() - t0
-            rows.append({"streams": batch, "tail_chunks": tails, "plain_steps": want_steps,
-                         "abs_err": err,
-                         "ms_per_step": events[0].elapsed_time(events[1]) / (steps + 1),
-                         "plain_ms_per_step": 1000.0 * plain_s / steps})
-        finally:
-            torch.cuda.synchronize(device)
-            irls_graph.destroy_while(exec_)
+    for loop_on in (False, True):
+        for batch in batches:
+            b = torch.arange(batch, dtype=torch.int32, device=device)
+            start = (7 * b) % 5
+            limit = start + (5 * b) % 7 * (b % 2)  # the even streams done at the head
+            x = torch.zeros(batch, dtype=torch.int32, device=device)
+            flag = torch.zeros(batch, dtype=torch.bool, device=device)
+            runs = torch.zeros(2, dtype=torch.int64, device=device)
+            head, tail = _set_while_graphs(start, limit, x, flag, loop_on)
+            exec_ = irls_graph.build_while(head, tail, flag, runs, loop_on)
+            try:
+                irls_graph.launch_while(exec_, device)
+                want_x, want_steps = _plain_loop(start, limit, loop_on)
+                heads, tails = runs.tolist()
+                err = abs(tails - want_steps) + abs(heads - 1) + int((x - want_x).abs().max())
+                limit.copy_(start + steps)  # the timed loop: every stream `steps` steps
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                irls_graph.launch_while(exec_, device)  # warm
+                events[0].record()
+                irls_graph.launch_while(exec_, device)
+                events[1].record()
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                _plain_loop(start, limit, loop_on)
+                torch.cuda.synchronize(device)
+                plain_s = time.perf_counter() - t0
+                rows.append({"streams": batch, "loop_on": loop_on, "tail_chunks": tails,
+                             "plain_steps": want_steps, "abs_err": err,
+                             "ms_per_step": events[0].elapsed_time(events[1]) / (steps + 1),
+                             "plain_ms_per_step": 1000.0 * plain_s / steps})
+            finally:
+                torch.cuda.synchronize(device)
+                irls_graph.destroy_while(exec_)
     return rows

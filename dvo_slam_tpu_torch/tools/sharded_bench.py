@@ -1,6 +1,6 @@
-"""ms per solver iteration of the pixel-sharded matcher, under CUDA
-graphs and eagerly, against ``match_pyramids`` (the timing of
-``chip_smoke.py``'s phase 6, alone in its process).
+"""ms per solver iteration of the pixel-sharded matcher, as while graphs,
+as host-polled graphs and eagerly, against ``match_pyramids`` (the timing
+of ``chip_smoke.py``'s phase 6, alone in its process).
 
 Run on a machine with a CUDA card, from the repository root:
 
@@ -9,12 +9,16 @@ Run on a machine with a CUDA card, from the repository root:
 
 The pairs are consecutive frames of phase 6's easy sequence (640x480,
 ``TUM_FR1``, radius 0.05, rotation amplitude 0.02, seed 0), prepared on the
-card at ``benchmark_config().tracker``.  On a NCCL group, after one
-untimed pair through each path, every round times the sharded matcher with
-its level's chunks as CUDA graphs (the all-reduces captured), the same
-matcher eagerly (``dense_tracker.CUDA_GRAPHS`` off) and ``match_pyramids``
-over all pairs on the host clock, each ending in a synchronise.  Then the
-K sweep: the sharded matcher under graphs at each K of ``--sweep``
+card at ``benchmark_config().tracker``.  Every round reports the form that
+the NCCL group's probe chose for its loops (``irls_graph.stats()
+["group_forms"]``: "while", or "polled" with CUDA's refusal).  After one
+untimed pair through each path, every round times, over all pairs on the
+host clock, each ending in a synchronise: the sharded matcher with each level one
+launch of a while graph (the all-reduces in its WHILE body), the same with
+each chunk a host-polled graph replay (``dense_tracker.WHILE_GRAPHS``
+off), the same eagerly (``dense_tracker.CUDA_GRAPHS`` off) and
+``match_pyramids``, with the host reads of ``done`` each made.  Then the
+K sweep: the sharded matcher in the group's form at each K of ``--sweep``
 (``sharded_alignment.CHUNK_STEPS``), one untimed pair first, then each
 round over all pairs: ms per iteration, executed steps and host reads.
 Then the graph cache's ``stats()``, and, so that no profiler is attached
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from .. import benchmark_config, default_device
-from ..models import irls_graph
+from ..models import dense_tracker, irls_graph
 from ..models.dense_tracker import executed_steps, match_pyramids
 from ..odometry import build_frame, render_sequence, upload_sequence
 from ..ops.camera import TUM_FR1
@@ -61,6 +65,19 @@ def _timed(fn, device):
     out = fn()
     sync(device)
     return out, time.perf_counter() - t0
+
+
+def _timed_reads(fn, device):
+    """(``_timed(fn)``, the host reads of ``done`` that ``fn`` made)."""
+    reads = dense_tracker.read_done.calls
+    out = _timed(fn, device)
+    return out, dense_tracker.read_done.calls - reads
+
+
+# the sharded matcher's timed forms: (name, loop_mode arguments)
+FORMS = (("sharded", dict(graphs=True, polled=False)),
+         ("sharded_polled", dict(graphs=True, polled=True)),
+         ("sharded_eager", dict(graphs=False)))
 
 
 def kernels_per_iteration(run):
@@ -87,10 +104,12 @@ def kernels_per_iteration(run):
 
 def bench(pairs: int, reps: int, device=None, profiled_pairs: int = 0, world: int = 1,
           rank: int = 0, init_method=None, sweep=(), cache_stats: bool = False):
-    """The rounds' summaries: seconds and ms per solver iteration of the
-    sharded path under graphs and eagerly and of ``match_pyramids``, with
-    their iteration counts; then one entry per K of ``sweep`` (the sharded
-    path under graphs at that K, the median of ``reps`` rounds); with
+    """The rounds' summaries: per round the group's form and the
+    seconds, ms per solver iteration and ``done`` reads of the sharded path
+    as while graphs (``sharded``), host-polled graphs (``sharded_polled``)
+    and eagerly (``sharded_eager``) and of ``match_pyramids``, with their
+    iteration counts; then one entry per K of ``sweep`` (the sharded path
+    in the group's form at that K, the median of ``reps`` rounds); with
     ``cache_stats``, the graph cache's stats before the group's shutdown
     releases its keys; with ``profiled_pairs``, a last entry with both
     paths' device kernels per iteration over that many pairs.  The card
@@ -112,29 +131,29 @@ def bench(pairs: int, reps: int, device=None, profiled_pairs: int = 0, world: in
         try:
             run = sharded_alignment.make_pixel_sharded_matcher(
                 cfg, TUM_FR1, mesh_lib.make_mesh(world, device=device))
+            forms = irls_graph.stats()["group_forms"]
             sharded = lambda: [run(frames[k], frames[k + 1], eye) for k in range(pairs)]  # noqa: E731
-            for graphs in (True, False):  # warm-up (the communicator, the captures), not timed
-                with graph_check.loop_mode(graphs):
+            for _, mode in FORMS:  # warm-up (the communicator, the captures), not timed
+                with graph_check.loop_mode(**mode):
                     run(frames[0], frames[1], eye)
             match_pyramids(cfg, TUM_FR1, frames[0], frames[1], eye)
             for _ in range(reps):
-                with graph_check.loop_mode(True):
-                    graphed, graph_s = _timed(sharded, device)
-                with graph_check.loop_mode(False):
-                    eager, eager_s = _timed(sharded, device)
+                row = {"pairs": pairs, "ranks": world, "chunk": sharded_alignment.CHUNK_STEPS,
+                       "group_forms": forms}
+                for name, mode in FORMS:
+                    with graph_check.loop_mode(**mode):
+                        (results, seconds), reads = _timed_reads(sharded, device)
+                    n = iterations(results)
+                    row.update({f"{name}_s": seconds, f"{name}_iterations": n,
+                                f"{name}_ms_per_iteration": 1000.0 * seconds / n,
+                                f"{name}_done_reads": reads})
                 single, single_s = _timed(lambda: [
                     match_pyramids(cfg, TUM_FR1, frames[k], frames[k + 1], eye)
                     for k in range(pairs)], device)
-                n_sharded, n_eager, n_single = iterations(graphed), iterations(eager), iterations(single)
-                rounds.append({
-                    "pairs": pairs, "ranks": world, "chunk": sharded_alignment.CHUNK_STEPS,
-                    "sharded_s": graph_s, "sharded_eager_s": eager_s, "single_s": single_s,
-                    "sharded_iterations": n_sharded, "sharded_eager_iterations": n_eager,
-                    "single_iterations": n_single,
-                    "sharded_ms_per_iteration": 1000.0 * graph_s / n_sharded,
-                    "sharded_eager_ms_per_iteration": 1000.0 * eager_s / n_eager,
-                    "single_ms_per_iteration": 1000.0 * single_s / n_single,
-                })
+                n_single = iterations(single)
+                row.update({"single_s": single_s, "single_iterations": n_single,
+                            "single_ms_per_iteration": 1000.0 * single_s / n_single})
+                rounds.append(row)
             for chunk in sweep:  # the captures of each K, not timed
                 with graph_check.loop_mode(True, sharded=chunk):
                     run(frames[0], frames[1], eye)
@@ -142,15 +161,15 @@ def bench(pairs: int, reps: int, device=None, profiled_pairs: int = 0, world: in
             for rep in range(reps):  # in turns: K forward, then backward
                 for chunk in (sweep if rep % 2 == 0 else sweep[::-1]):
                     with graph_check.loop_mode(True, sharded=chunk):
-                        timed[chunk].append(_timed(sharded, device))
+                        timed[chunk].append(_timed_reads(sharded, device))
             for chunk, runs in timed.items():
-                its = [int(s.iterations) for r in runs[0][0] for s in r.level_stats]
+                its = [int(s.iterations) for r in runs[0][0][0] for s in r.level_stats]
                 n = sum(its)
-                seconds = float(np.median([t for _, t in runs]))
+                seconds = float(np.median([t for (_, t), _ in runs]))
                 rounds.append({
                     "sweep_chunk": chunk, "iterations": n,
                     "executed_steps": executed_steps(its, chunk),
-                    "host_reads": sum(-(-it // chunk) for it in its),
+                    "host_reads": runs[0][1],
                     "seconds": seconds, "ms_per_iteration": 1000.0 * seconds / n,
                 })
             if cache_stats:
@@ -232,8 +251,8 @@ def main():
         if r in timed:
             print(json.dumps(r), flush=True)
     print(json.dumps({key: float(np.median([r[key] for r in timed])) for key in (
-        "sharded_ms_per_iteration", "sharded_eager_ms_per_iteration", "single_ms_per_iteration")}),
-        flush=True)
+        "sharded_ms_per_iteration", "sharded_polled_ms_per_iteration",
+        "sharded_eager_ms_per_iteration", "single_ms_per_iteration")}), flush=True)
     for r in rounds:
         if r not in timed:
             print(json.dumps(r), flush=True)

@@ -2,10 +2,12 @@
 CPU.
 
 The loop carries the reference's (x, r, z, p, rz, k) and its condition
-``active`` on the device, and reads (active, k) once per chunk of K steps;
-a step where ``active`` is false leaves the carry as it was.  On the card
-each chunk is one CUDA graph replay (``tests_cuda/test_sharded_graph_cuda.py``
-holds it to the eager loop); here the chunks run eagerly:
+``active`` on the device, and reads ``active`` once per chunk of K steps
+(none before the first); a step where ``active`` is false leaves the carry
+as it was.  On the card the loop is one while-graph launch, or one graph
+replay per chunk in the host-polled form (``tests_cuda/test_while_cg_cuda.py``
+and ``tests_cuda/test_sharded_graph_cuda.py`` hold both to the eager
+loop); here the chunks run eagerly:
 
 - at K = 2, 3, 8 and 32 the solution and k are the K = 1 run's bits, on
   the 24-vertex loopy ring of ``tests/test_torch_pose_graph_solvers.py``
@@ -194,7 +196,8 @@ def test_chunks_bit_equal_to_one_step(systems, graph, chunk):
 
 def test_cpu_default_is_one_step(systems):
     """On the CPU the default chunk is one step: a read per iteration, as
-    the keyframe graph's host solves always read."""
+    the keyframe graph's host solves always read, and none before the
+    first step (a first chunk from a failed condition is inert)."""
     n, args = systems["loopy"]
     reads = []
     read = t_pg._cg_read
@@ -203,7 +206,7 @@ def test_cpu_default_is_one_step(systems):
         _, k = t_pg.solve_blocks_cg(n, *args, return_iterations=True)
     finally:
         t_pg._cg_read = read
-    assert len(reads) == k + 1
+    assert len(reads) == k
 
 
 @pytest.mark.parametrize("chunk", (1, 8))

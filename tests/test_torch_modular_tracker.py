@@ -19,8 +19,8 @@ scale) against the reference's, on the CPU.
   ``depth_buffered_sampling`` says, as the reference's does (ROADMAP C).
 - B = 3 streams in lockstep under (Huber, MAD) against their solo runs:
   iterations and terminations equal, poses within 1e-5; per evaluation,
-  batched against each stream alone, n, the precision, ll and A bit-equal
-  and b within 2e-5 of its largest entry (ROADMAP C (g)).
+  batched against each stream alone, n, the precision, ll, A and b
+  bit-equal (ROADMAP C (g), repaired: b is contracted stream by stream).
 - ``StreamingSLAM`` on ``tests/test_torch_streaming.py``'s tiny 30x40 run
   under (Huber, MAD) against the reference's compiled front end: flags and
   counts equal on every frame but three, pinned: the odometry counts of
@@ -87,15 +87,9 @@ CASES = [(name, "60x80") for name in CONFIGS] + [("huber-mad", "120x160"), ("tdi
 T_ATOL = 1e-5
 NLL_RTOL = 1e-5
 INFO_RTOL = 1e-4  # of the information's largest entry
-# lockstep against solo runs: the batched normal equations' b (its
-# contraction runs as a batched product at [B] and as a matrix-vector
-# product for one stream) and the batched 6x6 solve round otherwise
-# (ROADMAP C (g))
+# lockstep against solo runs: the batched 6x6 solve rounds otherwise (the
+# normal equations are each stream's bits: ROADMAP C (g), repaired)
 LOCKSTEP_ATOL = 1e-5
-# per evaluation, batched against each stream alone: b within this share of
-# its largest entry, the modular path's per-value tolerance (n, the
-# precision, ll and A bit-equal; b parts by up to 1.4e-5 on this fixture)
-LOCKSTEP_B_RTOL = 2e-5
 # frames of the tiny (Huber, MAD) streaming run whose identity-seeded
 # odometry match parts from the compiled reference's (ROADMAP C)
 MODULAR_ODO_PARTED_FRAMES = [7, 8]
@@ -228,10 +222,12 @@ def test_lockstep_modular_matches_solo_runs():
 
 
 def test_lockstep_modular_evaluations_part_only_in_b():
-    """ROADMAP C (g): on the fixture above, every batched modular
+    """ROADMAP C (g), repaired: on the fixture above, every batched modular
     evaluation of the lockstep run, repeated for each stream alone on the
-    same warp and previous precision, gives bit-equal n, precision, ll and
-    A; only b parts, within ``LOCKSTEP_B_RTOL`` of its largest entry."""
+    same warp and previous precision, gives bit-equal n, precision, ll, A
+    and b (b is contracted stream by stream in the one-stream call's
+    shape; before, the batched contraction parted from it by up to 1.4e-5
+    of its largest entry)."""
     from dvo_slam_tpu_torch.tools import fused_check
 
     cfg = TrackerConfig(first_level=1, last_level=0, max_iterations_per_level=15,
@@ -245,8 +241,7 @@ def test_lockstep_modular_evaluations_part_only_in_b():
     for field in ("n", "precision", "ll", "A"):
         assert all(all(r[field]) for r in rows), field
     worst = max(max(r["b_scaled"]) for r in rows)
-    assert worst <= LOCKSTEP_B_RTOL, worst
-    assert worst > 0  # b does part: the batched contraction rounds otherwise
+    assert worst == 0, worst
 
 
 def test_streaming_huber_mad_matches_reference():

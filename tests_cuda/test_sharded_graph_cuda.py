@@ -1,24 +1,29 @@
 """The multi-rank device loops as CUDA graphs on the card: the
 pixel-sharded IRLS level and block-CG, with their NCCL all-reduces
-captured, against the same loops run eagerly.
+captured, as while graphs (the all-reduces inside the WHILE body) and as
+host-polled replays, against the same loops run eagerly.
 
 Every rank is a child process (process groups are never initialised in
 the test process) that rendezvouses on a ``file://`` store in
 ``tmp_path`` and is joined with its own timeout, every rank killed when
 one hangs:
 
-- one NCCL rank: the pixel-sharded matcher on two 640x480 pairs at
-  ``benchmark_config().tracker`` under graphs at K = 1-4, every level's
-  carry and iterations and the result bit-equal to the eager loop
-  (``dense_tracker.CUDA_GRAPHS`` off) at the same K and to K = 1; each of
-  the three sharded kernels launched once per executed step; the group's
-  keys in the cache; then ``shutdown()`` drops them and no other key,
-  ``initialize()`` starts a new generation, and the first pair solves to
-  the same bits.  Block-CG on the 513-vertex loopy graph of
-  ``tools/cg_iteration_stats`` under graphs at K = 1, 8 and 32 against
-  the eager loop (x bit-equal, k equal), and ``distributed_gauss_newton_cg``
-  on the one-rank mesh, its CG loop's all-reduce captured, bit-equal to
-  its eager run;
+- one NCCL rank: the group's probe at ``initialize`` admits the while
+  form (``irls_graph.group_forms``); the pixel-sharded matcher on two
+  640x480 pairs at ``benchmark_config().tracker`` as while graphs and as
+  host-polled graphs at K = 1-4, every level's carry and iterations and
+  the result bit-equal to the eager loop (``dense_tracker.CUDA_GRAPHS``
+  off) at the same K and to K = 1; the while form reads ``done`` 0 times;
+  each of the three sharded kernels launched once per executed step (the
+  while form's counts folded in from the card); the group's keys in the
+  cache; then ``shutdown()`` drops them, the group's form and no other
+  key, ``initialize()`` starts a new generation, and the first pair
+  solves to the same bits.  Block-CG on the 513-vertex loopy graph of
+  ``tools/cg_iteration_stats`` as a while graph and host-polled at K = 1,
+  8 and 32 against the eager loop (x bit-equal, k equal), and
+  ``distributed_gauss_newton_cg`` on the one-rank mesh, its CG loop's
+  all-reduce in the WHILE body, bit-equal to its host-polled and eager
+  runs;
 - two NCCL ranks, one card each, where the machine has two cards: the
   ranks agree, and each matches its own eager run;
 - two gloo ranks on one card: the sharded level runs its chunks eagerly,
@@ -42,13 +47,13 @@ import json, sys
 import numpy as np
 import torch
 from dvo_slam_tpu_torch import benchmark_config
-from dvo_slam_tpu_torch.models import irls_graph, pose_graph as pg
+from dvo_slam_tpu_torch.models import dense_tracker, irls_graph, pose_graph as pg
 from dvo_slam_tpu_torch.odometry import build_frame, render_sequence, upload_sequence
 from dvo_slam_tpu_torch.ops import fused_kernels
 from dvo_slam_tpu_torch.ops.camera import TUM_FR1
 from dvo_slam_tpu_torch.parallel import distributed, distributed_ba, mesh as mesh_lib
 from dvo_slam_tpu_torch.parallel import sharded_alignment
-from dvo_slam_tpu_torch.tools import cg_iteration_stats, graph_check
+from dvo_slam_tpu_torch.tools import cg_iteration_stats, driver_launches, graph_check
 from dvo_slam_tpu_torch.utils import synthetic
 
 work, world, rank, backend = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
@@ -69,16 +74,23 @@ def start(name):
                            rank=rank, backend=backend, device=device)
     return mesh_lib.make_mesh(world, device=device)
 
-def solve(mesh, graphs, chunk):
+FORMS = {"while": dict(graphs=True, polled=False), "polled": dict(graphs=True, polled=True),
+         "eager": dict(graphs=False)}
+
+def solve(mesh, form, chunk):
     run = sharded_alignment.make_pixel_sharded_matcher(cfg, TUM_FR1, mesh)
-    for c in COUNTERS:
-        c.launches = 0
-    with graph_check.loop_mode(graphs, sharded=chunk), graph_check.sharded_recording() as levels:
+    driver_launches.reset_counts()
+    with graph_check.loop_mode(sharded=chunk, **FORMS[form]), \
+            graph_check.sharded_recording() as levels:
         results = [run(frames[k], frames[k + 1], eye) for k in range(2)]
+    irls_graph.fold_counts()
     launches = [c.launches for c in COUNTERS]
     steps = sum(graph_check.counts([s], chunk)[1] for _, s, _ in levels)
     if launches != [steps] * 3:
-        problem(f"K={chunk} graphs={graphs}: launches {launches} != executed steps {steps}")
+        problem(f"K={chunk} {form}: launches {launches} != executed steps {steps}")
+    reads = dense_tracker.read_done.calls
+    if form == "while" and backend == "nccl" and reads:
+        problem(f"K={chunk}: the while form read done {reads} times")
     return results, levels
 
 def result_bits(results):
@@ -90,17 +102,27 @@ def sharded_keys():
 
 mesh = start("first")
 group = irls_graph.group_key()
+forms = irls_graph.group_forms()
+report["group_form"] = irls_graph.stats()["group_forms"].get(repr(group))
+if backend == "nccl" and (group not in forms or forms[group].form != "while"):
+    problem(f"the group's probe did not admit the while form: {report['group_form']}")
+if backend == "gloo" and forms:
+    problem(f"gloo probed a form: {forms}")
+report["probe_census"] = forms[group].census if group in forms else None
 first = None
 for chunk in (1, 2, 3, 4):
-    graphed, g_levels = solve(mesh, True, chunk)
-    eager, e_levels = solve(mesh, False, chunk)
+    runs = {form: solve(mesh, form, chunk) for form in ("while", "polled", "eager")}
+    graphed, g_levels = runs["while"]
     if first is None:
         first, first_levels = graphed, g_levels
-    for name, got, want in (("eager", g_levels, e_levels), ("K=1", g_levels, first_levels)):
-        diff = graph_check.differences(got, want)
+    for name, (got, got_levels), want_levels in (
+            ("polled vs eager", runs["polled"], runs["eager"][1]),
+            ("while vs eager", runs["while"], runs["eager"][1]),
+            ("while vs K=1", runs["while"], first_levels)):
+        diff = graph_check.differences(got_levels, want_levels)
         if diff:
-            problem(f"K={chunk} graphs vs {name}: {diff[:5]}")
-    if result_bits(graphed) != result_bits(eager) or result_bits(graphed) != result_bits(first):
+            problem(f"K={chunk} {name}: {diff[:5]}")
+    if any(result_bits(r) != result_bits(first) for r, _ in runs.values()):
         problem(f"K={chunk}: results differ")
 keys = sharded_keys()
 report["sharded_keys"] = len(keys)
@@ -120,23 +142,24 @@ if backend == "nccl":
     args = (arrays.poses.shape[0], arrays.edge_i, arrays.edge_j, H_ii, H_ij, H_jj, -b, free)
     cg = {}
     for chunk in (1, 8, 32):
-        for graphs in (True, False):
-            with graph_check.loop_mode(graphs):
-                cg[chunk, graphs] = pg.solve_blocks_cg(*args, iterations=8192,
-                                                       return_iterations=True, chunk=chunk)
-    ref_x, ref_k = cg[1, False]
-    for (chunk, graphs), (x, k) in cg.items():
+        for form in FORMS:
+            with graph_check.loop_mode(**FORMS[form]):
+                cg[chunk, form] = pg.solve_blocks_cg(*args, iterations=8192,
+                                                     return_iterations=True, chunk=chunk)
+    ref_x, ref_k = cg[1, "eager"]
+    for (chunk, form), (x, k) in cg.items():
         if k != ref_k or not torch.equal(x, ref_x):
-            problem(f"CG K={chunk} graphs={graphs}: k {k} vs {ref_k}, bit-equal {torch.equal(x, ref_x)}")
+            problem(f"CG K={chunk} {form}: k {k} vs {ref_k}, bit-equal {torch.equal(x, ref_x)}")
     report["cg_iterations"] = ref_k
     gn = {}
-    for graphs in (True, False):
-        with graph_check.loop_mode(graphs):
+    for form in FORMS:
+        with graph_check.loop_mode(**FORMS[form]):
             out, hist = distributed_ba.distributed_gauss_newton_cg(arrays, mesh, iterations=2,
                                                                    cg_iterations=8192)
-        gn[graphs] = (out.poses, hist)
-    if not (torch.equal(gn[True][0], gn[False][0]) and torch.equal(gn[True][1], gn[False][1])):
-        problem("distributed GN-CG under graphs differs from eager")
+        gn[form] = (out.poses, hist)
+    for form in ("while", "polled"):
+        if not (torch.equal(gn[form][0], gn["eager"][0]) and torch.equal(gn[form][1], gn["eager"][1])):
+            problem(f"distributed GN-CG {form} differs from eager")
     if not [k for k in irls_graph._cache if k[1] == "cg" and group in k]:
         problem("no CG graph key of the group")
 
@@ -144,10 +167,12 @@ others = [k for k in irls_graph._cache if group not in k]
 distributed.shutdown()
 if any(group in k for k in irls_graph._cache) or [k for k in irls_graph._cache] != others:
     problem("shutdown left the group's keys or dropped others")
+if group in irls_graph.group_forms():
+    problem("shutdown left the group's form")
 mesh = start("again")
 if irls_graph.group_key() == group:
     problem("initialize did not start a new generation")
-again, _ = solve(mesh, True, 1)
+again, _ = solve(mesh, "while", 1)
 if result_bits(again[:1]) != result_bits(first[:1]):
     problem("the solve after shutdown and initialize differs")
 distributed.shutdown()
