@@ -197,6 +197,35 @@ int dvo_graph_node_census(void* graph, int* counts) {
   return static_cast<int>(census(static_cast<cudaGraph_t>(graph), counts));
 }
 
+// Timing events for the span recorder (utils/timers.py): made once and
+// pooled, recorded on PyTorch's current stream, read without waiting.
+// Each returns a cudaError_t.
+int dvo_event_create(void** event) {
+  cudaEvent_t e = nullptr;
+  const cudaError_t r = cudaEventCreate(&e);
+  *event = e;
+  return static_cast<int>(r);
+}
+
+int dvo_event_record(void* event, void* stream) {
+  return static_cast<int>(
+      cudaEventRecord(static_cast<cudaEvent_t>(event), static_cast<cudaStream_t>(stream)));
+}
+
+// *ms between two recorded events once both have completed; until then
+// cudaErrorNotReady, cleared from the thread's last error as PyTorch's own
+// event query clears it, so that no later launch check reads it.
+int dvo_event_elapsed(void* start, void* end, float* ms) {
+  const cudaError_t r =
+      cudaEventElapsedTime(ms, static_cast<cudaEvent_t>(start), static_cast<cudaEvent_t>(end));
+  if (r == cudaErrorNotReady) cudaGetLastError();
+  return static_cast<int>(r);
+}
+
+int dvo_event_destroy(void* event) {
+  return static_cast<int>(cudaEventDestroy(static_cast<cudaEvent_t>(event)));
+}
+
 // CUDA's name and text of an error code, for the Python side.
 void dvo_cuda_error_text(int code, char* out, int len) {
   const cudaError_t e = static_cast<cudaError_t>(code);

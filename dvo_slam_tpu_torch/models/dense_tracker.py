@@ -67,6 +67,7 @@ from ..ops.pyramid import (
     selection_mask,
 )
 from ..ops.residuals import compute_residuals, normal_equations, warp_and_sample_cm
+from ..utils import timers
 from . import irls_graph
 
 # Termination criteria (reference: dense_tracking.h TerminationCriteria).
@@ -291,12 +292,13 @@ def _match_level(
         carry, iterations, trace = _irls_level(
             cfg, evaluate, x0, T0, initial0, precision0, collect_stats, chunk
         )
-    stats = LevelStats(
-        valid_pixels=sel_mask.sum(dim=(-2, -1), dtype=torch.int32),
-        valid_constraints=carry.n,
-        iterations=iterations,
-        termination=carry.termination,
-    )
+    with timers.span("dvo.level.out"):
+        stats = LevelStats(
+            valid_pixels=sel_mask.sum(dim=(-2, -1), dtype=torch.int32),
+            valid_constraints=carry.n,
+            iterations=iterations,
+            termination=carry.termination,
+        )
     return carry, stats, trace
 
 
@@ -642,14 +644,17 @@ def graph_irls_level(cfg: TrackerConfig, make_evaluate, key: tuple, counters, in
     polled = not irls_graph.while_form(group, WHILE_GRAPHS)
     graphs = irls_graph.graphs_for(key, torch.device(x0.device))
     with graphs.lock:
-        graphs.load(tuple(inputs) + start)
-        if polled:
-            state = graphs.run_head(program, counters)
-            while not read_done(_Carry(*state[:_CARRY_FIELDS])):
-                state = graphs.run_tail(counters)
-        else:
-            state = graphs.run_level(program, counters, _DONE)
-        out = tuple(t.clone() for t in state)
+        with timers.span("dvo.level.copy_in"):
+            graphs.load(tuple(inputs) + start)
+        with timers.span("dvo.level.graph", device=True):
+            if polled:
+                state = graphs.run_head(program, counters)
+                while not read_done(_Carry(*state[:_CARRY_FIELDS])):
+                    state = graphs.run_tail(counters)
+            else:
+                state = graphs.run_level(program, counters, _DONE)
+        with timers.span("dvo.level.out"):
+            out = tuple(t.clone() for t in state)
     carry = _Carry(*out[:_CARRY_FIELDS])
     trace = IterationStats(*out[_CARRY_FIELDS:]) if collect_stats else None
     return carry, carry.iteration, _trace_out(trace, x0.dim() - 1)
@@ -728,22 +733,24 @@ def match_prepared(
     alignments run in lockstep (the reference's ``vmap`` of this function):
     the result's transformation is [B, 4, 4], information [B, 6, 6],
     neg_log_likelihood [B], and each ``LevelStats`` holds [B] int32
-    tensors."""
+    tensors.  Spans: ``dvo.match.setup``, per level ``dvo.level.copy_in``,
+    ``.graph`` (with timing events) and ``.out``, then ``dvo.match.result``."""
     refpack0 = ref.refpack[cfg.first_level]
     dtype, device = refpack0.dtype, refpack0.device
     batch = tuple(refpack0.shape[:-2])
-    if initial_transformation is None:
-        guess = torch.eye(4, dtype=dtype, device=device).expand(batch + (4, 4))
-    else:
-        # result space is estimate^{-1}; the first increment is the estimate
-        guess = se3.inverse(
-            torch.as_tensor(initial_transformation, device=device).to(dtype)
-        )
+    with timers.span("dvo.match.setup"):
+        if initial_transformation is None:
+            guess = torch.eye(4, dtype=dtype, device=device).expand(batch + (4, 4))
+        else:
+            # result space is estimate^{-1}; the first increment is the estimate
+            guess = se3.inverse(
+                torch.as_tensor(initial_transformation, device=device).to(dtype)
+            )
 
-    x = se3.log_se3(guess)
-    T = se3.identity(dtype, device).expand(batch + (4, 4))
-    initial = guess
-    precision = torch.eye(2, dtype=dtype, device=device).expand(batch + (2, 2))
+        x = se3.log_se3(guess)
+        T = se3.identity(dtype, device).expand(batch + (4, 4))
+        initial = guess
+        precision = torch.eye(2, dtype=dtype, device=device).expand(batch + (2, 2))
 
     level_stats = []
     iteration_stats = []
@@ -765,23 +772,25 @@ def match_prepared(
         level_stats.append(stats)
         if collect_iteration_stats:
             iteration_stats.append(trace)
-        # the next level starts from the last APPLIED increment
-        x = se3.log_se3(final.inc_applied)
-        T = final.T
-        initial = final.initial
-        precision = final.precision
+        with timers.span("dvo.level.out"):
+            # the next level starts from the last APPLIED increment
+            x = se3.log_se3(final.inc_applied)
+            T = final.T
+            initial = final.initial
+            precision = final.precision
 
-    if cfg.use_estimate_smoothing:
-        prior = cfg.mu * torch.sum(se3.log_se3(final.initial) ** 2, dim=-1)
-    else:
-        prior = torch.zeros(batch, dtype=dtype, device=device)
-    return TrackingResult(
-        transformation=se3.inverse(final.T),
-        information=final.A * INFORMATION_SCALE,
-        neg_log_likelihood=-final.ll + prior,
-        level_stats=tuple(level_stats),
-        iteration_stats=tuple(iteration_stats),
-    )
+    with timers.span("dvo.match.result"):
+        if cfg.use_estimate_smoothing:
+            prior = cfg.mu * torch.sum(se3.log_se3(final.initial) ** 2, dim=-1)
+        else:
+            prior = torch.zeros(batch, dtype=dtype, device=device)
+        return TrackingResult(
+            transformation=se3.inverse(final.T),
+            information=final.A * INFORMATION_SCALE,
+            neg_log_likelihood=-final.ll + prior,
+            level_stats=tuple(level_stats),
+            iteration_stats=tuple(iteration_stats),
+        )
 
 
 def match_pyramids(

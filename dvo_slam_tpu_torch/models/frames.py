@@ -22,7 +22,8 @@ incoming frame never recomputes them.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import itertools
+from dataclasses import dataclass, field
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,7 +34,12 @@ from ..config import TrackerConfig
 from ..ops import se3
 from ..ops.camera import Intrinsics
 from ..ops.pyramid import PyramidLevel, build_pyramid, convert_raw_depth
+from ..utils import timers
 from .dense_tracker import PreparedFrame, TrackingResult, match_prepared, prepare_frame
+
+# the process's frame identifiers: the spans of one frame's ingest and update
+# carry its number (``utils/timers``)
+_FRAME_IDS = itertools.count()
 
 
 def _on_device(a, device) -> torch.Tensor:
@@ -45,10 +51,12 @@ def _on_device(a, device) -> torch.Tensor:
 
 @dataclass
 class Frame:
-    """A device-resident RGB-D frame pyramid with host metadata."""
+    """A device-resident RGB-D frame pyramid with host metadata and the
+    frame's number in the process (``frame_id``)."""
 
     levels: Tuple[PyramidLevel, ...]
     timestamp: float
+    frame_id: int = field(default_factory=lambda: next(_FRAME_IDS))
 
     @staticmethod
     def from_arrays(
@@ -80,18 +88,22 @@ class Frame:
         the raw bytes go to the device and are converted there.
         ``prepare_for=(cfg, intrinsics)`` also prepares the solver artifacts
         and fills the frame's prepared cache under that key, so that the
-        tracker's first match of the frame finds them."""
+        tracker's first match of the frame finds them.  Spans: ``dvo.ingest``
+        around ``dvo.ingest.upload``, ``.pyramid`` and ``.prepare``."""
         device = default_device(device)
-        depth, valid = convert_raw_depth(_on_device(depth_u16, device))
-        levels = build_pyramid(
-            _on_device(intensity_u8, device).to(torch.float32), depth, valid, num_levels
-        )
-        frame = Frame(levels=levels, timestamp=timestamp)
-        if prepare_for is not None:
-            cfg, intrinsics = prepare_for
-            frame.__dict__["_prepared"] = {
-                (cfg, intrinsics): prepare_frame(cfg, intrinsics, levels)
-            }
+        frame_id = next(_FRAME_IDS)
+        with timers.span("dvo.ingest", frame=frame_id):
+            with timers.span("dvo.ingest.upload"):
+                depth, valid = convert_raw_depth(_on_device(depth_u16, device))
+                intensity = _on_device(intensity_u8, device).to(torch.float32)
+            with timers.span("dvo.ingest.pyramid"):
+                levels = build_pyramid(intensity, depth, valid, num_levels)
+            frame = Frame(levels=levels, timestamp=timestamp, frame_id=frame_id)
+            if prepare_for is not None:
+                cfg, intrinsics = prepare_for
+                with timers.span("dvo.ingest.prepare"):
+                    prepared = prepare_frame(cfg, intrinsics, levels)
+                frame.__dict__["_prepared"] = {(cfg, intrinsics): prepared}
         return frame
 
 
@@ -282,10 +294,12 @@ class BatchedMatcher:
         if len(requests) == 1:
             result = match_prepared(self.cfg, self.intrinsics, refs[0], curs[0], inits[0])
         else:
-            ref_b = _stack_role(refs, REF_FIELDS, self.cfg)
-            cur_b = _stack_role(curs, CUR_FIELDS, self.cfg)
+            with timers.span("dvo.match.setup"):
+                ref_b = _stack_role(refs, REF_FIELDS, self.cfg)
+                cur_b = _stack_role(curs, CUR_FIELDS, self.cfg)
             result = match_prepared(self.cfg, self.intrinsics, ref_b, cur_b, inits)
-        flat = _flatten_result(result).reshape(len(requests), -1).cpu().numpy()  # one copy
+        with timers.span("dvo.match.result"):
+            flat = _flatten_result(result).reshape(len(requests), -1).cpu().numpy()  # one copy
         return [_decode_result(row) for row in flat]
 
     def match(self, ref: Frame, cur: Frame, initial=None) -> HostTrackingResult:

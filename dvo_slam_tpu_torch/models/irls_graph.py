@@ -101,6 +101,7 @@ import torch
 import torch.distributed as dist
 
 from .. import _build
+from ..utils import timers
 
 # The cache's bound: the bytes that its keys' captures added to the reserved
 # memory plus their static buffers.  A full driver run holds less (PERF.md,
@@ -348,9 +349,11 @@ class LevelGraphs:
         _require_default_stream(self.device)
         with _lock:
             if self.head is None:
-                self._build(program, counters)
+                with timers.span("dvo.graph.capture"):
+                    self._build(program, counters)
             if self.exec is None:
-                self._build_while(flag, loop_on)
+                with timers.span("dvo.graph.while_build"):
+                    self._build_while(flag, loop_on)
             try:
                 launch_while(self.exec, self.device)
             except RuntimeError as exc:
@@ -365,7 +368,8 @@ class LevelGraphs:
         _require_default_stream(self.device)
         with _lock:
             if self.head is None:
-                self._build(program, counters)
+                with timers.span("dvo.graph.capture"):
+                    self._build(program, counters)
             if not self.instantiated:
                 self.head.instantiate()
                 self.tail.instantiate()
@@ -527,8 +531,11 @@ def _evict(keep: LevelGraphs):
         del _cache[full]
         total -= g.nbytes
         victims.append(g)
+    if not victims:
+        return
     try:
-        _drop(victims)
+        with timers.span("dvo.graph.evict"):
+            _drop(victims)
     finally:
         for g in victims:
             g.lock.release()
@@ -626,7 +633,9 @@ def stats() -> dict:
     graphs built from them, capture ms, the captures' reserved memory and
     the static buffers' bytes, with the bound and the keys dropped to keep
     within it; and the form of each process group's loops
-    (``group_forms``: "while", or "polled" with the reason)."""
+    (``group_forms``: "while", or "polled" with the reason).  The spans
+    ``dvo.graph.capture``, ``.while_build`` and ``.evict`` say when a key
+    was made or dropped."""
     with _lock:
         built = [g for g in _cache.values() if g.head is not None]
         return {
