@@ -1367,6 +1367,16 @@ def _require_while(iterations, what, chunk=None):
     return {"set_while_runs": counts.set_while, "irls_done_reads": reads}
 
 
+def _row_stats(rows):
+    """The ``LevelStats`` of a ``match_prepared_flat`` result (rows on the
+    host or the card)."""
+    import torch
+
+    from dvo_slam_tpu_torch.models import dense_tracker
+
+    return dense_tracker.result_from_row(torch.as_tensor(rows)).level_stats
+
+
 def _iterations(level_stats):
     """The per-level iteration tensors of an iterable of calls' level statistics."""
     return [s.iterations for ls in level_stats for s in ls]
@@ -1739,15 +1749,15 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
 
     calls, waves, optimizes, snapshots = [], [], [], []
     in_wave = threading.local()
-    match_prepared = frames_mod.match_prepared
+    match_flat = frames_mod.match_prepared_flat
     match_pairs = frames_mod.TwoStageMatcher.match_pairs
     optimize = pose_graph.PoseGraph.optimize
     set_levels = pose_graph.PoseGraph.set_all_edge_levels
 
     def counted_match(cfg, k, ref, cur, initial=None, *args, **kwargs):
-        result = match_prepared(cfg, k, ref, cur, initial, *args, **kwargs)
-        calls.append((getattr(in_wave, "on", False), result.level_stats))
-        return result
+        rows = match_flat(cfg, k, ref, cur, initial, *args, **kwargs)
+        calls.append((getattr(in_wave, "on", False), _row_stats(rows)))
+        return rows
 
     def counted_pairs(self, requests):
         outer = not getattr(in_wave, "on", False)
@@ -1776,7 +1786,7 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
     tracker.lt.add_map_complete_callback(lambda _, m: keyframe_frames.append(True))
     latency, events = [], []
     online = []
-    mp_attrs = ((frames_mod, "match_prepared", counted_match),
+    mp_attrs = ((frames_mod, "match_prepared_flat", counted_match),
                 (frames_mod.TwoStageMatcher, "match_pairs", counted_pairs),
                 (pose_graph.PoseGraph, "optimize", recorded_optimize),
                 (pose_graph.PoseGraph, "set_all_edge_levels", snapshot_levels))
@@ -1919,7 +1929,7 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
     calls, optimizes, viewer = [], [], {}
     in_wave = threading.local()
     frontend_match = streaming.match_prepared
-    wave_match = frames_mod.match_prepared
+    wave_match = frames_mod.match_prepared_flat
     match_pairs = frames_mod.TwoStageMatcher.match_pairs
     optimize = pose_graph.PoseGraph.optimize
 
@@ -1929,9 +1939,9 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
         return result
 
     def counted_wave(cfg, k, ref, cur, initial=None, *args, **kwargs):
-        result = wave_match(cfg, k, ref, cur, initial, *args, **kwargs)
-        calls.append(("wave" if getattr(in_wave, "on", False) else "other", result.level_stats))
-        return result
+        rows = wave_match(cfg, k, ref, cur, initial, *args, **kwargs)
+        calls.append(("wave" if getattr(in_wave, "on", False) else "other", _row_stats(rows)))
+        return rows
 
     def counted_pairs(self, requests):
         outer = not getattr(in_wave, "on", False)
@@ -1965,7 +1975,7 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
         return one, batched
 
     mp_attrs = ((streaming, "match_prepared", counted_frontend),
-                (frames_mod, "match_prepared", counted_wave),
+                (frames_mod, "match_prepared_flat", counted_wave),
                 (frames_mod.TwoStageMatcher, "match_pairs", counted_pairs),
                 (pose_graph.PoseGraph, "optimize", recorded_optimize),
                 (interactive_viz, "export_interactive_graph", watched_export))

@@ -32,6 +32,19 @@
 // cost is the launch latency between two chunks inside the graph, which
 // replaces a host round trip per chunk.
 //
+// A whole tracker match (dvo_slam_tpu/models/dense_tracker.py:match_prepared:
+// the warm start, the levels coarse to fine with the next level's start
+// values between them, the result) takes the same form once more:
+// dvo_match_graph_build chains
+//
+//     setup -> [head_l -> set_while_l -> WHILE_l { tail_l -> set_while_l } -> link_l]...
+//           -> result -> memcpy of the result row to pinned host memory
+//
+// with one conditional handle per level and the level's own flags and run
+// counters, from captures of the setup, of the links between levels and of
+// the result (the last level has no link), so one launch runs the match and
+// one host wait reads it.
+//
 // A conditional body takes kernel, empty, child-graph, device memcpy and
 // memset, and conditional nodes; it refuses host and event nodes.  A build
 // that CUDA refuses returns CUDA's error with the step that failed, and the
@@ -97,6 +110,71 @@ cudaError_t census(cudaGraph_t graph, int* counts) {
   return cudaSuccess;
 }
 
+// One loop into `graph` after `dep` (null: at the start): child graph
+// (head) -> set_while -> WHILE { child graph (tail) -> set_while }.  *last is
+// the WHILE node; *what names the step that failed.
+cudaError_t add_loop(cudaGraph_t graph, cudaGraphNode_t dep, void* head, void* tail,
+                     const unsigned char* flags, int batch, int loop_on,
+                     unsigned long long* counters, cudaGraphNode_t* last, const char** what) {
+  cudaError_t e;
+  cudaGraphConditionalHandle handle;
+  *what = "cudaGraphConditionalHandleCreate";
+  if ((e = cudaGraphConditionalHandleCreate(&handle, graph, 0, cudaGraphCondAssignDefault)))
+    return e;
+  cudaGraphNode_t head_node, set_head, loop, tail_node, set_tail;
+  *what = "cudaGraphAddChildGraphNode (the head)";
+  if ((e = cudaGraphAddChildGraphNode(&head_node, graph, dep ? &dep : nullptr, dep ? 1 : 0,
+                                      static_cast<cudaGraph_t>(head))))
+    return e;
+  *what = "cudaGraphAddKernelNode (set_while after the head)";
+  if ((e = add_set_while(&set_head, graph, &head_node, handle, flags, batch, loop_on, counters)))
+    return e;
+  cudaGraphNodeParams cond = {};
+  cond.type = cudaGraphNodeTypeConditional;
+  cond.conditional.handle = handle;
+  cond.conditional.type = cudaGraphCondTypeWhile;
+  cond.conditional.size = 1;
+  *what = "cudaGraphAddNode (the WHILE node)";
+#if CUDART_VERSION >= 13000
+  if ((e = cudaGraphAddNode(&loop, graph, &set_head, nullptr, 1, &cond))) return e;
+#else
+  if ((e = cudaGraphAddNode(&loop, graph, &set_head, 1, &cond))) return e;
+#endif
+  cudaGraph_t body = cond.conditional.phGraph_out[0];
+  *what = "cudaGraphAddChildGraphNode (the tail, in the WHILE body)";
+  if ((e = cudaGraphAddChildGraphNode(&tail_node, body, nullptr, 0,
+                                      static_cast<cudaGraph_t>(tail))))
+    return e;
+  *what = "cudaGraphAddKernelNode (set_while in the WHILE body)";
+  if ((e = add_set_while(&set_tail, body, &tail_node, handle, flags, batch, loop_on,
+                          counters + 1)))
+    return e;
+  *last = loop;
+  return cudaSuccess;
+}
+
+// Instantiate `graph` into *out; on failure *what says how (the instantiate
+// result and the failing node's type, in `detail`).
+cudaError_t instantiate(cudaGraph_t graph, cudaGraphExec_t* out, const char** what,
+                        char* detail, size_t len) {
+  cudaGraphInstantiateParams params = {};
+  *what = "cudaGraphInstantiateWithParams";
+  cudaError_t e = cudaGraphInstantiateWithParams(out, graph, &params);
+  if (e == cudaSuccess && params.result_out != cudaGraphInstantiateSuccess)
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) {
+    int type = -1;
+    cudaGraphNodeType t;
+    if (params.errNode_out != nullptr && cudaGraphNodeGetType(params.errNode_out, &t) == cudaSuccess)
+      type = static_cast<int>(t);
+    snprintf(detail, len,
+             "cudaGraphInstantiateWithParams (instantiate result %d, failing node type %d)",
+             static_cast<int>(params.result_out), type);
+    *what = detail;
+  }
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -114,8 +192,40 @@ int dvo_while_graph_build(void* head, void* tail, const void* done, int batch, i
   if (batch < 1) return report(cudaErrorInvalidValue, "dvo_while_graph_build: batch < 1", err, errlen);
   if (loop_on != 0 && loop_on != 1)
     return report(cudaErrorInvalidValue, "dvo_while_graph_build: loop_on is not 0 or 1", err, errlen);
-  const unsigned char* flags = static_cast<const unsigned char*>(done);
-  unsigned long long* counters = static_cast<unsigned long long*>(runs);
+  cudaGraph_t graph = nullptr;
+  cudaError_t e = cudaGraphCreate(&graph, 0);
+  if (e != cudaSuccess) return report(e, "cudaGraphCreate", err, errlen);
+  const char* what = "";
+  char detail[160];
+  cudaGraphExec_t out = nullptr;
+  cudaGraphNode_t loop;
+  e = add_loop(graph, nullptr, head, tail, static_cast<const unsigned char*>(done), batch, loop_on,
+               static_cast<unsigned long long*>(runs), &loop, &what);
+  if (e == cudaSuccess) e = instantiate(graph, &out, &what, detail, sizeof(detail));
+  cudaGraphDestroy(graph);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return report(e, what, err, errlen);
+  }
+  *exec = out;
+  return 0;
+}
+
+// A whole match as one graph.  setup: the captured start of the first
+// level; heads, tails, dones, runs: each level's chunks, its [batch] byte
+// `done` flags (the loop goes on while one of them is 0) and its two run
+// counters, coarse to fine; links: the captures between level l and l + 1
+// (levels - 1 of them); result: the capture that writes the result row at
+// `row` (`bytes` bytes on the device), which a memcpy node then copies to
+// `host` (pinned).  The same returns as dvo_while_graph_build.
+int dvo_match_graph_build(int levels, void* setup, void* const* heads, void* const* tails,
+                          const void* const* dones, int batch, void* const* runs,
+                          void* const* links, void* result, const void* row, void* host,
+                          long long bytes, void** exec, char* err, int errlen) {
+  *exec = nullptr;
+  if (levels < 1 || batch < 1 || bytes < 1)
+    return report(cudaErrorInvalidValue, "dvo_match_graph_build: no level, stream or byte", err,
+                  errlen);
   cudaGraph_t graph = nullptr;
   cudaError_t e = cudaGraphCreate(&graph, 0);
   if (e != cudaSuccess) return report(e, "cudaGraphCreate", err, errlen);
@@ -123,52 +233,27 @@ int dvo_while_graph_build(void* head, void* tail, const void* done, int batch, i
   char detail[160];
   cudaGraphExec_t out = nullptr;
   do {
-    cudaGraphConditionalHandle handle;
-    what = "cudaGraphConditionalHandleCreate";
-    if ((e = cudaGraphConditionalHandleCreate(&handle, graph, 0, cudaGraphCondAssignDefault)))
+    cudaGraphNode_t last, node;
+    what = "cudaGraphAddChildGraphNode (the setup)";
+    if ((e = cudaGraphAddChildGraphNode(&last, graph, nullptr, 0, static_cast<cudaGraph_t>(setup))))
       break;
-    cudaGraphNode_t head_node, set_head, loop, tail_node, set_tail;
-    what = "cudaGraphAddChildGraphNode (the head)";
-    if ((e = cudaGraphAddChildGraphNode(&head_node, graph, nullptr, 0,
-                                        static_cast<cudaGraph_t>(head))))
-      break;
-    what = "cudaGraphAddKernelNode (set_while after the head)";
-    if ((e = add_set_while(&set_head, graph, &head_node, handle, flags, batch, loop_on, counters))) break;
-    cudaGraphNodeParams cond = {};
-    cond.type = cudaGraphNodeTypeConditional;
-    cond.conditional.handle = handle;
-    cond.conditional.type = cudaGraphCondTypeWhile;
-    cond.conditional.size = 1;
-    what = "cudaGraphAddNode (the WHILE node)";
-#if CUDART_VERSION >= 13000
-    if ((e = cudaGraphAddNode(&loop, graph, &set_head, nullptr, 1, &cond))) break;
-#else
-    if ((e = cudaGraphAddNode(&loop, graph, &set_head, 1, &cond))) break;
-#endif
-    cudaGraph_t body = cond.conditional.phGraph_out[0];
-    what = "cudaGraphAddChildGraphNode (the tail, in the WHILE body)";
-    if ((e = cudaGraphAddChildGraphNode(&tail_node, body, nullptr, 0,
-                                        static_cast<cudaGraph_t>(tail))))
-      break;
-    what = "cudaGraphAddKernelNode (set_while in the WHILE body)";
-    if ((e = add_set_while(&set_tail, body, &tail_node, handle, flags, batch, loop_on,
-                            counters + 1)))
-      break;
-    cudaGraphInstantiateParams params = {};
-    what = "cudaGraphInstantiateWithParams";
-    e = cudaGraphInstantiateWithParams(&out, graph, &params);
-    if (e == cudaSuccess && params.result_out != cudaGraphInstantiateSuccess)
-      e = cudaErrorInvalidValue;
-    if (e != cudaSuccess) {
-      int type = -1;
-      cudaGraphNodeType t;
-      if (params.errNode_out != nullptr && cudaGraphNodeGetType(params.errNode_out, &t) == cudaSuccess)
-        type = static_cast<int>(t);
-      snprintf(detail, sizeof(detail),
-               "cudaGraphInstantiateWithParams (instantiate result %d, failing node type %d)",
-               static_cast<int>(params.result_out), type);
-      what = detail;
+    for (int l = 0; l < levels && e == cudaSuccess; ++l) {
+      if ((e = add_loop(graph, last, heads[l], tails[l], static_cast<const unsigned char*>(dones[l]),
+                        batch, 0, static_cast<unsigned long long*>(runs[l]), &last, &what)))
+        break;
+      void* next = l + 1 < levels ? links[l] : result;
+      what = l + 1 < levels ? "cudaGraphAddChildGraphNode (a link between levels)"
+                            : "cudaGraphAddChildGraphNode (the result)";
+      if ((e = cudaGraphAddChildGraphNode(&node, graph, &last, 1, static_cast<cudaGraph_t>(next))))
+        break;
+      last = node;
     }
+    if (e != cudaSuccess) break;
+    what = "cudaGraphAddMemcpyNode1D (the result row to the host)";
+    if ((e = cudaGraphAddMemcpyNode1D(&node, graph, &last, 1, host, row, static_cast<size_t>(bytes),
+                                      cudaMemcpyDeviceToHost)))
+      break;
+    e = instantiate(graph, &out, &what, detail, sizeof(detail));
   } while (false);
   cudaGraphDestroy(graph);
   if (e != cudaSuccess) {

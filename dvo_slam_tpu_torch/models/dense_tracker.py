@@ -30,7 +30,10 @@ reference's ``final.iteration`` is.  The loop runs in chunks of K steps
 (``executed_steps``).  On the card a level is one launch of a CUDA graph
 that holds the whole ``while ~done`` loop (``irls_graph``: a head chunk
 that starts the level, then a conditional WHILE node around a tail chunk),
-with no host read from the level's copy-in to its result; the
+with no host read from the level's copy-in to its result, and a whole
+match is one launch of a graph that chains its levels' loops with the se3
+glue between them captured (``match_prepared``; ``irls_graph.MatchGraph``),
+with one host wait where the result goes to the host; the
 pixel-sharded level's graphs hold its NCCL all-reduces, and its group's
 probe (``irls_graph.probe_group``) decides up front whether they take that
 form or replay a graph per chunk and read ``done`` after each, as every
@@ -51,6 +54,7 @@ iterations, termination and estimate are those of its single-stream solve.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -266,21 +270,7 @@ def _match_level(
     device = sel_mask.device
     backend = _resolve_backend(cfg, device)
     level_shape = tuple(sel_mask.shape[-2:])
-    if backend == "xla":
-        if refpack is None or accel is None:
-            raise ValueError(
-                "the modular 'xla' path needs the reference frame's refpack and the "
-                "current frame's acceleration tensor: prepare both frames under the "
-                "xla config (prepare_frame)"
-            )
-        inputs = (sel_mask, refpack, accel)
-    else:
-        if quad is None:
-            raise ValueError(
-                "the fused path needs the current frame's quad table: prepare "
-                "the frame under a t-distribution config"
-            )
-        inputs = (refpack, quad)
+    inputs = _level_inputs(backend, sel_mask, refpack, quad, accel)
     chunk = CHUNK_STEPS
     if torch.device(device).type == "cuda" and CUDA_GRAPHS:
         carry, iterations, trace = _graph_level(
@@ -300,6 +290,30 @@ def _match_level(
             termination=carry.termination,
         )
     return carry, stats, trace
+
+
+def _level_inputs(backend: str, sel_mask, refpack, quad, accel) -> tuple:
+    """A level's per-frame inputs on ``backend``'s path: (refpack, quad) on
+    the fused path, (sel_mask, refpack, accel) on the modular one."""
+    if backend == "xla":
+        if refpack is None or accel is None:
+            raise ValueError(
+                "the modular 'xla' path needs the reference frame's refpack and the "
+                "current frame's acceleration tensor: prepare both frames under the "
+                "xla config (prepare_frame)"
+            )
+        return (sel_mask, refpack, accel)
+    if quad is None:
+        raise ValueError(
+            "the fused path needs the current frame's quad table: prepare "
+            "the frame under a t-distribution config"
+        )
+    return (refpack, quad)
+
+
+def _refpack_index(backend: str) -> int:
+    """Where ``_level_inputs`` puts the refpack."""
+    return 1 if backend == "xla" else 0
 
 
 def _evaluation(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level_shape, inputs):
@@ -589,22 +603,56 @@ _CARRY_FIELDS = len(_Carry._fields)
 _DONE = _Carry._fields.index("done")
 
 
+def _level_key(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level_shape,
+               specs, collect_stats: bool, chunk: int) -> tuple:
+    """The graph key of a level: what a step bakes in, with ``specs`` the
+    (shape, dtype) of the level's inputs and four start values."""
+    return (
+        backend, level_shape, chunk, collect_stats, tuple(intrinsics), tuple(specs),
+        cfg.max_iterations_per_level, cfg.precision, cfg.mu, cfg.use_weighting,
+        cfg.influence_function, cfg.influence_function_param, cfg.scale_estimator,
+        cfg.depth_buffered_sampling,
+    )
+
+
+def _specs(tensors) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
 def _graph_level(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level_shape, inputs,
                  x0, T0, initial0, precision0, collect_stats: bool, chunk: int):
     """The loop of one level on the card as CUDA graphs (``irls_graph``):
     one while-graph launch (host-polled replays with ``WHILE_GRAPHS``
     off); the same returns as ``_irls_level``, bit for bit."""
-    key = (
-        backend, level_shape, chunk, collect_stats, tuple(intrinsics),
-        tuple((tuple(t.shape), t.dtype) for t in inputs + (x0, T0, initial0, precision0)),
-        cfg.max_iterations_per_level, cfg.precision, cfg.mu, cfg.use_weighting,
-        cfg.influence_function, cfg.influence_function_param, cfg.scale_estimator,
-        cfg.depth_buffered_sampling,
-    )
+    key = _level_key(cfg, backend, intrinsics, level_shape,
+                     _specs(inputs + (x0, T0, initial0, precision0)), collect_stats, chunk)
     return graph_irls_level(
         cfg, lambda static: _evaluation(cfg, backend, intrinsics, level_shape, static),
         key, _COUNTERS, inputs, x0, T0, initial0, precision0, collect_stats, chunk,
     )
+
+
+def _level_program(cfg: TrackerConfig, make_evaluate, level_inputs: int, collect_stats: bool,
+                   chunk: int):
+    """A level's chunk over its static buffers (the inputs, then the four
+    start values), as ``irls_graph`` captures it: ``program(static, state)``
+    starts the level (``state`` None: the head) or continues it (the
+    tail)."""
+
+    def program(static, state):
+        evaluate = make_evaluate(static[:level_inputs])
+        x, T, initial, precision = static[level_inputs:]
+        consts = _constants(cfg, x)
+        if state is None:
+            carry = _initial_carry(x, T, initial, precision, consts)
+            trace = _empty_trace(cfg, x) if collect_stats else None
+        else:
+            carry = _Carry(*state[:_CARRY_FIELDS])
+            trace = IterationStats(*state[_CARRY_FIELDS:]) if collect_stats else None
+        carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, state is None, consts)
+        return tuple(carry) + (tuple(trace) if collect_stats else ())
+
+    return program
 
 
 def graph_irls_level(cfg: TrackerConfig, make_evaluate, key: tuple, counters, inputs,
@@ -624,23 +672,7 @@ def graph_irls_level(cfg: TrackerConfig, make_evaluate, key: tuple, counters, in
     ``irls_graph.fold_counts`` runs).  Returns what ``_irls_level``
     returns with the same evaluation on ``inputs``, bit for bit."""
     start = (x0, T0, initial0, precision0)
-    level_inputs = len(inputs)
-
-    def program(static, state):
-        """One chunk over the static buffers: the level's start (``state``
-        None: the head) or its continuation (the tail)."""
-        evaluate = make_evaluate(static[:level_inputs])
-        x, T, initial, precision = static[level_inputs:]
-        consts = _constants(cfg, x)
-        if state is None:
-            carry = _initial_carry(x, T, initial, precision, consts)
-            trace = _empty_trace(cfg, x) if collect_stats else None
-        else:
-            carry = _Carry(*state[:_CARRY_FIELDS])
-            trace = IterationStats(*state[_CARRY_FIELDS:]) if collect_stats else None
-        carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, state is None, consts)
-        return tuple(carry) + (tuple(trace) if collect_stats else ())
-
+    program = _level_program(cfg, make_evaluate, len(inputs), collect_stats, chunk)
     polled = not irls_graph.while_form(group, WHILE_GRAPHS)
     graphs = irls_graph.graphs_for(key, torch.device(x0.device))
     with graphs.lock:
@@ -717,6 +749,119 @@ def ref_artifacts(prepared: PreparedFrame) -> PreparedFrame:
     return PreparedFrame(sel=prepared.sel, refpack=prepared.refpack, quad=none, accel=none)
 
 
+# the flat result row: 16 (T) + 36 (information) + 1 (nll), then 4 per solved
+# level (valid pixels, valid constraints, iterations, termination), float32
+FLAT_BASE = 53
+_SELECTED = 6  # the refpack's row of the selection mask
+
+
+def match_start(initial, batch: tuple, dtype, device):
+    """The first level's start values (x, T, initial, precision) from the
+    warm start ``initial`` (result space, [*batch, 4, 4] in ``dtype`` on
+    ``device``) or the identity (None): the estimate's inverse is the first
+    increment and the prior's offset."""
+    if initial is None:
+        guess = torch.eye(4, dtype=dtype, device=device).expand(batch + (4, 4))
+    else:
+        guess = se3.inverse(initial)
+    return (
+        se3.log_se3(guess),
+        se3.identity(dtype, device).expand(batch + (4, 4)),
+        guess,
+        torch.eye(2, dtype=dtype, device=device).expand(batch + (2, 2)),
+    )
+
+
+def next_start(final: _Carry):
+    """The next level's start values from a level's final carry: the last
+    APPLIED increment as x (the reference's ``x = inc.log()`` at level entry,
+    dense_tracking.cpp:241), the estimate, the prior's offset and the
+    precision."""
+    return se3.log_se3(final.inc_applied), final.T, final.initial, final.precision
+
+
+def level_stats(refpack, final: _Carry) -> LevelStats:
+    """A level's statistics from its refpack (the selected pixels of its
+    selection row) and its final carry: in a match graph, what
+    ``_match_level`` gives from the selection mask and the loop's count."""
+    return LevelStats(
+        valid_pixels=(refpack[..., _SELECTED, :] != 0).sum(dim=-1, dtype=torch.int32),
+        valid_constraints=final.n,
+        iterations=final.iteration,
+        termination=final.termination,
+    )
+
+
+def match_result(cfg: TrackerConfig, final: _Carry, stats: Sequence[LevelStats],
+                 iteration_stats: Sequence[IterationStats] = ()) -> TrackingResult:
+    """The match's result from the finest level's final carry: the pose is
+    the inverse of the warp estimate, the information the scaled Hessian,
+    and the negative log-likelihood adds the prior's term with smoothing."""
+    if cfg.use_estimate_smoothing:
+        prior = cfg.mu * torch.sum(se3.log_se3(final.initial) ** 2, dim=-1)
+    else:
+        prior = torch.zeros_like(final.ll)
+    return TrackingResult(
+        transformation=se3.inverse(final.T),
+        information=final.A * INFORMATION_SCALE,
+        neg_log_likelihood=-final.ll + prior,
+        level_stats=tuple(stats),
+        iteration_stats=tuple(iteration_stats),
+    )
+
+
+def flatten_result(r: TrackingResult) -> torch.Tensor:
+    """A result as one float32 row [*batch, 53 + 4 * levels] on its device."""
+    batch = tuple(r.transformation.shape[:-2])
+    f32 = torch.float32
+    stats = [torch.stack([f.to(f32).expand(batch) for f in s], dim=-1) for s in r.level_stats]
+    return torch.cat(
+        [
+            r.transformation.reshape(batch + (16,)).to(f32),
+            r.information.reshape(batch + (36,)).to(f32),
+            r.neg_log_likelihood.reshape(batch + (1,)).to(f32),
+            *stats,
+        ],
+        dim=-1,
+    )
+
+
+def result_from_row(row: torch.Tensor,
+                    iteration_stats: Sequence[IterationStats] = ()) -> TrackingResult:
+    """The ``TrackingResult`` of a float32 result row (views of it; the
+    counts as int32): the inverse of ``flatten_result`` for float32
+    results."""
+    batch = tuple(row.shape[:-1])
+    levels = (row.shape[-1] - FLAT_BASE) // 4
+    counts = row[..., FLAT_BASE:].reshape(batch + (levels, 4)).to(torch.int32)
+    return TrackingResult(
+        transformation=row[..., :16].reshape(batch + (4, 4)),
+        information=row[..., 16:52].reshape(batch + (6, 6)),
+        neg_log_likelihood=row[..., 52],
+        level_stats=tuple(LevelStats(*counts[..., level, :].unbind(-1))
+                          for level in range(levels)),
+        iteration_stats=tuple(iteration_stats),
+    )
+
+
+def match_graph_form(device, group: tuple = ()) -> bool:
+    """Whether a match on ``device`` runs as one launch of a match graph
+    (``irls_graph.MatchGraph``): on the card with ``CUDA_GRAPHS`` on, where
+    every level would run as one while-graph launch
+    (``irls_graph.while_form``) and the call carries no process group
+    (``group``: a ``group_key``, or ``()``).  Elsewhere the levels run one
+    by one (``_match_level``)."""
+    return (torch.device(device).type == "cuda" and CUDA_GRAPHS
+            and irls_graph.while_form((), WHILE_GRAPHS) and not group)
+
+
+def _takes_match_graph(ref: PreparedFrame, first_level: int) -> bool:
+    """``match_graph_form`` for these frames, whose result a float32 row
+    holds exactly."""
+    refpack0 = ref.refpack[first_level]
+    return match_graph_form(refpack0.device) and refpack0.dtype == torch.float32
+
+
 def match_prepared(
     cfg: TrackerConfig,
     intrinsics: Intrinsics,
@@ -733,30 +878,59 @@ def match_prepared(
     alignments run in lockstep (the reference's ``vmap`` of this function):
     the result's transformation is [B, 4, 4], information [B, 6, 6],
     neg_log_likelihood [B], and each ``LevelStats`` holds [B] int32
-    tensors.  Spans: ``dvo.match.setup``, per level ``dvo.level.copy_in``,
-    ``.graph`` (with timing events) and ``.out``, then ``dvo.match.result``."""
+    tensors.
+
+    On the card (``match_graph_form``) the match is one launch of a match
+    graph; the result's tensors are views of one copy of its result row
+    (and, with ``collect_iteration_stats``, copies of the levels' traces),
+    so no later match overwrites them.  Spans: ``dvo.level.copy_in`` (the
+    loads), ``dvo.match.graph`` around ``dvo.level.graph`` (the launch,
+    with timing events), ``dvo.match.result``.  Elsewhere the levels run
+    one by one: spans ``dvo.match.setup``, per level
+    ``dvo.level.copy_in``, ``.graph`` (with timing events) and ``.out``,
+    then ``dvo.match.result``."""
+    if _takes_match_graph(ref, cfg.first_level):
+        return _match_graph(cfg, intrinsics, ref, cur, initial_transformation,
+                            collect_iteration_stats, "result")
+    return _match_per_level(cfg, intrinsics, ref, cur, initial_transformation,
+                            collect_iteration_stats)
+
+
+def match_prepared_flat(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFrame,
+                        cur: PreparedFrame, initial_transformation=None, host: bool = False):
+    """``match_prepared``'s result as its flat float32 row [*batch, 53 + 4 *
+    levels] (``flatten_result``): with ``host`` a NumPy array (one copy and
+    one wait; from a match graph, its pinned row), else a tensor on the
+    device of its own."""
+    if _takes_match_graph(ref, cfg.first_level):
+        return _match_graph(cfg, intrinsics, ref, cur, initial_transformation, False,
+                            "host" if host else "row")
+    result = _match_per_level(cfg, intrinsics, ref, cur, initial_transformation)
+    with timers.span("dvo.match.result"):
+        row = flatten_result(result)
+        return row.cpu().numpy() if host else row
+
+
+def _match_per_level(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFrame,
+                     cur: PreparedFrame, initial_transformation=None,
+                     collect_iteration_stats: bool = False) -> TrackingResult:
+    """The match level by level (``_match_level``), the glue between the
+    levels issued by the host."""
     refpack0 = ref.refpack[cfg.first_level]
     dtype, device = refpack0.dtype, refpack0.device
     batch = tuple(refpack0.shape[:-2])
+    if device.type == "cuda":
+        irls_graph.match_counts.per_level += 1
     with timers.span("dvo.match.setup"):
-        if initial_transformation is None:
-            guess = torch.eye(4, dtype=dtype, device=device).expand(batch + (4, 4))
-        else:
-            # result space is estimate^{-1}; the first increment is the estimate
-            guess = se3.inverse(
-                torch.as_tensor(initial_transformation, device=device).to(dtype)
-            )
+        initial = (None if initial_transformation is None
+                   else torch.as_tensor(initial_transformation, device=device).to(dtype))
+        x, T, initial, precision = match_start(initial, batch, dtype, device)
 
-        x = se3.log_se3(guess)
-        T = se3.identity(dtype, device).expand(batch + (4, 4))
-        initial = guess
-        precision = torch.eye(2, dtype=dtype, device=device).expand(batch + (2, 2))
-
-    level_stats = []
+    stats = []
     iteration_stats = []
     final = None
     for level in range(cfg.first_level, cfg.last_level - 1, -1):
-        final, stats, trace = _match_level(
+        final, level_out, trace = _match_level(
             cfg,
             intrinsics.at_level(level),
             ref.sel[level],
@@ -769,28 +943,81 @@ def match_prepared(
             collect_stats=collect_iteration_stats,
             accel=cur.accel[level],
         )
-        level_stats.append(stats)
+        stats.append(level_out)
         if collect_iteration_stats:
             iteration_stats.append(trace)
         with timers.span("dvo.level.out"):
-            # the next level starts from the last APPLIED increment
-            x = se3.log_se3(final.inc_applied)
-            T = final.T
-            initial = final.initial
-            precision = final.precision
+            x, T, initial, precision = next_start(final)
 
     with timers.span("dvo.match.result"):
-        if cfg.use_estimate_smoothing:
-            prior = cfg.mu * torch.sum(se3.log_se3(final.initial) ** 2, dim=-1)
-        else:
-            prior = torch.zeros(batch, dtype=dtype, device=device)
-        return TrackingResult(
-            transformation=se3.inverse(final.T),
-            information=final.A * INFORMATION_SCALE,
-            neg_log_likelihood=-final.ll + prior,
-            level_stats=tuple(level_stats),
-            iteration_stats=tuple(iteration_stats),
-        )
+        return match_result(cfg, final, stats, iteration_stats)
+
+
+def _match_graph(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFrame,
+                 cur: PreparedFrame, initial, collect_iteration_stats: bool, out: str):
+    """The match as one launch of its match graph, keyed by its levels'
+    keys, the batch, whether a warm start is given and
+    ``use_estimate_smoothing`` (built at the key's first use).  The host
+    copies each level's per-frame inputs and the warm start into the static
+    buffers, launches, and returns (``out``) the result row on the host
+    ("host": waits once), a copy of it on the card ("row"), or a
+    ``TrackingResult`` of views of such a copy ("result")."""
+    refpack0 = ref.refpack[cfg.first_level]
+    dtype, device = refpack0.dtype, refpack0.device
+    batch = tuple(refpack0.shape[:-2])
+    backend = _resolve_backend(cfg, device)
+    chunk = CHUNK_STEPS
+    start = ((batch + (6,), dtype), (batch + (4, 4), dtype), (batch + (4, 4), dtype),
+             (batch + (2, 2), dtype))
+    keys, inputs, programs = [], [], []
+    for level in range(cfg.first_level, cfg.last_level - 1, -1):
+        k_level = intrinsics.at_level(level)
+        level_shape = tuple(ref.sel[level].shape[-2:])
+        level_inputs = _level_inputs(backend, ref.sel[level], ref.refpack[level], cur.quad[level],
+                                     cur.accel[level])
+        keys.append(_level_key(cfg, backend, k_level, level_shape,
+                               _specs(level_inputs) + start, collect_iteration_stats, chunk))
+        inputs.append(level_inputs)
+        programs.append(_level_program(
+            cfg, functools.partial(_evaluation, cfg, backend, k_level, level_shape),
+            len(level_inputs), collect_iteration_stats, chunk))
+    key = ("match", tuple(keys), batch, initial is None, cfg.use_estimate_smoothing)
+    at = _refpack_index(backend)
+
+    def result(states, statics):
+        finals = [_Carry(*state[:_CARRY_FIELDS]) for state in states]
+        stats = [level_stats(static[at], final) for static, final in zip(statics, finals)]
+        return flatten_result(match_result(cfg, finals[-1], stats))
+
+    levels = [irls_graph.graphs_for(k, device) for k in keys]
+    with irls_graph.holding(levels):
+        match = irls_graph.match_graph_for(key, device, levels)
+        if match.exec is None:
+            match.build(
+                inputs,
+                None if initial is None else torch.as_tensor(initial, device=device).to(dtype),
+                lambda init: match_start(init, batch, dtype, device), programs,
+                lambda state: next_start(_Carry(*state[:_CARRY_FIELDS])), result, _COUNTERS,
+                _DONE)
+        with timers.span("dvo.level.copy_in"):
+            for graphs, level_inputs in zip(levels, inputs):
+                graphs.load(level_inputs)
+            if initial is not None:
+                match.load_initial(initial)
+        with timers.span("dvo.match.graph"):
+            with timers.span("dvo.level.graph", device=True):
+                match.launch()
+        with timers.span("dvo.match.result"):
+            if out == "host":
+                return match.host_row()
+            row = match.row.clone()
+            if out == "row":
+                return row
+            traces = [
+                _trace_out(IterationStats(*(t.clone() for t in g.state[_CARRY_FIELDS:])),
+                           len(batch))
+                for g in levels] if collect_iteration_stats else ()
+            return result_from_row(row, traces)
 
 
 def match_pyramids(

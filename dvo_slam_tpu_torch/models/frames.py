@@ -35,7 +35,8 @@ from ..ops import se3
 from ..ops.camera import Intrinsics
 from ..ops.pyramid import PyramidLevel, build_pyramid, convert_raw_depth
 from ..utils import timers
-from .dense_tracker import PreparedFrame, TrackingResult, match_prepared, prepare_frame
+from .dense_tracker import FLAT_BASE as _FLAT_BASE
+from .dense_tracker import PreparedFrame, match_prepared_flat, prepare_frame
 
 # the process's frame identifiers: the spans of one frame's ingest and update
 # carry its number (``utils/timers``)
@@ -160,26 +161,6 @@ class HostTrackingResult(NamedTuple):
         return bool(np.isnan(self.transformation).any())
 
 
-# flat layout: 16 (T) + 36 (info) + 1 (nll) + 4 per solved level
-_FLAT_BASE = 53
-
-
-def _flatten_result(r: TrackingResult) -> torch.Tensor:
-    """A result as float32 [..., 53 + 4 * levels] on its device."""
-    batch = tuple(r.transformation.shape[:-2])
-    f32 = torch.float32
-    stats = [torch.stack([f.to(f32).expand(batch) for f in s], dim=-1) for s in r.level_stats]
-    return torch.cat(
-        [
-            r.transformation.reshape(batch + (16,)).to(f32),
-            r.information.reshape(batch + (36,)).to(f32),
-            r.neg_log_likelihood.reshape(batch + (1,)).to(f32),
-            *stats,
-        ],
-        dim=-1,
-    )
-
-
 def _decode_result(flat: np.ndarray) -> HostTrackingResult:
     n_levels = (flat.shape[0] - _FLAT_BASE) // 4
     levels = tuple(
@@ -228,8 +209,9 @@ class BatchedMatcher:
     """Batched dense alignment with a per-frame prepared-artifact cache.
 
     ``match_many([(ref, cur, init), ...])`` aligns n pairs in one lockstep
-    ``match_prepared`` call on stacked [n, ...] artifacts and copies one
-    flat [n, 53 + 4 * levels] float32 tensor to the host.  This is the
+    ``match_prepared_flat`` call on stacked [n, ...] artifacts and copies
+    one flat [n, 53 + 4 * levels] float32 tensor to the host (on the card
+    a match graph's pinned row: one launch and one wait).  This is the
     engine of the dual keyframe/odometry match (n = 2) and of loop-closure
     waves.  The artifacts are stacked copies: the dual match's two
     requests share the current frame, whose quad table (or acceleration
@@ -281,26 +263,24 @@ class BatchedMatcher:
         requests: Sequence[Tuple[Frame, Frame, Optional[np.ndarray]]],
     ) -> List[HostTrackingResult]:
         """Align [(reference, current, initial_pose_or_None), ...]: one
-        ``match_prepared`` call, one device-to-host copy."""
+        ``match_prepared_flat`` call, one device-to-host copy."""
         if not requests:
             return []
         refs = [self.prepared(r[0]) for r in requests]
         curs = [self.prepared(r[1]) for r in requests]
-        device = refs[0].refpack[self.cfg.first_level].device
-        inits = torch.from_numpy(np.stack([
+        inits = np.stack([
             np.eye(4, dtype=np.float32) if r[2] is None else np.asarray(r[2], np.float32)
             for r in requests
-        ])).to(device)
+        ])
         if len(requests) == 1:
-            result = match_prepared(self.cfg, self.intrinsics, refs[0], curs[0], inits[0])
+            flat = match_prepared_flat(self.cfg, self.intrinsics, refs[0], curs[0], inits[0],
+                                       host=True)
         else:
             with timers.span("dvo.match.setup"):
                 ref_b = _stack_role(refs, REF_FIELDS, self.cfg)
                 cur_b = _stack_role(curs, CUR_FIELDS, self.cfg)
-            result = match_prepared(self.cfg, self.intrinsics, ref_b, cur_b, inits)
-        with timers.span("dvo.match.result"):
-            flat = _flatten_result(result).reshape(len(requests), -1).cpu().numpy()  # one copy
-        return [_decode_result(row) for row in flat]
+            flat = match_prepared_flat(self.cfg, self.intrinsics, ref_b, cur_b, inits, host=True)
+        return [_decode_result(row) for row in flat.reshape(len(requests), -1)]  # one copy
 
     def match(self, ref: Frame, cur: Frame, initial=None) -> HostTrackingResult:
         return self.match_many([(ref, cur, initial)])[0]
@@ -315,11 +295,12 @@ class TwoStageMatcher:
     solve to keep, so the device computes stage 2 for both directions and
     the host votes on the results.
 
-    n pairs run as two lockstep ``match_prepared`` calls at B = 2n (the
-    forward references and the backward ones stacked together): the coarse
-    config seeded by ``init`` and, for the backward stream, its inverse
-    (in float32 on the device, as the reference's wave inverts it); then
-    the fine config seeded on the device by the coarse transforms.  One
+    n pairs run as two lockstep ``match_prepared_flat`` calls at B = 2n
+    (the forward references and the backward ones stacked together): the
+    coarse config seeded by ``init`` and, for the backward stream, its
+    inverse (in float32 on the device, as the reference's wave inverts it);
+    then the fine config seeded on the device by the coarse transforms (the
+    first 16 entries of the coarse result rows, a copy of their own).  One
     copy to the host at the end.  Artifacts are prepared once under the
     fine config and read by the coarse solve (``BatchedMatcher``'s
     ``artifact_cfg``).  Each frame serves both roles, so its refpack and
@@ -368,10 +349,10 @@ class TwoStageMatcher:
         ref_b = _stack_role(refs + curs, REF_FIELDS, self.fine_cfg)
         cur_b = _stack_role(curs + refs, CUR_FIELDS, self.fine_cfg)
         seeds = torch.cat([inits, se3.inverse(inits)])
-        coarse = match_prepared(self.coarse_cfg, self.intrinsics, ref_b, cur_b, seeds)
-        fine = match_prepared(self.fine_cfg, self.intrinsics, ref_b, cur_b, coarse.transformation)
-        flat = torch.cat([_flatten_result(coarse), _flatten_result(fine)], dim=-1)
-        flat = flat.cpu().numpy()  # one copy for both stages and directions
+        coarse = match_prepared_flat(self.coarse_cfg, self.intrinsics, ref_b, cur_b, seeds)
+        fine = match_prepared_flat(self.fine_cfg, self.intrinsics, ref_b, cur_b,
+                                   coarse[:, :16].reshape(2 * n, 4, 4))
+        flat = torch.cat([coarse, fine], dim=-1).cpu().numpy()  # one copy, both stages
         f1 = self._f1
         return [
             (_decode_result(flat[k, :f1]), _decode_result(flat[n + k, :f1]),

@@ -35,6 +35,17 @@ allocator, cuBLAS and the kernels' ticket buffer of that stream outside
 any capture), takes back the launch counts it moved, and captures; the
 level itself then runs as every later call of the key does.
 
+A whole tracker match takes the while form once more (``MatchGraph``, built
+by ``csrc/while_graph.cu`` too): one graph holds a captured setup (the first
+level's start values, written into its static start buffers), then for
+each level its head -> ``set_while`` -> WHILE { tail -> ``set_while`` }
+over that level key's captures and ``runs``, then a captured link that
+writes the next level's start values into its static start buffers, and
+after the last level a captured result (one flat row) and a copy of that
+row to pinned host memory.  So a match is one launch and one host wait.  A
+match graph lives as long as every one of its level keys: dropping or
+evicting a key destroys the match graphs built on it.
+
 Launch counts: a capture launches nothing, so the counts that it moves
 are taken back and added once per executed chunk instead: by the host per
 replay, and on the card in the while form, where ``set_while`` counts the
@@ -69,7 +80,9 @@ with CUDA's refusal kept and reported by ``stats()``.  A group that
 Threads: the keyframe graph's worker solves validation waves while the
 tracker solves its matches, both on the device's default stream.
   * Each key's static buffers are held by its lock from the copy-in to the
-    caller's clone (``LevelGraphs.lock``).
+    caller's clone (``LevelGraphs.lock``); a match graph holds the locks of
+    all its levels, coarse to fine (``holding``), to the last read of its
+    row.
   * Warm-ups and captures run under one module lock on one capture stream
     per device, in ``thread_local`` capture mode, so another thread's
     eager launches on the default stream neither join nor break a
@@ -89,6 +102,7 @@ when the group starts and reported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -119,6 +133,10 @@ _generation = [0]  # process groups started by parallel.distributed.initialize
 # (counted on the card, one per head and one per tail chunk; up to date
 # after ``fold_counts``)
 while_counts = types.SimpleNamespace(launches=0, set_while=0)
+# the match graphs' counts: ``launches``, the match graphs launched, and
+# ``per_level``, the matches on the card that ran level by level instead
+match_counts = types.SimpleNamespace(launches=0, per_level=0)
+_matches: "Dict[tuple, MatchGraph]" = {}  # (device index,) + match key -> its graph
 _dropped_tallies = []  # the tallies of dropped keys, until the next fold_counts
 _group_forms: "Dict[tuple, GroupForm]" = {}  # group_key -> the group's probed form
 
@@ -202,11 +220,14 @@ def _while_library():
     lib = _build.load_library("while_graph").lib
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dvo_while_graph_build.argtypes = [p, p, p, i, i, p, ctypes.POINTER(p), ctypes.c_char_p, i]
+    pp = ctypes.POINTER(p)
+    lib.dvo_match_graph_build.argtypes = [i, p, pp, pp, pp, i, pp, pp, p, p, p, ctypes.c_longlong,
+                                          pp, ctypes.c_char_p, i]
     lib.dvo_while_graph_launch.argtypes = [p, p]
     lib.dvo_while_graph_destroy.argtypes = [p]
     lib.dvo_graph_node_census.argtypes = [p, ctypes.POINTER(ctypes.c_int)]
-    for name in ("dvo_while_graph_build", "dvo_while_graph_launch", "dvo_while_graph_destroy",
-                 "dvo_graph_node_census"):
+    for name in ("dvo_while_graph_build", "dvo_match_graph_build", "dvo_while_graph_launch",
+                 "dvo_while_graph_destroy", "dvo_graph_node_census"):
         getattr(lib, name).restype = i
     lib.dvo_cuda_error_text.argtypes = [i, ctypes.c_char_p, i]
     lib.dvo_cuda_error_text.restype = None
@@ -301,16 +322,20 @@ class LevelGraphs:
         self.device = device
         self.lock = threading.Lock()  # the static buffers, copy-in to the caller's clone
         self.exec = None
+        self.matches = set()  # the match graphs built on this key
         self.drop()
 
     def drop(self):
-        """Free the graphs, their pool and the static buffers (the caller
-        holds ``lock`` and has synchronized the device; it keeps the while
-        graph's ``tally`` for the next fold); the next run captures anew."""
+        """Free the graphs, their pool and the static buffers, and the
+        match graphs built on them (the caller holds ``lock`` and
+        ``_lock`` and has synchronized the device; it keeps the ``tally``
+        for the next fold); the next run captures anew."""
+        for match in list(self.matches):
+            match.drop()
         if self.exec is not None:
             destroy_while(self.exec)
         self.exec = None  # the while graph (a cudaGraphExec_t)
-        self.tally = None  # its chunk counts on the card (``_Tally``)
+        self.tally = None  # the chunk counts on the card of its while loops (``_Tally``)
         self.counters = ()
         self.inputs: Tuple[torch.Tensor, ...] = ()
         self.state: Tuple[torch.Tensor, ...] = ()
@@ -442,15 +467,22 @@ class LevelGraphs:
         self.counters = tuple(counters)
         _evict(keep=self)
 
+    def runs(self) -> torch.Tensor:
+        """The key's run counters on the card (heads, tail chunks), which
+        ``set_while`` adds to in its while graph and in every match graph
+        built on it; made with the key's ``tally`` at first use."""
+        if self.tally is None:
+            runs = torch.zeros(2, dtype=torch.int64, device=self.device)
+            self.tally = _Tally(runs, self.deltas, self.counters)
+            self.static_bytes += runs.numel() * runs.element_size()
+        return self.tally.runs
+
     def _build_while(self, flag: int, loop_on: bool):
-        runs = torch.zeros(2, dtype=torch.int64, device=self.device)
         try:
-            self.exec = build_while(self.head, self.tail, self.state[flag], runs, loop_on)
+            self.exec = build_while(self.head, self.tail, self.state[flag], self.runs(), loop_on)
         except RuntimeError as exc:
             raise RuntimeError(f"building the {self.loop}'s while graph failed (key {self.key}): "
                                f"{exc}; nodes {self.census()}") from None
-        self.tally = _Tally(runs, self.deltas, self.counters)
-        self.static_bytes += runs.numel() * runs.element_size()
 
 
 class _Tally:
@@ -471,6 +503,212 @@ class _Tally:
         for delta, times in zip(self.deltas, new):
             _add_counters(self.counters, delta, times)
         while_counts.set_while += sum(new)
+
+
+def _capture_into(graph, fn: Callable, outs: Sequence[torch.Tensor], pool=None):
+    """Capture ``fn()`` and the copy of its results into ``outs`` (static
+    buffers); a failure raises, naming the op."""
+    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+    try:
+        for buf, t in zip(outs, fn()):
+            buf.copy_(t)
+    except Exception as exc:
+        try:
+            graph.capture_end()
+        except RuntimeError:
+            pass  # the capture is void; the program's own error names the op
+        raise RuntimeError(f"capturing a match graph's glue failed: {exc}") from exc
+    graph.capture_end()
+
+
+class MatchGraph:
+    """One match key's graph over its levels' ``LevelGraphs`` (coarse to
+    fine): a captured setup, each level's while loop, a captured link
+    between two levels, a captured result row and its copy to pinned host
+    memory, as one launch (``csrc/while_graph.cu``).  Its static buffers:
+    ``init`` (the warm start, or None), ``row`` (the result on the card),
+    ``host`` (its pinned copy) and ``staging`` (a pinned warm start on its
+    way to ``init``).  The caller holds every level's lock from the loads to
+    the last read of ``row`` or ``host``."""
+
+    def __init__(self, key: tuple, device: torch.device, levels: Sequence[LevelGraphs]):
+        self.key, self.device, self.levels = key, device, tuple(levels)
+        self.exec = None
+        self.captures = ()  # setup, links, result (kept: the graph reads their pool)
+        self.init = self.staging = self.row = self.host = None
+        self.staged = self.fetched = None  # events: the warm start's copy, the row's
+        self.nbytes = 0
+
+    def build(self, frame_inputs, initial: Optional[torch.Tensor], setup: Callable,
+              programs: Sequence[Callable], link: Callable, result: Callable, counters,
+              flag: int):
+        """Warm up and capture, in the order the graph runs them, then build
+        the graph.  ``frame_inputs[l]`` are level l's per-frame inputs (its
+        static buffers then add the four start values); ``initial`` the warm
+        start on the card or None; ``setup(init) -> start``, the first
+        level's start values from the ``init`` buffer; ``programs[l]`` level
+        l's chunk (``LevelGraphs.run_level``'s); ``link(state) -> start``,
+        the next level's start values from a level's state; ``result(states,
+        inputs) -> row`` the flat result from the levels' states and static
+        inputs; ``state[flag]`` a level's ``done`` flags.  A refused build
+        raises with CUDA's text."""
+        with _lock:
+            self._build(frame_inputs, initial, setup, programs, link, result, counters, flag)
+
+    def _build(self, frame_inputs, initial, setup, programs, link, result, counters, flag):
+        _require_default_stream(self.device)
+        side = _capture_stream(self.device)
+        default = torch.cuda.current_stream(self.device)
+        saved = _read_counters(counters)
+        with timers.span("dvo.graph.capture"):
+            side.wait_stream(default)
+            with torch.cuda.stream(side):
+                if initial is not None:
+                    self.init = torch.empty_like(initial)
+                    self.init.copy_(initial)
+                start = setup(self.init)
+            for level, (graphs, inputs) in enumerate(zip(self.levels, frame_inputs)):
+                with torch.cuda.stream(side):
+                    graphs.load(tuple(inputs) + tuple(start))
+                if graphs.head is None:
+                    graphs._build(programs[level], counters)
+                    side.wait_stream(default)
+                with torch.cuda.stream(side):
+                    if level + 1 < len(self.levels):
+                        start = link(graphs.state)
+                    else:
+                        out = result([g.state for g in self.levels],
+                                     [g.inputs for g in self.levels])
+                        self.row = torch.empty_like(out)
+                        del out
+            with torch.cuda.stream(side):
+                side.synchronize()
+                reserved = torch.cuda.memory_reserved(self.device)
+                setup_graph = torch.cuda.CUDAGraph(keep_graph=True)
+                starts = [g.inputs[-4:] for g in self.levels]
+                _capture_into(setup_graph, lambda: setup(self.init), starts[0])
+                pool = setup_graph.pool()
+                links = []
+                for level in range(len(self.levels) - 1):
+                    links.append(torch.cuda.CUDAGraph(keep_graph=True))
+                    _capture_into(links[-1], functools.partial(link, self.levels[level].state),
+                                  starts[level + 1], pool)
+                result_graph = torch.cuda.CUDAGraph(keep_graph=True)
+                _capture_into(result_graph, lambda: (result(
+                    [g.state for g in self.levels], [g.inputs for g in self.levels]),),
+                    (self.row,), pool)
+                pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+            default.wait_stream(side)
+        _set_counters(counters, saved)  # the glue launches no counted kernel
+        self.captures = (setup_graph, *links, result_graph)
+        self.host = torch.empty(self.row.shape, dtype=self.row.dtype, pin_memory=True)
+        if self.init is not None:
+            self.staging = torch.empty(self.init.shape, dtype=self.init.dtype, pin_memory=True)
+        self.staged, self.fetched = torch.cuda.Event(), torch.cuda.Event()
+        with timers.span("dvo.graph.while_build"):
+            try:
+                self._build_graph(flag)
+            except RuntimeError:
+                self.drop()
+                raise
+        self.nbytes = pool_bytes + sum(t.numel() * t.element_size() for t in (
+            self.init, self.row) if t is not None)
+        for graphs in self.levels:
+            graphs.matches.add(self)
+
+    def _build_graph(self, flag: int):
+        levels = len(self.levels)
+        p = ctypes.c_void_p
+
+        def pointers(values):
+            return (p * max(levels, 1))(*values)
+
+        heads = pointers(g.head.raw_cuda_graph() for g in self.levels)
+        tails = pointers(g.tail.raw_cuda_graph() for g in self.levels)
+        dones = pointers(g.state[flag].data_ptr() for g in self.levels)
+        runs = pointers(g.runs().data_ptr() for g in self.levels)
+        links = pointers(c.raw_cuda_graph() for c in self.captures[1:-1])
+        batch = self.levels[0].state[flag].numel()
+        exec_ = ctypes.c_void_p()
+        err = ctypes.create_string_buffer(_ERROR_TEXT)
+        code = _while_library().dvo_match_graph_build(
+            levels, self.captures[0].raw_cuda_graph(), heads, tails, dones, batch, runs, links,
+            self.captures[-1].raw_cuda_graph(), self.row.data_ptr(), self.host.data_ptr(),
+            self.row.numel() * self.row.element_size(), ctypes.byref(exec_), err, _ERROR_TEXT)
+        if code:
+            raise RuntimeError(f"building the match graph of {levels} IRLS levels failed (key "
+                               f"{self.key}): {err.value.decode()}; level nodes "
+                               f"{[g.census() for g in self.levels]}")
+        self.exec = exec_.value
+
+    def load_initial(self, initial):
+        """Copy the warm start into ``init``: on the card, a device copy;
+        from the host, through the pinned ``staging`` buffer once its last
+        copy has left it."""
+        if isinstance(initial, torch.Tensor) and initial.device == self.device:
+            self.init.copy_(initial)
+            return
+        self.staged.synchronize()
+        self.staging.copy_(torch.as_tensor(initial))
+        self.init.copy_(self.staging, non_blocking=True)
+        self.staged.record()
+
+    def launch(self):
+        """One launch of the match; ``fetched`` records when ``host`` holds
+        the row.  Counts one while-loop launch per level."""
+        _require_default_stream(self.device)
+        with _lock:
+            try:
+                launch_while(self.exec, self.device)
+            except RuntimeError as exc:
+                raise RuntimeError(f"launching the match graph failed (key {self.key}): "
+                                   f"{exc}") from None
+            self.fetched.record()
+            match_counts.launches += 1
+            while_counts.launches += len(self.levels)
+
+    def host_row(self):
+        """The result row as a NumPy array of its own (waits for the copy)."""
+        self.fetched.synchronize()
+        return self.host.numpy().copy()
+
+    def drop(self):
+        """Free the graph and its captures (the device has finished with
+        them; the caller holds ``_lock``)."""
+        if self.exec is not None:
+            destroy_while(self.exec)
+        self.exec = None
+        self.captures = ()
+        self.init = self.staging = self.row = self.host = None
+        for graphs in self.levels:
+            graphs.matches.discard(self)
+        full = (self.device.index,) + self.key
+        if _matches.get(full) is self:
+            del _matches[full]
+
+
+def match_graph_for(key: tuple, device: torch.device, levels: Sequence[LevelGraphs]) -> MatchGraph:
+    """The ``MatchGraph`` of ``key`` over ``levels`` (made empty on first
+    use: ``build`` it), whose locks the caller holds."""
+    full = (device.index,) + key
+    with _lock:
+        match = _matches.get(full)
+        if match is None or match.levels != tuple(levels):
+            if match is not None:
+                torch.cuda.synchronize(device)
+                match.drop()
+            match = _matches[full] = MatchGraph(key, device, levels)
+        return match
+
+
+@contextlib.contextmanager
+def holding(levels: Sequence[LevelGraphs]):
+    """Hold the locks of a match's levels, in their order (coarse to fine:
+    every match orders the keys it shares with another alike)."""
+    with contextlib.ExitStack() as stack:
+        for graphs in levels:
+            stack.enter_context(graphs.lock)
+        yield
 
 
 def graphs_for(key: tuple, device: torch.device) -> LevelGraphs:
@@ -521,7 +759,7 @@ def fold_counts():
 def _evict(keep: LevelGraphs):
     """Drop the least recently used keys, other than ``keep`` and those a
     thread is solving, until the cache is within ``CACHE_BYTES``."""
-    total = sum(g.nbytes for g in _cache.values())
+    total = sum(g.nbytes for g in _cache.values()) + sum(m.nbytes for m in _matches.values())
     victims = []
     for full, g in list(_cache.items()):
         if total <= CACHE_BYTES:
@@ -630,9 +868,11 @@ def probe_group(device, program: Callable, inputs: Sequence[torch.Tensor], flag:
 
 def stats() -> dict:
     """What the process's graph cache holds: keys, captured graphs, while
-    graphs built from them, capture ms, the captures' reserved memory and
-    the static buffers' bytes, with the bound and the keys dropped to keep
-    within it; and the form of each process group's loops
+    graphs and match graphs built from them, capture ms, the captures'
+    reserved memory and the static buffers' bytes, with the bound and the
+    keys dropped to keep within it; the match graphs launched and the
+    matches on the card that ran level by level (``match_counts``); and the
+    form of each process group's loops
     (``group_forms``: "while", or "polled" with the reason).  The spans
     ``dvo.graph.capture``, ``.while_build`` and ``.evict`` say when a key
     was made or dropped."""
@@ -642,6 +882,9 @@ def stats() -> dict:
             "keys": len(built),
             "graphs": 2 * len(built),
             "while_graphs": sum(g.exec is not None for g in built),
+            "match_graphs": sum(m.exec is not None for m in _matches.values()),
+            "match_graph_launches": match_counts.launches,
+            "per_level_matches": match_counts.per_level,
             "capture_ms": sum(g.capture_ms for g in built),
             "pool_bytes": sum(g.pool_bytes for g in built),
             "static_bytes": sum(g.static_bytes for g in built),

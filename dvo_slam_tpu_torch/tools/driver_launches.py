@@ -82,8 +82,8 @@ def launches():
 def reset_counts():
     """Every kernel's launch count, ``warp_and_sample_cm``'s and
     ``compute_residuals``' calls, the IRLS loop's ``done`` reads and the
-    while form's counts to 0 (the while graphs' launches folded in first,
-    so that none from before lands after)."""
+    while form's and match graphs' counts to 0 (the while graphs' launches
+    folded in first, so that none from before lands after)."""
     irls_graph.fold_counts()
     for wrapper in wrappers().values():
         wrapper.launches = 0
@@ -91,6 +91,7 @@ def reset_counts():
     residuals.compute_residuals.calls = 0
     dense_tracker.read_done.calls = 0
     irls_graph.while_counts.launches = irls_graph.while_counts.set_while = 0
+    irls_graph.match_counts.launches = irls_graph.match_counts.per_level = 0
 
 
 def lockstep_iterations(level_stats) -> int:
@@ -135,8 +136,9 @@ class Iterations:
 def counting():
     """Counts the executed steps and solver iterations of the driver's
     solves while open (patches ``bench.track_sequence``,
-    ``multistream.make_multistream_tracker`` and the ``match_prepared`` of
-    ``models.streaming`` and ``models.frames``)."""
+    ``multistream.make_multistream_tracker``, the ``match_prepared`` of
+    ``models.streaming`` and the ``match_prepared_flat`` of
+    ``models.frames``, whose result rows it decodes)."""
     counter = Iterations()
     track_sequence = bench.track_sequence
     make_tracker = multistream.make_multistream_tracker
@@ -176,21 +178,30 @@ def counting():
         counted_run.tracks = run.tracks
         return counted_run
 
+    def record(ls):
+        if streams(ls) == 1:
+            counter.add(one=executed_steps(ls), one_iterations=lockstep_iterations(ls))
+        else:
+            counter.add(batched=executed_steps(ls), batched_iterations=lockstep_iterations(ls))
+
     def counted_match(fn):
         def match(*args, **kwargs):
             result = fn(*args, **kwargs)
-            ls = result.level_stats
-            if streams(ls) == 1:
-                counter.add(one=executed_steps(ls), one_iterations=lockstep_iterations(ls))
-            else:
-                counter.add(batched=executed_steps(ls), batched_iterations=lockstep_iterations(ls))
+            record(result.level_stats)
             return result
+        return match
+
+    def counted_rows(fn):
+        def match(*args, **kwargs):
+            rows = fn(*args, **kwargs)
+            record(dense_tracker.result_from_row(torch.as_tensor(rows)).level_stats)
+            return rows
         return match
 
     patches = [(bench, "track_sequence", counted_sequence),
                (multistream, "make_multistream_tracker", counted_tracker),
                (streaming, "match_prepared", counted_match(streaming.match_prepared)),
-               (frames_mod, "match_prepared", counted_match(frames_mod.match_prepared))]
+               (frames_mod, "match_prepared_flat", counted_rows(frames_mod.match_prepared_flat))]
     originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, fn in patches:
         setattr(obj, name, fn)

@@ -11,8 +11,9 @@ the eager loops, for ``tests_cuda/test_irls_graph_cuda.py``,
     a group whose probe was refused replays host-polled either way) (None:
     as they are; the module settings are restored after; block-CG takes
     its K as an argument);
-  * ``recording()``: every level solve of the calling thread, with its
-    final carry, level statistics and trace; ``sharded_recording()`` the
+  * ``recording()``: every level solve of the calling thread (level by
+    level or inside a match graph), with its final carry, level statistics
+    and trace; ``sharded_recording()`` the
     same for the pixel-sharded levels (carry and iterations);
   * ``differences(a, b)``: the fields in which two recordings part, bit
     for bit (NaNs by their bits);
@@ -71,10 +72,13 @@ def loop_mode(graphs: bool, chunk: Optional[int] = None, sharded: Optional[int] 
 @contextlib.contextmanager
 def recording():
     """Yields a list that collects (carry, stats, trace) of each level that
-    the calling thread solves while open."""
+    the calling thread solves while open: level by level, or inside a match
+    graph (each level's final carry and trace copied from its state buffers
+    right after the launch, its statistics from those and its refpack)."""
     levels = []
     me = threading.get_ident()
     original = dense_tracker._match_level
+    launch = irls_graph.MatchGraph.launch
 
     def match_level(*args, **kwargs):
         out = original(*args, **kwargs)
@@ -82,11 +86,27 @@ def recording():
             levels.append(out)
         return out
 
+    def match_launch(match):
+        launch(match)
+        if threading.get_ident() != me:
+            return
+        fields = dense_tracker._CARRY_FIELDS
+        for graphs in match.levels:
+            state = tuple(t.clone() for t in graphs.state)
+            carry = dense_tracker._Carry(*state[:fields])
+            refpack = graphs.inputs[dense_tracker._refpack_index(graphs.key[1])]
+            trace = (dense_tracker._trace_out(dense_tracker.IterationStats(*state[fields:]),
+                                              carry.x.dim() - 1)
+                     if len(state) > fields else None)
+            levels.append((carry, dense_tracker.level_stats(refpack, carry), trace))
+
     dense_tracker._match_level = match_level
+    irls_graph.MatchGraph.launch = match_launch
     try:
         yield levels
     finally:
         dense_tracker._match_level = original
+        irls_graph.MatchGraph.launch = launch
 
 
 class ShardedLevel(NamedTuple):

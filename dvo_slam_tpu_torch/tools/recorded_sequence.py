@@ -45,6 +45,7 @@ import warnings
 from typing import Dict
 
 import numpy as np
+import torch
 
 from .. import benchmark_config, default_device, native
 from ..cli import benchmark as cli
@@ -155,22 +156,34 @@ def time_reduction(iu8, du16, level: int, reps: int = 3) -> Dict:
 def counted_solves():
     """Records every solve of the three engines while open: (streams,
     level statistics) of each call of ``match_prepared`` in
-    ``models.dense_tracker`` (the odometry engine's ``match_pyramids``),
-    ``models.frames`` (``KeyframeTracker``, the validation waves) and
-    ``models.streaming`` (the streaming front end)."""
+    ``models.dense_tracker`` (the odometry engine's ``match_pyramids``) and
+    ``models.streaming`` (the streaming front end), and of
+    ``match_prepared_flat`` in ``models.frames`` (``KeyframeTracker``, the
+    validation waves; its result rows decoded)."""
     calls = []
     lock = threading.Lock()  # the graph's worker thread matches too
+
+    def record(level_stats):
+        with lock:
+            calls.append(level_stats)
 
     def counted(fn):
         def match(*args, **kwargs):
             result = fn(*args, **kwargs)
-            with lock:
-                calls.append(result.level_stats)
+            record(result.level_stats)
             return result
         return match
 
+    def counted_rows(fn):
+        def match(*args, **kwargs):
+            rows = fn(*args, **kwargs)
+            record(dense_tracker.result_from_row(torch.as_tensor(rows)).level_stats)
+            return rows
+        return match
+
     patches = [(mod, "match_prepared", counted(mod.match_prepared))
-               for mod in (dense_tracker, frames_mod, streaming)]
+               for mod in (dense_tracker, streaming)]
+    patches.append((frames_mod, "match_prepared_flat", counted_rows(frames_mod.match_prepared_flat)))
     originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, fn in patches:
         setattr(obj, name, fn)

@@ -236,14 +236,14 @@ def test_backward_seed_is_inverted_in_float32_on_the_device(keyframes):
     _, matcher = _matchers()
     props = _proposals(t_con, port_kfs)
     seeds = []
-    original = t_frames.match_prepared
+    original = t_frames.match_prepared_flat
 
     def spy(cfg, intrinsics, ref, cur, initial, *args, **kwargs):
         seeds.append(initial)
         return original(cfg, intrinsics, ref, cur, initial, *args, **kwargs)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(t_frames, "match_prepared", spy)
+        mp.setattr(t_frames, "match_prepared_flat", spy)
         matcher.match_pairs(_requests(props))
     n = len(props)
     coarse = seeds[0]
@@ -267,9 +267,9 @@ def test_two_stage_matcher_chunks_past_eight_pairs(keyframes):
     reqs = [(port_kfs[a].frame, port_kfs[b].frame, np.eye(4))
             for a in range(4) for b in range(4) if a != b][:9]
     calls = []
-    original = t_frames.match_prepared
+    original = t_frames.match_prepared_flat
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(t_frames, "match_prepared",
+        mp.setattr(t_frames, "match_prepared_flat",
                    lambda *a, **k: (calls.append(a[4].shape[0]), original(*a, **k))[1])
         out = matcher.match_pairs(reqs)
     assert calls == [16, 16, 2, 2]  # coarse and fine per chunk, at B = 2n

@@ -114,10 +114,10 @@ def test_mismatches_name_what_differs():
 
 def test_counting_puts_back_what_it_patched():
     before = (bench.track_sequence, multistream.make_multistream_tracker,
-              streaming.match_prepared, frames_mod.match_prepared)
+              streaming.match_prepared, frames_mod.match_prepared_flat)
     with pytest.raises(RuntimeError):
         with driver_launches.counting():
             assert bench.track_sequence is not before[0]
             raise RuntimeError("section broke")
     assert (bench.track_sequence, multistream.make_multistream_tracker,
-            streaming.match_prepared, frames_mod.match_prepared) == before
+            streaming.match_prepared, frames_mod.match_prepared_flat) == before

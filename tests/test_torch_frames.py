@@ -153,26 +153,23 @@ def test_match_many_matches_reference(frames, n):
 
 
 def test_match_many_one_call_and_one_copy(frames, monkeypatch):
-    """One match_prepared call and one device-to-host copy per wave, at the
-    wave's size (no padding); each frame prepared once."""
+    """One match_prepared_flat call and one device-to-host copy per wave, at
+    the wave's size (no padding); each frame prepared once."""
     matcher = t_frames.BatchedMatcher(T_CFG, K)
     port = [f for _, f in frames]
     for f in port:
         matcher.evict(f)
     calls, flats = [], []
-    match_prepared, flatten = t_frames.match_prepared, t_frames._flatten_result
+    match_flat = t_frames.match_prepared_flat
 
-    def counted_match(cfg, intrinsics, ref, cur, init):
+    def counted_match(cfg, intrinsics, ref, cur, init, host):
         calls.append(tuple(init.shape))
-        return match_prepared(cfg, intrinsics, ref, cur, init)
-
-    def counted_flatten(result):
-        flat = flatten(result)
+        flat = match_flat(cfg, intrinsics, ref, cur, init, host=host)
+        assert host and isinstance(flat, np.ndarray)
         flats.append(tuple(flat.shape))
         return flat
 
-    monkeypatch.setattr(t_frames, "match_prepared", counted_match)
-    monkeypatch.setattr(t_frames, "_flatten_result", counted_flatten)
+    monkeypatch.setattr(t_frames, "match_prepared_flat", counted_match)
     prepares = t_dt.prepare_frame.calls
     matcher.match_many([(port[0], port[1], None), (port[2], port[1], None),
                         (port[0], port[3], None)])
@@ -201,7 +198,7 @@ def test_host_result_decoding(frames):
     one = t_dt.match_prepared(T_CFG, K, ref, cur)
     its = one.level_stats[0].iterations  # the carry's count, as the reference's
     assert its.dtype == torch.int32 and its.dim() == 0
-    host = t_frames._decode_result(t_frames._flatten_result(one).numpy())
+    host = t_frames._decode_result(t_dt.flatten_result(one).numpy())
     np.testing.assert_array_equal(host.transformation, one.transformation.numpy())
     np.testing.assert_array_equal(host.information, one.information.numpy())
     assert host.neg_log_likelihood == float(one.neg_log_likelihood)
@@ -215,7 +212,7 @@ def test_host_result_decoding(frames):
         for fields in zip(*ps)))
     batched = t_dt.match_prepared(T_CFG, K, stack(ref, ref), stack(cur, cur),
                                   torch.eye(4).expand(2, 4, 4))
-    flat = t_frames._flatten_result(batched).numpy()
+    flat = t_dt.flatten_result(batched).numpy()
     assert flat.shape == (2, 53 + 4 * 3)
     for b in range(2):
         host_b = t_frames._decode_result(flat[b])

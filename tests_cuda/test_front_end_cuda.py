@@ -10,7 +10,8 @@ iterations and terminations equal, the estimate within 1e-5.
 estimates within 1e-4.  ``CameraTracker`` and ``LocalTracker`` track 10
 frames (raw u8/u16 NumPy frames in) with no CPU tensor on the tracking path
 (0-d scalars aside) but the initial poses' upload and the result's one
-download per match; without a card both raise.
+download per match, each match one launch of its match graph; without a
+card both raise.
 """
 
 import dataclasses
@@ -127,13 +128,17 @@ def test_trackers_stay_on_the_card(raw):
     camera.update(frames[0])
     local.init_new_local_map(frames[0], frames[1], np.eye(4))
     watch = _CpuOps()
+    launched = irls_graph.stats()["match_graph_launches"]
     with watch:
         camera_poses = [camera.update(f) for f in frames[1:]]
         for k, f in enumerate(frames[2:], start=2):
             if k == 6:
                 local.force_complete_current_local_map()
             local.update(f)
-    assert watch.ops > 1000 and watch.cpu_ops == [], sorted(set(watch.cpu_ops))
+    assert watch.ops > 0 and watch.cpu_ops == [], sorted(set(watch.cpu_ops))
+    # each match of both trackers is one match-graph launch, so the host
+    # issues a few ops a frame where it issued hundreds level by level
+    assert irls_graph.stats()["match_graph_launches"] - launched >= 2 * FRAMES - 3
     err = np.abs(camera_poses[-1][:3, 3] - (np.linalg.inv(gt[0]) @ gt[-1])[:3, 3]).max()
     assert err < 5e-3, err
     assert local.local_map.num_frames == FRAMES - 6

@@ -156,13 +156,16 @@ def test_graph_loop_beside_the_keyframe_worker(easy, hard, monkeypatch):
             errors.append(exc)
 
     solvers = set()
-    graph_level = dense_tracker._graph_level
+    graph_level, match_graph = dense_tracker._graph_level, dense_tracker._match_graph
 
-    def counted(*args, **kwargs):
-        solvers.add(threading.get_ident())
-        return graph_level(*args, **kwargs)
+    def counted(solve):
+        def run(*args, **kwargs):
+            solvers.add(threading.get_ident())
+            return solve(*args, **kwargs)
+        return run
 
-    monkeypatch.setattr(dense_tracker, "_graph_level", counted)
+    monkeypatch.setattr(dense_tracker, "_graph_level", counted(graph_level))
+    monkeypatch.setattr(dense_tracker, "_match_graph", counted(match_graph))
     worker = threading.Thread(target=track)
     worker.start()
     rounds, deadline = 0, time.monotonic() + WORKER_TIMEOUT_S
@@ -243,20 +246,24 @@ def test_graphs_captured_before_the_tickets_grow_stay_right(easy):
 
 
 def test_the_cache_bound_and_release_drop_keys(easy, monkeypatch):
-    """Under a bound of one byte each capture drops every other idle key;
-    the solves stay bit-equal as keys come back and are captured anew, and
-    ``release()`` empties the cache and frees its memory."""
+    """Under a bound of one byte each capture drops every other idle key
+    (a match graph holds its own levels' keys while it builds, and goes
+    with any of them); the solves stay bit-equal as keys come back and are
+    captured anew, and ``release()`` empties the cache and frees its
+    memory."""
     cfg = BACKENDS["pallas"]
     pairs = {streams: _pair(easy, cfg, streams) for streams in (1, 2)}
     eager = {streams: _solve(cfg, pair, graphs=False, chunk=1) for streams, pair in pairs.items()}
     irls_graph.release()
     monkeypatch.setattr(irls_graph, "CACHE_BYTES", 1)
     evicted = irls_graph.stats()["evicted"]
+    levels = cfg.first_level - cfg.last_level + 1
     for streams in (1, 2, 1, 2):
         got = _solve(cfg, pairs[streams], graphs=True, chunk=1)
         assert graph_check.differences(got, eager[streams]) == [], streams
-        assert irls_graph.stats()["keys"] == 1  # the last level's key
-    assert irls_graph.stats()["evicted"] - evicted == 4 * (cfg.first_level - cfg.last_level + 1) - 1
+        assert irls_graph.stats()["keys"] == levels  # the match graph's levels
+        assert irls_graph.stats()["match_graphs"] == 1
+    assert irls_graph.stats()["evicted"] - evicted == 3 * levels
     monkeypatch.undo()
     for streams in (1, 2, 1):
         assert graph_check.differences(_solve(cfg, pairs[streams], graphs=True, chunk=1),

@@ -8,8 +8,8 @@ process records none of a CUDA graph's kernels).  Checked:
 * the ``dvo.level.graph`` event ms of the profiled frames is at least the
   device time of kernel 1 that CUPTI recorded over them (the events hold
   the whole while graph, CUPTI part of its body);
-* a frame's event spans (its levels' ``dvo.level.graph``, the only spans
-  with events) do not overlap: their sum is at most the time between two
+* a frame's event spans (its match graph's ``dvo.level.graph``, the only
+  span with events) do not overlap: their sum is at most the time between two
   events recorded before its ingest and after its pose came back, and
   each is nonnegative;
 * ``drain`` reads the spans that have completed when ``update`` returns
@@ -96,8 +96,8 @@ def test_level_graph_events_hold_the_graphs_and_do_not_overlap():
     for f in out["frames"]:
         assert f["left"] == 0, f  # every event of the frame was read
         assert {"dvo.ingest", "dvo.ingest.upload", "dvo.ingest.pyramid", "dvo.ingest.prepare",
-                "dvo.update", "dvo.match.setup", "dvo.level.copy_in", "dvo.level.graph",
-                "dvo.level.out", "dvo.match.result"} <= set(f["names"]), f["names"]
+                "dvo.update", "dvo.level.copy_in", "dvo.match.graph", "dvo.level.graph",
+                "dvo.match.result"} <= set(f["names"]), f["names"]
         assert {name for name, _ in f["spans"]} == {"dvo.level.graph"}
         ms = [m for _, m in f["spans"]]
         assert min(ms) >= 0.0

@@ -1,5 +1,9 @@
-"""A tracker IRLS level as one while-graph launch on the card
-(``csrc/while_graph.cu``, ``irls_graph.LevelGraphs.run_level``).
+"""A tracker IRLS level as one while loop on the card
+(``csrc/while_graph.cu``): inside the match graph, the tracker's form
+(``irls_graph.MatchGraph``, each level's loop over its key's head and tail
+captures), held to the eager loop and the host-polled chunks level by
+level; the per-level while-graph launch (``LevelGraphs.run_level``) is held
+to both in ``test_match_graph_cuda.py``.
 
 At 640x480 and ``benchmark_config()``'s tracker, for one stream and B = 2
 and 8, the iteration trace collected and not, depth-buffered sampling on
@@ -231,8 +235,8 @@ def _with_empty_products(A, b, n: int = 6):
 
 def test_a_refused_build_raises_and_does_not_fall_back(easy, monkeypatch):
     """A one-stream step whose solve copies from the host: CUDA refuses the
-    WHILE body, and the level raises with CUDA's text, the key and the
-    captures' node types, without a host-polled chunk or a launch counted."""
+    WHILE body, and the match raises with CUDA's text, the key and the
+    levels' node types, without a host-polled chunk or a launch counted."""
     pair = _pair(easy, CFG, 1)
     irls_graph.release()
     monkeypatch.setattr(least_squares, "_cholesky_solve_unrolled", _with_empty_products)
@@ -240,7 +244,7 @@ def test_a_refused_build_raises_and_does_not_fall_back(easy, monkeypatch):
     with pytest.raises(RuntimeError) as info:
         _solve(CFG, pair)
     text = str(info.value)
-    assert "building the IRLS level's while graph failed" in text
+    assert "building the match graph of 3 IRLS levels failed" in text
     assert "cudaGraphInstantiate" in text and "'memcpy'" in text and "'pallas'" in text
     counts = driver_launches.launches()
     assert not any(counts.values()), counts
