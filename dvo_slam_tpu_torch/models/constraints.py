@@ -20,9 +20,10 @@ import numpy as np
 
 from ..config import GraphConfig, TrackerConfig
 from ..ops.camera import Intrinsics
+from ..utils import timers
 from .dense_tracker import TrackingResult
 from .evaluation import TrackingResultEvaluation
-from .frames import BatchedMatcher, Keyframe, TwoStageMatcher
+from .frames import BatchedMatcher, Frame, Keyframe, TwoStageMatcher
 from .local_tracker import result_is_nan
 
 
@@ -170,16 +171,28 @@ class ConstraintProposalValidator:
             self.stage2_matcher.evict(old)
 
     def validate(self, proposals: List[ConstraintProposal]) -> List[ConstraintProposal]:
+        """One validation wave (span ``dvo.graph.wave``): the accepted
+        proposals, at most one per frame pair."""
         touched = {id(f): f for p in proposals for f in (p.reference.frame, p.current.frame)}
-        try:
-            if self.use_fused_wave and proposals:
-                proposals = self._validate_fused(proposals)
-            else:
-                proposals = self._stage1(proposals)
-                proposals = self._stage2(proposals)
-        finally:
-            self._retain(touched.values())
+        with timers.span("dvo.graph.wave"):
+            try:
+                if self.use_fused_wave and proposals:
+                    proposals = self._validate_fused(proposals)
+                else:
+                    proposals = self._stage1(proposals)
+                    proposals = self._stage2(proposals)
+            finally:
+                self._retain(touched.values())
         return proposals
+
+    def warm_up(self, reference: Frame, current: Frame):
+        """Run a wave of each size a validation can launch (1 to
+        ``TwoStageMatcher.MAX_PAIRS`` pairs, B = 2 to 2 MAX_PAIRS streams) on
+        one frame pair, so that every wave's graphs are captured before a
+        session needs them.  The results are dropped."""
+        request = (reference, current, None)
+        for n in range(1, self.two_stage.MAX_PAIRS + 1):
+            self.two_stage.match_pairs([request] * n)
 
     def _validate_fused(self, proposals: List[ConstraintProposal]) -> List[ConstraintProposal]:
         """Both stages from one wave: the staged path's voting on results

@@ -23,6 +23,8 @@ incoming frame never recomputes them.
 from __future__ import annotations
 
 import itertools
+import threading
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -41,6 +43,25 @@ from .dense_tracker import PreparedFrame, match_prepared_flat, prepare_frame
 # the process's frame identifiers: the spans of one frame's ingest and update
 # carry its number (``utils/timers``)
 _FRAME_IDS = itertools.count()
+
+# the evaluations the lockstep matches ran while the span recorder was on,
+# by (pyramid level, streams B, distinct frames read as reference, distinct
+# frames read only as current): a level's iterations are those of its
+# slowest stream, since the B streams step together
+batch_evaluations: Counter = Counter()
+_evaluations_lock = threading.Lock()
+
+
+def _count_evaluations(cfg: TrackerConfig, streams: Sequence[Tuple["Frame", "Frame"]],
+                       results: Sequence["HostTrackingResult"]):
+    """Count a lockstep match of the (reference, current) ``streams``."""
+    if not timers.enabled():
+        return
+    refs = {id(ref) for ref, _ in streams}
+    key = (len(results), len(refs), len({id(cur) for _, cur in streams} - refs))
+    with _evaluations_lock:
+        for j, stats in enumerate(zip(*(r.level_stats for r in results))):
+            batch_evaluations[(cfg.first_level - j, *key)] += max(s.iterations for s in stats)
 
 
 def _on_device(a, device) -> torch.Tensor:
@@ -280,7 +301,9 @@ class BatchedMatcher:
                 ref_b = _stack_role(refs, REF_FIELDS, self.cfg)
                 cur_b = _stack_role(curs, CUR_FIELDS, self.cfg)
             flat = match_prepared_flat(self.cfg, self.intrinsics, ref_b, cur_b, inits, host=True)
-        return [_decode_result(row) for row in flat.reshape(len(requests), -1)]  # one copy
+        results = [_decode_result(row) for row in flat.reshape(len(requests), -1)]  # one copy
+        _count_evaluations(self.cfg, [r[:2] for r in requests], results)
+        return results
 
     def match(self, ref: Frame, cur: Frame, initial=None) -> HostTrackingResult:
         return self.match_many([(ref, cur, initial)])[0]
@@ -354,8 +377,9 @@ class TwoStageMatcher:
                                    coarse[:, :16].reshape(2 * n, 4, 4))
         flat = torch.cat([coarse, fine], dim=-1).cpu().numpy()  # one copy, both stages
         f1 = self._f1
-        return [
-            (_decode_result(flat[k, :f1]), _decode_result(flat[n + k, :f1]),
-             _decode_result(flat[k, f1:]), _decode_result(flat[n + k, f1:]))
-            for k in range(n)
-        ]
+        coarse = [_decode_result(row) for row in flat[:, :f1]]
+        fine = [_decode_result(row) for row in flat[:, f1:]]
+        streams = [r[:2] for r in requests] + [(r[1], r[0]) for r in requests]
+        _count_evaluations(self.coarse_cfg, streams, coarse)
+        _count_evaluations(self.fine_cfg, streams, fine)
+        return [(coarse[k], coarse[n + k], fine[k], fine[n + k]) for k in range(n)]

@@ -16,6 +16,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import timers
 from .frames import Frame
 from .pose_graph import PoseGraph
 
@@ -103,5 +104,8 @@ class LocalMap:
 
     def optimize(self, iterations: int = 50) -> np.ndarray:
         """Refine the mini graph (local_map.cpp:208-213); returns the chi2
-        history (the reference's returns nothing)."""
-        return self.graph.optimize(iterations=iterations)
+        history (the reference's returns nothing).  Span
+        ``dvo.localmap.optimize``, on the thread that inserts the map (the
+        back end's worker)."""
+        with timers.span("dvo.localmap.optimize"):
+            return self.graph.optimize(iterations=iterations)

@@ -13,10 +13,12 @@ The span recorder is off by default.  ``enable(device)`` turns it on for
 the process; then each ``span(name)`` records its name, the span open
 around it on this thread (its parent), the frame it belongs to (given by
 the outermost span of a frame, ``models/frames.Frame.frame_id``, and
-inherited by the spans inside it) and its host start and end
-(``time.perf_counter_ns``).  A span with ``device=True`` on a CUDA device
-also records a pair of timing events on the current stream around its
-body (not while the stream is being captured into a CUDA graph): an upper
+inherited by the spans inside it), its host start and end
+(``time.perf_counter_ns``) and the name of the thread it ran on (the
+SLAM back end's worker records beside the front end).  A span with
+``device=True`` on a CUDA device also records a pair of timing events on
+the current stream around its body (not while the stream is being
+captured into a CUDA graph): an upper
 bound on the device time of the work it enqueued, since the pair also
 holds the launch latency where the stream was idle when it opened.  Only
 a launch that returns before its work ends (a graph's) is timed so: on
@@ -126,6 +128,7 @@ class Span(NamedTuple):
     start_ns: int  # host clock, ``time.perf_counter_ns``
     end_ns: int
     device_ms: Optional[float]  # between its events; None without events
+    thread: Optional[str] = None  # the name of the thread it ran on
 
     @property
     def host_ms(self) -> float:
@@ -243,14 +246,15 @@ class _Open:
         if events is not None:
             events[1].record(self.stream)
         rec = self.rec
-        rec._stack().pop()
+        local = rec._local
+        local.stack.pop()
         parent = self.parent
         entry = (self.name, None if parent is None else parent.name, self.frame, self.start_ns,
                  end_ns)
         if events is None:
-            rec._done.append(entry + (None,))
+            rec._done.append(entry + (None, local.thread))
         else:
-            rec._pending.append((entry, events))
+            rec._pending.append((entry + (local.thread,), events))
         return False
 
 
@@ -268,7 +272,7 @@ class SpanRecorder:
         self._local = threading.local()
         self._lock = threading.Lock()
         self._pool: list = []
-        self._pending: deque = deque()  # (Span fields but device_ms, (start, end) events)
+        self._pending: deque = deque()  # (Span fields without device_ms, (start, end) events)
         self._done: deque = deque(maxlen=KEEP)
 
     def enable(self, device):
@@ -292,6 +296,7 @@ class SpanRecorder:
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
+            self._local.thread = threading.current_thread().name
         return stack
 
     def _collect(self, front_only: bool):
@@ -310,7 +315,7 @@ class SpanRecorder:
                         return
                     pending.append(item)
                     continue
-                self._done.append(entry + (ms,))
+                self._done.append(entry[:-1] + (ms, entry[-1]))
                 self._pool += (start, end)
 
     def drain(self) -> List[Span]:
