@@ -27,8 +27,8 @@ the launch counters when a phase reads them.
    its name and ``nvidia-smi``'s name and power limit.
 2. Build: ``nvcc`` builds ``dvo_slam_tpu_torch/csrc/fused_stats.cu`` (the
    folded, sampled-input, batched and partials entry points),
-   ``csrc/table_copy.cu`` and ``csrc/while_graph.cu`` from the checkout,
-   the three at once, and ``g++`` the
+   ``csrc/table_copy.cu``, ``csrc/while_graph.cu`` and ``csrc/ingest.cu``
+   from the checkout, the four at once, and ``g++`` the
    native ingest (``native/ingest.cpp``, no libpng) beside them, so that no
    timed phase pays a build; prints the build seconds and the compiler's
    report.
@@ -70,6 +70,18 @@ the launch counters when a phase reads them.
    ms and device ms of the three launches beside the plain version and the
    unfolded trio (``warp_and_sample_cm`` + ``dvo_fused_partials`` + the
    PyTorch tail), each launch's device ms alone, and the bound.
+   Ingest's two kernels (``csrc/ingest.cu``: kernel A the pyramid, kernel
+   B sel, refpack and quad) on phase 4's first frames at 640x480, 4
+   levels, solve range 3..1: ``ingest_cuda`` on the raw frame on the card
+   with u16 and with int32 depth, and ``Frame.from_raw`` from the host
+   arrays, every one of the 41 tensors of a frame bit-equal to the plain
+   chain's (``convert_raw_depth`` -> ``build_pyramid`` ->
+   ``prepare_frame``) on the card.  Times of both kernels and of the plain
+   chain from the raw frame on the card (``ms``, ``plain_ms``; device
+   times with the card spinning first), kernel A's alone, the bound from
+   the bytes the two kernels must move, and the host's time of one
+   ``Frame.from_raw`` from host arrays against the plain chain's issue
+   from the same arrays (median of 100).
 4. Odometry: 100 frames at 640x480 (``TUM_FR1``), frame to frame with a
    constant-velocity warm start at ``benchmark_config().tracker``, from
    u8/u16 frames through ``convert_raw_depth`` -> ``build_pyramid`` ->
@@ -163,8 +175,8 @@ that their frames/s compare with phase 4's:
    per frame the relative transform within 1e-6 of phase 4's (the frames
    that are not bit-equal counted) and the per-level iterations equal; the
    folded kernel's launches equal the solver iterations, no other kernel;
-   ``prepare_frame`` runs once per frame (phase 4's inline path twice per
-   pair).  Prints the ATE-RMSE and tracked frames/s beside phase 4's.
+   ingest's two kernels run once each per frame and ``prepare_frame``
+   never (phase 4's inline path runs it twice per pair).  Prints the ATE-RMSE and tracked frames/s beside phase 4's.
 12. ``LocalTracker`` with ``LocalMap``: the same frames through
    ``init_new_local_map`` and ``update``, the map completed every 10 frames
    (``force_complete_current_local_map``), a map-complete callback running
@@ -336,7 +348,9 @@ plain version, kernel and plain ms at L1, the bound from this run's
 tensor sizes at the card's 3.35 TB/s and 67 TFLOP/s, and the one PyTorch
 call that computes the same function where there is one; ``set_while``
 with its runs in phases 4, 6, 7, 14 and 19 and its ms per loop step at
-both senses of its condition),
+both senses of its condition; ``ingest`` with its launches in phases 11-14
+and 18, its bits against the plain chain, its times and the plain chain's
+device kernels under ``torch.profiler`` after phase 10),
 ``nvidia-smi``'s name and power limit, then ``{"ok": true, "device":
 {...}}``.
 """
@@ -425,6 +439,12 @@ TEMPORAL_POSE_GATE = 1e-3  # tests/test_parallel.py: chunked vs sequential
 BUSY_FRAMES = 6
 BATCHED_REPLACES = "dvo_slam_tpu/ops/pallas_kernels.py:413"  # vmapped (multistream.py:217-227)
 COPY_SOURCE = "dvo_slam_tpu_torch/csrc/table_copy.cu"
+INGEST_SOURCE = "dvo_slam_tpu_torch/csrc/ingest.cu"
+# no Pallas kernel: the reference's ingest is XLA's ops (upload, pyramid, prepare)
+INGEST_REPLACES = "dvo_slam_tpu/models/frames.py:103"
+INGEST_FRAMES = 4  # phase 3: phase 4's first frames through the three routes
+INGEST_HOST_REPS = 100  # phase 3: host time of one ingest, median of as many
+INGEST_COUNTS = ("ingest_pyramid", "ingest_pack")  # kernel A's and kernel B's launches
 WHILE_SOURCE = "dvo_slam_tpu_torch/csrc/while_graph.cu"
 WHILE_REPLACES = "dvo_slam_tpu/models/dense_tracker.py:445"  # the level's lax.while_loop
 CG_WHILE_REPLACES = "dvo_slam_tpu/models/pose_graph.py:310"  # block-CG's lax.while_loop
@@ -897,6 +917,169 @@ def check_sharded_kernels(cfg, intrinsics, frames):
     return rows, worst, timed
 
 
+def _ingest_outputs(levels, prepared, solve):
+    """{(name, level): tensor} of a frame's 41 ingest tensors at 4 levels."""
+    out = {(name, k): t for k, lv in enumerate(levels) for name, t in zip(lv._fields, lv)}
+    for name in ("sel", "refpack", "quad"):
+        for k in range(solve[0], solve[1] + 1):
+            out[(name, k)] = getattr(prepared, name)[k]
+    return out
+
+
+def _ingest_bytes(layout):
+    """Bytes ingest's two kernels must move: kernel A reads the raw frame
+    (u8 and u16) and writes every level field; kernel B reads the seven
+    fields it uses of the solve range's levels and writes sel, refpack and
+    quad."""
+    from dvo_slam_tpu_torch.ops import ingest
+
+    h, w = layout.shape
+    views = layout.views
+    fields = [k for k in views if k[0] in ingest.KERNEL_FIELDS]
+    a = 3 * h * w + sum(views[k].nbytes for k in fields)
+    last, first = layout.solve
+    b_in = sum(views[k].nbytes for k in fields if last <= k[1] <= first and k[0] != "valid")
+    b_out = sum(views[k].nbytes for k in views if k[0] in ("sel", "refpack", "quad"))
+    return a + b_in + b_out
+
+
+def check_ingest(cfg, intrinsics, iu, du):
+    """Phase 3d: ingest's two kernels against the plain chain on the card,
+    bit for bit, on the first ``INGEST_FRAMES`` host frames ``iu`` / ``du``
+    (u8 / u16), through ``ingest_cuda`` on card tensors (u16 and int32
+    depth) and ``Frame.from_raw`` from the host arrays; then the times.
+    Returns the row of the kernels line (without its launches)."""
+    import time as _time
+
+    import torch
+
+    from dvo_slam_tpu_torch.models.dense_tracker import PreparedFrame, prepare_frame
+    from dvo_slam_tpu_torch.models.frames import Frame
+    from dvo_slam_tpu_torch.ops import ingest
+    from dvo_slam_tpu_torch.ops.pyramid import build_pyramid, convert_raw_depth
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    dev = torch.device("cuda", 0)
+    solve = (cfg.last_level, cfg.first_level)
+    key = (cfg, intrinsics)
+    layout = ingest.arena_layout(tuple(iu.shape[1:]), cfg.num_levels, solve, True)
+    pack = ingest.pack_args(layout, intrinsics, cfg.intensity_derivative_threshold,
+                            cfg.depth_derivative_threshold)
+
+    def plain(raw_i, raw_d):
+        depth, valid = convert_raw_depth(raw_d)
+        levels = build_pyramid(raw_i.to(torch.float32), depth, valid, cfg.num_levels)
+        return levels, prepare_frame(cfg, intrinsics, levels)
+
+    def kernels(raw_i, raw_d, pack=pack):
+        ref, cur = ingest.new_arenas(layout, dev)
+        ingest.ingest_cuda(raw_i, raw_d, layout, ref, cur, pack)
+        levels, sel, refpack, quad = ingest.arena_views(layout, ref, cur)
+        return levels, PreparedFrame(sel=sel, refpack=refpack, quad=quad, accel=None)
+
+    def from_host(k):
+        frame = Frame.from_raw(iu[k], du[k], 0.0, cfg.num_levels, prepare_for=key, device=dev)
+        return frame.levels, frame.__dict__["_prepared"][key]
+
+    differ, worst, tensors = {}, 0.0, 0
+    for k in range(INGEST_FRAMES):
+        raw_i = torch.from_numpy(iu[k]).to(dev)
+        raw_d = torch.from_numpy(du[k]).to(dev)
+        want = _ingest_outputs(*plain(raw_i, raw_d), solve)
+        for route, got in (("card_u16", kernels(raw_i, raw_d)),
+                           ("card_int32", kernels(raw_i, raw_d.to(torch.int32))),
+                           ("from_host", from_host(k))):
+            got = _ingest_outputs(*got, solve)
+            require(got.keys() == want.keys(), f"phase 3 ingest {route}: tensors {got.keys()}")
+            for name, x in got.items():
+                y = want[name]
+                require(x.shape == y.shape and x.dtype == y.dtype,
+                        f"phase 3 ingest {route} {name}: {x.shape} {x.dtype} against "
+                        f"{y.shape} {y.dtype}")
+                tensors += 1
+                if not torch.equal(_bits_of(x), _bits_of(y)):
+                    differ.setdefault(route, []).append(f"{name[0]}{name[1]}")
+                    if x.dtype == torch.float32:
+                        worst = max(worst, float((x - y).abs().nan_to_num(float("inf")).max()))
+    require(not differ, f"phase 3 ingest: tensors not bit-equal to the plain chain: {differ}")
+
+    raw_i = torch.from_numpy(iu[0]).to(dev)
+    raw_d = torch.from_numpy(du[0]).to(dev)
+    ref, cur = ingest.new_arenas(layout, dev)
+    row = {"shape": list(layout.shape), "levels": cfg.num_levels, "solve": list(solve),
+           "frames": INGEST_FRAMES, "tensors_compared": tensors, "not_bit_equal": 0,
+           "max_abs_err": worst}
+    both = lambda: ingest.ingest_cuda(raw_i, raw_d, layout, ref, cur, pack)  # noqa: E731
+    chain = lambda: plain(raw_i, raw_d)  # noqa: E731
+    _timed(row, both, chain)
+    _timed(row, both, chain, timer=device_ms, prefix="device_")
+    row["device_ms"], row["plain_device_ms"] = row.pop("device_ms"), row.pop("device_plain_ms")
+    row["kernel_a_device_ms"] = device_ms(lambda: ingest.ingest_cuda(raw_i, raw_d, layout, ref))
+    row["bytes"] = _ingest_bytes(layout)
+    row["bound_ms"], row["bound_by"] = _bound(row["bytes"])
+
+    def host_ms(fn):
+        times = []
+        for k in range(INGEST_HOST_REPS):
+            t0 = _time.perf_counter()
+            fn(k % INGEST_FRAMES)
+            times.append(1e3 * (_time.perf_counter() - t0))
+            torch.cuda.synchronize()
+        return float(np.median(times))
+
+    row["host_ms"] = host_ms(from_host)
+    row["plain_host_ms"] = host_ms(lambda k: plain(torch.from_numpy(iu[k]).to(dev),
+                                                   torch.from_numpy(du[k]).to(dev)))
+    print("phase 3:", json.dumps({"ingest": row}), flush=True)
+    return row
+
+
+def count_ingest_kernels(cfg, intrinsics, iu, du):
+    """After the timed phases: the device kernels and copies ``torch.profiler``
+    records in one ingest of a host frame, on the kernel route
+    (``Frame.from_raw``) and on the plain chain (None where it records
+    none)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from dvo_slam_tpu_torch.models.dense_tracker import prepare_frame
+    from dvo_slam_tpu_torch.models.frames import Frame
+    from dvo_slam_tpu_torch.ops.pyramid import build_pyramid, convert_raw_depth
+
+    dev = torch.device("cuda", 0)
+
+    def plain():
+        depth, valid = convert_raw_depth(torch.from_numpy(du[0]).to(dev))
+        levels = build_pyramid(torch.from_numpy(iu[0]).to(dev).to(torch.float32), depth, valid,
+                               cfg.num_levels)
+        prepare_frame(cfg, intrinsics, levels)
+
+    def kernels():
+        Frame.from_raw(iu[0], du[0], 0.0, cfg.num_levels, prepare_for=(cfg, intrinsics),
+                       device=dev)
+
+    counts = {}
+    for name, fn in (("kernel_route", kernels), ("plain_chain", plain)):
+        for _ in range(2):  # the second session's count is kept
+            fn()
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                fn()
+                torch.cuda.synchronize()
+            counts[name] = sum(e.device_type == DeviceType.CUDA for e in prof.events()) or None
+    print("phase 3:", json.dumps({"ingest_device_events": counts}), flush=True)
+    return counts
+
+
+def _bits_of(t):
+    """A tensor's bits: float32 as int32, others as they are."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def _pose_errors(a, b):
     """max |log(a^-1 b)| per pose, for [..., 4, 4] poses (float64 on the host)."""
     import torch
@@ -1305,19 +1488,40 @@ SHARDED_KERNELS = ("warp_fused_partials", "sharded_loglik", "sharded_tail")
 
 
 def _reset_counts():
-    """Every kernel's launch count, warp_and_sample_cm's and
-    compute_residuals' calls, the IRLS loop's ``done`` reads and the while
-    form's counts to 0 (the while graphs' launches folded in first)."""
+    """Every kernel's launch count (ingest's two kernels too),
+    warp_and_sample_cm's and compute_residuals' calls, the IRLS loop's
+    ``done`` reads and the while form's counts to 0 (the while graphs'
+    launches folded in first)."""
+    from dvo_slam_tpu_torch.ops import ingest
     from dvo_slam_tpu_torch.tools import driver_launches
 
     driver_launches.reset_counts()
+    ingest.ingest_cuda.pyramid_launches = ingest.ingest_cuda.pack_launches = 0
 
 
 def _launches():
-    """{name: launches} since the last reset, with warp_and_sample_cm's calls."""
+    """{name: launches} since the last reset, with warp_and_sample_cm's calls
+    and ingest's two kernels (``INGEST_COUNTS``)."""
+    from dvo_slam_tpu_torch.ops import ingest
     from dvo_slam_tpu_torch.tools import driver_launches
 
-    return driver_launches.launches()
+    return {**driver_launches.launches(),
+            **dict(zip(INGEST_COUNTS, (ingest.ingest_cuda.pyramid_launches,
+                                       ingest.ingest_cuda.pack_launches)))}
+
+
+INGEST_BY_PHASE = {}  # phase -> (kernel A's, kernel B's launches) of its main-path run
+
+
+def _note_ingest(phase, counts, frames=None):
+    """Keep a phase's ingest launches for the kernels line; with ``frames``,
+    require one launch of each kernel per frame."""
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    pair = tuple(counts[k] for k in INGEST_COUNTS)
+    require(frames is None or pair == (frames, frames),
+            f"phase {phase}: ingest's kernels launched {pair} times for {frames} frames")
+    INGEST_BY_PHASE[phase] = pair
 
 
 def _chunk():
@@ -1390,7 +1594,8 @@ def _require_only(counts, name, expected, what):
 
     require(counts[name] == expected > 0,
             f"{what}: {name} launches {counts[name]} != executed steps {expected}")
-    others = {k: v for k, v in counts.items() if k not in (name, "table_copy") and v}
+    others = {k: v for k, v in counts.items()
+              if k not in (name, "table_copy", *INGEST_COUNTS) and v}
     require(not others, f"{what}: other statistics kernels or warp_and_sample_cm ran: {others}")
 
 
@@ -1538,7 +1743,8 @@ def check_camera_tracker(cfg, intrinsics, d_i, d_d, odometry_results, gt, odomet
     iterations = sum(s.iterations for r in results for s in r.level_stats)
     steps = _steps(r.level_stats for r in results)
     _require_only(counts, "warp_fused_stats", steps, "phase 11")
-    require(prepares == NUM_FRAMES, f"phase 11: prepare_frame ran {prepares} times")
+    _note_ingest("11", counts, NUM_FRAMES)
+    require(prepares == 0, f"phase 11: prepare_frame ran {prepares} times on the kernel route")
     expected = [r.transformation.cpu().numpy() for r in odometry_results]
     got = [r.transformation.astype(np.float32) for r in results]
     not_bit_equal = sum(not np.array_equal(a, b) for a, b in zip(got, expected))
@@ -1618,6 +1824,7 @@ def check_local_tracker(cfg, intrinsics, d_i, d_d, gt, odometry_fps):
     _reset_counts()
     (poses, log), seconds = _synchronized_seconds(lambda: run(NUM_FRAMES))
     counts = _launches()
+    _note_ingest("12", counts, NUM_FRAMES)
     init_iterations = sum(s.iterations for s in log["init"][0].level_stats)
     slowest = [max(a.iterations, b.iterations) for r_kf, r_odo in log["dual"]
                for a, b in zip(r_kf.level_stats, r_odo.level_stats)]
@@ -1818,6 +2025,7 @@ def check_keyframe_tracker(slam_cfg, intrinsics, d_i, d_d, gt):
         for obj, name, fn in originals:
             setattr(obj, name, fn)
     counts = _launches()
+    _note_ingest("13", counts, NUM_FRAMES)
     fallbacks = [str(w.message) for w in caught if "falling back" in str(w.message)]
     require(not fallbacks, f"phase 13: a graph solve fell back: {fallbacks}")
 
@@ -2069,6 +2277,7 @@ def check_streaming(slam_cfg, intrinsics, hard_i, hard_d, gt, online13, keyframe
                 f"bootstrap's executed steps {one}")
         _require_only({k: v for k, v in counts.items() if k != "warp_fused_stats"},
                       "warp_fused_stats_batched", batched, f"phase 14 {name}")
+        _note_ingest(f"14_{name}", counts)
         launches[name] = (counts["warp_fused_stats"], counts["warp_fused_stats_batched"],
                           runs[name][3]["set_while_runs"])
     pipelined_calls = runs["pipelined"][2]
@@ -2297,6 +2506,7 @@ def check_recorded_sequence(slam_cfg, hard_i, hard_d, gt):
         trajectory_in_process = slam.trajectory()
     slam.graph.shutdown()
     counts = _launches()
+    _note_ingest("18_in_process", counts)
     steps = rs.steps_of(calls)
     require(counts["warp_fused_stats"] == steps["one_steps"] > 0 and
             counts["warp_fused_stats_batched"] == steps["batched_steps"] > 0,
@@ -2898,12 +3108,12 @@ def main() -> int:
           flush=True)
     print(f"phase 1: nvidia-smi name, power.limit: {smi}", flush=True)
 
-    # phase 2: build (the three sources at once, one nvcc each, and g++ the
+    # phase 2: build (the four sources at once, one nvcc each, and g++ the
     # native ingest beside them, so that no timed phase pays its build)
     t0 = time.perf_counter()
     ingest = threading.Thread(target=native.native_available)
     ingest.start()
-    libraries = _build.load_libraries(["fused_stats", "table_copy", "while_graph"])
+    libraries = _build.load_libraries(["fused_stats", "table_copy", "while_graph", "ingest"])
     ingest.join()
     require(native.build_error() is None, f"the native ingest did not build: "
             f"{native.build_error()}")
@@ -2915,10 +3125,11 @@ def main() -> int:
         ("table_copy", ("dvo_table_copy",)),
         ("while_graph", ("dvo_while_graph_build", "dvo_while_graph_launch",
                          "dvo_while_graph_destroy", "dvo_graph_node_census")),
+        ("ingest", ("dvo_ingest", "dvo_ingest_sizes")),
     ):
         for entry in entries:
             require(hasattr(libraries[name].lib, entry), f"the {name} library lacks {entry}")
-    print(f"phase 2: built the three libraries in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"phase 2: built the four libraries in {time.perf_counter() - t0:.2f} s", flush=True)
     for library in libraries.values():
         print(f"phase 2: {library.path}: nvcc {library.build_seconds:.2f} s", flush=True)
         for line in library.compiler_log.strip().splitlines():
@@ -2937,6 +3148,7 @@ def main() -> int:
     folded = check_folded(cfg, TUM_FR1, frames)
     _, sharded_worst, sharded_timed = check_sharded_kernels(cfg, TUM_FR1, frames)
     checks = check_kernels(cfg, TUM_FR1, frames[0], frames[1])
+    ingest_row = check_ingest(cfg, TUM_FR1, easy_i, easy_d)
     elapsed("phases 1-3")
 
     # phase 4: 100-frame odometry through the folded kernel
@@ -3059,6 +3271,7 @@ def main() -> int:
     # phase 10: the copy kernel and the gather probe
     copy_row = check_copy_and_probe()
     sharded_kernel_counts = count_sharded_kernels(cfg, TUM_FR1, frames)
+    ingest_events = count_ingest_kernels(cfg, TUM_FR1, easy_i, easy_d)
     elapsed("phase 10 and the kernel counts")
 
     kernels = []
@@ -3176,6 +3389,16 @@ def main() -> int:
                           "bound_ms": _bound(STREAMS + 16)[0]},
         "loop_on_active": {"replaces": CG_WHILE_REPLACES, "ms": active["ms_per_step"],
                            "plain_ms": active["plain_ms_per_step"], "bound_ms": bound_ms},
+    })
+    # ingest's two kernels (kernel A the pyramid, kernel B the tables): one
+    # launch of each per frame of every from_raw on the card; a kernel of the
+    # port that replaces no Pallas kernel
+    kernels.append({
+        "name": "ingest", "route": "cuda", "source": INGEST_SOURCE, "replaces": INGEST_REPLACES,
+        "entry": "dvo_ingest", "launches": sum(a for a, _ in INGEST_BY_PHASE.values()),
+        "launches_by_phase": {p: a for p, (a, _) in INGEST_BY_PHASE.items()},
+        "pack_launches_by_phase": {p: b for p, (_, b) in INGEST_BY_PHASE.items()},
+        **ingest_row, "library_ms": None, "device_events": ingest_events,
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -33,12 +33,12 @@ import torch
 
 from .. import default_device
 from ..config import TrackerConfig
-from ..ops import se3
+from ..ops import ingest, se3
 from ..ops.camera import Intrinsics
-from ..ops.pyramid import PyramidLevel, build_pyramid, convert_raw_depth
+from ..ops.pyramid import PyramidLevel, build_acceleration, build_pyramid, convert_raw_depth
 from ..utils import timers
 from .dense_tracker import FLAT_BASE as _FLAT_BASE
-from .dense_tracker import PreparedFrame, match_prepared_flat, prepare_frame
+from .dense_tracker import PreparedFrame, _resolve_backend, match_prepared_flat, prepare_frame
 
 # the process's frame identifiers: the spans of one frame's ingest and update
 # carry its number (``utils/timers``)
@@ -65,10 +65,12 @@ def _count_evaluations(cfg: TrackerConfig, streams: Sequence[Tuple["Frame", "Fra
 
 
 def _on_device(a, device) -> torch.Tensor:
-    """An array or tensor as a tensor on ``device`` (no copy where it is one)."""
+    """An array or tensor as a tensor on ``device`` (no copy where it is one).
+    A copy from host memory to the card does not wait for the stream: the
+    driver stages pageable bytes before the call returns."""
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.ascontiguousarray(a))
-    return a.to(device)
+    return a.to(device, non_blocking=True)
 
 
 @dataclass
@@ -110,23 +112,70 @@ class Frame:
         the raw bytes go to the device and are converted there.
         ``prepare_for=(cfg, intrinsics)`` also prepares the solver artifacts
         and fills the frame's prepared cache under that key, so that the
-        tracker's first match of the frame finds them.  Spans: ``dvo.ingest``
-        around ``dvo.ingest.upload``, ``.pyramid`` and ``.prepare``."""
+        tracker's first match of the frame finds them.
+
+        On a card the frame goes through :func:`_ingest_kernels`, two
+        launches, and a raw frame the kernels do not take (``ops/ingest
+        .check_raw``: [H, W] u8 intensity, u16 or int32 depth) raises
+        ValueError; elsewhere the plain chain runs, ``convert_raw_depth`` ->
+        ``build_pyramid`` -> ``prepare_frame``, with the same bits.  Spans:
+        ``dvo.ingest`` around ``dvo.ingest.stage`` and ``.kernel`` on the
+        card, ``.upload``, ``.pyramid`` and ``.prepare`` elsewhere."""
         device = default_device(device)
         frame_id = next(_FRAME_IDS)
         with timers.span("dvo.ingest", frame=frame_id):
-            with timers.span("dvo.ingest.upload"):
-                depth, valid = convert_raw_depth(_on_device(depth_u16, device))
-                intensity = _on_device(intensity_u8, device).to(torch.float32)
-            with timers.span("dvo.ingest.pyramid"):
-                levels = build_pyramid(intensity, depth, valid, num_levels)
+            if device.type == "cuda":
+                levels, prepared = _ingest_kernels(intensity_u8, depth_u16, num_levels,
+                                                   prepare_for, device)
+            else:
+                with timers.span("dvo.ingest.upload"):
+                    depth, valid = convert_raw_depth(_on_device(depth_u16, device))
+                    intensity = _on_device(intensity_u8, device).to(torch.float32)
+                with timers.span("dvo.ingest.pyramid"):
+                    levels = build_pyramid(intensity, depth, valid, num_levels)
+                prepared = None
+                if prepare_for is not None:
+                    with timers.span("dvo.ingest.prepare"):
+                        prepared = prepare_frame(*prepare_for, levels)
             frame = Frame(levels=levels, timestamp=timestamp, frame_id=frame_id)
             if prepare_for is not None:
-                cfg, intrinsics = prepare_for
-                with timers.span("dvo.ingest.prepare"):
-                    prepared = prepare_frame(cfg, intrinsics, levels)
-                frame.__dict__["_prepared"] = {(cfg, intrinsics): prepared}
+                frame.__dict__["_prepared"] = {tuple(prepare_for): prepared}
         return frame
+
+
+def _ingest_kernels(intensity_u8, depth_u16, num_levels: int,
+                    prepare_for: Optional[Tuple[TrackerConfig, Intrinsics]], device):
+    """``Frame.from_raw``'s route on a card: (levels, the prepared artifacts
+    or None).  The raw frame's upload (span ``dvo.ingest.stage``), then the
+    two kernels (``dvo.ingest.kernel``, whose events time the card's
+    ingest), with no synchronisation; the frame's tensors are views of two
+    arenas (``ops/ingest.arena_layout``).  On the modular backend kernel B
+    writes no quad table and the acceleration tensors come from
+    ``build_acceleration`` over kernel A's levels, as ``prepare_frame``
+    builds them.  The kernels' counters (``ingest_cuda.pyramid_launches``,
+    ``.pack_launches``) count the route; ``prepare_frame.calls`` does not
+    move."""
+    with timers.span("dvo.ingest.stage"):
+        raw_i, raw_d = (_on_device(a, device).contiguous() for a in (intensity_u8, depth_u16))
+    ingest.check_raw(raw_i, raw_d)
+    solve, modular, pack = None, False, None
+    if prepare_for is not None:
+        cfg, intrinsics = prepare_for
+        modular = _resolve_backend(cfg, device) == "xla"
+        solve = (cfg.last_level, cfg.first_level)
+    layout = ingest.arena_layout(tuple(raw_i.shape), num_levels, solve, not modular)
+    if solve is not None:
+        pack = ingest.pack_args(layout, intrinsics, cfg.intensity_derivative_threshold,
+                                cfg.depth_derivative_threshold)
+    ref, cur = ingest.new_arenas(layout, raw_i.device)
+    levels, sel, refpack, quad = ingest.arena_views(layout, ref, cur)
+    with timers.span("dvo.ingest.kernel", device=True):
+        ingest.ingest_cuda(raw_i, raw_d, layout, ref, cur, pack)
+    if prepare_for is None:
+        return levels, None
+    accel = tuple(build_acceleration(lv) if modular and solve[0] <= k <= solve[1] else None
+                  for k, lv in enumerate(levels))
+    return levels, PreparedFrame(sel=sel, refpack=refpack, quad=quad, accel=accel)
 
 
 @dataclass

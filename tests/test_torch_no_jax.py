@@ -49,7 +49,9 @@ drivers |= {"dvo_slam_tpu_torch.utils." + m
 wanted = parallel | tools | ops | back_end | drivers | viewers
 assert wanted <= set(names), sorted(wanted - set(names))
 # the native extension's C++ source and its build are not Python modules
-assert not [n for n in names if "ingest" in n or ".build" in n], names
+# (``ops.ingest`` is the card's ingest, plain Python)
+assert not [n for n in names if n.startswith("dvo_slam_tpu_torch.native.")
+            or "_dvo_ingest" in n or ".build" in n], names
 
 from dvo_slam_tpu_torch.config import TrackerConfig
 from dvo_slam_tpu_torch.models.dense_tracker import match_pyramids

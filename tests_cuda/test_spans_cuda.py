@@ -8,10 +8,13 @@ process records none of a CUDA graph's kernels).  Checked:
 * the ``dvo.level.graph`` event ms of the profiled frames is at least the
   device time of kernel 1 that CUPTI recorded over them (the events hold
   the whole while graph, CUPTI part of its body);
-* a frame's event spans (its match graph's ``dvo.level.graph``, the only
-  span with events) do not overlap: their sum is at most the time between two
-  events recorded before its ingest and after its pose came back, and
-  each is nonnegative;
+* a frame's event spans (its ingest's ``dvo.ingest.kernel`` and its match
+  graph's ``dvo.level.graph``, the only spans with events) do not overlap:
+  their sum is at most the time between two events recorded before its
+  ingest and after its pose came back, and each is nonnegative;
+* the frame's ingest took the kernel route (``dvo.ingest.stage`` and
+  ``.kernel``, not the plain chain's ``.upload``, ``.pyramid`` and
+  ``.prepare``);
 * ``drain`` reads the spans that have completed when ``update`` returns
   under ``torch.cuda.set_sync_debug_mode("error")``, and the rest once
   the stream has passed them;
@@ -95,10 +98,12 @@ def test_level_graph_events_hold_the_graphs_and_do_not_overlap():
     graph_ms = 0.0
     for f in out["frames"]:
         assert f["left"] == 0, f  # every event of the frame was read
-        assert {"dvo.ingest", "dvo.ingest.upload", "dvo.ingest.pyramid", "dvo.ingest.prepare",
+        assert {"dvo.ingest", "dvo.ingest.stage", "dvo.ingest.kernel",
                 "dvo.update", "dvo.level.copy_in", "dvo.match.graph", "dvo.level.graph",
                 "dvo.match.result"} <= set(f["names"]), f["names"]
-        assert {name for name, _ in f["spans"]} == {"dvo.level.graph"}
+        assert not {"dvo.ingest.upload", "dvo.ingest.pyramid", "dvo.ingest.prepare"} & set(
+            f["names"]), f["names"]
+        assert {name for name, _ in f["spans"]} == {"dvo.ingest.kernel", "dvo.level.graph"}
         ms = [m for _, m in f["spans"]]
         assert min(ms) >= 0.0
         assert sum(ms) <= f["window_ms"] * 1.001 + 1e-3, f
