@@ -107,7 +107,7 @@ the launch counters when a phase reads them.
    per executed chunk and no read of ``done``, and ``dvo_fused_partials``,
    the statistics kernels and ``warp_and_sample_cm`` not at all; the
    group's graph keys built.  The same pairs as host-polled graph replays
-   and with ``dense_tracker.CUDA_GRAPHS`` off: every level's carry and
+   and with ``irls_graph.CUDA_GRAPHS`` off: every level's carry and
    iterations and every result bit-equal; each form and
    ``match_pyramids`` timed twice, in turns; ``done`` reads per pair of
    each form; the node census of the L1 sharded level's and the

@@ -27,20 +27,19 @@ step past ``done`` is inert (the carry freezes, as under the reference's
 ``vmap``), and a level's ``iterations`` is the carry's int32 count, as the
 reference's ``final.iteration`` is.  The loop runs in chunks of K steps
 (``CHUNK_STEPS``), so a level executes K * ceil(iterations / K) steps
-(``executed_steps``).  On the card a level is one launch of a CUDA graph
-that holds the whole ``while ~done`` loop (``irls_graph``: a head chunk
-that starts the level, then a conditional WHILE node around a tail chunk),
-with no host read from the level's copy-in to its result, and a whole
-match is one launch of a graph that chains its levels' loops with the se3
-glue between them captured (``match_prepared``; ``irls_graph.MatchGraph``),
-with one host wait where the result goes to the host; the
-pixel-sharded level's graphs hold its NCCL all-reduces, and its group's
-probe (``irls_graph.probe_group``) decides up front whether they take that
-form or replay a graph per chunk and read ``done`` after each, as every
-level does with ``WHILE_GRAPHS`` off.  Elsewhere, or with ``CUDA_GRAPHS``
-off, the same chunks run eagerly and read ``done`` once per chunk
-(``read_done``).  The accept/revert logic
-keeps the reference's form: a rejected step keeps the previous carry.
+(``executed_steps``).  A level's chunk is a program of ``irls_graph``'s
+runner (``run_loop``), whose ``loop_form`` chooses up front how it runs: on
+the card one launch of a CUDA graph that holds the whole ``while ~done``
+loop (a head chunk that starts the level, then a conditional WHILE node
+around a tail chunk), with no host read from the level's copy-in to its
+result, or with ``irls_graph.WHILE_GRAPHS`` off a replay per chunk and a
+read of ``done`` after each; elsewhere, or with ``irls_graph.CUDA_GRAPHS``
+off, the same chunks eagerly with one read each (``read_done``).  On the
+card a whole match is one launch of a graph that chains its levels' loops
+with the se3 glue between them captured (``match_prepared``;
+``irls_graph.MatchGraph``), with one host wait where the result goes to
+the host.  The accept/revert logic keeps the reference's form: a rejected
+step keeps the previous carry.
 
 Lockstep batching: prepared frames whose artifacts carry a leading stream
 axis [B, ...] (``prepare_frame`` on batched pyramids) align B independent
@@ -272,16 +271,20 @@ def _match_level(
     level_shape = tuple(sel_mask.shape[-2:])
     inputs = _level_inputs(backend, sel_mask, refpack, quad, accel)
     chunk = CHUNK_STEPS
-    if torch.device(device).type == "cuda" and CUDA_GRAPHS:
-        carry, iterations, trace = _graph_level(
-            cfg, backend, intrinsics, level_shape, inputs, x0, T0, initial0, precision0,
-            collect_stats, chunk,
-        )
-    else:
+    form, _ = irls_graph.loop_form(device)
+    if form == "eager":
         evaluate = _evaluation(cfg, backend, intrinsics, level_shape, inputs)
         carry, iterations, trace = _irls_level(
             cfg, evaluate, x0, T0, initial0, precision0, collect_stats, chunk
         )
+    else:
+        start = (x0, T0, initial0, precision0)
+        key, program = _level_loop(cfg, backend, intrinsics, level_shape, inputs, _specs(start),
+                                   collect_stats, chunk)
+        carry, iterations, trace = _level_out(
+            irls_graph.run_loop(form, program, inputs + start, key, _DONE, read_done, _COUNTERS,
+                                spans=True),
+            collect_stats, x0.dim() - 1)
     with timers.span("dvo.level.out"):
         stats = LevelStats(
             valid_pixels=sel_mask.sum(dim=(-2, -1), dtype=torch.int32),
@@ -382,14 +385,6 @@ def _where(cond, new, old):
 # and in the while form a larger K only adds inert steps.  Not a
 # TrackerConfig field: the reference has none.
 CHUNK_STEPS = 1
-# Whether the card runs the loops as CUDA graphs (``irls_graph``); off, it
-# runs the same chunked loop eagerly (the graphs' reference in the checks).
-CUDA_GRAPHS = True
-# Whether a loop on the card (a tracker or pixel-sharded level, block-CG)
-# runs as one while-graph launch; off, as host-polled chunk replays of the
-# same graphs (the comparison form of the checks and probes).  A loop over a
-# process group whose probe was refused replays host-polled either way.
-WHILE_GRAPHS = True
 
 
 def executed_steps(iterations, chunk: int) -> int:
@@ -548,11 +543,13 @@ def _chunk(cfg: TrackerConfig, evaluate, carry: _Carry, trace, steps: int, first
     return carry, trace
 
 
-def read_done(carry: _Carry) -> bool:
+def read_done(state) -> bool:
     """The eager and host-polled loops' one host read per chunk: whether
-    every stream is done.  Each call adds one to ``read_done.calls``."""
+    every stream of a level's state (a carry, or a chunk's flat state) is
+    done.  Each call adds one to ``read_done.calls``."""
     read_done.calls += 1
-    return bool(carry.done.all() if carry.done.dim() else carry.done)
+    done = state[_DONE]
+    return bool(done.all() if done.dim() else done)
 
 
 read_done.calls = 0
@@ -565,14 +562,23 @@ def _trace_out(trace, batch: int):
     return IterationStats(*(buf.movedim(0, batch) for buf in trace))
 
 
+def _level_out(state, collect_stats: bool, batch: int):
+    """(carry, iterations: the carry's int32 count, trace or None with the
+    stream axis first) of a level's final flat state."""
+    carry = _Carry(*state[:_CARRY_FIELDS])
+    trace = IterationStats(*state[_CARRY_FIELDS:]) if collect_stats else None
+    return carry, carry.iteration, _trace_out(trace, batch)
+
+
 def _irls_level(
     cfg: TrackerConfig, evaluate, x0, T0, initial0, precision0, collect_stats: bool = False,
     chunk: int = 1,
 ):
     """The IRLS loop of one level around ``evaluate(T, P_prev, first) ->
-    (n, precision_new, ll, A, b)``, run eagerly in chunks of ``chunk``
-    steps with one host read after each (``read_done``).  Returns (final
-    carry, iterations: the carry's int32 count, iteration trace or None).
+    (n, precision_new, ll, A, b)``, run eagerly (``irls_graph.run_loop``)
+    in chunks of ``chunk`` steps with one host read after each
+    (``read_done``).  Returns (final carry, iterations: the carry's int32
+    count, iteration trace or None).
 
     One stream: ``x0`` [6], the loop stops when ``done``.  B streams in
     lockstep: ``x0`` [B, 6], the loop stops when every stream is done, a
@@ -580,15 +586,10 @@ def _irls_level(
     batch, and is discarded).  With ``chunk`` = 1 this is the loop read for
     read; a larger chunk runs up to ``chunk`` - 1 inert steps past the last
     ``done`` and gives the same carry, counts and trace."""
-    consts = _constants(cfg, x0)
-    carry = _initial_carry(x0, T0, initial0, precision0, consts)
-    trace = _empty_trace(cfg, x0) if collect_stats else None
-    first = True
-    while True:
-        carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, first, consts)
-        first = False
-        if read_done(carry):
-            return carry, carry.iteration, _trace_out(trace, x0.dim() - 1)
+    program = _level_program(cfg, lambda static: evaluate, 0, collect_stats, chunk)
+    state = irls_graph.run_loop("eager", program, (x0, T0, initial0, precision0), None, _DONE,
+                                read_done)
+    return _level_out(state, collect_stats, x0.dim() - 1)
 
 
 # the kernel wrappers' and plain functions' call counts that a step moves:
@@ -603,33 +604,25 @@ _CARRY_FIELDS = len(_Carry._fields)
 _DONE = _Carry._fields.index("done")
 
 
-def _level_key(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level_shape,
-               specs, collect_stats: bool, chunk: int) -> tuple:
-    """The graph key of a level: what a step bakes in, with ``specs`` the
-    (shape, dtype) of the level's inputs and four start values."""
-    return (
-        backend, level_shape, chunk, collect_stats, tuple(intrinsics), tuple(specs),
-        cfg.max_iterations_per_level, cfg.precision, cfg.mu, cfg.use_weighting,
-        cfg.influence_function, cfg.influence_function_param, cfg.scale_estimator,
-        cfg.depth_buffered_sampling,
+def _level_loop(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level_shape, inputs,
+                start_specs, collect_stats: bool, chunk: int):
+    """A level's loop as graphs: (its graph key, its chunk program).  The
+    key holds what a step bakes in, with the (shape, dtype) of the level's
+    ``inputs`` and of its four start values (``start_specs``)."""
+    key = (
+        backend, level_shape, chunk, collect_stats, tuple(intrinsics),
+        _specs(inputs) + tuple(start_specs), cfg.max_iterations_per_level, cfg.precision, cfg.mu,
+        cfg.use_weighting, cfg.influence_function, cfg.influence_function_param,
+        cfg.scale_estimator, cfg.depth_buffered_sampling,
     )
+    program = _level_program(
+        cfg, functools.partial(_evaluation, cfg, backend, intrinsics, level_shape), len(inputs),
+        collect_stats, chunk)
+    return key, program
 
 
 def _specs(tensors) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in tensors)
-
-
-def _graph_level(cfg: TrackerConfig, backend: str, intrinsics: Intrinsics, level_shape, inputs,
-                 x0, T0, initial0, precision0, collect_stats: bool, chunk: int):
-    """The loop of one level on the card as CUDA graphs (``irls_graph``):
-    one while-graph launch (host-polled replays with ``WHILE_GRAPHS``
-    off); the same returns as ``_irls_level``, bit for bit."""
-    key = _level_key(cfg, backend, intrinsics, level_shape,
-                     _specs(inputs + (x0, T0, initial0, precision0)), collect_stats, chunk)
-    return graph_irls_level(
-        cfg, lambda static: _evaluation(cfg, backend, intrinsics, level_shape, static),
-        key, _COUNTERS, inputs, x0, T0, initial0, precision0, collect_stats, chunk,
-    )
 
 
 def _level_program(cfg: TrackerConfig, make_evaluate, level_inputs: int, collect_stats: bool,
@@ -653,43 +646,6 @@ def _level_program(cfg: TrackerConfig, make_evaluate, level_inputs: int, collect
         return tuple(carry) + (tuple(trace) if collect_stats else ())
 
     return program
-
-
-def graph_irls_level(cfg: TrackerConfig, make_evaluate, key: tuple, counters, inputs,
-                     x0, T0, initial0, precision0, collect_stats: bool, chunk: int,
-                     group: tuple = ()):
-    """The runner of a level's loop as CUDA graphs: the head and tail graphs
-    of ``key`` (``irls_graph``) over static copies of ``inputs`` and the
-    start values, ``make_evaluate(static inputs) -> evaluate`` building the
-    step's evaluation on those copies.  ``group`` is the part of ``key``
-    that names the process group whose collectives the chunks hold (``()``
-    for none).  The form is chosen up front (``irls_graph.while_form``):
-    one while-graph launch, which reads nothing back, or (``WHILE_GRAPHS``
-    off, or a group whose probe was refused) a replay of the head, then of
-    the tail, reading ``done`` after each.  ``counters`` are the (object,
-    attribute) launch counts that a step moves: each chunk adds what its
-    capture would have added (the while form when
-    ``irls_graph.fold_counts`` runs).  Returns what ``_irls_level``
-    returns with the same evaluation on ``inputs``, bit for bit."""
-    start = (x0, T0, initial0, precision0)
-    program = _level_program(cfg, make_evaluate, len(inputs), collect_stats, chunk)
-    polled = not irls_graph.while_form(group, WHILE_GRAPHS)
-    graphs = irls_graph.graphs_for(key, torch.device(x0.device))
-    with graphs.lock:
-        with timers.span("dvo.level.copy_in"):
-            graphs.load(tuple(inputs) + start)
-        with timers.span("dvo.level.graph", device=True):
-            if polled:
-                state = graphs.run_head(program, counters)
-                while not read_done(_Carry(*state[:_CARRY_FIELDS])):
-                    state = graphs.run_tail(counters)
-            else:
-                state = graphs.run_level(program, counters, _DONE)
-        with timers.span("dvo.level.out"):
-            out = tuple(t.clone() for t in state)
-    carry = _Carry(*out[:_CARRY_FIELDS])
-    trace = IterationStats(*out[_CARRY_FIELDS:]) if collect_stats else None
-    return carry, carry.iteration, _trace_out(trace, x0.dim() - 1)
 
 
 class PreparedFrame(NamedTuple):
@@ -846,13 +802,12 @@ def result_from_row(row: torch.Tensor,
 
 def match_graph_form(device, group: tuple = ()) -> bool:
     """Whether a match on ``device`` runs as one launch of a match graph
-    (``irls_graph.MatchGraph``): on the card with ``CUDA_GRAPHS`` on, where
-    every level would run as one while-graph launch
-    (``irls_graph.while_form``) and the call carries no process group
+    (``irls_graph.MatchGraph``): where a level, a loop without collectives,
+    would run as one while-graph launch (``irls_graph.loop_form``: the card
+    with both switches on) and the call carries no process group
     (``group``: a ``group_key``, or ``()``).  Elsewhere the levels run one
     by one (``_match_level``)."""
-    return (torch.device(device).type == "cuda" and CUDA_GRAPHS
-            and irls_graph.while_form((), WHILE_GRAPHS) and not group)
+    return not group and irls_graph.loop_form(device)[0] == "while"
 
 
 def _takes_match_graph(ref: PreparedFrame, first_level: int) -> bool:
@@ -975,12 +930,11 @@ def _match_graph(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFrame,
         level_shape = tuple(ref.sel[level].shape[-2:])
         level_inputs = _level_inputs(backend, ref.sel[level], ref.refpack[level], cur.quad[level],
                                      cur.accel[level])
-        keys.append(_level_key(cfg, backend, k_level, level_shape,
-                               _specs(level_inputs) + start, collect_iteration_stats, chunk))
+        key, program = _level_loop(cfg, backend, k_level, level_shape, level_inputs, start,
+                                   collect_iteration_stats, chunk)
+        keys.append(key)
         inputs.append(level_inputs)
-        programs.append(_level_program(
-            cfg, functools.partial(_evaluation, cfg, backend, k_level, level_shape),
-            len(level_inputs), collect_iteration_stats, chunk))
+        programs.append(program)
     key = ("match", tuple(keys), batch, initial is None, cfg.use_estimate_smoothing)
     at = _refpack_index(backend)
 

@@ -13,18 +13,22 @@ captures two graphs over one set of static buffers:
   * the *tail*: K steps from the carry buffers, ``first = False``.
 
 Each graph's last ops copy the new state into the state buffers, so the
-chunks chain.  A level copies its inputs into the static input buffers and
-then runs in one of two forms:
+chunks chain.  This module owns how a device loop runs: ``loop_form``
+chooses the form up front, from the device, the switches ``CUDA_GRAPHS``
+and ``WHILE_GRAPHS`` and the loop's process group, and ``run_loop`` runs a
+loop's chunk program in it.  Eagerly, the chunks run on the caller's
+tensors with one host read each; in the two graph forms a loop copies its
+inputs into the static input buffers and then runs as:
 
-  * the *while form* (``run_level``): one launch of a graph built by
-    ``csrc/while_graph.cu`` from the two captures, head -> ``set_while`` ->
-    WHILE { tail -> ``set_while`` }, which loops on the card while one of
-    the state's flags has the loop's value (a stream's ``done`` false for
-    the IRLS levels, ``active`` true for CG), so the loop reads nothing
-    back before the caller's clone;
+  * the *while form* (``LevelGraphs.run_level``): one launch of a graph
+    built by ``csrc/while_graph.cu`` from the two captures, head ->
+    ``set_while`` -> WHILE { tail -> ``set_while`` }, which loops on the
+    card while one of the state's flags has the loop's value (a stream's
+    ``done`` false for the IRLS levels, ``active`` true for CG), so the
+    loop reads nothing back before the caller's clone;
   * the *host-polled form* (``run_head`` / ``run_tail``: the comparison
     form, and the loops of a process group whose probe was refused): one
-    replay per chunk, the caller reading the state buffers between
+    replay per chunk, the runner reading the state buffers between
     replays.
 
 Both forms share the captures (``keep_graph=True``): the while graph is
@@ -140,6 +144,18 @@ _matches: "Dict[tuple, MatchGraph]" = {}  # (device index,) + match key -> its g
 _dropped_tallies = []  # the tallies of dropped keys, until the next fold_counts
 _group_forms: "Dict[tuple, GroupForm]" = {}  # group_key -> the group's probed form
 
+# Whether the card runs the device loops (a tracker or pixel-sharded IRLS
+# level, block-CG) as CUDA graphs; off, it runs the same chunks eagerly (the
+# graphs' reference in the checks).
+CUDA_GRAPHS = True
+# Whether a loop on the card runs as one while-graph launch; off, as
+# host-polled chunk replays of the same graphs (the comparison form of the
+# checks and probes).  A loop over a process group whose probe was refused
+# replays host-polled either way.
+WHILE_GRAPHS = True
+# ``loop_form``'s group for collectives that name no process group
+UNNAMED = object()
+
 
 def new_generation():
     """A new process group was started: the keys ``group_key`` gives from
@@ -169,29 +185,72 @@ class GroupForm(NamedTuple):
     census: Dict[str, Dict[str, int]]  # the probe's head and tail node types
 
 
-def graph_group(device, group=None, enabled: bool = True) -> Optional[tuple]:
-    """How a loop with ``group``'s collectives runs on ``device``, chosen up
-    front: as CUDA graphs on the card with graphs ``enabled`` over NCCL
-    (then the group part of its keys, ``group_key``), else eagerly (None):
-    on the CPU, with graphs off, or over gloo, whose collectives are host
-    code that a graph cannot hold."""
-    if torch.device(device).type != "cuda" or not enabled or dist.get_backend(group) != "nccl":
-        return None
-    return group_key(group)
+def loop_form(device, group=()) -> Tuple[str, Optional[tuple]]:
+    """How a device loop runs on ``device``, chosen up front, and the part
+    of its graph keys that names its group.  ``group`` is the process group
+    whose collectives the loop holds (None: the default group), ``()`` for
+    a loop that holds none, or ``UNNAMED`` for collectives that name no
+    group:
+
+      * ("eager", None) on the CPU, with ``CUDA_GRAPHS`` off, or where the
+        collectives are not an NCCL group's (gloo's are host code that a
+        graph cannot hold);
+      * ("while", part) with ``WHILE_GRAPHS`` on, where the loop holds no
+        collective (part ``()``) or its group's probe was admitted (part
+        ``group_key(group)``; ``group_forms``);
+      * ("polled", part) everywhere else."""
+    if torch.device(device).type != "cuda" or not CUDA_GRAPHS:
+        return "eager", None
+    if group == ():
+        return ("while" if WHILE_GRAPHS else "polled"), ()
+    if group is UNNAMED or dist.get_backend(group) != "nccl":
+        return "eager", None
+    part = group_key(group)
+    probed = _group_forms.get(part)
+    admitted = probed is not None and probed.form == "while"
+    return ("while" if WHILE_GRAPHS and admitted else "polled"), part
 
 
-def while_form(part: tuple, enabled: bool = True) -> bool:
-    """Whether a loop on the card whose key carries ``part`` (``()`` for a
-    loop without collectives, else a ``group_key``) runs as one while-graph
-    launch (True) or as host-polled replays: the while form where it is
-    ``enabled`` and the loop holds no collective or its group's probe was
-    admitted (``group_forms``)."""
-    if not enabled:
-        return False
-    if part == ():
-        return True
-    form = _group_forms.get(part)
-    return form is not None and form.form == "while"
+def run_loop(form: str, program: Callable, inputs: Sequence[torch.Tensor], key: tuple,
+             flag: int, read: Callable, counters=(), loop_on: bool = False,
+             spans: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Run a device loop in ``form`` (``loop_form``) to its end and return
+    its final state.  ``program(static, state)`` is one chunk over the
+    loop's inputs, starting the loop where ``state`` is None (the head) and
+    continuing it from ``state`` otherwise (the tail).  The loop goes on
+    while the host read ``read(state)`` equals ``loop_on`` and, in the
+    while form, while one of the flags in ``state[flag]`` does (a stream's
+    ``done`` False, or CG's ``active`` True).
+
+      * eager: the chunks on the caller's own ``inputs``, one read each;
+      * polled: ``key``'s ``LevelGraphs`` over static copies of ``inputs``,
+        a replay of the head, then of the tail, with a read after each;
+      * while: the same graphs as one while-graph launch, reading nothing.
+
+    The graph forms return a clone of the state buffers, made under the
+    key's lock; with ``spans`` they open ``dvo.level.copy_in``, ``.graph``
+    (with timing events) and ``.out`` around the load, the run and the
+    clone.  ``counters`` are the (object, attribute) launch counts that a
+    chunk moves (``LevelGraphs.run_level``)."""
+    if form == "eager":
+        state = program(inputs, None)
+        while read(state) == loop_on:
+            state = program(inputs, state)
+        return state
+    span = timers.span if spans else (lambda name, device=False: contextlib.nullcontext())
+    graphs = graphs_for(key, inputs[0].device)
+    with graphs.lock:
+        with span("dvo.level.copy_in"):
+            graphs.load(inputs)
+        with span("dvo.level.graph", device=True):
+            if form == "while":
+                state = graphs.run_level(program, counters, flag, loop_on)
+            else:
+                state = graphs.run_head(program, counters)
+                while read(state) == loop_on:
+                    state = graphs.run_tail(counters)
+        with span("dvo.level.out"):
+            return tuple(t.clone() for t in state)
 
 
 def group_forms() -> Dict[tuple, GroupForm]:

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..ops import se3
-from . import dense_tracker, irls_graph
+from . import irls_graph
 
 CAUCHY_DELTA = 5.0  # reference: keyframe_graph.cpp:845 (setDelta(5))
 GAUGE_DAMPING = 1e-6  # numerical-safety floor of every solver's damping
@@ -305,23 +305,6 @@ def _cg_chunk(matvec, L, carry, steps: int, iterations: int, stop2):
     return x, r, z, p, rz, k, active
 
 
-def _cg_graph_group(device, all_reduce):
-    """How a CG solve runs, chosen up front: None for the eager loop (the
-    CPU, ``dense_tracker.CUDA_GRAPHS`` off, or a reduction that is not a
-    NCCL group's), else the group part of its graph key (``()`` without
-    a reduction), whose form ``irls_graph.while_form`` gives (one
-    while-graph launch, or host-polled replays with
-    ``dense_tracker.WHILE_GRAPHS`` off or where the group's probe was
-    refused).  A reduction names its group in ``group``
-    (``parallel/distributed_ba``'s does); one that does not runs eagerly."""
-    if all_reduce is None:
-        on_card = torch.device(device).type == "cuda" and dense_tracker.CUDA_GRAPHS
-        return () if on_card else None
-    if not hasattr(all_reduce, "group"):
-        return None
-    return irls_graph.graph_group(device, all_reduce.group, dense_tracker.CUDA_GRAPHS)
-
-
 def solve_blocks_cg(
     n, ei, ej, H_ii, H_ij, H_jj, rhs, free, iterations: int = 100, tol: float = 1e-6,
     damping=GAUGE_DAMPING, return_iterations: bool = False, all_reduce=None,
@@ -339,14 +322,15 @@ def solve_blocks_cg(
     K = 1 result bit for bit, and a first chunk from a start whose
     condition already fails leaves it as it is (k = 0).  On the card the
     whole loop is one launch of a CUDA graph whose conditional WHILE node
-    repeats the chunk while ``active`` holds (``irls_graph``), the
-    reduction's all-reduce captured in it where it is a NCCL group's
-    (``_cg_graph_group``): nothing is read back from the start to the
-    result.  The host-polled replays (``dense_tracker.WHILE_GRAPHS`` off,
-    or a group whose probe was refused) and the eager loop (the CPU,
-    ``dense_tracker.CUDA_GRAPHS`` off, gloo) read ``active`` once per
-    chunk.  ``k`` is read once, at the end, where ``return_iterations``
-    asks for it.
+    repeats the chunk while ``active`` holds (``irls_graph.run_loop``), the
+    reduction's all-reduce captured in it where it is a NCCL group's (the
+    reduction names its group in ``group``; one that does not runs
+    eagerly): nothing is read back from the start to the result.  The
+    form is ``irls_graph.loop_form``'s: the host-polled replays
+    (``irls_graph.WHILE_GRAPHS`` off, or a group whose probe was refused)
+    and the eager loop (the CPU, ``irls_graph.CUDA_GRAPHS`` off, gloo)
+    read ``active`` once per chunk.  ``k`` is read once, at the end,
+    where ``return_iterations`` asks for it.
 
     With ``all_reduce`` (a function that sums a tensor over the ranks) the
     edge arrays are this rank's shard and ``rhs`` is already summed: each
@@ -384,14 +368,19 @@ def solve_blocks_cg(
         return matvec
 
     edges = (ei, ej, H_ii, H_ij, H_jj, free)
-    group = _cg_graph_group(rhs.device, all_reduce)
-    if group is None:
-        matvec = matvec_on(*edges)
-        carry = _cg_chunk(matvec, L, carry, chunk, iterations, stop2)
-        while _cg_read(carry):
-            carry = _cg_chunk(matvec, L, carry, chunk, iterations, stop2)
-    else:
-        carry = _graph_cg(edges, L, stop2, carry, matvec_on, chunk, iterations, damping, group)
+    static = edges + (L, stop2) + carry
+    solve = len(edges)  # static[solve]: L; static[solve + 1]: stop2
+
+    def program(static, state):
+        start = static[solve + 2:] if state is None else state
+        return _cg_chunk(matvec_on(*static[:solve]), static[solve], start, chunk, iterations,
+                         static[solve + 1])
+
+    group = () if all_reduce is None else getattr(all_reduce, "group", irls_graph.UNNAMED)
+    form, part = irls_graph.loop_form(rhs.device, group)
+    key = ("cg", part, chunk, iterations, damping,
+           tuple((tuple(t.shape), t.dtype) for t in static))
+    carry = irls_graph.run_loop(form, program, static, key, _ACTIVE, _cg_read, loop_on=True)
     if return_iterations:
         return carry[0], int(carry[5])
     return carry[0]
@@ -401,34 +390,6 @@ def _cg_read(carry) -> bool:
     """The eager and host-polled loops' one host read per chunk: whether
     the loop's condition still holds."""
     return bool(carry[_ACTIVE])
-
-
-def _graph_cg(edges, L, stop2, carry, matvec_on, chunk: int, iterations: int, damping, group):
-    """The CG loop on the card as CUDA graphs over static copies of the
-    inputs and the start ``carry``: the head chunk from the start, the tail
-    from the state buffers.  In the while form one launch runs the loop
-    (WHILE ``active``); host-polled, one replay per chunk and a read of
-    ``active`` after each.  Returns the final carry, cloned."""
-    static = tuple(edges) + (L, stop2) + tuple(carry)
-    solve = len(edges)  # static[solve]: L; static[solve + 1]: stop2
-
-    def program(static, state):
-        start = static[solve + 2:] if state is None else state
-        return _cg_chunk(matvec_on(*static[:solve]), static[solve], start, chunk, iterations,
-                         static[solve + 1])
-
-    key = ("cg", group, chunk, iterations, damping,
-           tuple((tuple(t.shape), t.dtype) for t in static))
-    graphs = irls_graph.graphs_for(key, L.device)
-    with graphs.lock:
-        graphs.load(static)
-        if irls_graph.while_form(group, dense_tracker.WHILE_GRAPHS):
-            state = graphs.run_level(program, (), _ACTIVE, loop_on=True)
-        else:
-            state = graphs.run_head(program, ())
-            while _cg_read(state):
-                state = graphs.run_tail(())
-        return tuple(t.clone() for t in state)
 
 
 # ------------------------------------------------------------ Schur chains

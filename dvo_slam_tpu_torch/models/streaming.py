@@ -22,8 +22,8 @@ host until the whole sequence (or chunk) is done:
 
 The reference runs this loop as one ``lax.scan``; eager PyTorch runs it as
 a Python loop over the same step.  On the card nothing inside a frame is
-read back: each IRLS level is one while-graph launch
-(``dense_tracker.graph_irls_level``), so the record copy is the chunk's
+read back: a whole match is one match-graph launch
+(``irls_graph.MatchGraph``), so the record copy is the chunk's
 only read.  On the CPU the eager loop reads its ``done`` flags once per
 lockstep iteration (``dense_tracker.read_done``).
 

@@ -26,18 +26,19 @@
     ``dvo_slam_tpu/parallel/sharded_alignment.py:200``) as
     ``dense_tracker``'s does: in chunks of K steps (``CHUNK_STEPS``), K *
     ceil(iterations / K) executed steps, each one evaluation.  How it runs
-    is chosen up front from the device, the group's backend
-    (``irls_graph.graph_group``) and the group's probe, never by trying: on
-    the card over NCCL the level is one launch of a CUDA graph whose
+    is chosen up front from the device, the group's backend and the
+    group's probe, never by trying (``irls_graph.loop_form``), and the
+    tracker's chunk program runs in it (``irls_graph.run_loop``): on the
+    card over NCCL the level is one launch of a CUDA graph whose
     conditional WHILE node repeats the chunk, both all-reduces captured in
-    its body, with no host read (``dense_tracker.graph_irls_level``; the
-    keys carry the group, and ``distributed.shutdown`` releases them),
-    where the group's probe admitted that form (``while_probe``, built by
+    its body, with no host read (the keys carry the group, and
+    ``distributed.shutdown`` releases them), where the group's probe
+    admitted that form (``while_probe``, built by
     ``distributed.initialize``); else, and with
-    ``dense_tracker.WHILE_GRAPHS`` off, each chunk is one graph replay
+    ``irls_graph.WHILE_GRAPHS`` off, each chunk is one graph replay
     followed by a host read of ``done``.  On the CPU, over gloo (whose
     collectives are host code and cannot be captured, as when two ranks
-    share a card) or with ``dense_tracker.CUDA_GRAPHS`` off, the same
+    share a card) or with ``irls_graph.CUDA_GRAPHS`` off, the same
     chunks run eagerly with a read after each.  Every rank's ``done``
     comes from the all-reduced sums, so every rank runs the same chunks: a
     WHILE loop whose ranks disagreed would wait in a collective for ever.
@@ -106,7 +107,9 @@ def _match_level_sharded(cfg, intrinsics, mesh: Mesh, refpack, quad, shape, x0, 
     dof = cfg.influence_function_param
     chunk = CHUNK_STEPS
 
-    def evaluation(refpack, quad):
+    def evaluation(static):
+        refpack, quad = static
+
         def evaluate(T, P_prev, first: bool):
             """One IRLS evaluation with its two collectives: (c) always
             depth-buffered, (d) by the device."""
@@ -117,22 +120,15 @@ def _match_level_sharded(cfg, intrinsics, mesh: Mesh, refpack, quad, shape, x0, 
         return evaluate
 
     identity = se3.identity(x0.dtype, device)  # (a)
-    group = irls_graph.graph_group(device, mesh.group, dt.CUDA_GRAPHS)
-    if group is not None:
-        key = (
-            "sharded", group, tuple(shape), chunk, tuple(intrinsics),
-            tuple((tuple(t.shape), t.dtype) for t in (refpack, quad, x0, T0, identity, precision0)),
-            cfg.max_iterations_per_level, cfg.precision, cfg.mu, dof,
-        )
-        carry, iterations, _ = dt.graph_irls_level(
-            cfg, lambda static: evaluation(*static), key, _COUNTERS, (refpack, quad),
-            x0, T0, identity, precision0, False, chunk, group=group,
-        )
-    else:
-        carry, iterations, _ = dt._irls_level(
-            cfg, evaluation(refpack, quad), x0, T0, identity, precision0, chunk=chunk
-        )
-    return carry, iterations
+    start = (x0, T0, identity, precision0)
+    form, part = irls_graph.loop_form(device, mesh.group)
+    key = ("sharded", part, tuple(shape), chunk, tuple(intrinsics),
+           dt._specs((refpack, quad) + start), cfg.max_iterations_per_level, cfg.precision,
+           cfg.mu, dof)
+    program = dt._level_program(cfg, evaluation, 2, False, chunk)
+    state = irls_graph.run_loop(form, program, (refpack, quad) + start, key, dt._DONE,
+                                dt.read_done, _COUNTERS, spans=True)
+    return dt._level_out(state, False, 0)[:2]
 
 
 # the group's probe: a 60x80 level (4,800 pixels: kernel 2's first launch

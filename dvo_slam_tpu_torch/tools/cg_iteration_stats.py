@@ -20,8 +20,8 @@ loop runs in chunks of K steps (``pose_graph.CG_CHUNK_STEPS`` on the
 card, 1 on the CPU).  On the card the steps run three times: as one
 while-graph launch per solve (``while``), as one graph replay per chunk
 with a host read of ``active`` after each (``polled``,
-``dense_tracker.WHILE_GRAPHS`` off) and eagerly (``eager``,
-``dense_tracker.CUDA_GRAPHS`` off), each after one untimed GN step that
+``irls_graph.WHILE_GRAPHS`` off) and eagerly (``eager``,
+``irls_graph.CUDA_GRAPHS`` off), each after one untimed GN step that
 captures its graphs: for each, ms per CG iteration (the
 solve's time between two synchronises over its iterations, the
 preconditioner's set-up included) and host reads per GN step (the live

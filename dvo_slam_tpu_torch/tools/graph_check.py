@@ -53,18 +53,18 @@ def loop_mode(graphs: bool, chunk: Optional[int] = None, sharded: Optional[int] 
     (``polled`` True) or as while graphs (False; None leaves the form as
     it is)."""
     modules = (dense_tracker, sharded_alignment)
-    saved = (dense_tracker.CUDA_GRAPHS, dense_tracker.WHILE_GRAPHS,
+    saved = (irls_graph.CUDA_GRAPHS, irls_graph.WHILE_GRAPHS,
              [m.CHUNK_STEPS for m in modules])
-    dense_tracker.CUDA_GRAPHS = graphs
+    irls_graph.CUDA_GRAPHS = graphs
     if polled is not None:
-        dense_tracker.WHILE_GRAPHS = not polled
+        irls_graph.WHILE_GRAPHS = not polled
     for module, value in zip(modules, (chunk, sharded)):
         if value is not None:
             module.CHUNK_STEPS = value
     try:
         yield
     finally:
-        dense_tracker.CUDA_GRAPHS, dense_tracker.WHILE_GRAPHS = saved[:2]
+        irls_graph.CUDA_GRAPHS, irls_graph.WHILE_GRAPHS = saved[:2]
         for module, value in zip(modules, saved[2]):
             module.CHUNK_STEPS = value
 

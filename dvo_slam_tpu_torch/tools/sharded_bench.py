@@ -15,8 +15,8 @@ the NCCL group's probe chose for its loops (``irls_graph.stats()
 untimed pair through each path, every round times, over all pairs on the
 host clock, each ending in a synchronise: the sharded matcher with each level one
 launch of a while graph (the all-reduces in its WHILE body), the same with
-each chunk a host-polled graph replay (``dense_tracker.WHILE_GRAPHS``
-off), the same eagerly (``dense_tracker.CUDA_GRAPHS`` off) and
+each chunk a host-polled graph replay (``irls_graph.WHILE_GRAPHS``
+off), the same eagerly (``irls_graph.CUDA_GRAPHS`` off) and
 ``match_pyramids``, with the host reads of ``done`` each made.  Then the
 K sweep: the sharded matcher in the group's form at each K of ``--sweep``
 (``sharded_alignment.CHUNK_STEPS``), one untimed pair first, then each

@@ -39,7 +39,7 @@ from dvo_slam_tpu.models import pose_graph as j_pg
 from dvo_slam_tpu.ops import se3 as j_se3
 
 from dvo_slam_tpu_torch.convert import pose_graph_from_reference
-from dvo_slam_tpu_torch.models import dense_tracker
+from dvo_slam_tpu_torch.models import irls_graph
 from dvo_slam_tpu_torch.models import pose_graph as t_pg
 
 torch.set_num_threads(1)  # Tier-1 runs several xdist workers
@@ -271,13 +271,22 @@ def test_two_gloo_ranks(systems, ranks, graph, chunk):
                                atol=X_RTOL * float(x1.abs().max()))
 
 
-def test_graph_route_is_chosen_up_front(monkeypatch):
+def test_graph_route_is_chosen_up_front(systems, monkeypatch):
     """The card's CG takes graphs by the device and the reduction's group
-    alone: the CPU and ``CUDA_GRAPHS`` off run eagerly, a reduction that
-    names no group runs eagerly, no reduction is a local graph."""
+    alone (``irls_graph.loop_form``, asked with the group that
+    ``solve_blocks_cg`` names): the CPU and ``CUDA_GRAPHS`` off run
+    eagerly, a reduction that names no group runs eagerly, no reduction is
+    a local graph."""
+    n, args = systems["loopy"]
+    asked, loop_form = [], irls_graph.loop_form
+    monkeypatch.setattr(irls_graph, "loop_form",
+                        lambda device, group=(): asked.append(group) or loop_form(device, group))
+    for reduce in (None, lambda x: x):
+        t_pg.solve_blocks_cg(n, *args, iterations=1, all_reduce=reduce)
+    no_reduction, unnamed = asked
     cuda = torch.device("cuda", 0)
-    assert t_pg._cg_graph_group(torch.device("cpu"), None) is None
-    assert t_pg._cg_graph_group(cuda, None) == ()
-    assert t_pg._cg_graph_group(cuda, lambda x: x) is None
-    monkeypatch.setattr(dense_tracker, "CUDA_GRAPHS", False)
-    assert t_pg._cg_graph_group(cuda, None) is None
+    assert loop_form(torch.device("cpu"), no_reduction) == ("eager", None)
+    assert loop_form(cuda, no_reduction) == ("while", ())
+    assert loop_form(cuda, unnamed) == ("eager", None)
+    monkeypatch.setattr(irls_graph, "CUDA_GRAPHS", False)
+    assert loop_form(cuda, no_reduction) == ("eager", None)

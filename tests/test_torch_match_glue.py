@@ -13,8 +13,9 @@ at one stream and B = 3, on the CPU:
 - ``match_result`` and ``flatten_result``: the result and its flat row,
   with and without smoothing; ``result_from_row`` gives the result back bit
   for bit;
-- the form: a match runs level by level on the CPU, with ``WHILE_GRAPHS``
-  or ``CUDA_GRAPHS`` off, and with a process group; ``match_prepared_flat``
+- the form (``irls_graph.loop_form``): a match runs level by level on the
+  CPU, with ``WHILE_GRAPHS`` or ``CUDA_GRAPHS`` off, and with a process
+  group; ``match_prepared_flat``
   gives the level-by-level result's row.
 """
 
@@ -189,15 +190,16 @@ def test_level_stats_count_the_selection():
 
 
 def test_the_form_is_level_by_level_off_the_card(monkeypatch):
-    cuda = torch.device("cuda", 0)
-    assert t_dt.match_graph_form(cuda)  # the card with graphs and while graphs on
-    assert not t_dt.match_graph_form(torch.device("cpu"))
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    # the card with graphs and while graphs on
+    assert irls_graph.loop_form(cuda) == ("while", ()) and t_dt.match_graph_form(cuda)
+    assert irls_graph.loop_form(cpu) == ("eager", None) and not t_dt.match_graph_form(cpu)
     assert not t_dt.match_graph_form(cuda, ("group", "nccl", 2, 0, 1))
-    monkeypatch.setattr(t_dt, "WHILE_GRAPHS", False)
-    assert not t_dt.match_graph_form(cuda)
-    monkeypatch.setattr(t_dt, "WHILE_GRAPHS", True)
-    monkeypatch.setattr(t_dt, "CUDA_GRAPHS", False)
-    assert not t_dt.match_graph_form(cuda)
+    monkeypatch.setattr(irls_graph, "WHILE_GRAPHS", False)
+    assert irls_graph.loop_form(cuda) == ("polled", ()) and not t_dt.match_graph_form(cuda)
+    monkeypatch.setattr(irls_graph, "WHILE_GRAPHS", True)
+    monkeypatch.setattr(irls_graph, "CUDA_GRAPHS", False)
+    assert irls_graph.loop_form(cuda) == ("eager", None) and not t_dt.match_graph_form(cuda)
 
 
 def test_a_cpu_match_runs_level_by_level(monkeypatch):

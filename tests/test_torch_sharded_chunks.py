@@ -126,6 +126,8 @@ distributed.shutdown()
 book["keys_after_shutdown"] = sorted(repr(k[1:]) for k in irls_graph._cache)
 distributed.initialize(init_method=f"file://{work}/again{world}", world_size=world,
                        rank=rank, backend="gloo", device="cpu")
+# every rank has joined the new group before any rank can tear it down
+torch.distributed.barrier()
 book["tag_again"] = list(irls_graph.group_key())
 distributed.shutdown()
 irls_graph.release()

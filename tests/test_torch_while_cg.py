@@ -15,9 +15,10 @@ inside its body, where the process group's probe admitted that form
   0, the eager loop running one inert chunk and then its one read, never a
   read before it; ``return_iterations`` on and off give the same x, and k
   equal to the reference's, at K = 1 and 8;
-- the form is chosen up front per group: the CPU, gloo and
-  ``CUDA_GRAPHS`` off run eagerly; ``WHILE_GRAPHS`` off, a group whose
-  probe was refused and a group that no probe chose replay host-polled; a
+- the form is chosen up front per group (``irls_graph.loop_form``): the
+  CPU, gloo and ``CUDA_GRAPHS`` off run eagerly; ``WHILE_GRAPHS`` off, a
+  group whose probe was refused and a group that no probe chose replay
+  host-polled; a
   probed NCCL group and a loop without collectives take the while form
   (NCCL and the card mocked: the graphs' chunks run eagerly in their
   place, and the one-rank all-reduce is the identity); the pixel-sharded
@@ -139,22 +140,26 @@ def _mocked_nccl(monkeypatch, form):
 
 def test_form_is_chosen_up_front_per_group(monkeypatch):
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
-    assert irls_graph.graph_group(cpu, None) is None  # the CPU: eager
+    assert irls_graph.loop_form(cpu, None) == ("eager", None)  # the CPU: eager
     monkeypatch.setattr(irls_graph.dist, "get_backend", lambda group=None: "gloo")
-    assert irls_graph.graph_group(cuda, None) is None  # gloo: eager
+    assert irls_graph.loop_form(cuda, None) == ("eager", None)  # gloo: eager
     with _mocked_nccl(monkeypatch, "while"):
-        assert irls_graph.graph_group(cuda, None) == NCCL
-        assert irls_graph.graph_group(cuda, None, enabled=False) is None  # CUDA_GRAPHS off
-        assert irls_graph.while_form(NCCL) and irls_graph.while_form(())
-        assert not irls_graph.while_form(NCCL, enabled=False)  # WHILE_GRAPHS off: polled
-        assert not irls_graph.while_form((), enabled=False)
+        assert irls_graph.loop_form(cuda, None) == ("while", NCCL)
+        assert irls_graph.loop_form(cuda) == ("while", ())  # no collectives
+        monkeypatch.setattr(irls_graph, "CUDA_GRAPHS", False)
+        assert irls_graph.loop_form(cuda, None) == ("eager", None)  # CUDA_GRAPHS off
+        monkeypatch.setattr(irls_graph, "CUDA_GRAPHS", True)
+        monkeypatch.setattr(irls_graph, "WHILE_GRAPHS", False)  # WHILE_GRAPHS off: polled
+        assert irls_graph.loop_form(cuda, None) == ("polled", NCCL)
+        assert irls_graph.loop_form(cuda) == ("polled", ())
+        monkeypatch.setattr(irls_graph, "WHILE_GRAPHS", True)
         assert irls_graph.stats()["group_forms"][repr(NCCL)] == "while"
         monkeypatch.setitem(irls_graph._group_forms, NCCL,
                             irls_graph.GroupForm("polled", "CUDA's text", {}))
-        assert not irls_graph.while_form(NCCL)  # refused: polled
+        assert irls_graph.loop_form(cuda, None) == ("polled", NCCL)  # refused: polled
         assert irls_graph.stats()["group_forms"][repr(NCCL)] == "polled: CUDA's text"
         irls_graph.forget_group(NCCL)
-        assert not irls_graph.while_form(NCCL)  # never probed: polled
+        assert irls_graph.loop_form(cuda, None) == ("polled", NCCL)  # never probed: polled
 
 
 class _Graphs:
@@ -185,6 +190,13 @@ class _Graphs:
         self.calls.append("tail")
         self.state = self.program(self.inputs, self.state)
         return self.state
+
+
+def _as_on_the_card(monkeypatch):
+    """``irls_graph.loop_form`` as on the card, for the CPU tensors."""
+    loop_form = irls_graph.loop_form
+    monkeypatch.setattr(irls_graph, "loop_form",
+                        lambda device, group=(): loop_form(torch.device("cuda", 0), group))
 
 
 def _graphs(monkeypatch):
@@ -224,9 +236,8 @@ def test_sharded_level_takes_its_groups_form(pair, monkeypatch, form):
     probed, while_graphs = SHARDED_FORMS[form]
     with _mocked_nccl(monkeypatch, probed):
         want, want_levels = _sharded(pair)  # eager: the graph route not taken
-        monkeypatch.setattr(irls_graph, "graph_group", lambda device, group=None, enabled=True:
-                            NCCL if enabled else None)
-        monkeypatch.setattr(dense_tracker, "WHILE_GRAPHS", while_graphs)
+        _as_on_the_card(monkeypatch)
+        monkeypatch.setattr(irls_graph, "WHILE_GRAPHS", while_graphs)
         made = _graphs(monkeypatch)
         got, levels = _sharded(pair)
     assert len(made) == len(levels) == CFG.first_level - CFG.last_level + 1
@@ -251,8 +262,7 @@ def test_cg_takes_its_groups_form(ring, monkeypatch, form, chunk):
 
     reduce.group = None
     with _mocked_nccl(monkeypatch, form):
-        monkeypatch.setattr(irls_graph, "graph_group", lambda device, group=None, enabled=True:
-                            NCCL if enabled else None)
+        _as_on_the_card(monkeypatch)
         made = _graphs(monkeypatch)
         reads = []
         read = t_pg._cg_read

@@ -156,7 +156,7 @@ def test_graph_loop_beside_the_keyframe_worker(easy, hard, monkeypatch):
             errors.append(exc)
 
     solvers = set()
-    graph_level, match_graph = dense_tracker._graph_level, dense_tracker._match_graph
+    run_loop, match_graph = irls_graph.run_loop, dense_tracker._match_graph
 
     def counted(solve):
         def run(*args, **kwargs):
@@ -164,7 +164,12 @@ def test_graph_loop_beside_the_keyframe_worker(easy, hard, monkeypatch):
             return solve(*args, **kwargs)
         return run
 
-    monkeypatch.setattr(dense_tracker, "_graph_level", counted(graph_level))
+    def graph_loop(form, *args, **kwargs):
+        if form != "eager":
+            solvers.add(threading.get_ident())
+        return run_loop(form, *args, **kwargs)
+
+    monkeypatch.setattr(irls_graph, "run_loop", graph_loop)
     monkeypatch.setattr(dense_tracker, "_match_graph", counted(match_graph))
     worker = threading.Thread(target=track)
     worker.start()

@@ -12,7 +12,7 @@ one hangs:
   form (``irls_graph.group_forms``); the pixel-sharded matcher on two
   640x480 pairs at ``benchmark_config().tracker`` as while graphs and as
   host-polled graphs at K = 1-4, every level's carry and iterations and
-  the result bit-equal to the eager loop (``dense_tracker.CUDA_GRAPHS``
+  the result bit-equal to the eager loop (``irls_graph.CUDA_GRAPHS``
   off) at the same K and to K = 1; the while form reads ``done`` 0 times;
   each of the three sharded kernels launched once per executed step (the
   while form's counts folded in from the card); the group's keys in the

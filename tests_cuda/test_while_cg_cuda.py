@@ -17,7 +17,7 @@ with CUDA's text, the key and the captures' node types.
 import pytest
 import torch
 
-from dvo_slam_tpu_torch.models import dense_tracker, irls_graph
+from dvo_slam_tpu_torch.models import irls_graph
 from dvo_slam_tpu_torch.models import pose_graph as pg
 from dvo_slam_tpu_torch.tools import cg_iteration_stats, graph_check
 
@@ -119,4 +119,4 @@ def test_a_refused_build_raises_and_does_not_fall_back(systems, monkeypatch):
     assert irls_graph.while_counts.launches == launches
     monkeypatch.undo()
     irls_graph.release()
-    assert dense_tracker.WHILE_GRAPHS
+    assert irls_graph.WHILE_GRAPHS
