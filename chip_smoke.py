@@ -26,7 +26,8 @@ the launch counters when a phase reads them.
 1. Device: a CUDA card is required (there is no CPU fallback).  Prints
    its name and ``nvidia-smi``'s name and power limit.
 2. Build: ``nvcc`` builds ``dvo_slam_tpu_torch/csrc/fused_stats.cu`` (the
-   folded, sampled-input, batched and partials entry points),
+   folded, sampled-input, batched and partials entry points and the step
+   kernels),
    ``csrc/table_copy.cu``, ``csrc/while_graph.cu`` and ``csrc/ingest.cu``
    from the checkout, the four at once, and ``g++`` the
    native ingest (``native/ingest.cpp``, no libpng) beside them, so that no
@@ -102,8 +103,8 @@ the launch counters when a phase reads them.
    the first 20 easy pairs from the identity in that form, each level one
    while-graph launch with the two all-reduces in its WHILE body: each
    pair within 5e-3 of the ground truth (max |log(T_gt^-1 T)|), each of
-   the sharded evaluation's three kernels launched once per executed step
-   (folded in from the card), one launch per level, ``set_while`` once
+   the sharded evaluation's three kernels and the two step kernels
+   launched once per executed step (folded in from the card), one launch per level, ``set_while`` once
    per executed chunk and no read of ``done``, and ``dvo_fused_partials``,
    the statistics kernels and ``warp_and_sample_cm`` not at all; the
    group's graph keys built.  The same pairs as host-polled graph replays
@@ -270,8 +271,9 @@ that their frames/s compare with phase 4's:
    (``benchmark_config().tracker``) for the timing, then
    ``kernel_backend="xla"`` with the t-distribution, (Huber, normal),
    (Tukey, MAD), (Huber, MAD), (unit, unit) and ``use_weighting=False``:
-   no kernel launch and no ``warp_and_sample_cm`` call, one modular
-   evaluation per solver iteration, every tensor it reads on the card,
+   no evaluation kernel launch and no ``warp_and_sample_cm`` call, one
+   modular evaluation and one pass of the step kernels per solver
+   iteration, every tensor it reads on the card,
    finite poses; the t-distribution's ATE within 1 mm of phase 4's on the
    same frames.  Prints ATE, tracked frames/s and ms per iteration of each
    beside kernel 1's.  Then 4 streams of phase 7 (10 frames) in lockstep
@@ -341,6 +343,20 @@ that their frames/s compare with phase 4's:
    edges' one, one launch per solve and ``set_while`` once per chunk; ms
    per CG iteration and host reads per GN step of each printed.  Prints
    the phase's seconds.
+20. The IRLS step kernels (``ops/irls_step``: ``csrc/fused_stats.cu``'s
+   step head and tail, which run every tracker step on the card around
+   kernel 1's evaluation; run after phase 17, before phase 10's profiler
+   sessions) at B = 1 and B = 8 on phase 3's pairs at L1: four steps
+   from the level's start, each from the plain step's carry and trace
+   through the kernels (the first also from the level's start values)
+   and through the plain ``_step`` on the card, the integers and flags
+   equal and every float field and trace row within 32 ulps of its scale
+   (each one's largest gap printed); device times (CUDA events behind a
+   spinning stream) of the head and tail on a fixed evaluation, of each
+   alone, and of the plain step's ops around the same evaluation, beside
+   the bound; their launches in every phase whose launches are held to
+   its steps (every tracker step on the card takes them, the modular
+   path's too), and phase 14's records sha256.
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
@@ -350,7 +366,8 @@ call that computes the same function where there is one; ``set_while``
 with its runs in phases 4, 6, 7, 14 and 19 and its ms per loop step at
 both senses of its condition; ``ingest`` with its launches in phases 11-14
 and 18, its bits against the plain chain, its times and the plain chain's
-device kernels under ``torch.profiler`` after phase 10),
+device kernels under ``torch.profiler`` after phase 10; ``irls_step``
+with its launches by phase, its gap to the plain step and its times),
 ``nvidia-smi``'s name and power limit, then ``{"ok": true, "device":
 {...}}``.
 """
@@ -445,6 +462,9 @@ INGEST_REPLACES = "dvo_slam_tpu/models/frames.py:103"
 INGEST_FRAMES = 4  # phase 3: phase 4's first frames through the three routes
 INGEST_HOST_REPS = 100  # phase 3: host time of one ingest, median of as many
 INGEST_COUNTS = ("ingest_pyramid", "ingest_pack")  # kernel A's and kernel B's launches
+STEP_COUNTS = ("step_head", "step_tail")  # the step kernels' launches
+# no Pallas kernel: the loop body's glue around the evaluation is XLA's ops
+STEP_REPLACES = "dvo_slam_tpu/models/dense_tracker.py:343"
 WHILE_SOURCE = "dvo_slam_tpu_torch/csrc/while_graph.cu"
 WHILE_REPLACES = "dvo_slam_tpu/models/dense_tracker.py:445"  # the level's lax.while_loop
 CG_WHILE_REPLACES = "dvo_slam_tpu/models/pose_graph.py:310"  # block-CG's lax.while_loop
@@ -1176,7 +1196,8 @@ def check_sharded(cfg, intrinsics, frames, poses):
                 results, sharded_s = _synchronized_seconds(sharded)
             stats_launches = _launches()
             partials_launches = stats_launches["warp_fused_partials"]
-            sharded_launches = {name: stats_launches.pop(name) for name in SHARDED_KERNELS}
+            sharded_launches = {name: stats_launches.pop(name)
+                                for name in SHARDED_KERNELS + STEP_COUNTS}
             del stats_launches["table_copy"]
             iterations = sum(int(s.iterations) for r in results for s in r.level_stats)
             steps = sum(graph_check.counts([s], chunk)[1] for _, s, _ in levels)
@@ -1488,26 +1509,45 @@ SHARDED_KERNELS = ("warp_fused_partials", "sharded_loglik", "sharded_tail")
 
 
 def _reset_counts():
-    """Every kernel's launch count (ingest's two kernels too),
-    warp_and_sample_cm's and compute_residuals' calls, the IRLS loop's
-    ``done`` reads and the while form's counts to 0 (the while graphs'
-    launches folded in first)."""
-    from dvo_slam_tpu_torch.ops import ingest
+    """Every kernel's launch count (ingest's two kernels and the step
+    kernels too), warp_and_sample_cm's and compute_residuals' calls, the
+    IRLS loop's ``done`` reads and the while form's counts to 0 (the while
+    graphs' launches folded in first)."""
+    from dvo_slam_tpu_torch.ops import ingest, irls_step
     from dvo_slam_tpu_torch.tools import driver_launches
 
     driver_launches.reset_counts()
     ingest.ingest_cuda.pyramid_launches = ingest.ingest_cuda.pack_launches = 0
+    irls_step.step_head_cuda.launches = irls_step.step_tail_cuda.launches = 0
 
 
 def _launches():
-    """{name: launches} since the last reset, with warp_and_sample_cm's calls
-    and ingest's two kernels (``INGEST_COUNTS``)."""
-    from dvo_slam_tpu_torch.ops import ingest
+    """{name: launches} since the last reset, with warp_and_sample_cm's calls,
+    ingest's two kernels (``INGEST_COUNTS``) and the step kernels
+    (``STEP_COUNTS``)."""
+    from dvo_slam_tpu_torch.ops import ingest, irls_step
     from dvo_slam_tpu_torch.tools import driver_launches
 
     return {**driver_launches.launches(),
             **dict(zip(INGEST_COUNTS, (ingest.ingest_cuda.pyramid_launches,
-                                       ingest.ingest_cuda.pack_launches)))}
+                                       ingest.ingest_cuda.pack_launches))),
+            **dict(zip(STEP_COUNTS, (irls_step.step_head_cuda.launches,
+                                     irls_step.step_tail_cuda.launches)))}
+
+
+STEP_BY_PHASE = {}  # phase -> the step tail's launches of its main-path run
+
+
+def _note_steps(what, counts, evaluations=None):
+    """Keep a run's step-kernel launches for the kernels line (a head with
+    every tail and, where ``evaluations`` is given, one step with each)."""
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    head, tail = (counts[k] for k in STEP_COUNTS)
+    require(head == tail, f"{what}: step head launches {head} != tail launches {tail}")
+    require(evaluations is None or tail == evaluations,
+            f"{what}: step tail launches {tail} != the evaluations {evaluations}")
+    STEP_BY_PHASE[what] = STEP_BY_PHASE.get(what, 0) + tail
 
 
 INGEST_BY_PHASE = {}  # phase -> (kernel A's, kernel B's launches) of its main-path run
@@ -1594,8 +1634,11 @@ def _require_only(counts, name, expected, what):
 
     require(counts[name] == expected > 0,
             f"{what}: {name} launches {counts[name]} != executed steps {expected}")
+    kernels = ("warp_fused_stats", "warp_fused_stats_batched")
+    _note_steps(what, counts, sum(counts[k] for k in kernels)
+                if all(k in counts for k in kernels) else None)
     others = {k: v for k, v in counts.items()
-              if k not in (name, "table_copy", *INGEST_COUNTS) and v}
+              if k not in (name, "table_copy", *INGEST_COUNTS, *STEP_COUNTS) and v}
     require(not others, f"{what}: other statistics kernels or warp_and_sample_cm ran: {others}")
 
 
@@ -2771,7 +2814,7 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
         print("phase 16a:", json.dumps(row), flush=True)
 
     # (b) frame-to-frame tracking on phase 4's first frames, every tensor on
-    # the card, no kernel launched
+    # the card, no evaluation kernel launched (each step takes the step kernels)
     xla = dataclasses.replace(cfg, kernel_backend="xla")
     IF, SE = InfluenceFunction, ScaleEstimator
     configs = {
@@ -2814,6 +2857,8 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
             counts = _launches()
             evaluations = residuals.compute_residuals.calls - before
             steps = _steps(r.level_stats for r in results)
+            _note_steps(f"phase 16b {name}", counts, steps)
+            counts = {k: v for k, v in counts.items() if k not in STEP_COUNTS}
             require(not any(counts.values()), f"phase 16b {name}: kernels ran: {counts}")
             require(evaluations == steps > 0,
                     f"phase 16b {name}: {evaluations} modular evaluations, {steps} executed steps")
@@ -2838,6 +2883,8 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
     lock, lock_seconds = _synchronized_seconds(
         lambda: make_multistream_tracker(huber_mad, intrinsics).tracks(*sub))
     lock_counts = _launches()
+    _note_steps("phase 16b lockstep", lock_counts)
+    lock_counts = {k: v for k, v in lock_counts.items() if k not in STEP_COUNTS}
     require(not any(lock_counts.values()), f"phase 16b lockstep: kernels ran: {lock_counts}")
     solo, solo_seconds = _synchronized_seconds(
         lambda: make_multistream_tracker(huber_mad, intrinsics, schedule="sequential").tracks(*sub))
@@ -2998,6 +3045,124 @@ def check_graph_loop(cfg, intrinsics, d_i, d_d, s_i, s_d):
     return summary, {(row["streams"], row["loop_on"]): row for row in set_while}
 
 
+def _gap_ulps(a, b) -> float:
+    """The largest |a - b| of two float32 tensors in ulps of the larger of
+    their largest finite magnitudes (NaNs and infinities must sit alike)."""
+    import torch
+
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    a, b = a.double().cpu(), b.double().cpu()
+    finite = torch.isfinite(a)
+    require(torch.equal(finite, torch.isfinite(b)) and torch.equal(
+        a[~finite].nan_to_num(), b[~finite].nan_to_num()), "NaNs or infinities part")
+    a, b = a[finite], b[finite]
+    if torch.equal(a, b):
+        return 0.0
+    scale = max(float(a.abs().max()), float(b.abs().max()))
+    return float((a - b).abs().max()) / float(np.spacing(np.float32(scale)))
+
+
+# bytes the step kernels move per stream: the head reads x, T, initial and
+# writes three 4x4s; the tail reads the evaluation (48 words), the head's
+# 48 and the carry (99 words and a byte) and writes the carry
+STEP_BYTES = 4 * (38 + 48 + 48 + 48 + 99 + 99) + 2
+STEP_WALK = 4  # phase 20's steps from a level's start (the card test's walk)
+# the largest gap of a float field or trace row to the plain step's, in ulps
+# of the field's scale (tests_cuda/test_step_tail_cuda.py's GAP_ULPS; 13 seen)
+STEP_GAP_ULPS = 32
+
+
+def check_step_kernels(cfg, intrinsics, frames, records_sha256):
+    """Phase 20: the IRLS step kernels against the plain step and their
+    times, at B = 1 and B = ``STREAMS`` on phase 3's pairs at L1 (frame k
+    against k + 1).  Returns the kernels line's row."""
+    import torch
+
+    from dvo_slam_tpu_torch.models import dense_tracker as dt
+    from dvo_slam_tpu_torch.ops import irls_step
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    def owned(fields):
+        return type(fields)(*(t.contiguous().clone() for t in fields))
+
+    level = cfg.last_level
+    prepared = [dt.prepare_frame(cfg, intrinsics, f) for f in frames[:STREAMS + 1]]
+    shape = tuple(prepared[0].sel[level].shape[-2:])
+    rows = {}
+    for streams in (1, STREAMS):
+        batch = () if streams == 1 else (streams,)
+
+        def pick(field, offset):
+            tensors = [getattr(prepared[b + offset], field)[level] for b in range(streams)]
+            return tensors[0] if streams == 1 else torch.stack(tensors)
+
+        evaluate = dt._evaluation(cfg, "pallas", intrinsics.at_level(level), shape,
+                                  (pick("refpack", 0), pick("quad", 1)))
+        start = tuple(t.contiguous() for t in dt.match_start(  # as a level's static buffers
+            None, batch, torch.float32, prepared[0].refpack[level].device))
+        consts = dt._constants(cfg, start[0])
+        carry = dt._Carry(*(t.contiguous() for t in dt._initial_carry(*start, consts)))
+        trace = dt._empty_trace(cfg, start[0])
+        gaps = {}
+        # STEP_WALK steps from the level's start: each from the plain step's
+        # carry and trace, through the plain step and the kernels (the first
+        # also from the start values, the tail making the initial carry)
+        for k in range(STEP_WALK):
+            first = k == 0
+            want, want_trace = dt._chunk(cfg, evaluate, owned(carry), owned(trace), 1, first,
+                                         consts)
+            kinds = [dt._chunk(cfg, evaluate, owned(carry), owned(trace), 1, first, None,
+                               fused=True)]
+            if first:
+                kinds.append(dt._chunk(cfg, evaluate, None, owned(trace), 1, True, None,
+                                       fused=True, start=start))
+            for got, got_trace in kinds:
+                pairs = [(name, getattr(got, name), getattr(want, name))
+                         for name in dt._Carry._fields]
+                pairs += [("trace." + name, a, b)
+                          for name, a, b in zip(dt.IterationStats._fields, got_trace, want_trace)]
+                for name, a, b in pairs:
+                    if a.is_floating_point():
+                        gaps[name] = max(gaps.get(name, 0.0), _gap_ulps(a, b))
+                        require(gaps[name] <= STEP_GAP_ULPS,
+                                f"phase 20 B = {streams} step {k}: {name} {gaps[name]} ulps "
+                                f"from the plain step (limit {STEP_GAP_ULPS})")
+                    else:
+                        require(torch.equal(a, b),
+                                f"phase 20 B = {streams} step {k}: {name} {a} != {b}")
+            carry, trace = want, want_trace
+        carry = dt._Carry(*(t.contiguous() for t in dt._initial_carry(*start, consts)))
+        # the times, on one evaluation held fixed
+        inc, T_new, initial_new = irls_step.step_head_cuda(carry.x, carry.T, carry.initial)
+        evaluation = evaluate(T_new, carry.precision, True)
+        fixed = lambda T, P, first: evaluation  # noqa: E731
+        freeze = streams > 1
+        row = {"streams": streams, "level": level, "steps": STEP_WALK, "gap_ulps": gaps,
+               "max_gap_ulps": max(gaps.values()), "gap_limit_ulps": STEP_GAP_ULPS}
+        row["device_ms"] = device_ms(lambda: dt._chunk(cfg, fixed, None, None, 1, True, None,
+                                                       fused=True, start=start))
+        row["head_device_ms"] = device_ms(
+            lambda: irls_step.step_head_cuda(carry.x, carry.T, carry.initial))
+        out = dt._Carry(*(torch.empty_like(t) for t in carry))
+        row["tail_device_ms"] = device_ms(lambda: irls_step.step_tail_cuda(
+            evaluation, (inc, T_new, initial_new), carry, out, None, freeze=freeze,
+            smoothing=cfg.use_estimate_smoothing, mu=cfg.mu, precision=cfg.precision,
+            max_iterations=cfg.max_iterations_per_level))
+        row["plain_device_ms"] = device_ms(lambda: dt._chunk(cfg, fixed, carry, None, 1, True,
+                                                             consts))
+        row["bound_ms"], row["bound_by"] = _bound(STEP_BYTES * streams)
+        rows[streams] = row
+    one = rows[1]
+    summary = {"by_streams": list(rows.values()), "launches_by_phase": dict(STEP_BY_PHASE),
+               "phase14_records_sha256": records_sha256}
+    print("phase 20:", json.dumps(summary), flush=True)
+    return {"max_gap_ulps": max(r["max_gap_ulps"] for r in rows.values()),
+            "ms": one["device_ms"], "plain_ms": one["plain_device_ms"],
+            "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+            "by_streams": list(rows.values())}
+
+
 def check_copy_and_probe():
     """Phase 10: the copy kernel against ``clone()``, then the gather probe
     (whose ``pcopy`` variant is the copy kernel's main path).  Returns the
@@ -3121,7 +3286,7 @@ def main() -> int:
     for name, entries in (
         ("fused_stats", ("dvo_warp_fused_stats", "dvo_fused_stats", "dvo_fused_stats_batched",
                          "dvo_fused_partials", "dvo_warp_fused_partials", "dvo_sharded_loglik",
-                         "dvo_sharded_tail")),
+                         "dvo_sharded_tail", "dvo_irls_step_head", "dvo_irls_step_tail")),
         ("table_copy", ("dvo_table_copy",)),
         ("while_graph", ("dvo_while_graph_build", "dvo_while_graph_launch",
                          "dvo_while_graph_destroy", "dvo_graph_node_census")),
@@ -3219,8 +3384,8 @@ def main() -> int:
     elapsed("phase 13")
 
     # phase 14: StreamingSLAM on the same frames, then the benchmark CLI
-    streaming_launches, _ = check_streaming(benchmark_config(), TUM_FR1, hard_i, hard_d,
-                                            hard_poses, online13, phase13["keyframes"])
+    streaming_launches, phase14 = check_streaming(benchmark_config(), TUM_FR1, hard_i, hard_d,
+                                                  hard_poses, online13, phase13["keyframes"])
     elapsed("phase 14")
 
     # phase 18: the same frames as a TUM directory on disk through the CLI
@@ -3267,6 +3432,10 @@ def main() -> int:
     # phase 17: the IRLS loop's forms against the eager loop, and set_while
     _, set_while_rows = check_graph_loop(cfg, TUM_FR1, d_i, d_d, s_i, s_d)
     elapsed("phase 17")
+
+    # phase 20: the IRLS step kernels against the plain step, and their times
+    step_row = check_step_kernels(cfg, TUM_FR1, frames, phase14["records_sha256"])
+    elapsed("phase 20")
 
     # phase 10: the copy kernel and the gather probe
     copy_row = check_copy_and_probe()
@@ -3399,6 +3568,15 @@ def main() -> int:
         "launches_by_phase": {p: a for p, (a, _) in INGEST_BY_PHASE.items()},
         "pack_launches_by_phase": {p: b for p, (_, b) in INGEST_BY_PHASE.items()},
         **ingest_row, "library_ms": None, "device_events": ingest_events,
+    })
+    # the step kernels (the head and tail of every tracker step on the card,
+    # the modular path's too); a kernel of the port that replaces no Pallas
+    # kernel
+    kernels.append({
+        "name": "irls_step", "route": "cuda", "source": KERNEL_SOURCE, "replaces": STEP_REPLACES,
+        "entry": "dvo_irls_step_head, dvo_irls_step_tail",
+        "launches": sum(STEP_BY_PHASE.values()), "launches_by_phase": dict(STEP_BY_PHASE),
+        **step_row, "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

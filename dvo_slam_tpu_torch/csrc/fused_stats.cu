@@ -1,4 +1,6 @@
-// Fused IRLS statistics for one Gauss-Newton iteration of the dense tracker.
+// Fused IRLS statistics for one Gauss-Newton iteration of the dense tracker,
+// and the step kernels around it (the iteration's head and tail: below,
+// after the statistics).
 //
 // Replaces two TPU kernels of dvo_slam_tpu/ops/pallas_kernels.py and the XLA
 // code around the first one:
@@ -880,6 +882,396 @@ void set_level(Args& a, int height, int width, float ox, float oy) {
   a.hi_v = (float)((double)height - 1.001);
 }
 
+// ---------------------------------------------------------------------------
+// The IRLS step around the evaluation (models/dense_tracker._step): the
+// step kernels.  They replace no Pallas kernel: the reference leaves this
+// glue to XLA, which fuses it into its while body; captured op by op into
+// the card's WHILE bodies it was some 258 kernels and 31 copies a step,
+// each node a few microseconds that waits on the last.  Now a step is the
+// head, kernel 1's two launches and the tail: four kernel nodes.
+//  * step_head_kernel: inc = exp_se3(x), T_new = inc T, initial_new =
+//    inverse(inc) initial, where kernel 1 reads T.
+//  * step_tail_kernel: from the evaluation (n, precision, ll, A, b) and the
+//    carry, the prior (A + mu I, b + mu log_se3(initial_new)) with
+//    smoothing, the Jacobi-equilibrated Cholesky solve, the termination
+//    tests and code, the accept/revert of the nine carried fields,
+//    iteration + 1 and done, written straight into the carry's buffers
+//    (which may be the carry read: a stream's values are all read before
+//    any is written), and the iteration's trace row where one is kept; a
+//    level's first step makes its initial carry from the start values.
+// What bounds them: latency.  A stream's work is a few hundred dependent
+// float32 operations (about 50 of them divisions and square roots) on some
+// 200 words, so one warp per stream runs it in its first lane; the others
+// exit.  Stream b's arithmetic does not depend on B.
+// Arithmetic: every elementwise op rounds as PyTorch's on the card (no
+// contraction: -fmad=false; a division by a Python number is a product
+// with its reciprocal taken in double and rounded, PyTorch's rule), and
+// torch.sum of three terms adds (q0 + q2) + q1 as PyTorch's reduction does.
+// Each matrix product, matrix-vector product and dot product (exp/log's
+// 3x3, the 4x4 compositions, the Cholesky sums) takes one fixed order: the
+// first product rounded, then one fused multiply-add a term, in index
+// order.  That is cuBLAS's order for the batched 3x3 and 4x4 products; its
+// 2-D products and its matrix-vector and dot kernels take others, which
+// differ with B (PERF.md states the gap to the plain step).
+
+constexpr float kSmallAngleSq = (float)1e-2;  // ops/se3._SMALL_ANGLE_SQ
+constexpr float kInv6 = (float)(1.0 / 6.0);
+constexpr float kInv24 = (float)(1.0 / 24.0);
+constexpr float kInv120 = (float)(1.0 / 120.0);
+constexpr float kInv720 = (float)(1.0 / 720.0);
+constexpr float kTwelfth = (float)(1.0 / 12.0);
+constexpr float kPivotFloor = (float)1e-20;  // ops/least_squares._PIVOT_FLOOR
+
+// torch.sum over three terms on the card
+__device__ __forceinline__ float sum3(float q0, float q1, float q2) { return (q0 + q2) + q1; }
+
+// sum_k a[k * sa] b[k * sb], k < n (n >= 1, known where it is inlined): the
+// first product rounded, then fused multiply-adds in index order
+__device__ __forceinline__ float dot(const float* a, int sa, const float* b, int sb, int n) {
+  float acc = a[0] * b[0];
+#pragma unroll
+  for (int k = 1; k < n; ++k) acc = __fmaf_rn(a[k * sa], b[k * sb], acc);
+  return acc;
+}
+
+// C = A B, row-major N x N
+template <int N>
+__device__ __forceinline__ void matmul(const float* A, const float* B, float* C) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) C[i * N + j] = dot(A + i * N, 1, B + j, N, N);
+  }
+}
+
+// hat_so3(w), row-major 3 x 3
+__device__ __forceinline__ void hat(const float w[3], float W[9]) {
+  W[0] = 0.0f; W[1] = -w[2]; W[2] = w[1];
+  W[3] = w[2]; W[4] = 0.0f; W[5] = -w[0];
+  W[6] = -w[1]; W[7] = w[0]; W[8] = 0.0f;
+}
+
+// ops/se3._exp_coefficients: (a, b, c) of R = I + a W + b W^2, V = I + b W + c W^2
+__device__ __forceinline__ void exp_coefficients(float theta_sq, float& a, float& b, float& c) {
+  const float safe = max_nan(theta_sq, kSmallAngleSq);
+  const float theta = sqrtf(safe);
+  const bool small = theta_sq < kSmallAngleSq;
+  a = small ? (1.0f - theta_sq * kInv6) + (theta_sq * theta_sq) * kInv120 : sinf(theta) / theta;
+  const float sin_half = sinf(0.5f * sqrtf(theta_sq));
+  b = theta_sq < (float)1e-12 ? 0.5f - theta_sq * kInv24
+                              : (2.0f * sin_half) * sin_half / max_nan(theta_sq, (float)1e-12);
+  c = small ? kInv6 - theta_sq * kInv120 : (1.0f - a) / safe;
+}
+
+// ops/se3.exp_se3: twist (v, w) -> T, row-major 4 x 4
+__device__ __forceinline__ void exp_se3(const float xi[6], float T[16]) {
+  const float* w = xi + 3;
+  const float theta_sq = sum3(w[0] * w[0], w[1] * w[1], w[2] * w[2]);
+  float a, b, c;
+  exp_coefficients(theta_sq, a, b, c);
+  float W[9], W2[9], R[9], V[9];
+  hat(w, W);
+  matmul<3>(W, W, W2);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const float e = k % 4 == 0 ? 1.0f : 0.0f;
+    R[k] = (e + a * W[k]) + b * W2[k];
+    V[k] = (e + b * W[k]) + c * W2[k];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) T[i * 4 + j] = R[i * 3 + j];
+    T[i * 4 + 3] = dot(V + i * 3, 1, xi, 1, 3);
+  }
+  T[12] = 0.0f; T[13] = 0.0f; T[14] = 0.0f; T[15] = 1.0f;
+}
+
+// ops/se3.inverse of a rigid transform: (R^T, -(R^T t))
+__device__ __forceinline__ void inverse_se3(const float T[16], float out[16]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[i * 4 + j] = T[j * 4 + i];
+    out[i * 4 + 3] = -dot(T + i, 4, T + 3, 4, 3);
+  }
+  out[12] = 0.0f; out[13] = 0.0f; out[14] = 0.0f; out[15] = 1.0f;
+}
+
+// ops/se3.log_se3: T -> twist (v, w)
+__device__ __forceinline__ void log_se3(const float T[16], float xi[6]) {
+  // log_so3
+  float w_raw[3];
+  w_raw[0] = 0.5f * (T[9] - T[6]);
+  w_raw[1] = 0.5f * (T[2] - T[8]);
+  w_raw[2] = 0.5f * (T[4] - T[1]);
+  const float sin_theta = sqrtf(sum3(w_raw[0] * w_raw[0], w_raw[1] * w_raw[1], w_raw[2] * w_raw[2]));
+  const float cos_theta = 0.5f * (((T[0] + T[5]) + T[10]) - 1.0f);
+  const float theta = atan2f(sin_theta, cos_theta);
+  const float theta_sq0 = theta * theta;
+  const float factor = theta_sq0 < kSmallAngleSq ? theta_sq0 * kInv6 + 1.0f
+                                                 : theta / max_nan(sin_theta, (float)1e-12);
+  float* w = xi + 3;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) w[k] = factor * w_raw[k];
+  // V^-1 = I - W / 2 + d W^2
+  const float theta_sq = sum3(w[0] * w[0], w[1] * w[1], w[2] * w[2]);
+  float a, b, c;
+  exp_coefficients(theta_sq, a, b, c);
+  const float safe = max_nan(theta_sq, kSmallAngleSq);
+  const float d = theta_sq < kSmallAngleSq ? theta_sq * kInv720 + kTwelfth
+                                           : (1.0f - a / (2.0f * b)) / safe;
+  float W[9], W2[9], V_inv[9];
+  hat(w, W);
+  matmul<3>(W, W, W2);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const float e = k % 4 == 0 ? 1.0f : 0.0f;
+    V_inv[k] = (e - 0.5f * W[k]) + d * W2[k];
+  }
+  const float t[3] = {T[3], T[7], T[11]};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) xi[i] = dot(V_inv + i * 3, 1, t, 1, 3);
+}
+
+// ops/least_squares.solve_ldlt: Jacobi equilibration, then the unrolled
+// Cholesky solve with pivots floored at 1e-20 and the empty products left out
+__device__ __forceinline__ void solve_ldlt(const float A[36], const float b[6], float x[6]) {
+  float d_inv[6], As[36], L[36], y[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) d_inv[i] = 1.0f / sqrtf(max_nan(A[i * 7], kPivotFloor));
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) As[i * 6 + j] = A[i * 6 + j] * d_inv[i] * d_inv[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float pivot = 0.0f;
+#pragma unroll
+    for (int k = j; k < 6; ++k) {
+      float s = As[k * 6 + j];
+      if (j) s = s - dot(L + k * 6, 1, L + j * 6, 1, j);
+      if (k == j) {
+        pivot = sqrtf(max_nan(s, kPivotFloor));
+        L[j * 7] = pivot;
+      } else {
+        L[k * 6 + j] = s / pivot;
+      }
+    }
+  }
+  // L y = b D^-1/2, then L^T x' = y, x = x' D^-1/2
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float r = b[i] * d_inv[i];
+    if (i) r = r - dot(L + i * 6, 1, y, 1, i);
+    y[i] = r / L[i * 7];
+  }
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+    float r = y[i];
+    if (i < 5) r = r - dot(L + (i + 1) * 6 + i, 6, x + i + 1, 1, 5 - i);
+    x[i] = r / L[i * 7];
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) x[i] = x[i] * d_inv[i];
+}
+
+// The carry's fields in models/dense_tracker._Carry's order, each [B, width]
+// contiguous: float32 but for n, iteration, termination (int32) and done
+// (bool); the evaluation's five fields; the trace's five buffers
+// [iterations, B, width].
+enum CarryField { kX, kT, kInitial, kIncApplied, kPrecision, kError, kA, kLL, kN, kIteration,
+                  kTermination, kDone, kCarryFields };
+// the words of field f of one stream
+__device__ __forceinline__ int carry_width(int f) {
+  switch (f) {
+    case kX: return 6;
+    case kT: case kInitial: case kIncApplied: return 16;
+    case kPrecision: return 4;
+    case kA: return 36;
+    default: return 1;
+  }
+}
+enum EvalField { kEvN, kEvPrec, kEvLL, kEvA, kEvB, kEvalFields };
+constexpr int kTraceFields = 5;  // valid constraints, log-likelihood, precision, increment, information
+// termination codes (dense_tracker.TERM_*)
+enum Termination { kNone = 0, kIterationsExceeded = 1, kIncrementTooSmall = 2,
+                   kLogLikelihoodDecreased = 3, kTooFewConstraints = 4 };
+
+struct StepTailArgs {
+  const void* eval[kEvalFields];     // the evaluation's fields, stream b at eval_stride * b
+  long long eval_stride[kEvalFields];
+  const float* inc;                  // [B, 16] the head's outputs
+  const float* T_new;
+  const float* initial_new;
+  const void* in[kCarryFields];      // the carry read
+  void* out[kCarryFields];           // the carry written (may be `in`)
+  float* trace[kTraceFields];        // null: no trace
+  // start: the level's first step, whose carry read is the level's initial
+  // carry: its start values x, T, initial and precision in `in`, inc_applied
+  // the head's inc, error +inf, A the identity, ll -inf, n, iteration and
+  // termination 0, done false (the other fields of `in` are not read)
+  int max_iterations, freeze, smoothing, start;
+  float mu, precision;
+};
+
+// Head, one warp per stream: inc = exp_se3(x), T_new = inc T, initial_new =
+// inverse(inc) initial ([B, 6] / [B, 16] in, [B, 16] out).
+__global__ void __launch_bounds__(32) step_head_kernel(const float* __restrict__ x,
+                                                       const float* __restrict__ T,
+                                                       const float* __restrict__ initial,
+                                                       float* inc, float* T_new,
+                                                       float* initial_new) {
+  if (threadIdx.x) return;
+  const size_t b = blockIdx.x;
+  float xi[6], e[16], e_inv[16], m[16], p[16];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) xi[k] = x[b * 6 + k];
+  exp_se3(xi, e);
+  inverse_se3(e, e_inv);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) m[k] = T[b * 16 + k];
+  matmul<4>(e, m, p);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    inc[b * 16 + k] = e[k];
+    T_new[b * 16 + k] = p[k];
+    m[k] = initial[b * 16 + k];
+  }
+  matmul<4>(e_inv, m, p);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) initial_new[b * 16 + k] = p[k];
+}
+
+// Copy field f of stream b from the carry read to the carry written, where
+// they differ.
+__device__ __forceinline__ void keep_field(const StepTailArgs& S, int f, size_t b) {
+  if (S.in[f] == S.out[f]) return;
+  const int width = carry_width(f);
+  if (f == kDone) {
+    static_cast<bool*>(S.out[f])[b] = static_cast<const bool*>(S.in[f])[b];
+  } else {  // four-byte words
+    const unsigned* src = static_cast<const unsigned*>(S.in[f]) + b * width;
+    unsigned* dst = static_cast<unsigned*>(S.out[f]) + b * width;
+    for (int k = 0; k < width; ++k) dst[k] = src[k];
+  }
+}
+
+// Keep the carry read in fields [0, last) of stream b: leave them where the
+// carry written is the carry read, else copy them (the initial carry's
+// values where S.start).
+__device__ __forceinline__ void keep_fields(const StepTailArgs& S, int last, size_t b) {
+  for (int f = 0; f < last; ++f) {
+    if (!S.start || f < kError) {
+      keep_field(S, f, b);
+    } else if (f == kN) {
+      static_cast<int*>(S.out[f])[b] = 0;
+    } else {  // error, A, ll
+      float* dst = static_cast<float*>(S.out[f]) + b * carry_width(f);
+      const float inf = __int_as_float(0x7f800000);
+      for (int k = 0; k < carry_width(f); ++k)
+        dst[k] = f == kError ? inf : f == kLL ? -inf : (k % 7 == 0 ? 1.0f : 0.0f);
+    }
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store(float* dst, const float* v) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) dst[k] = v[k];
+}
+
+template <int W>
+__device__ __forceinline__ void load(float* v, const float* src) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) v[k] = src[k];
+}
+
+__device__ __forceinline__ float* out_field(const StepTailArgs& S, int f, size_t b) {
+  return static_cast<float*>(S.out[f]) + b * carry_width(f);
+}
+
+// Tail, one warp per stream (see above).
+__global__ void __launch_bounds__(32) step_tail_kernel(const StepTailArgs S) {
+  if (threadIdx.x) return;
+  const size_t b = blockIdx.x;
+  if (!S.start && S.freeze && static_cast<const bool*>(S.in[kDone])[b]) {
+    keep_fields(S, kCarryFields, b);  // a finished stream's carry stays as it was
+    return;
+  }
+  const float error_old = S.start ? __int_as_float(0x7f800000)
+                                  : static_cast<const float*>(S.in[kError])[b];
+  const int iteration = S.start ? 0 : static_cast<const int*>(S.in[kIteration])[b];
+
+  // the evaluation
+  const int n = static_cast<const int*>(S.eval[kEvN])[b * S.eval_stride[kEvN]];
+  const float ll = static_cast<const float*>(S.eval[kEvLL])[b * S.eval_stride[kEvLL]];
+  float prec[4], A[36], rhs[6];
+  load<4>(prec, static_cast<const float*>(S.eval[kEvPrec]) + b * S.eval_stride[kEvPrec]);
+  load<36>(A, static_cast<const float*>(S.eval[kEvA]) + b * S.eval_stride[kEvA]);
+  load<6>(rhs, static_cast<const float*>(S.eval[kEvB]) + b * S.eval_stride[kEvB]);
+
+  const bool too_few = n < 6;
+  const float error = -ll;
+  const bool accept = error < error_old;
+  const bool reject = too_few || !accept;
+
+  if (S.smoothing) {  // the prior toward the initial guess
+    float prior[16], log_prior[6];
+    load<16>(prior, S.initial_new + b * 16);
+    log_se3(prior, log_prior);
+#pragma unroll
+    for (int k = 0; k < 36; ++k) A[k] = A[k] + (k % 7 == 0 ? 1.0f : 0.0f) * S.mu;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) rhs[k] = rhs[k] + log_prior[k] * S.mu;
+  }
+  float x_new[6];
+  solve_ldlt(A, rhs, x_new);
+
+  // torch.amax(|x|) <= precision, NaN-propagating: false where any is NaN
+  bool converged = true;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) converged = converged && fabsf(x_new[k]) <= S.precision;
+  const bool exceeded = iteration + 1 >= S.max_iterations;
+  const int termination = too_few   ? kTooFewConstraints
+                          : !accept ? kLogLikelihoodDecreased
+                          : converged ? kIncrementTooSmall
+                          : exceeded  ? kIterationsExceeded
+                                      : kNone;
+
+  // the trace row of the iteration as executed, at its iteration
+  if (S.trace[0] != nullptr && iteration >= 0 && iteration < S.max_iterations) {
+    const size_t row = (size_t)iteration * gridDim.x + b;
+    S.trace[0][row] = (float)n;
+    S.trace[1][row] = ll;
+    store<4>(S.trace[2] + row * 4, prec);
+    store<6>(S.trace[3] + row * 6, x_new);
+    store<36>(S.trace[4] + row * 36, A);
+  }
+
+  static_cast<int*>(S.out[kIteration])[b] = iteration + 1;
+  static_cast<int*>(S.out[kTermination])[b] = termination;
+  static_cast<bool*>(S.out[kDone])[b] = reject || converged || exceeded;
+  if (reject) {  // keep the previous estimate and the previous accepted statistics
+    keep_fields(S, kIteration, b);
+    return;
+  }
+  store<6>(out_field(S, kX, b), x_new);
+  float m[16];
+  load<16>(m, S.T_new + b * 16);
+  store<16>(out_field(S, kT, b), m);
+  load<16>(m, S.initial_new + b * 16);
+  store<16>(out_field(S, kInitial, b), m);
+  load<16>(m, S.inc + b * 16);
+  store<16>(out_field(S, kIncApplied, b), m);
+  store<4>(out_field(S, kPrecision, b), prec);
+  *out_field(S, kError, b) = error;
+  store<36>(out_field(S, kA, b), A);
+  *out_field(S, kLL, b) = ll;
+  static_cast<int*>(S.out[kN])[b] = n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1036,6 +1428,57 @@ int dvo_sharded_loglik(int n_local, float dof, void* workspace, unsigned* ticket
 // sum: the Gram, ll (log-determinant floor 1e-30), A, b and n into out.
 int dvo_sharded_tail(float ll_scale, float* out, void* stream) {
   sharded_tail_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(out, ll_scale);
+  return (int)cudaGetLastError();
+}
+
+// The step kernels' pointer count (dvo_irls_step_tail's `pointers`).
+int dvo_irls_step_pointers() { return kEvalFields + 3 + 2 * kCarryFields + kTraceFields; }
+
+// The head of B streams' IRLS step: x [B, 6], T and initial [B, 4, 4] in;
+// inc, T_new, initial_new [B, 4, 4] out; float32, contiguous.  One launch.
+int dvo_irls_step_head(const float* x, const float* T, const float* initial, int batch,
+                       float* inc, float* T_new, float* initial_new, void* stream) {
+  if (bad_shape(1, batch)) return (int)cudaErrorInvalidValue;
+  step_head_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(x, T, initial, inc,
+                                                                        T_new, initial_new);
+  return (int)cudaGetLastError();
+}
+
+// The tail of B streams' IRLS step.  pointers (dvo_irls_step_pointers):
+// the evaluation's n (int32), precision [2, 2], ll, A [6, 6], b [6] (stream
+// b's at eval_strides[f] * b words; each field contiguous within a
+// stream); the head's inc, T_new, initial_new; the carry read and the carry
+// written (dense_tracker._Carry's twelve fields, each [B, ...] contiguous;
+// the two may be the same buffers); the trace's five buffers [iterations,
+// B, ...] or five nulls.  max_iterations: the level's cap (and the trace's
+// rows); freeze: a done stream's carry stays; smoothing: the prior with
+// weight mu; start: the level's first step (the carry read is the level's
+// start values in its x, T, initial and precision, and the head's inc as its
+// inc_applied; StepTailArgs); precision: the increment's convergence
+// threshold.  One launch.
+int dvo_irls_step_tail(void* const* pointers, const long long* eval_strides, int batch,
+                       int max_iterations, int freeze, int smoothing, int start, float mu,
+                       float precision, void* stream) {
+  if (bad_shape(1, batch)) return (int)cudaErrorInvalidValue;
+  StepTailArgs S = {};
+  int p = 0;
+  for (int f = 0; f < kEvalFields; ++f) {
+    S.eval[f] = pointers[p++];
+    S.eval_stride[f] = eval_strides[f];
+  }
+  S.inc = static_cast<const float*>(pointers[p++]);
+  S.T_new = static_cast<const float*>(pointers[p++]);
+  S.initial_new = static_cast<const float*>(pointers[p++]);
+  for (int f = 0; f < kCarryFields; ++f) S.in[f] = pointers[p++];
+  for (int f = 0; f < kCarryFields; ++f) S.out[f] = pointers[p++];
+  for (int f = 0; f < kTraceFields; ++f) S.trace[f] = static_cast<float*>(pointers[p++]);
+  S.max_iterations = max_iterations;
+  S.freeze = freeze;
+  S.smoothing = smoothing;
+  S.start = start;
+  S.mu = mu;
+  S.precision = precision;
+  step_tail_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(S);
   return (int)cudaGetLastError();
 }
 

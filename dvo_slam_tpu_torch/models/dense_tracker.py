@@ -41,6 +41,13 @@ with the se3 glue between them captured (``match_prepared``;
 the host.  The accept/revert logic keeps the reference's form: a rejected
 step keeps the previous carry.
 
+On the card a tracker step of a float32 carry is, besides its evaluation,
+two hand-written kernels (``ops/irls_step``, ``_fused_step``): the head
+(the trial pose, where the evaluation reads it) and the tail (prior,
+solve, termination, accept/revert), which writes the carry in place of the
+loop's state, so a tail chunk is four kernel launches and no copy.  The
+CPU's and float64's steps are ``_step``, the kernels' plain version.
+
 Lockstep batching: prepared frames whose artifacts carry a leading stream
 axis [B, ...] (``prepare_frame`` on batched pyramids) align B independent
 pairs at once.  Each iteration runs every op once on [B, ...] tensors and
@@ -53,13 +60,14 @@ iterations, termination and estimate are those of its single-stream solve.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import InfluenceFunction, ScaleEstimator, TrackerConfig
-from ..ops import fused_kernels, least_squares, robust, se3
+from ..ops import fused_kernels, irls_step, least_squares, robust, se3
 from ..ops.camera import Intrinsics
 from ..ops.interp import build_quad_table_cm
 from ..ops.pyramid import (
@@ -516,19 +524,58 @@ def _step(cfg: TrackerConfig, evaluate, c: _Carry, first: bool, consts: _Constan
     return new_c, row
 
 
-def _chunk(cfg: TrackerConfig, evaluate, carry: _Carry, trace, steps: int, first: bool,
-           consts: _Constants):
+def fused_step_applies(x: torch.Tensor) -> bool:
+    """Whether a level (the tracker's or the pixel-sharded one) whose
+    increments are like ``x`` (a carry's or start's, [*batch, 6]) steps
+    through the card's step kernels (``_fused_step``): CUDA float32
+    carries, whatever the batch.  The CPU's and float64's take ``_step``."""
+    return x.is_cuda and x.dtype == torch.float32
+
+
+def _fused_step(cfg: TrackerConfig, evaluate, c: Optional[_Carry], trace, first: bool,
+                freeze: bool, start=None) -> _Carry:
+    """``_step`` on the card, with ``_chunk``'s freeze and trace row: the
+    head kernel (the trial pose), ``evaluate``, and the tail kernel, which
+    writes the new carry in place of ``c`` (the loop's state) and the
+    iteration's row into ``trace`` (the loop's buffers) where there is one.
+    With ``start`` (a level's four start values) in place of ``c`` the step
+    is the level's first, from its initial carry (``_initial_carry``'s, made
+    by the tail kernel), into new buffers.  Returns the new carry."""
+    x, T, initial, precision = start if c is None else (c.x, c.T, c.initial, c.precision)
+    inc, T_new, initial_new = irls_step.step_head_cuda(x, T, initial)
+    evaluation = evaluate(T_new, precision, first)
+    out = c
+    if c is None:
+        batch = tuple(x.shape[:-1])
+        out = _Carry(*(torch.empty(batch + shape, dtype=dtype, device=x.device)
+                       for shape, dtype in irls_step.CARRY))
+    irls_step.step_tail_cuda(
+        evaluation, (inc, T_new, initial_new), start if c is None else c, out, trace,
+        freeze=freeze, smoothing=cfg.use_estimate_smoothing, mu=cfg.mu, precision=cfg.precision,
+        max_iterations=cfg.max_iterations_per_level, start=c is None)
+    return out
+
+
+def _chunk(cfg: TrackerConfig, evaluate, carry: Optional[_Carry], trace, steps: int,
+           first: bool, consts: Optional[_Constants], fused: bool = False, start=None):
     """``steps`` IRLS steps from ``carry`` (the first with ``first``), each
     frozen where the carry is already done: a step past ``done`` leaves the
     carry, its iteration count and the trace as they were.  An active
     step writes its trace row at its stream's iteration.  Returns (carry,
-    trace).
+    trace).  With ``fused`` the steps are ``_fused_step``'s, which write in
+    place of ``carry`` and ``trace`` (the loop's state), or start a level
+    from its four start values ``start`` in place of a ``carry`` (None).
 
     A chunk of one step of one stream has nothing to freeze: the loop runs
     it only from a carry that is not done (it reads ``done`` after every
     step, or the WHILE node tests it before every chunk), so it takes the
     step as it is."""
-    freeze = steps > 1 or carry.done.dim() > 0
+    freeze = steps > 1 or (carry.done.dim() > 0 if carry is not None else start[0].dim() > 1)
+    if fused:
+        for k in range(steps):
+            carry = _fused_step(cfg, evaluate, carry, trace, first and k == 0, freeze,
+                                start if k == 0 else None)
+        return carry, trace
     for k in range(steps):
         stepped, row = _step(cfg, evaluate, carry, first and k == 0, consts)
         active = ~carry.done if freeze else None
@@ -599,7 +646,10 @@ _COUNTERS = (
     (fused_kernels.warp_fused_stats_batched_cuda, "launches"),
     (warp_and_sample_cm, "calls"),
     (compute_residuals, "calls"),
+    (irls_step.step_head_cuda, "launches"),
+    (irls_step.step_tail_cuda, "launches"),
 )
+_TAIL_LAUNCHES = _COUNTERS.index((irls_step.step_tail_cuda, "launches"))
 _CARRY_FIELDS = len(_Carry._fields)
 _DONE = _Carry._fields.index("done")
 
@@ -630,19 +680,25 @@ def _level_program(cfg: TrackerConfig, make_evaluate, level_inputs: int, collect
     """A level's chunk over its static buffers (the inputs, then the four
     start values), as ``irls_graph`` captures it: ``program(static, state)``
     starts the level (``state`` None: the head) or continues it (the
-    tail)."""
+    tail), in place of ``state`` where the steps are the card's step
+    kernels (``fused_step_applies``)."""
 
     def program(static, state):
         evaluate = make_evaluate(static[:level_inputs])
         x, T, initial, precision = static[level_inputs:]
-        consts = _constants(cfg, x)
+        # the step kernels make the initial carry themselves and read no constant
+        kernels = fused_step_applies(x)
+        consts = None if kernels else _constants(cfg, x)
+        start = None
         if state is None:
-            carry = _initial_carry(x, T, initial, precision, consts)
+            carry = None if kernels else _initial_carry(x, T, initial, precision, consts)
+            start = (x, T, initial, precision) if kernels else None
             trace = _empty_trace(cfg, x) if collect_stats else None
         else:
             carry = _Carry(*state[:_CARRY_FIELDS])
             trace = IterationStats(*state[_CARRY_FIELDS:]) if collect_stats else None
-        carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, state is None, consts)
+        carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, state is None, consts,
+                              fused=kernels, start=start)
         return tuple(carry) + (tuple(trace) if collect_stats else ())
 
     return program
@@ -958,7 +1014,11 @@ def _match_graph(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFrame,
                 graphs.load(level_inputs)
             if initial is not None:
                 match.load_initial(initial)
-        with timers.span("dvo.match.graph"):
+        # whether the levels' tail captures hold the step kernels (their
+        # launch counts moved there)
+        fused_tail = all(g.deltas[1][_TAIL_LAUNCHES] for g in levels)
+        with timers.span("dvo.match.graph"), (
+                timers.span("dvo.match.fused_tail") if fused_tail else contextlib.nullcontext()):
             with timers.span("dvo.level.graph", device=True):
                 match.launch()
         with timers.span("dvo.match.result"):

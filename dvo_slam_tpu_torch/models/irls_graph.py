@@ -12,13 +12,14 @@ captures two graphs over one set of static buffers:
     constant of the graph);
   * the *tail*: K steps from the carry buffers, ``first = False``.
 
-Each graph's last ops copy the new state into the state buffers, so the
-chunks chain.  This module owns how a device loop runs: ``loop_form``
-chooses the form up front, from the device, the switches ``CUDA_GRAPHS``
-and ``WHILE_GRAPHS`` and the loop's process group, and ``run_loop`` runs a
-loop's chunk program in it.  Eagerly, the chunks run on the caller's
-tensors with one host read each; in the two graph forms a loop copies its
-inputs into the static input buffers and then runs as:
+Each graph's last ops copy the new state into the state buffers (a tail
+whose program wrote them in place copies nothing), so the chunks chain.
+This module owns how a device loop runs: ``loop_form`` chooses the form up
+front, from the device, the switches ``CUDA_GRAPHS`` and ``WHILE_GRAPHS``
+and the loop's process group, and ``run_loop`` runs a loop's chunk program
+in it.  Eagerly, the chunks run on the caller's tensors with one host read
+each; in the two graph forms a loop copies its inputs into the static
+input buffers and then runs as:
 
   * the *while form* (``LevelGraphs.run_level``): one launch of a graph
     built by ``csrc/while_graph.cu`` from the two captures, head ->
@@ -482,7 +483,8 @@ class LevelGraphs:
         try:
             out = program(self.inputs, state)
             for buf, t in zip(self.state, out):
-                buf.copy_(t)
+                if t is not buf:  # a program that continues a loop may write in place
+                    buf.copy_(t)
             del out
         except Exception as exc:
             try:

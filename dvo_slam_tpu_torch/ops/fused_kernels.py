@@ -420,6 +420,8 @@ def declare_signatures(lib):
         "dvo_warp_fused_partials": [p] * 4 + [i] * 5 + [f] * 8 + [p] * 4,
         "dvo_sharded_loglik": [i] + [f] + [p] * 4,
         "dvo_sharded_tail": [f] + [p] * 2,
+        "dvo_irls_step_head": [p] * 3 + [i] + [p] * 4,
+        "dvo_irls_step_tail": [p, p] + [i] * 5 + [f] * 2 + [p],
     }
     for name, argtypes in signatures.items():
         getattr(lib, name).argtypes = argtypes
@@ -428,6 +430,8 @@ def declare_signatures(lib):
     lib.dvo_fused_stats_workspace_bytes.restype = ctypes.c_longlong
     lib.dvo_fused_stats_layout.argtypes = [p]
     lib.dvo_fused_stats_layout.restype = None
+    lib.dvo_irls_step_pointers.argtypes = []
+    lib.dvo_irls_step_pointers.restype = i
     fields = (ctypes.c_int * len(_LAYOUT))()
     lib.dvo_fused_stats_layout(fields)
     if tuple(fields) != _LAYOUT:

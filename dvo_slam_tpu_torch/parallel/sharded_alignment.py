@@ -20,8 +20,11 @@
          log1p(r^T P r / dof) over weights > 0; then the all-reduce of
          that scalar;
       3. ``dvo_sharded_tail``: the log-likelihood and the normal equations;
-    then, replicated in PyTorch, the smoothing, the 6x6 solve, termination
-    and revert.  So three launches and two collectives per iteration.  The
+    then, replicated, the rest of the tracker's step: on the card its two
+    step kernels (``dense_tracker._fused_step``: the trial pose before the
+    evaluation; the smoothing, the 6x6 solve, termination and revert after
+    it), on the CPU ``dense_tracker._step``.  So five launches and two
+    collectives per iteration on the card.  The
     level runs the reference's device loop (its ``lax.while_loop``,
     ``dvo_slam_tpu/parallel/sharded_alignment.py:200``) as
     ``dense_tracker``'s does: in chunks of K steps (``CHUNK_STEPS``), K *
@@ -75,7 +78,7 @@ from ..config import TrackerConfig
 from ..models import dense_tracker as dt
 from ..models import irls_graph
 from ..models.dense_tracker import LevelStats, TrackingResult, match_prepared, prepare_frame
-from ..ops import fused_kernels, se3
+from ..ops import fused_kernels, irls_step, se3
 from ..ops.camera import Intrinsics
 from ..ops.interp import build_quad_table_cm
 from ..ops.pyramid import build_acceleration_cm, selection_mask
@@ -90,12 +93,14 @@ def _check_mesh(mesh: Mesh, axis: str):
 # ``done``: one, as the tracker's (PERF.md §6: the sweep on the card).
 CHUNK_STEPS = 1
 
-# the sharded evaluation's launch counts: a graph replay adds what its
-# capture would have added
+# the sharded step's launch counts: a graph replay adds what its capture
+# would have added
 _COUNTERS = (
     (fused_kernels.warp_fused_partials_cuda, "launches"),
     (fused_kernels.sharded_loglik_cuda, "launches"),
     (fused_kernels.sharded_tail_cuda, "launches"),
+    (irls_step.step_head_cuda, "launches"),
+    (irls_step.step_tail_cuda, "launches"),
 )
 
 

@@ -1,8 +1,9 @@
 """The pixel-sharded matcher with two ranks on one card: two gloo ranks
 share ``cuda:0`` (NCCL refuses two ranks on one device), each runs the
-sharded evaluation's three kernels on its pixel shard, and the two
-all-reduces go through gloo.  Held against the same matcher at one rank on the card: per-level
-iterations and terminations equal, the estimate within 1e-5.
+sharded evaluation's three kernels on its pixel shard and the two step
+kernels once per step, and the two all-reduces go through gloo.  Held
+against the same matcher at one rank on the card: per-level iterations
+and terminations equal, the estimate within 1e-5.
 
 The ranks are child processes that rendezvous on a ``file://`` store in
 ``tmp_path``; each is joined with its own timeout and killed on expiry.
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 from dvo_slam_tpu_torch import benchmark_config
 from dvo_slam_tpu_torch.odometry import build_frame, render_sequence, upload_sequence
-from dvo_slam_tpu_torch.ops import fused_kernels
+from dvo_slam_tpu_torch.ops import fused_kernels, irls_step
 from dvo_slam_tpu_torch.ops.camera import TUM_FR1
 from dvo_slam_tpu_torch.parallel import distributed, mesh as mesh_lib, sharded_alignment
 from dvo_slam_tpu_torch.utils import synthetic
@@ -45,8 +46,9 @@ result = run(frames[0], frames[1], torch.eye(4, device="cuda"))
 iterations = sum(int(s.iterations) for s in result.level_stats)
 launches = [w.launches for w in (fused_kernels.warp_fused_partials_cuda,
                                  fused_kernels.sharded_loglik_cuda,
-                                 fused_kernels.sharded_tail_cuda)]
-assert launches == [iterations] * 3, (launches, iterations)
+                                 fused_kernels.sharded_tail_cuda,
+                                 irls_step.step_head_cuda, irls_step.step_tail_cuda)]
+assert launches == [iterations] * 5, (launches, iterations)
 assert fused_kernels.fused_partials_cuda.launches == 0
 np.savez(f"{work}/out_w{world}_r{rank}.npz", T=result.transformation.cpu().numpy(),
          counts=np.array([[int(s.iterations), int(s.termination)] for s in result.level_stats]))

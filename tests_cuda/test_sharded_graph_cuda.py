@@ -14,8 +14,9 @@ one hangs:
   host-polled graphs at K = 1-4, every level's carry and iterations and
   the result bit-equal to the eager loop (``irls_graph.CUDA_GRAPHS``
   off) at the same K and to K = 1; the while form reads ``done`` 0 times;
-  each of the three sharded kernels launched once per executed step (the
-  while form's counts folded in from the card); the group's keys in the
+  each of the three sharded kernels and the two step kernels launched
+  once per executed step (the while form's counts folded in from the
+  card); the group's keys in the
   cache; then ``shutdown()`` drops them, the group's form and no other
   key, ``initialize()`` starts a new generation, and the first pair
   solves to the same bits.  Block-CG on the 513-vertex loopy graph of
@@ -49,7 +50,7 @@ import torch
 from dvo_slam_tpu_torch import benchmark_config
 from dvo_slam_tpu_torch.models import dense_tracker, irls_graph, pose_graph as pg
 from dvo_slam_tpu_torch.odometry import build_frame, render_sequence, upload_sequence
-from dvo_slam_tpu_torch.ops import fused_kernels
+from dvo_slam_tpu_torch.ops import fused_kernels, irls_step
 from dvo_slam_tpu_torch.ops.camera import TUM_FR1
 from dvo_slam_tpu_torch.parallel import distributed, distributed_ba, mesh as mesh_lib
 from dvo_slam_tpu_torch.parallel import sharded_alignment
@@ -65,7 +66,7 @@ d_i, d_d = upload_sequence(*render_sequence(poses[:3], (480, 640), TUM_FR1), dev
 frames = [build_frame(cfg, d_i[k], d_d[k]) for k in range(3)]
 eye = torch.eye(4, device=device)
 COUNTERS = (fused_kernels.warp_fused_partials_cuda, fused_kernels.sharded_loglik_cuda,
-            fused_kernels.sharded_tail_cuda)
+            fused_kernels.sharded_tail_cuda, irls_step.step_head_cuda, irls_step.step_tail_cuda)
 report = {"problems": []}
 problem = report["problems"].append
 
@@ -80,13 +81,14 @@ FORMS = {"while": dict(graphs=True, polled=False), "polled": dict(graphs=True, p
 def solve(mesh, form, chunk):
     run = sharded_alignment.make_pixel_sharded_matcher(cfg, TUM_FR1, mesh)
     driver_launches.reset_counts()
+    irls_step.step_head_cuda.launches = irls_step.step_tail_cuda.launches = 0
     with graph_check.loop_mode(sharded=chunk, **FORMS[form]), \
             graph_check.sharded_recording() as levels:
         results = [run(frames[k], frames[k + 1], eye) for k in range(2)]
     irls_graph.fold_counts()
     launches = [c.launches for c in COUNTERS]
     steps = sum(graph_check.counts([s], chunk)[1] for _, s, _ in levels)
-    if launches != [steps] * 3:
+    if launches != [steps] * len(COUNTERS):
         problem(f"K={chunk} {form}: launches {launches} != executed steps {steps}")
     reads = dense_tracker.read_done.calls
     if form == "while" and backend == "nccl" and reads:

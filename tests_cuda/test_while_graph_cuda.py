@@ -234,12 +234,20 @@ def _with_empty_products(A, b, n: int = 6):
 
 
 def test_a_refused_build_raises_and_does_not_fall_back(easy, monkeypatch):
-    """A one-stream step whose solve copies from the host: CUDA refuses the
+    """A one-stream step that copies from the host (the step kernels, then
+    the unrolled solve as it was on the carry's system): CUDA refuses the
     WHILE body, and the match raises with CUDA's text, the key and the
     levels' node types, without a host-polled chunk or a launch counted."""
     pair = _pair(easy, CFG, 1)
     irls_graph.release()
-    monkeypatch.setattr(least_squares, "_cholesky_solve_unrolled", _with_empty_products)
+    step = dense_tracker._fused_step
+
+    def step_with_a_host_copy(*args, **kwargs):
+        carry = step(*args, **kwargs)
+        _with_empty_products(carry.A, carry.x)
+        return carry
+
+    monkeypatch.setattr(dense_tracker, "_fused_step", step_with_a_host_copy)
     driver_launches.reset_counts()
     with pytest.raises(RuntimeError) as info:
         _solve(CFG, pair)
