@@ -82,7 +82,13 @@ the launch counters when a phase reads them.
    times with the card spinning first), kernel A's alone, the bound from
    the bytes the two kernels must move, and the host's time of one
    ``Frame.from_raw`` from host arrays against the plain chain's issue
-   from the same arrays (median of 100).
+   from the same arrays (median of 100).  Then the rig's form: phase 4's
+   first 8 frames as one rig frame of 8 streams (``frames.ingest_raw``
+   from the host arrays, levels below the solve range not stored, as
+   ``LockstepTracker`` ingests), one launch of each kernel on a grid over
+   the streams, every [8, ...] tensor bit-equal to the plain chain over
+   the stacked frames (the streams that differ named); the device times of
+   both kernels and of the plain chain at B = 8 and their bound.
 4. Odometry: 100 frames at 640x480 (``TUM_FR1``), frame to frame with a
    constant-velocity warm start at ``benchmark_config().tracker``, from
    u8/u16 frames through ``convert_raw_depth`` -> ``build_pyramid`` ->
@@ -143,7 +149,8 @@ the launch counters when a phase reads them.
    twin per stream as phase 3 holds it; times of kernel and twin at L1.
    Then the run: batched folded launches equal to the lockstep loop
    iterations, no one-stream or sampled-input launch and no
-   ``warp_and_sample_cm`` call, the levels as while graphs with no read of
+   ``warp_and_sample_cm`` call, one launch of each ingest kernel a rig
+   frame (``LockstepTracker``), the levels as while graphs with no read of
    ``done`` (as phase 4), every stream's ATE-RMSE < 10 mm.  Prints
    aggregate frames/s, ms per lockstep iteration, the max-over-streams
    iterations per level and the device's busy share (``torch.profiler``
@@ -277,7 +284,8 @@ that their frames/s compare with phase 4's:
    finite poses; the t-distribution's ATE within 1 mm of phase 4's on the
    same frames.  Prints ATE, tracked frames/s and ms per iteration of each
    beside kernel 1's.  Then 4 streams of phase 7 (10 frames) in lockstep
-   under (Huber, MAD) against the sequential schedule: iterations and
+   under (Huber, MAD) against the sequential schedule (no evaluation
+   kernel, one launch of each ingest kernel a rig frame): iterations and
    terminations per stream, frame and level (flips counted; more than 5 %
    fail); the same run again on the eager loop with each batched
    evaluation repeated stream by stream (``fused_check.solo_evaluations``):
@@ -461,6 +469,7 @@ INGEST_SOURCE = "dvo_slam_tpu_torch/csrc/ingest.cu"
 INGEST_REPLACES = "dvo_slam_tpu/models/frames.py:103"
 INGEST_FRAMES = 4  # phase 3: phase 4's first frames through the three routes
 INGEST_HOST_REPS = 100  # phase 3: host time of one ingest, median of as many
+INGEST_RIG_STREAMS = 8  # phase 3: the rig's form, phase 4's first frames as its streams
 INGEST_COUNTS = ("ingest_pyramid", "ingest_pack")  # kernel A's and kernel B's launches
 STEP_COUNTS = ("step_head", "step_tail")  # the step kernels' launches
 # no Pallas kernel: the loop body's glue around the evaluation is XLA's ops
@@ -938,8 +947,10 @@ def check_sharded_kernels(cfg, intrinsics, frames):
 
 
 def _ingest_outputs(levels, prepared, solve):
-    """{(name, level): tensor} of a frame's 41 ingest tensors at 4 levels."""
-    out = {(name, k): t for k, lv in enumerate(levels) for name, t in zip(lv._fields, lv)}
+    """{(name, level): tensor} of a frame's ingest tensors (41 at 4 levels,
+    all stored), a stored level's fields and the solve range's tables."""
+    out = {(name, k): t for k, lv in enumerate(levels) if lv is not None
+           for name, t in zip(lv._fields, lv)}
     for name in ("sel", "refpack", "quad"):
         for k in range(solve[0], solve[1] + 1):
             out[(name, k)] = getattr(prepared, name)[k]
@@ -947,16 +958,16 @@ def _ingest_outputs(levels, prepared, solve):
 
 
 def _ingest_bytes(layout):
-    """Bytes ingest's two kernels must move: kernel A reads the raw frame
-    (u8 and u16) and writes every level field; kernel B reads the seven
-    fields it uses of the solve range's levels and writes sel, refpack and
-    quad."""
+    """Bytes ingest's two kernels must move: kernel A reads the raw frames
+    (u8 and u16, one a stream) and writes every stored level field; kernel
+    B reads the seven fields it uses of the solve range's levels and writes
+    sel, refpack and quad."""
     from dvo_slam_tpu_torch.ops import ingest
 
     h, w = layout.shape
     views = layout.views
     fields = [k for k in views if k[0] in ingest.KERNEL_FIELDS]
-    a = 3 * h * w + sum(views[k].nbytes for k in fields)
+    a = 3 * h * w * (layout.batch or 1) + sum(views[k].nbytes for k in fields)
     last, first = layout.solve
     b_in = sum(views[k].nbytes for k in fields if last <= k[1] <= first and k[0] != "valid")
     b_out = sum(views[k].nbytes for k in views if k[0] in ("sel", "refpack", "quad"))
@@ -967,8 +978,9 @@ def check_ingest(cfg, intrinsics, iu, du):
     """Phase 3d: ingest's two kernels against the plain chain on the card,
     bit for bit, on the first ``INGEST_FRAMES`` host frames ``iu`` / ``du``
     (u8 / u16), through ``ingest_cuda`` on card tensors (u16 and int32
-    depth) and ``Frame.from_raw`` from the host arrays; then the times.
-    Returns the row of the kernels line (without its launches)."""
+    depth) and ``Frame.from_raw`` from the host arrays; then the times; then
+    the rig's form (:func:`check_ingest_rig`).  Returns the row of the
+    kernels line (without its launches)."""
     import time as _time
 
     import torch
@@ -1050,7 +1062,71 @@ def check_ingest(cfg, intrinsics, iu, du):
     row["host_ms"] = host_ms(from_host)
     row["plain_host_ms"] = host_ms(lambda k: plain(torch.from_numpy(iu[k]).to(dev),
                                                    torch.from_numpy(du[k]).to(dev)))
+    row["rig"] = check_ingest_rig(cfg, intrinsics, iu, du)
     print("phase 3:", json.dumps({"ingest": row}), flush=True)
+    return row
+
+
+def check_ingest_rig(cfg, intrinsics, iu, du):
+    """Phase 3d, the rig's form: the first ``INGEST_RIG_STREAMS`` host frames
+    as one rig frame of as many streams through ``frames.ingest_raw``, levels
+    below the solve range not stored (``LockstepTracker``'s call): one launch
+    of each kernel, every [B, ...] tensor bit-equal to the plain chain over
+    the stacked frames on the card.  Returns the rig's part of the kernels
+    line: device ms of both kernels and of the plain chain at B, the bound."""
+    import torch
+
+    from dvo_slam_tpu_torch.models.dense_tracker import prepare_frame
+    from dvo_slam_tpu_torch.models.frames import ingest_raw
+    from dvo_slam_tpu_torch.ops import ingest
+    from dvo_slam_tpu_torch.ops.pyramid import build_pyramid, convert_raw_depth
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    dev = torch.device("cuda", 0)
+    streams, skip = INGEST_RIG_STREAMS, cfg.last_level
+    solve = (cfg.last_level, cfg.first_level)
+    rig_i, rig_d = iu[:streams], du[:streams]
+    require(len(rig_i) == streams, f"phase 3 ingest rig: {len(rig_i)} frames for {streams}")
+    raw_i = torch.from_numpy(np.ascontiguousarray(rig_i)).to(dev)
+    raw_d = torch.from_numpy(np.ascontiguousarray(rig_d)).to(dev)
+
+    def plain():
+        depth, valid = convert_raw_depth(raw_d)
+        levels = build_pyramid(raw_i.to(torch.float32), depth, valid, cfg.num_levels,
+                               skip_below=skip)
+        return levels, prepare_frame(cfg, intrinsics, levels)
+
+    launches = (ingest.ingest_cuda.pyramid_launches, ingest.ingest_cuda.pack_launches)
+    got = ingest_raw(list(rig_i), list(rig_d), cfg.num_levels, (cfg, intrinsics), dev, streams,
+                     skip)
+    launched = (ingest.ingest_cuda.pyramid_launches - launches[0],
+                ingest.ingest_cuda.pack_launches - launches[1])
+    require(launched == (1, 1), f"phase 3 ingest rig: launches (A, B) {launched}, not (1, 1)")
+    got, want = _ingest_outputs(*got, solve), _ingest_outputs(*plain(), solve)
+    require(got.keys() == want.keys(), f"phase 3 ingest rig: tensors {sorted(got)} against "
+                                       f"{sorted(want)}")
+    differ = {}
+    for name, x in got.items():
+        y = want[name]
+        require(x.shape == y.shape and x.dtype == y.dtype and x.shape[0] == streams,
+                f"phase 3 ingest rig {name}: {x.shape} {x.dtype} against {y.shape} {y.dtype}")
+        bad = [s for s in range(streams) if not torch.equal(_bits_of(x[s]), _bits_of(y[s]))]
+        if bad:
+            differ[f"{name[0]}{name[1]}"] = bad
+    require(not differ, f"phase 3 ingest rig: tensors not bit-equal to the plain chain, "
+                        f"streams by tensor: {differ}")
+
+    layout = ingest.arena_layout(tuple(iu.shape[1:]), cfg.num_levels, solve, True, streams, skip)
+    pack = ingest.pack_args(layout, intrinsics, cfg.intensity_derivative_threshold,
+                            cfg.depth_derivative_threshold)
+    ref, cur = ingest.new_arenas(layout, dev)
+    row = {"streams": streams, "skip_below": skip, "tensors_compared": len(got),
+           "not_bit_equal": 0}
+    _timed(row, lambda: ingest.ingest_cuda(raw_i, raw_d, layout, ref, cur, pack), plain,
+           timer=device_ms, prefix="device_")
+    row["device_ms"], row["plain_device_ms"] = row.pop("device_ms"), row.pop("device_plain_ms")
+    row["bytes"] = _ingest_bytes(layout)
+    row["bound_ms"], row["bound_by"] = _bound(row["bytes"])
     return row
 
 
@@ -1656,6 +1732,7 @@ def check_lockstep(cfg, intrinsics, d_i, d_d, gt, single_fps):
     _reset_counts()
     tracks, seconds = _synchronized_seconds(lambda: run.tracks(d_i, d_d))
     counts = _launches()
+    _note_ingest("7", counts, d_i.shape[1])  # one launch of each a rig frame
     batched = counts["warp_fused_stats_batched"]
     slowest = tracks.iterations.amax(dim=0)  # [T-1, levels]
     steps = dense_tracker.executed_steps(slowest, _chunk())
@@ -2884,7 +2961,9 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
         lambda: make_multistream_tracker(huber_mad, intrinsics).tracks(*sub))
     lock_counts = _launches()
     _note_steps("phase 16b lockstep", lock_counts)
-    lock_counts = {k: v for k, v in lock_counts.items() if k not in STEP_COUNTS}
+    # the lockstep path ingests each rig frame through the ingest kernels
+    _note_ingest("16b lockstep", lock_counts, MODULAR_STREAM_FRAMES)
+    lock_counts = {k: v for k, v in lock_counts.items() if k not in STEP_COUNTS + INGEST_COUNTS}
     require(not any(lock_counts.values()), f"phase 16b lockstep: kernels ran: {lock_counts}")
     solo, solo_seconds = _synchronized_seconds(
         lambda: make_multistream_tracker(huber_mad, intrinsics, schedule="sequential").tracks(*sub))

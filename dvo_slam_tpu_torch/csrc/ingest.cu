@@ -1,7 +1,10 @@
-// Ingest of one raw RGB-D frame: u8 intensity and u16 (or int32) depth at
-// 1/5000 m become the frame's whole pyramid (kernel A) and the prepared
-// tables of the solve range (kernel B), written straight into the frame's
-// two arenas.
+// Ingest of raw RGB-D frames: u8 intensity and u16 (or int32) depth at
+// 1/5000 m become a frame's whole pyramid (kernel A) and the prepared tables
+// of the solve range (kernel B), written straight into the frame's two
+// arenas.  One frame and the B frames of a rig take the same two launches:
+// the rig's on a grid of (blocks, B), stream b's raw frame at b times the
+// caller's stride and its outputs at b planes into each of the arenas'
+// [B, ...] fields.
 //
 // Replaces no TPU kernel.  In the reference (and in the port's plain twin,
 // ops/pyramid.convert_raw_depth -> build_pyramid -> models/dense_tracker.
@@ -29,7 +32,8 @@
 // A reads 0.92 MB of raw pixels and writes 26 bytes a pixel at 408,000
 // pixels (10.6 MB); kernel B writes 161 bytes a pixel of the solve range
 // (100,800 pixels at levels 3..1: 16.2 MB) and reads the level fields
-// (about 2.6 MB, the neighbours from L2).  8.3 us at 3.35 TB/s for both.
+// (about 2.6 MB, the neighbours from L2).  8.3 us at 3.35 TB/s for both, a
+// stream; a rig of B streams is B times the work in the same two launches.
 //
 // Design.  Kernel A: one block per 32x8 tile of a level, all levels in one
 // grid, coarse levels' blocks first (their values cost the most).  A block
@@ -53,6 +57,12 @@ constexpr int kPackThreads = 256;
 
 // the level fields, in the order of the offsets the wrapper passes
 enum Field { kIntensity, kDepth, kIdx, kIdy, kZdx, kZdy, kValid, kZvalid, kFields };
+
+// The arenas hold each field as [B, ...]: stream b's plane of a field of
+// `pixels` values of `bytes` each lies b planes after the field's offset.
+__device__ __forceinline__ long long plane(long long pixels, int bytes) {
+  return static_cast<long long>(blockIdx.y) * pixels * bytes;
+}
 
 struct PyramidArgs {
   int levels;
@@ -142,11 +152,13 @@ __device__ __forceinline__ void fill_tile(float (*s_i)[kTileW + 2], float (*s_d)
 
 template <typename D>
 __global__ void __launch_bounds__(kThreads)
-    pyramid_kernel(const uint8_t* __restrict__ raw_i, const D* __restrict__ raw_d, int w0,
-                   float inv_scale, float max_derivative, char* __restrict__ arena,
-                   const PyramidArgs a) {
+    pyramid_kernel(const uint8_t* __restrict__ raw_i, const D* __restrict__ raw_d,
+                   long long stride_i, long long stride_d, int w0, float inv_scale,
+                   float max_derivative, char* __restrict__ arena, const PyramidArgs a) {
   __shared__ float s_i[kTileH + 2][kTileW + 2];
   __shared__ float s_d[kTileH + 2][kTileW + 2];
+  raw_i += static_cast<long long>(blockIdx.y) * stride_i;
+  raw_d += static_cast<long long>(blockIdx.y) * stride_d;
   int level = 0;
   for (int l = 0; l < a.levels; ++l) {
     const int b = static_cast<int>(blockIdx.x) - a.block_start[l];
@@ -190,14 +202,16 @@ __global__ void __launch_bounds__(kThreads)
   }
   const long long i = static_cast<long long>(y) * w + x;
   const long long* f = a.field[level];
-  reinterpret_cast<float*>(arena + f[kIntensity])[i] = s_i[cy][cx];
-  reinterpret_cast<float*>(arena + f[kDepth])[i] = z;
-  reinterpret_cast<float*>(arena + f[kIdx])[i] = idx;
-  reinterpret_cast<float*>(arena + f[kIdy])[i] = idy;
-  reinterpret_cast<float*>(arena + f[kZdx])[i] = zdx_ok ? zdx : 0.0f;
-  reinterpret_cast<float*>(arena + f[kZdy])[i] = zdy_ok ? zdy : 0.0f;
-  reinterpret_cast<bool*>(arena + f[kValid])[i] = z != 0.0f;
-  reinterpret_cast<bool*>(arena + f[kZvalid])[i] = z != 0.0f && zdx_ok && zdy_ok;
+  char* const fl = arena + plane(static_cast<long long>(h) * w, 4);
+  char* const bl = arena + plane(static_cast<long long>(h) * w, 1);
+  reinterpret_cast<float*>(fl + f[kIntensity])[i] = s_i[cy][cx];
+  reinterpret_cast<float*>(fl + f[kDepth])[i] = z;
+  reinterpret_cast<float*>(fl + f[kIdx])[i] = idx;
+  reinterpret_cast<float*>(fl + f[kIdy])[i] = idy;
+  reinterpret_cast<float*>(fl + f[kZdx])[i] = zdx_ok ? zdx : 0.0f;
+  reinterpret_cast<float*>(fl + f[kZdy])[i] = zdy_ok ? zdy : 0.0f;
+  reinterpret_cast<bool*>(bl + f[kValid])[i] = z != 0.0f;
+  reinterpret_cast<bool*>(bl + f[kZvalid])[i] = z != 0.0f && zdx_ok && zdy_ok;
 }
 
 __global__ void __launch_bounds__(kPackThreads)
@@ -214,24 +228,25 @@ __global__ void __launch_bounds__(kPackThreads)
                 static_cast<int>(threadIdx.x);
   if (i >= n) return;
   const long long* f = a.field[level];
-  const float* I = reinterpret_cast<const float*>(ref_in + f[kIntensity]);
-  const float* Z = reinterpret_cast<const float*>(ref_in + f[kDepth]);
-  const float* DX = reinterpret_cast<const float*>(ref_in + f[kIdx]);
-  const float* DY = reinterpret_cast<const float*>(ref_in + f[kIdy]);
-  const float* ZX = reinterpret_cast<const float*>(ref_in + f[kZdx]);
-  const float* ZY = reinterpret_cast<const float*>(ref_in + f[kZdy]);
-  const bool* ZV = reinterpret_cast<const bool*>(ref_in + f[kZvalid]);
+  const char* const fl = ref_in + plane(n, 4);
+  const float* I = reinterpret_cast<const float*>(fl + f[kIntensity]);
+  const float* Z = reinterpret_cast<const float*>(fl + f[kDepth]);
+  const float* DX = reinterpret_cast<const float*>(fl + f[kIdx]);
+  const float* DY = reinterpret_cast<const float*>(fl + f[kIdy]);
+  const float* ZX = reinterpret_cast<const float*>(fl + f[kZdx]);
+  const float* ZY = reinterpret_cast<const float*>(fl + f[kZdy]);
+  const bool* ZV = reinterpret_cast<const bool*>(ref_in + plane(n, 1) + f[kZvalid]);
 
   const float c_i = I[i], c_z = Z[i], c_dx = DX[i], c_dy = DY[i];
   const float c_zx = ZX[i], c_zy = ZY[i];
   const float ti = a.intensity_threshold, td = a.depth_threshold;
   const bool grad = fabsf(c_dx) > ti || fabsf(c_dy) > ti || fabsf(c_zx) > td || fabsf(c_zy) > td;
   const bool sel = ZV[i] && grad;
-  reinterpret_cast<bool*>(ref_out + a.sel[level])[i] = sel;
+  reinterpret_cast<bool*>(ref_out + plane(n, 1) + a.sel[level])[i] = sel;
 
   const float col = static_cast<float>(i % w);
   const float row = static_cast<float>(i / w);
-  float* rp = reinterpret_cast<float*>(ref_out + a.refpack[level]);
+  float* rp = reinterpret_cast<float*>(ref_out + plane(8LL * n, 4) + a.refpack[level]);
   rp[i] = c_i;
   rp[n + i] = c_z;
   rp[2 * n + i] = c_dx;
@@ -242,7 +257,7 @@ __global__ void __launch_bounds__(kPackThreads)
   rp[7 * n + i] = 0.0f;
   if (!a.write_quad) return;
 
-  float* q = reinterpret_cast<float*>(cur + a.quad[level]);
+  float* q = reinterpret_cast<float*>(cur + plane(32LL * n, 4) + a.quad[level]);
   const int shifts[4] = {0, 1 % n, w % n, (w + 1) % n};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -260,34 +275,40 @@ __global__ void __launch_bounds__(kPackThreads)
   }
 }
 
-// Kernel A on `stream`: raw_i [h0, w0] u8, raw_d [h0, w0] u16 (depth_i32 0)
-// or int32 (1); the level fields go to `arena` at a's offsets.
-cudaError_t launch_pyramid(const void* raw_i, const void* raw_d, int depth_i32, int w0,
-                           float inv_scale, float max_derivative, void* arena,
-                           const PyramidArgs& a, cudaStream_t s) {
+// Kernel A on `stream`: `batch` frames, frame b of raw_i [h0, w0] u8 at
+// b * stride_i values and of raw_d [h0, w0] u16 (depth_i32 0) or int32 (1)
+// at b * stride_d; the level fields go to `arena` at a's offsets.
+cudaError_t launch_pyramid(const void* raw_i, const void* raw_d, int depth_i32, int batch,
+                           long long stride_i, long long stride_d, int w0, float inv_scale,
+                           float max_derivative, void* arena, const PyramidArgs& a,
+                           cudaStream_t s) {
   int blocks = 0;
   for (int l = 0; l < a.levels; ++l) blocks += a.blocks[l];
   if (blocks == 0) return cudaSuccess;
+  const dim3 grid(blocks, batch);
   const uint8_t* pi = static_cast<const uint8_t*>(raw_i);
   char* out = static_cast<char*>(arena);
   if (depth_i32) {
-    pyramid_kernel<int32_t><<<blocks, kThreads, 0, s>>>(
-        pi, static_cast<const int32_t*>(raw_d), w0, inv_scale, max_derivative, out, a);
+    pyramid_kernel<int32_t><<<grid, kThreads, 0, s>>>(
+        pi, static_cast<const int32_t*>(raw_d), stride_i, stride_d, w0, inv_scale,
+        max_derivative, out, a);
   } else {
-    pyramid_kernel<uint16_t><<<blocks, kThreads, 0, s>>>(
-        pi, static_cast<const uint16_t*>(raw_d), w0, inv_scale, max_derivative, out, a);
+    pyramid_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
+        pi, static_cast<const uint16_t*>(raw_d), stride_i, stride_d, w0, inv_scale,
+        max_derivative, out, a);
   }
   return cudaGetLastError();
 }
 
 // Kernel B on `stream`: reads kernel A's fields in `ref`, writes sel and
-// refpack into `ref` and, with b.write_quad, the quad tables into `cur`.
-cudaError_t launch_packs(void* ref, void* cur, const PackArgs& b, cudaStream_t s) {
+// refpack into `ref` and, with b.write_quad, the quad tables into `cur`,
+// for each of `batch` frames.
+cudaError_t launch_packs(void* ref, void* cur, int batch, const PackArgs& b, cudaStream_t s) {
   int blocks = 0;
   for (int l = b.last; l <= b.first; ++l) blocks += b.blocks[l];
   if (blocks == 0) return cudaSuccess;
-  pack_kernel<<<blocks, kPackThreads, 0, s>>>(static_cast<const char*>(ref),
-                                              static_cast<char*>(ref), static_cast<char*>(cur), b);
+  pack_kernel<<<dim3(blocks, batch), kPackThreads, 0, s>>>(
+      static_cast<const char*>(ref), static_cast<char*>(ref), static_cast<char*>(cur), b);
   return cudaGetLastError();
 }
 
@@ -295,14 +316,19 @@ cudaError_t launch_packs(void* ref, void* cur, const PackArgs& b, cudaStream_t s
 
 extern "C" {
 
-// One frame's ingest on `stream`, no host synchronisation: kernel A and,
-// with `b` not null, kernel B.  Returns a cudaError_t, 0 when all was queued.
-int dvo_ingest(const void* raw_i, const void* raw_d, int depth_i32, int w0, float inv_scale,
+// The ingest of `batch` frames (1: one frame) on `stream`, no host
+// synchronisation: kernel A and, with `b` not null, kernel B.  Frame k's
+// raw pixels start stride_i (intensity) and stride_d (depth) values after
+// frame k - 1's.  Returns a cudaError_t, 0 when all was queued.
+int dvo_ingest(const void* raw_i, const void* raw_d, int depth_i32, int batch,
+               long long stride_i, long long stride_d, int w0, float inv_scale,
                float max_derivative, void* ref, const PyramidArgs* a, void* cur,
                const PackArgs* b, void* stream) {
+  if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t r = launch_pyramid(raw_i, raw_d, depth_i32, w0, inv_scale, max_derivative, ref, *a, s);
-  if (r == cudaSuccess && b != nullptr) r = launch_packs(ref, cur, *b, s);
+  cudaError_t r = launch_pyramid(raw_i, raw_d, depth_i32, batch, stride_i, stride_d, w0,
+                                 inv_scale, max_derivative, ref, *a, s);
+  if (r == cudaSuccess && b != nullptr) r = launch_packs(ref, cur, batch, *b, s);
   return static_cast<int>(r);
 }
 

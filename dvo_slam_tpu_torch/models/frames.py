@@ -114,56 +114,111 @@ class Frame:
         and fills the frame's prepared cache under that key, so that the
         tracker's first match of the frame finds them.
 
-        On a card the frame goes through :func:`_ingest_kernels`, two
-        launches, and a raw frame the kernels do not take (``ops/ingest
+        The frame goes through :func:`ingest_raw` as one frame: on a card
+        two launches, and a raw frame the kernels do not take (``ops/ingest
         .check_raw``: [H, W] u8 intensity, u16 or int32 depth) raises
-        ValueError; elsewhere the plain chain runs, ``convert_raw_depth`` ->
-        ``build_pyramid`` -> ``prepare_frame``, with the same bits.  Spans:
-        ``dvo.ingest`` around ``dvo.ingest.stage`` and ``.kernel`` on the
-        card, ``.upload``, ``.pyramid`` and ``.prepare`` elsewhere."""
+        ValueError; elsewhere the plain chain, with the same bits.  Spans:
+        ``dvo.ingest`` around ``ingest_raw``'s."""
         device = default_device(device)
-        frame_id = next(_FRAME_IDS)
+        frame_id = new_frame_id()
         with timers.span("dvo.ingest", frame=frame_id):
-            if device.type == "cuda":
-                levels, prepared = _ingest_kernels(intensity_u8, depth_u16, num_levels,
-                                                   prepare_for, device)
-            else:
-                with timers.span("dvo.ingest.upload"):
-                    depth, valid = convert_raw_depth(_on_device(depth_u16, device))
-                    intensity = _on_device(intensity_u8, device).to(torch.float32)
-                with timers.span("dvo.ingest.pyramid"):
-                    levels = build_pyramid(intensity, depth, valid, num_levels)
-                prepared = None
-                if prepare_for is not None:
-                    with timers.span("dvo.ingest.prepare"):
-                        prepared = prepare_frame(*prepare_for, levels)
+            levels, prepared = ingest_raw(intensity_u8, depth_u16, num_levels, prepare_for,
+                                          device)
             frame = Frame(levels=levels, timestamp=timestamp, frame_id=frame_id)
             if prepare_for is not None:
                 frame.__dict__["_prepared"] = {tuple(prepare_for): prepared}
         return frame
 
 
+def new_frame_id() -> int:
+    """A new number from the process's frame identifiers (``Frame.frame_id``)."""
+    return next(_FRAME_IDS)
+
+
+def ingest_raw(intensity_u8, depth_u16, num_levels: int,
+               prepare_for: Optional[Tuple[TrackerConfig, Intrinsics]], device,
+               streams: Optional[int] = None, skip_below: int = 0):
+    """Raw frames (u8 intensity, u16 or int32 depth at 1/5000 m) as their
+    pyramid levels and, with ``prepare_for=(cfg, intrinsics)``, the prepared
+    artifacts of the solve range: (levels, prepared or None).  One frame
+    ([H, W] channels) by default; with ``streams`` B a rig's B frames, each
+    channel a sequence of B [H, W] host arrays, an array [B, H, W] or a
+    tensor [B, H, W], and every output [B, ...] as a batched pyramid and a
+    batched ``PreparedFrame`` hold them.  Levels below ``skip_below`` are
+    None (``build_pyramid``'s).
+
+    The raw frames go to the device as :func:`_stage` puts them there.  On a
+    card the kernels' route (:func:`_ingest_kernels`: two launches, whatever
+    B); elsewhere the plain chain, ``convert_raw_depth`` -> ``build_pyramid``
+    -> ``prepare_frame`` (spans ``dvo.ingest.upload``, ``.pyramid``,
+    ``.prepare``), which the kernels match bit for bit."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _ingest_kernels(intensity_u8, depth_u16, num_levels, prepare_for, device,
+                               streams, skip_below)
+    with timers.span("dvo.ingest.upload"):
+        raw_i, raw_d = _stage((intensity_u8, depth_u16), device, streams)
+        depth, valid = convert_raw_depth(raw_d)
+        intensity = raw_i.to(torch.float32)
+    with timers.span("dvo.ingest.pyramid"):
+        levels = build_pyramid(intensity, depth, valid, num_levels, skip_below=skip_below)
+    prepared = None
+    if prepare_for is not None:
+        with timers.span("dvo.ingest.prepare"):
+            prepared = prepare_frame(*prepare_for, levels)
+    return levels, prepared
+
+
+def _stage(channels, device, streams: Optional[int]) -> List[torch.Tensor]:
+    """The raw channels on ``device``: one frame's [H, W] or, with
+    ``streams`` B, a rig's [B, H, W] (each channel then a sequence of B
+    [H, W] frames, an array or a tensor).  A tensor already on the device is
+    taken as it is, made contiguous only where a frame's rows are not (a
+    rig's frames may lie apart, as a time slice of a [B, T, H, W] sequence
+    does).  From host memory each camera's frame is copied into its plane
+    of a new tensor by a copy that does not wait for the stream: the CUDA driver
+    stages pageable bytes before the call returns."""
+    out = []
+    for a in channels:
+        if isinstance(a, torch.Tensor) and a.device.type == device.type:
+            out.append(a if ingest.rows_contiguous(a) else a.contiguous())
+            continue
+        frames = [a] if streams is None else list(a)
+        if len(frames) != (streams or 1):
+            raise ValueError(f"ingest: {len(frames)} frames for {streams} streams")
+        frames = [f if isinstance(f, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(f))
+                  for f in frames]
+        lead = () if streams is None else (streams,)
+        raw = torch.empty(lead + tuple(frames[0].shape), dtype=frames[0].dtype, device=device)
+        for plane, f in zip(raw.unbind(0) if lead else (raw,), frames):
+            plane.copy_(f, non_blocking=True)
+        out.append(raw)
+    return out
+
+
 def _ingest_kernels(intensity_u8, depth_u16, num_levels: int,
-                    prepare_for: Optional[Tuple[TrackerConfig, Intrinsics]], device):
-    """``Frame.from_raw``'s route on a card: (levels, the prepared artifacts
-    or None).  The raw frame's upload (span ``dvo.ingest.stage``), then the
+                    prepare_for: Optional[Tuple[TrackerConfig, Intrinsics]], device,
+                    streams: Optional[int] = None, skip_below: int = 0):
+    """:func:`ingest_raw`'s route on a card: (levels, the prepared artifacts
+    or None).  The raw frames' upload (span ``dvo.ingest.stage``), then the
     two kernels (``dvo.ingest.kernel``, whose events time the card's
-    ingest), with no synchronisation; the frame's tensors are views of two
-    arenas (``ops/ingest.arena_layout``).  On the modular backend kernel B
-    writes no quad table and the acceleration tensors come from
+    ingest), whatever ``streams``, with no synchronisation; the outputs are
+    views of two arenas (``ops/ingest.arena_layout``).  On the modular backend kernel B writes
+    no quad table and the acceleration tensors come from
     ``build_acceleration`` over kernel A's levels, as ``prepare_frame``
     builds them.  The kernels' counters (``ingest_cuda.pyramid_launches``,
     ``.pack_launches``) count the route; ``prepare_frame.calls`` does not
     move."""
     with timers.span("dvo.ingest.stage"):
-        raw_i, raw_d = (_on_device(a, device).contiguous() for a in (intensity_u8, depth_u16))
-    ingest.check_raw(raw_i, raw_d)
+        raw_i, raw_d = _stage((intensity_u8, depth_u16), device, streams)
+    ingest.check_raw(raw_i, raw_d, streams is not None)
     solve, modular, pack = None, False, None
     if prepare_for is not None:
         cfg, intrinsics = prepare_for
         modular = _resolve_backend(cfg, device) == "xla"
         solve = (cfg.last_level, cfg.first_level)
-    layout = ingest.arena_layout(tuple(raw_i.shape), num_levels, solve, not modular)
+    layout = ingest.arena_layout(tuple(raw_i.shape[-2:]), num_levels, solve, not modular,
+                                 streams, skip_below)
     if solve is not None:
         pack = ingest.pack_args(layout, intrinsics, cfg.intensity_derivative_threshold,
                                 cfg.depth_derivative_threshold)

@@ -1,14 +1,18 @@
-"""Ingest of a raw RGB-D frame on the card: two launches of
-``csrc/ingest.cu`` build the frame's whole pyramid and its prepared tables,
+"""Ingest of raw RGB-D frames on the card: two launches of
+``csrc/ingest.cu`` build a frame's whole pyramid and its prepared tables,
 bit-equal to the plain chain (``pyramid.convert_raw_depth`` ->
 ``build_pyramid`` -> ``dense_tracker.prepare_frame``), which stays the CPU
-route and the kernels' oracle (``models/frames.Frame.from_raw`` chooses).
+route and the kernels' oracle (``models/frames.ingest_raw`` chooses).  One
+frame [H, W] and the B frames of a rig [B, H, W] take the same two
+launches, the rig's on a grid of (blocks, B).
 
-* The frame's outputs are views into two byte arenas, laid out by
-  :func:`arena_layout`: the reference arena holds every level's eight
-  ``PyramidLevel`` fields and the solve range's ``sel`` and ``refpack``;
-  the current arena the solve range's ``quad`` tables, so that a keyframe
-  that drops them (``ref_artifacts``, ``BatchedMatcher.evict``) frees them.
+* The outputs are views into two byte arenas, laid out by
+  :func:`arena_layout`: the reference arena holds every stored level's
+  eight ``PyramidLevel`` fields and the solve range's ``sel`` and
+  ``refpack``; the current arena the solve range's ``quad`` tables, so
+  that a keyframe that drops them (``ref_artifacts``,
+  ``BatchedMatcher.evict``) frees them.  A rig's arenas hold each tensor
+  as [B, ...], the layout of a batched ``PreparedFrame``.
 * Kernel A writes the levels, kernel B the tables, both queued by one C
   call (:func:`ingest_cuda`) on the raw u8 intensity and u16 or int32
   depth on the card.
@@ -57,8 +61,11 @@ class View(NamedTuple):
 
     @property
     def strided(self):
-        """(shape, stride, offset in elements) of ``as_strided`` on its arena."""
-        return self.shape, (self.shape[1], 1), self.offset // self.itemsize
+        """(shape, stride, offset in elements) of ``as_strided`` on its arena:
+        a contiguous tensor."""
+        stride = tuple(int(np.prod(self.shape[k + 1:], dtype=np.int64))
+                       for k in range(len(self.shape)))
+        return self.shape, stride, self.offset // self.itemsize
 
 
 class ArenaLayout:
@@ -66,23 +73,26 @@ class ArenaLayout:
     which makes one object per set of arguments: the argument blocks are
     cached by it)."""
 
-    __slots__ = ("shape", "num_levels", "solve", "quad", "ref_bytes", "cur_bytes", "views",
-                 "planes", "tables")
+    __slots__ = ("shape", "num_levels", "solve", "quad", "batch", "skip", "ref_bytes",
+                 "cur_bytes", "views", "planes", "tables")
 
-    def __init__(self, shape, num_levels, solve, quad, ref_bytes, cur_bytes, views):
+    def __init__(self, shape, num_levels, solve, quad, batch, skip, ref_bytes, cur_bytes,
+                 views):
         self.shape: Tuple[int, int] = shape  # level 0's (H, W)
         self.num_levels: int = num_levels
+        self.batch: Optional[int] = batch  # B of a rig's [B, ...] tensors; None: one frame
+        self.skip: int = skip  # the first level stored (those below are None)
         self.solve: Optional[Tuple[int, int]] = solve  # (last, first) of the prepared tables
         self.quad: bool = quad  # the current arena holds quad tables
         self.ref_bytes: int = ref_bytes
         self.cur_bytes: int = cur_bytes
         self.views: Dict[Tuple[str, int], View] = views  # (field, level) -> its view
-        # per level each field's (is bool, shape, stride, offset in elements)
-        # in ``PyramidLevel`` order; the solve range's tables as (field,
-        # level, shape, stride, offset in elements)
+        # per stored level each field's (is bool, shape, stride, offset in
+        # elements) in ``PyramidLevel`` order, None below ``skip``; the solve
+        # range's tables as (field, level, shape, stride, offset in elements)
         self.planes = tuple(
             tuple((views[(f, k)].dtype == torch.bool, *views[(f, k)].strided)
-                  for f in PyramidLevel._fields)
+                  for f in PyramidLevel._fields) if k >= skip else None
             for k in range(num_levels))
         self.tables = tuple((name, k, *v.strided) for (name, k), v in views.items()
                             if name in ("sel", "refpack", "quad"))
@@ -102,28 +112,39 @@ _FLOAT_FIELDS = tuple(f for f in KERNEL_FIELDS if f not in _BOOL_FIELDS)
 
 @functools.lru_cache(maxsize=64)
 def arena_layout(shape: Tuple[int, int], num_levels: int,
-                 solve: Optional[Tuple[int, int]] = None, quad: bool = False) -> ArenaLayout:
+                 solve: Optional[Tuple[int, int]] = None, quad: bool = False,
+                 batch: Optional[int] = None, skip_below: int = 0) -> ArenaLayout:
     """The arenas of a frame of level-0 ``shape`` with ``num_levels`` levels
     and, for ``solve=(last, first)``, the prepared tables of those levels
     (``quad``: the fused path's quad tables too).  The reference arena holds
     level by level the ``PyramidLevel`` fields (the six float32 fields, then
     ``valid`` and ``zvalid``), then level by level ``sel`` [H, W] bool and
     ``refpack`` [8, N] float32; the current arena the ``quad`` tables
-    [32, N] float32.  Each view starts on an ``ALIGN``-byte boundary; each
-    arena's size is a multiple of ``ALIGN``."""
+    [32, N] float32.  With ``batch`` B every view is [B, ...] (a field's B
+    planes one after another); levels below ``skip_below`` are not stored,
+    as ``build_pyramid``'s ``skip_below`` leaves them out.  Each view starts
+    on an ``ALIGN``-byte boundary; each arena's size is a multiple of
+    ``ALIGN``."""
     h, w = int(shape[0]), int(shape[1])
     if not 1 <= num_levels <= MAX_LEVELS:
         raise ValueError(f"arena_layout: num_levels must be 1..{MAX_LEVELS}, got {num_levels}")
-    if solve is not None and not 0 <= solve[0] <= solve[1] < num_levels:
-        raise ValueError(f"arena_layout: solve range {solve} outside levels 0..{num_levels - 1}")
+    if not 0 <= skip_below < num_levels:
+        raise ValueError(f"arena_layout: skip_below {skip_below} outside levels "
+                         f"0..{num_levels - 1}")
+    if solve is not None and not skip_below <= solve[0] <= solve[1] < num_levels:
+        raise ValueError(f"arena_layout: solve range {solve} outside levels "
+                         f"{skip_below}..{num_levels - 1}")
+    if batch is not None and batch < 1:
+        raise ValueError(f"arena_layout: batch must be at least 1, got {batch}")
+    lead = () if batch is None else (int(batch),)
     views: Dict[Tuple[str, int], View] = {}
     size = {"ref": 0, "cur": 0}
 
     def put(arena, name, level, shape_, dtype):
-        views[(name, level)] = View(arena, size[arena], shape_, dtype)
+        views[(name, level)] = View(arena, size[arena], lead + shape_, dtype)
         size[arena] = _aligned(size[arena] + views[(name, level)].nbytes)
 
-    for level in range(num_levels):
+    for level in range(skip_below, num_levels):
         hw = level_shape((h, w), level)
         for name in _FLOAT_FIELDS:
             put("ref", name, level, hw, torch.float32)
@@ -139,7 +160,8 @@ def arena_layout(shape: Tuple[int, int], num_levels: int,
                 hw = level_shape((h, w), level)
                 put("cur", "quad", level, (32, hw[0] * hw[1]), torch.float32)
     return ArenaLayout((h, w), num_levels, solve, bool(quad and solve is not None),
-                       size["ref"], size["cur"], views)
+                       None if batch is None else int(batch), int(skip_below), size["ref"],
+                       size["cur"], views)
 
 
 def new_arenas(layout: ArenaLayout, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -153,11 +175,12 @@ def new_arenas(layout: ArenaLayout, device) -> Tuple[torch.Tensor, Optional[torc
 
 def arena_views(layout: ArenaLayout, ref: torch.Tensor, cur: Optional[torch.Tensor]):
     """The frame's tensors as views of its arenas: (levels, sel, refpack,
-    quad), the last three one entry per level (None outside the solve range
-    and, for ``quad``, without quad tables or without ``cur``): one
-    ``as_strided`` a tensor."""
+    quad), each one entry per level (a level below the layout's ``skip``
+    None; the tables None outside the solve range and, for ``quad``, without
+    quad tables or without ``cur``): one ``as_strided`` a tensor."""
     bases = (ref, ref.view(torch.bool))
-    levels = tuple(PyramidLevel(*[bases[flag].as_strided(shape, stride, offset)
+    levels = tuple(None if fields is None else
+                   PyramidLevel(*[bases[flag].as_strided(shape, stride, offset)
                                   for flag, shape, stride, offset in fields])
                    for fields in layout.planes)
     n = layout.num_levels
@@ -193,7 +216,7 @@ class PackArgs(ctypes.Structure):
 
 
 def _fill_fields(args, layout: ArenaLayout):
-    for level in range(layout.num_levels):
+    for level in range(layout.skip, layout.num_levels):
         for k, name in enumerate(KERNEL_FIELDS):
             args.field[level][k] = layout.views[(name, level)].offset
 
@@ -201,7 +224,8 @@ def _fill_fields(args, layout: ArenaLayout):
 @functools.lru_cache(maxsize=64)
 def pyramid_args(layout: ArenaLayout) -> PyramidArgs:
     """Kernel A's argument block: per level its shape, tiles and fields,
-    the coarse levels' blocks first (their tiles cost the most)."""
+    the coarse levels' blocks first (their tiles cost the most); a level
+    below the layout's ``skip`` has no blocks."""
     args = PyramidArgs()
     args.levels = layout.num_levels
     start = 0
@@ -210,7 +234,7 @@ def pyramid_args(layout: ArenaLayout) -> PyramidArgs:
         tiles_x = -(-w // TILE[1])
         args.h[level], args.w[level], args.tiles_x[level] = h, w, max(tiles_x, 1)
         args.block_start[level] = start
-        args.blocks[level] = tiles_x * -(-h // TILE[0])
+        args.blocks[level] = tiles_x * -(-h // TILE[0]) if level >= layout.skip else 0
         start += args.blocks[level]
     _fill_fields(args, layout)
     return args
@@ -265,7 +289,8 @@ def _library():
     the first call in a process)."""
     lib = _build.load_library("ingest").lib
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dvo_ingest.argtypes = [p, p, i, i, f, f, p, ctypes.POINTER(PyramidArgs), p,
+    ll = ctypes.c_longlong
+    lib.dvo_ingest.argtypes = [p, p, i, i, ll, ll, i, f, f, p, ctypes.POINTER(PyramidArgs), p,
                                ctypes.POINTER(PackArgs), p]
     lib.dvo_ingest_sizes.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
     for name in ("dvo_ingest", "dvo_ingest_sizes"):
@@ -304,39 +329,53 @@ def _check_arenas(layout: ArenaLayout, ref: torch.Tensor, cur: Optional[torch.Te
             raise ValueError("ingest_cuda: the current arena does not fit the layout")
 
 
-def check_raw(raw_i: torch.Tensor, raw_d: torch.Tensor):
+def check_raw(raw_i: torch.Tensor, raw_d: torch.Tensor, batched: bool = False):
     """Raises ValueError unless the kernels take this raw frame: [H, W]
-    uint8 intensity and [H, W] uint16 or int32 depth of the same shape."""
-    if (raw_i.dtype != torch.uint8 or raw_d.dtype not in RAW_DEPTH_DTYPES or raw_i.dim() != 2
-            or raw_i.shape != raw_d.shape):
+    uint8 intensity and [H, W] uint16 or int32 depth of the same shape
+    (with ``batched``, a rig's [B, H, W] of each)."""
+    dims = 3 if batched else 2
+    if (raw_i.dtype != torch.uint8 or raw_d.dtype not in RAW_DEPTH_DTYPES
+            or raw_i.dim() != dims or raw_i.shape != raw_d.shape):
+        lead = "[B, H, W]" if batched else "[H, W]"
         raise ValueError(f"ingest: a raw frame of {raw_i.dtype} {tuple(raw_i.shape)} and "
-                         f"{raw_d.dtype} {tuple(raw_d.shape)}; the kernels take [H, W] uint8 "
-                         "intensity and [H, W] uint16 or int32 depth")
+                         f"{raw_d.dtype} {tuple(raw_d.shape)}; the kernels take {lead} uint8 "
+                         f"intensity and {lead} uint16 or int32 depth")
+
+
+def rows_contiguous(t: torch.Tensor) -> bool:
+    """Each frame's rows lie one after another (a rig's frames may lie
+    apart: a time slice of a [B, T, H, W] sequence)."""
+    return t.stride(-1) == 1 and (t.shape[-2] <= 1 or t.stride(-2) == t.shape[-1])
 
 
 def ingest_cuda(raw_i: torch.Tensor, raw_d: torch.Tensor, layout: ArenaLayout,
                 ref: torch.Tensor, cur: Optional[torch.Tensor] = None,
                 pack: Optional[PackArgs] = None):
-    """The kernels on a raw frame on the card: kernel A writes the levels of
-    ``layout`` from raw_i [H, W] uint8 and raw_d [H, W] uint16 or int32
-    (CUDA, contiguous) into the reference arena ``ref``; with ``pack``
+    """The kernels on raw frames on the card: kernel A writes the levels of
+    ``layout`` from raw_i uint8 and raw_d uint16 or int32 (CUDA, each
+    frame's rows contiguous), [H, W] or, for a layout with a ``batch`` B,
+    [B, H, W], into the reference arena ``ref``; with ``pack``
     (:func:`pack_args` of this layout) kernel B then writes ``sel`` and
     ``refpack`` into ``ref`` and the quad tables, where the layout has
-    them, into ``cur``.  One C call, no synchronisation; adds one to
-    ``ingest_cuda.pyramid_launches`` and, with ``pack``, to
+    them, into ``cur``.  One C call, no synchronisation, whatever B; adds
+    one to ``ingest_cuda.pyramid_launches`` and, with ``pack``, to
     ``ingest_cuda.pack_launches``."""
     if not (raw_i.is_cuda and raw_d.is_cuda):
         raise ValueError("ingest_cuda: the raw frame must be CUDA tensors")
-    check_raw(raw_i, raw_d)
-    if tuple(raw_i.shape) != layout.shape:
+    batched = layout.batch is not None
+    check_raw(raw_i, raw_d, batched)
+    lead = (layout.batch,) if batched else ()
+    if tuple(raw_i.shape) != lead + layout.shape:
         raise ValueError(f"ingest_cuda: raw frame {tuple(raw_i.shape)} against the layout's "
-                         f"{layout.shape}")
-    if not (raw_i.is_contiguous() and raw_d.is_contiguous()):
-        raise ValueError("ingest_cuda: the raw frame must be contiguous")
+                         f"{lead + layout.shape}")
+    if not (rows_contiguous(raw_i) and rows_contiguous(raw_d)):
+        raise ValueError("ingest_cuda: each raw frame's rows must be contiguous")
     _check_arenas(layout, ref, cur, pack)
     err = _library().dvo_ingest(
-        raw_i.data_ptr(), raw_d.data_ptr(), int(raw_d.dtype == torch.int32), layout.shape[1],
-        _INV_SCALE, _MAX_DERIVATIVE, ref.data_ptr(), ctypes.byref(pyramid_args(layout)),
+        raw_i.data_ptr(), raw_d.data_ptr(), int(raw_d.dtype == torch.int32),
+        layout.batch or 1, raw_i.stride(0) if batched else 0,
+        raw_d.stride(0) if batched else 0, layout.shape[1], _INV_SCALE, _MAX_DERIVATIVE,
+        ref.data_ptr(), ctypes.byref(pyramid_args(layout)),
         cur.data_ptr() if pack is not None and layout.quad else None,
         ctypes.byref(pack) if pack is not None else None, _stream(ref.device))
     _check(err, "ingest_cuda: a kernel launch")

@@ -29,12 +29,18 @@ all-gather returns every stream's results to every rank (the reference's
 ``shard_map`` with ``out_specs=P(axis)``).
 
 Input is camera-native u8 intensity / u16 depth [B, T, H, W] (u16 may
-arrive widened to int32, as ``odometry.upload_sequence`` sends it).
+arrive widened to int32, as ``odometry.upload_sequence`` sends it).  A live
+rig hands its B cameras' frames over one rig frame at a time:
+:class:`LockstepTracker` (``make_frames_raw`` + ``update``), which the
+lockstep schedule runs frame after frame.  On the card a rig frame's B raw
+frames become their pyramids and prepared tables in one upload and two
+launches of the ingest kernels (``ops/ingest``), off the card through the
+plain chain.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,9 +48,12 @@ import torch.distributed as dist
 
 from .. import default_device
 from ..config import TrackerConfig
-from ..models.dense_tracker import match_prepared, match_pyramids, prepare_frame, ref_artifacts
+from ..models.dense_tracker import (FLAT_BASE, PreparedFrame, match_prepared_flat,
+                                    match_pyramids, ref_artifacts, result_from_row)
+from ..models.frames import ingest_raw, new_frame_id
 from ..odometry import build_frame
 from ..ops.camera import Intrinsics
+from ..utils import timers
 from .mesh import BATCH_AXIS, Mesh, shard_leading_axis
 
 SCHEDULES = ("lockstep", "sequential")
@@ -93,29 +102,112 @@ def _level_counts(result):
     return stack("iterations"), stack("termination")
 
 
+class RigFrame(NamedTuple):
+    """One frame of a rig: its B streams' prepared artifacts ([B, ...]),
+    its timestamp and its number among the process's frames (the spans of
+    its ingest and update carry it)."""
+
+    prepared: PreparedFrame
+    timestamp: float
+    frame_id: int
+
+
+class LockstepTracker:
+    """B camera streams tracked frame to frame in lockstep, one rig frame at
+    a time: per stream the reference's accumulation with a constant-velocity
+    warm start (the previous relative pose), each frame's artifacts prepared
+    once, as the current frame now and as the reference frame next, and one
+    ``match_prepared`` of the B pairs a rig frame (on the card one launch of
+    the match graph around kernel 1b at B).
+
+    ``make_frames_raw(intensity_u8, depth_u16, stamp)`` takes the B frames
+    of each channel as a sequence of [H, W] host arrays, an array [B, H, W]
+    or a tensor [B, H, W] (``frames.ingest_raw``: on the card one upload
+    and two launches, levels below ``cfg.last_level`` not built);
+    ``update(frame)`` returns each stream's accumulated pose [B, 4, 4]
+    (float32 on the device, widened to float64 on the host) after one wait
+    for the card; ``step(frame)`` does the device work of ``update`` and
+    returns without one.  ``last_result`` is the last match's
+    ``TrackingResult`` on the host (its ``level_stats`` [B] per level);
+    ``reset()`` starts every stream again from the identity and keeps the
+    counts.
+
+    Spans: ``dvo.ingest`` (around ``ingest_raw``'s) and ``dvo.rig.update``,
+    each with the rig frame's id.  Counts (``counts()``,
+    always on): the rig frames updated and, by pyramid level, the lockstep
+    loop's stream-steps (B times the loop's iterations, which run until the
+    slowest stream is done) and the streams' own iterations."""
+
+    def __init__(self, cfg: TrackerConfig, intrinsics: Intrinsics, streams: int, device=None):
+        self.cfg, self.intrinsics, self.streams = cfg, intrinsics, int(streams)
+        self.device = default_device(device)
+        levels = range(cfg.first_level, cfg.last_level - 1, -1)
+        self._counts = {"frames": 0, "stream_steps": dict.fromkeys(levels, 0),
+                        "iterations": dict.fromkeys(levels, 0)}
+        self.reset()
+
+    def reset(self):
+        eye = torch.eye(4, dtype=torch.float32, device=self.device).expand(self.streams, 4, 4)
+        self.reference: Optional[PreparedFrame] = None
+        self.pose, self.rel = eye, eye
+        self.last_result = None
+
+    def make_frames_raw(self, intensity_u8, depth_u16, stamp: float) -> RigFrame:
+        frame_id = new_frame_id()
+        with timers.span("dvo.ingest", frame=frame_id):
+            _, prepared = ingest_raw(intensity_u8, depth_u16, self.cfg.num_levels,
+                                     (self.cfg, self.intrinsics), self.device, self.streams,
+                                     self.cfg.last_level)
+        return RigFrame(prepared, float(stamp), frame_id)
+
+    def step(self, frame: RigFrame):
+        """Track ``frame`` on the device: (the poses [B, 4, 4], the match's
+        flat result row [B, 53 + 4 levels], None for the first frame)."""
+        row = None
+        if self.reference is not None:
+            row = match_prepared_flat(self.cfg, self.intrinsics, self.reference, frame.prepared,
+                                      self.rel)
+            self.rel = row[:, :16].reshape(self.streams, 4, 4)
+            self.pose = self.pose @ self.rel
+        self.reference = ref_artifacts(frame.prepared)
+        return self.pose, row
+
+    def update(self, frame: RigFrame) -> np.ndarray:
+        with timers.span("dvo.rig.update", frame=frame.frame_id):
+            pose, row = self.step(frame)
+            self._counts["frames"] += 1
+            if row is None:
+                return pose.cpu().numpy().astype(np.float64)
+            host = torch.cat([pose.reshape(self.streams, 16), row], dim=1).cpu()
+            self.last_result = result_from_row(host[:, 16:])
+            its = host[:, 16 + FLAT_BASE:].reshape(self.streams, -1, 4)[..., 2].to(torch.int64)
+            for j, level in enumerate(self._counts["iterations"]):
+                self._counts["stream_steps"][level] += self.streams * int(its[:, j].max())
+                self._counts["iterations"][level] += int(its[:, j].sum())
+            return host[:, :16].reshape(self.streams, 4, 4).numpy().astype(np.float64)
+
+    def counts(self) -> Dict[str, object]:
+        """``frames``; ``stream_steps`` and ``iterations`` by pyramid level
+        (coarse first), since the tracker was made."""
+        c = self._counts
+        return {"frames": c["frames"], "stream_steps": dict(c["stream_steps"]),
+                "iterations": dict(c["iterations"])}
+
+
 def _track_streams(cfg: TrackerConfig, intrinsics: Intrinsics, intensity_u8, depth_u16):
-    """Lockstep: [B, T, H, W] -> ``StreamTracks``.  Per stream, the
-    reference's frame-to-frame accumulation with a constant-velocity warm
-    start; each frame's artifacts are prepared once, for all B streams, and
-    serve as the current frame now and as the reference frame next."""
+    """Lockstep: [B, T, H, W] -> ``StreamTracks``, one ``LockstepTracker``
+    step a frame, with no read-back."""
     batch, frames = intensity_u8.shape[:2]
-    device = intensity_u8.device
-    eye = torch.eye(4, dtype=torch.float32, device=device).expand(batch, 4, 4)
-    prev = ref_artifacts(
-        prepare_frame(cfg, intrinsics, build_frame(cfg, intensity_u8[:, 0], depth_u16[:, 0]))
-    )
-    pose, rel = eye, eye
+    tracker = LockstepTracker(cfg, intrinsics, batch, device=intensity_u8.device)
     poses, iterations, terminations = [], [], []
-    for t in range(1, frames):
-        cur = prepare_frame(cfg, intrinsics, build_frame(cfg, intensity_u8[:, t], depth_u16[:, t]))
-        result = match_prepared(cfg, intrinsics, prev, cur, rel)
-        rel = result.transformation
-        pose = pose @ rel
+    for t in range(frames):
+        pose, row = tracker.step(tracker.make_frames_raw(intensity_u8[:, t], depth_u16[:, t], t))
+        if row is None:
+            continue
         poses.append(pose)
-        its, terms = _level_counts(result)
-        iterations.append(its)
-        terminations.append(terms)
-        prev = ref_artifacts(cur)
+        counts = row[:, FLAT_BASE:].reshape(batch, -1, 4).to(torch.int32)
+        iterations.append(counts[..., 2])
+        terminations.append(counts[..., 3])
     iterations = torch.stack(iterations, dim=1)
     # the loop runs each level until its slowest stream is done
     loop = int(iterations.amax(dim=0).sum())

@@ -303,3 +303,151 @@ def test_the_route_refuses_what_the_kernels_do_not_take(monkeypatch, name):
     with pytest.raises(ValueError, match="the kernels take"):
         t_frames._ingest_kernels(iu, du, CFG.num_levels, (CFG, K), torch.device("cpu"))
     assert played == []
+
+
+# ---------------------------------------------------------------------------
+# a rig's B frames: [B, ...] arenas, levels below the solve range skipped
+
+
+@pytest.mark.parametrize("batch,skip", [(1, 0), (3, 1), (8, 1), (2, 2)])
+def test_the_rig_arena_layout(batch, skip):
+    shape, solve = (480, 640), (max(skip, 1), 3)
+    one = ingest.arena_layout(shape, 4, solve, True)
+    layout = ingest.arena_layout(shape, 4, solve, True, batch, skip)
+    assert (layout.batch, layout.skip) == (batch, skip)
+    assert set(layout.views) == {k for k in one.views if k[1] >= skip}
+    for key, v in layout.views.items():
+        assert v.shape == (batch,) + one.views[key].shape and v.dtype == one.views[key].dtype
+        assert v.offset % ingest.ALIGN == 0
+    for arena, size in (("ref", layout.ref_bytes), ("cur", layout.cur_bytes)):
+        views = sorted((v for v in layout.views.values() if v.arena == arena),
+                       key=lambda v: v.offset)
+        end = 0
+        for v in views:
+            assert v.offset >= end
+            end = v.offset + v.nbytes
+        assert end <= size < end + ingest.ALIGN
+    ref, cur = ingest.new_arenas(layout, "cpu")
+    levels, sel, refpack, quad = ingest.arena_views(layout, ref, cur)
+    assert all((lv is None) == (k < skip) for k, lv in enumerate(levels))
+    for k in range(solve[0], 4):
+        assert refpack[k].shape == (batch, 8, (480 >> k) * (640 >> k)) and refpack[k].is_contiguous()
+        assert quad[k].shape == (batch, 32, (480 >> k) * (640 >> k)) and quad[k].is_contiguous()
+        assert sel[k].shape == (batch, 480 >> k, 640 >> k)
+    a = ingest.pyramid_args(layout)
+    assert [a.blocks[k] == 0 for k in range(4)] == [k < skip for k in range(4)]
+
+
+def test_the_rig_layout_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="skip_below"):
+        ingest.arena_layout((48, 64), 3, None, False, 2, 3)
+    with pytest.raises(ValueError, match="solve range"):
+        ingest.arena_layout((48, 64), 4, (1, 3), True, 2, 2)
+    with pytest.raises(ValueError, match="batch"):
+        ingest.arena_layout((48, 64), 4, (1, 3), True, 0)
+
+
+def test_which_rig_frames_the_kernels_take():
+    iu, du = (torch.from_numpy(a) for a in _raw())
+    ingest.check_raw(iu[None].expand(3, -1, -1), du[None].expand(3, -1, -1), batched=True)
+    with pytest.raises(ValueError, match=r"the kernels take \[B, H, W\]"):
+        ingest.check_raw(iu, du, batched=True)
+    with pytest.raises(ValueError, match="the kernels take"):
+        ingest.check_raw(iu[None], du[None].to(torch.int64), batched=True)
+
+
+def _played_rig_kernels(monkeypatch, cfg, intrinsics):
+    """The two kernels played on the CPU by the plain chain for a layout of
+    any batch and skip; returns the played calls' raw shapes."""
+    played = []
+
+    def play(raw_i, raw_d, layout, ref, cur=None, pack=None):
+        played.append(tuple(raw_i.shape))
+        depth, valid = convert_raw_depth(raw_d)
+        plain = build_pyramid(raw_i.to(torch.float32), depth, valid, layout.num_levels,
+                              skip_below=layout.skip)
+        levels, sel, refpack, quad = ingest.arena_views(layout, ref, cur)
+        for src, dst in zip(plain, levels):
+            assert (src is None) == (dst is None)
+            for a, b in zip(src or (), dst or ()):
+                b.copy_(a)
+        prepared = prepare_frame(cfg, intrinsics, plain)
+        for k in range(layout.solve[0], layout.solve[1] + 1):
+            sel[k].copy_(prepared.sel[k])
+            refpack[k].copy_(prepared.refpack[k])
+            if layout.quad:
+                quad[k].copy_(prepared.quad[k])
+
+    monkeypatch.setattr(ingest, "ingest_cuda", play)
+    return played
+
+
+@pytest.mark.parametrize("form", ["list", "stacked", "tensor_slice"])
+def test_the_rig_route_with_the_kernels_played_on_the_cpu(monkeypatch, form):
+    """Three streams in one call: one upload and one (played) kernel
+    call, the [B, ...] outputs equal to the plain chain over the stacked
+    frames, whether the frames come as a list of host arrays, a stacked
+    array or a time slice of a [B, T, H, W] tensor."""
+    frames = [_raw((61, 83), seed=10 + b) for b in range(3)]
+    iu = np.stack([f[0] for f in frames])
+    du = np.stack([f[1] for f in frames])
+    played = _played_rig_kernels(monkeypatch, CFG, K)
+    if form == "list":
+        args = (list(iu), list(du))
+    elif form == "stacked":
+        args = (iu, du)
+    else:
+        seq_i = torch.from_numpy(np.stack([iu, iu], axis=1))
+        seq_d = torch.from_numpy(np.stack([du, du], axis=1).astype(np.int32))
+        args = (seq_i[:, 1], seq_d[:, 1])
+    timers.enable("cpu")
+    levels, prepared = t_frames._ingest_kernels(*args, CFG.num_levels, (CFG, K),
+                                                torch.device("cpu"), 3, CFG.last_level)
+    spans = timers.drain()
+    assert sorted(s.name for s in spans) == ["dvo.ingest.kernel", "dvo.ingest.stage"]
+    assert played == [(3, 61, 83)]
+    depth, valid = convert_raw_depth(torch.from_numpy(du))
+    plain = build_pyramid(torch.from_numpy(iu).to(torch.float32), depth, valid, CFG.num_levels,
+                          skip_below=CFG.last_level)
+    want = prepare_frame(CFG, K, plain)
+    for a, b in zip(levels, plain):
+        assert (a is None) == (b is None)
+        for x, y in zip(a or (), b or ()):
+            assert torch.equal(x, y)
+    for field in want._fields:
+        for x, y in zip(getattr(prepared, field), getattr(want, field)):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert x.shape == y.shape and torch.equal(x, y)
+
+
+def test_a_rig_of_the_wrong_size_raises(monkeypatch):
+    played = _played_rig_kernels(monkeypatch, CFG, K)
+    iu, du = _raw()
+    with pytest.raises(ValueError, match="2 frames for 3 streams"):
+        t_frames._ingest_kernels([iu, iu], [du, du], CFG.num_levels, (CFG, K),
+                                 torch.device("cpu"), 3)
+    assert played == []
+
+
+def test_ingest_raw_off_the_card_is_the_plain_chain():
+    """Off the card a rig takes the plain chain over its stacked frames,
+    bit for bit, and ``from_raw`` is its one-frame case."""
+    frames = [_raw(seed=20 + b) for b in range(3)]
+    iu, du = [f[0] for f in frames], [f[1] for f in frames]
+    levels, prepared = t_frames.ingest_raw(iu, du, CFG.num_levels, (CFG, K),
+                                           torch.device("cpu"), 3, CFG.last_level)
+    depth, valid = convert_raw_depth(torch.from_numpy(np.stack(du)))
+    plain = build_pyramid(torch.from_numpy(np.stack(iu)).to(torch.float32), depth, valid,
+                          CFG.num_levels, skip_below=CFG.last_level)
+    for a, b in zip(levels, plain):
+        assert (a is None) == (b is None)
+        for x, y in zip(a or (), b or ()):
+            assert torch.equal(x, y)
+    for x, y in zip(prepared.refpack, prepare_frame(CFG, K, plain).refpack):
+        assert (x is None) == (y is None) and (x is None or torch.equal(x, y))
+    frame = t_frames.Frame.from_raw(iu[1], du[1], 0.0, CFG.num_levels, prepare_for=(CFG, K),
+                                    device="cpu")
+    for k in range(CFG.last_level, CFG.num_levels):
+        for x, y in zip(frame.levels[k], levels[k]):
+            assert torch.equal(x, y[1])

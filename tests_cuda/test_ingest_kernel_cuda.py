@@ -19,6 +19,12 @@ kernel route against the plain chain on the card (``convert_raw_depth`` ->
 * Two threads ingesting at once.
 * ``BatchedMatcher.evict`` and ``ref_artifacts`` free the quad arena:
   ``torch.cuda.memory_allocated`` drops by its size.
+* A rig's B frames in one call (``frames.ingest_raw`` with ``streams``):
+  at 640x480, B = 1, 2 and 8, with and without the levels below the solve
+  range, every tensor of every stream bit-equal to the plain chain over the
+  stacked frames and to the stream's own ``Frame.from_raw``, with one
+  launch of each kernel; a time slice of a [B, T, H, W] int32 sequence on
+  the card and a stacked host array; the rig cell's eight streams.
 """
 
 import dataclasses
@@ -248,3 +254,98 @@ def test_evict_and_ref_artifacts_free_the_quad_arena():
     del frame.__dict__["_prepared"][key]
     assert before - torch.cuda.memory_allocated() == layout.cur_bytes
     assert kept.refpack[CFG.first_level].is_cuda and kept.quad[CFG.first_level] is None
+
+
+# ---------------------------------------------------------------------------
+# a rig's B frames in one upload and one launch of each kernel
+
+
+def _rig_plain(iu, du, cfg, K, skip_below=0):
+    """The plain chain on the card over the rig's stacked frames [B, H, W]."""
+    dev = torch.device("cuda")
+    depth, valid = convert_raw_depth(torch.as_tensor(np.stack(du)).to(dev))
+    levels = build_pyramid(torch.as_tensor(np.stack(iu)).to(dev).to(torch.float32), depth, valid,
+                           cfg.num_levels, skip_below=skip_below)
+    return levels, prepare_frame(cfg, K, levels)
+
+
+def _assert_rig_same(got, want):
+    (levels, prepared), (plain_levels, plain_prepared) = got, want
+    for k, (a, b) in enumerate(zip(levels, plain_levels)):
+        assert (a is None) == (b is None), k
+        if a is not None:
+            for name, x, y in zip(a._fields, a, b):
+                assert x.shape == y.shape and x.dtype == y.dtype, (k, name)
+                assert torch.equal(_bits(x), _bits(y)), (k, name)
+    for field in plain_prepared._fields:
+        for k, (x, y) in enumerate(zip(getattr(prepared, field), getattr(plain_prepared, field))):
+            assert (x is None) == (y is None), (field, k)
+            if x is not None:
+                assert x.shape == y.shape and x.dtype == y.dtype, (field, k)
+                assert torch.equal(_bits(x), _bits(y)), (field, k)
+
+
+@pytest.mark.parametrize("streams", [1, 2, 8])
+@pytest.mark.parametrize("skip_below", [0, CFG.last_level])
+def test_a_rig_bit_equal_to_the_plain_chain_and_to_one_frame(streams, skip_below):
+    """Every tensor of every stream of a rig ingested in one call equals the
+    plain chain over the stacked frames and each stream's own one-frame
+    ingest (``Frame.from_raw``), at 640x480; one launch of each kernel a
+    rig frame."""
+    from dvo_slam_tpu_torch.models.frames import ingest_raw
+
+    frames = [_random((480, 640), seed=40 + b) for b in range(streams)]
+    iu, du = [f[0] for f in frames], [f[1] for f in frames]
+    counts = ingest.ingest_cuda
+    a, b = counts.pyramid_launches, counts.pack_launches
+    got = ingest_raw(iu, du, CFG.num_levels, (CFG, TUM_FR1), torch.device("cuda"), streams,
+                     skip_below)
+    assert (counts.pyramid_launches - a, counts.pack_launches - b) == (1, 1)
+    _assert_rig_same(got, _rig_plain(iu, du, CFG, TUM_FR1, skip_below))
+    levels, prepared = got
+    for s in range(streams):
+        one = _ingest(iu[s], du[s])
+        mine = one.__dict__["_prepared"][(CFG, TUM_FR1)]
+        for k in range(skip_below, CFG.num_levels):
+            for x, y in zip(levels[k], one.levels[k]):
+                assert torch.equal(_bits(x[s]), _bits(y)), (s, k)
+        for field in ("sel", "refpack", "quad"):
+            for k, (x, y) in enumerate(zip(getattr(prepared, field), getattr(mine, field))):
+                if x is not None:
+                    assert torch.equal(_bits(x[s]), _bits(y)), (s, field, k)
+
+
+@pytest.mark.parametrize("cfg", [CFG, MODULAR], ids=["fused", "modular"])
+def test_a_rig_from_a_sequence_on_the_card(cfg):
+    """A time slice of [B, T, H, W] int32 depth on the card (its frames lie
+    T frames apart) and a stacked host array [B, H, W] give the plain
+    chain's bits."""
+    from dvo_slam_tpu_torch.models.frames import ingest_raw
+
+    frames = [[_random((480, 640), seed=60 + 3 * b + t) for t in range(3)] for b in range(3)]
+    iu = np.stack([[f[0] for f in row] for row in frames])
+    du = np.stack([[f[1] for f in row] for row in frames])
+    d_i, d_d = torch.from_numpy(iu).cuda(), torch.from_numpy(du.astype(np.int32)).cuda()
+    for t in range(3):
+        got = ingest_raw(d_i[:, t], d_d[:, t], cfg.num_levels, (cfg, TUM_FR1),
+                         torch.device("cuda"), 3, cfg.last_level)
+        want = _rig_plain(list(iu[:, t]), list(du[:, t]), cfg, TUM_FR1, cfg.last_level)
+        _assert_rig_same(got, want)
+    got = ingest_raw(iu[:, 1], du[:, 1], cfg.num_levels, (cfg, TUM_FR1), torch.device("cuda"), 3)
+    _assert_rig_same(got, _rig_plain(list(iu[:, 1]), list(du[:, 1]), cfg, TUM_FR1))
+
+
+def test_the_rig_cells_frames_bit_equal():
+    """The rig cell's eight streams at one instant, through the entry's
+    route, equal the plain chain stream by stream."""
+    from dvo_slam_tpu_torch.models.frames import ingest_raw
+
+    cell = manifest.cell("rig8_lockstep.recorded")
+    entry = manifest.entry(cell.config["entry"])
+    cfg, K = program.tracker_config(cell.config), program.intrinsics(cell.config)
+    rec = traffic.make_recording(cell.config, 3, 2**31 + 13, torch.device("cuda"))
+    recs = entry.rig(cell.config, rec, torch.device("cuda"))
+    iu, du = [r.intensity[2] for r in recs], [r.depth[2] for r in recs]
+    got = ingest_raw(iu, du, cfg.num_levels, (cfg, K), torch.device("cuda"), len(recs),
+                     cfg.last_level)
+    _assert_rig_same(got, _rig_plain(iu, du, cfg, K, cfg.last_level))
