@@ -26,8 +26,8 @@ the launch counters when a phase reads them.
 1. Device: a CUDA card is required (there is no CPU fallback).  Prints
    its name and ``nvidia-smi``'s name and power limit.
 2. Build: ``nvcc`` builds ``dvo_slam_tpu_torch/csrc/fused_stats.cu`` (the
-   folded, sampled-input, batched and partials entry points and the step
-   kernels),
+   folded, sampled-input, batched and partials entry points, the step
+   kernels and the glue kernels),
    ``csrc/table_copy.cu``, ``csrc/while_graph.cu`` and ``csrc/ingest.cu``
    from the checkout, the four at once, and ``g++`` the
    native ingest (``native/ingest.cpp``, no libpng) beside them, so that no
@@ -365,6 +365,19 @@ that their frames/s compare with phase 4's:
    the bound; their launches in every phase whose launches are held to
    its steps (every tracker step on the card takes them, the modular
    path's too), and phase 14's records sha256.
+21. The glue kernels (``ops/match_glue``: ``csrc/fused_stats.cu``'s match
+   setup, link and result, which run a match's glue on the card; run
+   after phase 20) at B = 1 and B = 8 on phase 3's pairs, warm-started:
+   each against the plain glue on one match's real carries, level by
+   level, the counts equal and every float field within 32 ulps of its
+   scale (each one's largest gap printed); device times of each kernel
+   alone, of a match's glue behind a spinning stream and with the host's
+   enqueueing, beside the plain glue's and the bound; the match graph's
+   nodes outside its levels' loops and its heads' copies (at most 8 nodes
+   and no copy), beside the nodes of the same plain glue captured alone;
+   and their launches in every phase whose step launches are held (each of
+   the card's matches one setup and one result, and a link between each
+   two of its levels).
 
 The last three lines of standard output are one JSON object describing
 the kernels (per kernel: launches on its main path, errors against the
@@ -375,7 +388,8 @@ with its runs in phases 4, 6, 7, 14 and 19 and its ms per loop step at
 both senses of its condition; ``ingest`` with its launches in phases 11-14
 and 18, its bits against the plain chain, its times and the plain chain's
 device kernels under ``torch.profiler`` after phase 10; ``irls_step``
-with its launches by phase, its gap to the plain step and its times),
+with its launches by phase, its gap to the plain step and its times;
+``match_glue`` the same for the glue kernels),
 ``nvidia-smi``'s name and power limit, then ``{"ok": true, "device":
 {...}}``.
 """
@@ -472,8 +486,12 @@ INGEST_HOST_REPS = 100  # phase 3: host time of one ingest, median of as many
 INGEST_RIG_STREAMS = 8  # phase 3: the rig's form, phase 4's first frames as its streams
 INGEST_COUNTS = ("ingest_pyramid", "ingest_pack")  # kernel A's and kernel B's launches
 STEP_COUNTS = ("step_head", "step_tail")  # the step kernels' launches
+GLUE_COUNTS = ("glue_setup", "glue_link", "glue_result")  # the glue kernels' launches
+# the card's matches and their level solves (``irls_graph.match_counts``)
+MATCH_COUNTS = ("matches", "match_levels")
 # no Pallas kernel: the loop body's glue around the evaluation is XLA's ops
 STEP_REPLACES = "dvo_slam_tpu/models/dense_tracker.py:343"
+GLUE_REPLACES = "dvo_slam_tpu/models/dense_tracker.py:546"  # match_prepared's glue, XLA's
 WHILE_SOURCE = "dvo_slam_tpu_torch/csrc/while_graph.cu"
 WHILE_REPLACES = "dvo_slam_tpu/models/dense_tracker.py:445"  # the level's lax.while_loop
 CG_WHILE_REPLACES = "dvo_slam_tpu/models/pose_graph.py:310"  # block-CG's lax.while_loop
@@ -1584,39 +1602,54 @@ def check_batched_kernel(cfg, intrinsics, pairs):
 SHARDED_KERNELS = ("warp_fused_partials", "sharded_loglik", "sharded_tail")
 
 
+def _glue_wrappers():
+    from dvo_slam_tpu_torch.ops import match_glue
+
+    return match_glue.setup_cuda, match_glue.link_cuda, match_glue.result_cuda
+
+
 def _reset_counts():
-    """Every kernel's launch count (ingest's two kernels and the step
-    kernels too), warp_and_sample_cm's and compute_residuals' calls, the
-    IRLS loop's ``done`` reads and the while form's counts to 0 (the while
-    graphs' launches folded in first)."""
+    """Every kernel's launch count (ingest's two kernels, the step and the
+    glue kernels too), warp_and_sample_cm's and compute_residuals' calls,
+    the IRLS loop's ``done`` reads, the while form's and the matches'
+    counts to 0 (the while graphs' launches folded in first)."""
     from dvo_slam_tpu_torch.ops import ingest, irls_step
     from dvo_slam_tpu_torch.tools import driver_launches
 
     driver_launches.reset_counts()
     ingest.ingest_cuda.pyramid_launches = ingest.ingest_cuda.pack_launches = 0
     irls_step.step_head_cuda.launches = irls_step.step_tail_cuda.launches = 0
+    for wrapper in _glue_wrappers():
+        wrapper.launches = 0
 
 
 def _launches():
     """{name: launches} since the last reset, with warp_and_sample_cm's calls,
-    ingest's two kernels (``INGEST_COUNTS``) and the step kernels
-    (``STEP_COUNTS``)."""
+    ingest's two kernels (``INGEST_COUNTS``), the step kernels
+    (``STEP_COUNTS``), the glue kernels (``GLUE_COUNTS``) and the card's
+    matches with their level solves (``MATCH_COUNTS``)."""
+    from dvo_slam_tpu_torch.models import irls_graph
     from dvo_slam_tpu_torch.ops import ingest, irls_step
     from dvo_slam_tpu_torch.tools import driver_launches
 
+    matches = irls_graph.match_counts
     return {**driver_launches.launches(),
             **dict(zip(INGEST_COUNTS, (ingest.ingest_cuda.pyramid_launches,
                                        ingest.ingest_cuda.pack_launches))),
             **dict(zip(STEP_COUNTS, (irls_step.step_head_cuda.launches,
-                                     irls_step.step_tail_cuda.launches)))}
+                                     irls_step.step_tail_cuda.launches))),
+            **dict(zip(GLUE_COUNTS, (w.launches for w in _glue_wrappers()))),
+            **dict(zip(MATCH_COUNTS, (matches.launches + matches.per_level, matches.levels)))}
 
 
 STEP_BY_PHASE = {}  # phase -> the step tail's launches of its main-path run
+GLUE_BY_PHASE = {}  # phase -> the glue kernels' launches of its main-path run
 
 
 def _note_steps(what, counts, evaluations=None):
     """Keep a run's step-kernel launches for the kernels line (a head with
-    every tail and, where ``evaluations`` is given, one step with each)."""
+    every tail and, where ``evaluations`` is given, one step with each),
+    and its glue kernels' (``_note_glue``)."""
     from dvo_slam_tpu_torch.tools.fused_check import require
 
     head, tail = (counts[k] for k in STEP_COUNTS)
@@ -1624,6 +1657,21 @@ def _note_steps(what, counts, evaluations=None):
     require(evaluations is None or tail == evaluations,
             f"{what}: step tail launches {tail} != the evaluations {evaluations}")
     STEP_BY_PHASE[what] = STEP_BY_PHASE.get(what, 0) + tail
+    _note_glue(what, counts)
+
+
+def _note_glue(what, counts):
+    """Keep a run's glue-kernel launches for the kernels line: each of the
+    card's matches one setup and one result, and a link between each two
+    of its levels (its level solves less one)."""
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    setup, link, result = (counts[k] for k in GLUE_COUNTS)
+    matches, levels = (counts[k] for k in MATCH_COUNTS)
+    require(setup == result == matches and link == levels - matches,
+            f"{what}: glue kernels launched {setup} setups, {link} links and {result} results "
+            f"for {matches} matches of {levels} level solves")
+    GLUE_BY_PHASE[what] = GLUE_BY_PHASE.get(what, 0) + setup + link + result
 
 
 INGEST_BY_PHASE = {}  # phase -> (kernel A's, kernel B's launches) of its main-path run
@@ -1714,7 +1762,8 @@ def _require_only(counts, name, expected, what):
     _note_steps(what, counts, sum(counts[k] for k in kernels)
                 if all(k in counts for k in kernels) else None)
     others = {k: v for k, v in counts.items()
-              if k not in (name, "table_copy", *INGEST_COUNTS, *STEP_COUNTS) and v}
+              if k not in (name, "table_copy", *INGEST_COUNTS, *STEP_COUNTS, *GLUE_COUNTS,
+                           *MATCH_COUNTS) and v}
     require(not others, f"{what}: other statistics kernels or warp_and_sample_cm ran: {others}")
 
 
@@ -2935,7 +2984,8 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
             evaluations = residuals.compute_residuals.calls - before
             steps = _steps(r.level_stats for r in results)
             _note_steps(f"phase 16b {name}", counts, steps)
-            counts = {k: v for k, v in counts.items() if k not in STEP_COUNTS}
+            counts = {k: v for k, v in counts.items()
+                      if k not in STEP_COUNTS + GLUE_COUNTS + MATCH_COUNTS}
             require(not any(counts.values()), f"phase 16b {name}: kernels ran: {counts}")
             require(evaluations == steps > 0,
                     f"phase 16b {name}: {evaluations} modular evaluations, {steps} executed steps")
@@ -2963,7 +3013,8 @@ def check_modular_and_warps(cfg, intrinsics, frames, d_i, d_d, easy_poses, est, 
     _note_steps("phase 16b lockstep", lock_counts)
     # the lockstep path ingests each rig frame through the ingest kernels
     _note_ingest("16b lockstep", lock_counts, MODULAR_STREAM_FRAMES)
-    lock_counts = {k: v for k, v in lock_counts.items() if k not in STEP_COUNTS + INGEST_COUNTS}
+    lock_counts = {k: v for k, v in lock_counts.items()
+                   if k not in STEP_COUNTS + INGEST_COUNTS + GLUE_COUNTS + MATCH_COUNTS}
     require(not any(lock_counts.values()), f"phase 16b lockstep: kernels ran: {lock_counts}")
     solo, solo_seconds = _synchronized_seconds(
         lambda: make_multistream_tracker(huber_mad, intrinsics, schedule="sequential").tracks(*sub))
@@ -3242,6 +3293,136 @@ def check_step_kernels(cfg, intrinsics, frames, records_sha256):
             "by_streams": list(rows.values())}
 
 
+def check_match_glue(cfg, intrinsics, frames):
+    """Phase 21: the glue kernels (a match's setup, links and result row)
+    against the plain glue on one match's real carries, their device times
+    each alone beside the plain glue's, and the match graph's nodes outside
+    its levels' loops (and its level heads' copies) with the kernels,
+    beside the plain glue captured alone (``graph_check.plain_glue_census``),
+    at B = 1 and B = ``STREAMS`` on phase 3's pairs (frame
+    k against k + 1, warm-started at a small twist).  Fails when an integer
+    differs or a float field leaves ``STEP_GAP_ULPS``.  Returns the kernels
+    line's row."""
+    import torch
+
+    from dvo_slam_tpu_torch.models import dense_tracker as dt
+    from dvo_slam_tpu_torch.models import irls_graph
+    from dvo_slam_tpu_torch.ops import match_glue, se3
+    from dvo_slam_tpu_torch.tools import graph_check
+    from dvo_slam_tpu_torch.tools.fused_check import require
+
+    prepared = [dt.prepare_frame(cfg, intrinsics, f) for f in frames[:STREAMS + 1]]
+    device = prepared[0].refpack[cfg.first_level].device
+    levels = list(range(cfg.first_level, cfg.last_level - 1, -1))
+    f32 = torch.float32
+    rows = {}
+    for streams in (1, STREAMS):
+        batch = () if streams == 1 else (streams,)
+
+        def stack(offset):
+            picked = prepared[offset:offset + streams]
+            return picked[0] if streams == 1 else dt.PreparedFrame(*(
+                tuple(None if level[0] is None else torch.stack(level) for level in zip(*field))
+                for field in zip(*picked)))
+
+        ref, cur = stack(0), stack(1)
+        twist = torch.tensor([0.004, -0.003, 0.002, 0.003, -0.002, 0.001], device=device)
+        scale = torch.linspace(0.5, 1.5, streams, device=device).reshape(batch + (1,))
+        init = se3.exp_se3(twist * scale if batch else twist).contiguous()
+        gaps = {}
+
+        def hold(part, got, want):
+            for name, a, b in zip(("x", "T", "initial", "precision"), got, want):
+                b = b.expand(a.shape)
+                key = f"{part}.{name}"
+                gaps[key] = max(gaps.get(key, 0.0), _gap_ulps(a, b))
+                require(gaps[key] <= STEP_GAP_ULPS,
+                        f"phase 21 B = {streams}: {key} {gaps[key]} ulps from the plain glue "
+                        f"(limit {STEP_GAP_ULPS})")
+
+        start = dt.match_start(init, batch, f32, device)
+        hold("setup", match_glue.setup_cuda(init, batch, device), start)
+        finals, refpacks = [], []
+        for level in levels:
+            final = dt._match_level(cfg, intrinsics.at_level(level), ref.sel[level],
+                                    ref.refpack[level], cur.quad[level], *start)[0]
+            finals.append(final)
+            refpacks.append(ref.refpack[level])
+            start = dt.next_start(final)
+            hold("link", match_glue.link_cuda(final.inc_applied, final.T, final.initial,
+                                              final.precision), start)
+        stats = [dt.level_stats(r, f) for r, f in zip(refpacks, finals)]
+        want = dt.flatten_result(dt.match_result(cfg, finals[-1], stats))
+        got = dt._glue_result(cfg, finals, refpacks)
+        base = dt.FLAT_BASE
+        require(torch.equal(got[..., base:], want[..., base:]),
+                f"phase 21 B = {streams}: the result's counts differ from the plain glue's")
+        for name, part in (("T", slice(0, 16)), ("information", slice(16, 52)),
+                           ("nll", slice(52, 53))):
+            key = "result." + name
+            gaps[key] = _gap_ulps(got[..., part], want[..., part])
+            require(gaps[key] <= STEP_GAP_ULPS,
+                    f"phase 21 B = {streams}: {key} {gaps[key]} ulps from the plain glue "
+                    f"(limit {STEP_GAP_ULPS})")
+        last = finals[-1]
+        start_out = match_glue.setup_cuda(init, batch, device)
+        row_out = got.clone()
+        row = {"streams": streams, "levels": len(levels), "gap_ulps": gaps,
+               "max_gap_ulps": max(gaps.values()), "gap_limit_ulps": STEP_GAP_ULPS}
+        row["setup_device_ms"] = device_ms(
+            lambda: match_glue.setup_cuda(init, batch, device, start_out))
+        row["link_device_ms"] = device_ms(lambda: match_glue.link_cuda(
+            last.inc_applied, last.T, last.initial, last.precision, start_out))
+        row["result_device_ms"] = device_ms(lambda: dt._glue_result(cfg, finals, refpacks,
+                                                                    row_out))
+        def glue():
+            match_glue.setup_cuda(init, batch, device, start_out)
+            for f in finals[:-1]:
+                match_glue.link_cuda(f.inc_applied, f.T, f.initial, f.precision, start_out)
+            dt._glue_result(cfg, finals, refpacks, row_out)
+
+        def plain():
+            dt.match_start(init, batch, f32, device)
+            for f in finals[:-1]:
+                dt.next_start(f)
+            dt.flatten_result(dt.match_result(cfg, last, [
+                dt.level_stats(r, f) for r, f in zip(refpacks, finals)]))
+
+        # a match's glue: the device alone (behind a spin), and with the host enqueueing it
+        row["device_ms"], row["plain_device_ms"] = device_ms(glue), device_ms(plain)
+        row["wrapper_ms"], row["plain_wrapper_ms"] = median_ms(glue), median_ms(plain)
+        pixels = sum(int(r.shape[-1]) for r in refpacks)
+        # a stream's bytes: the setup's 64 in and 168 out, each link's 208 and
+        # 168, the result's selection rows, its carries' 436 and its row out
+        moved = streams * (64 + 168 + (len(levels) - 1) * (208 + 168) + 4 * pixels + 436
+                           + 4 * (base + 4 * len(levels)))
+        row["bound_ms"], row["bound_by"] = _bound(moved)
+        # the match graph's nodes outside its levels' loops, and its heads',
+        # against the same glue as captured PyTorch ops
+        plain = graph_check.plain_glue_census(cfg, init, finals, refpacks)
+        irls_graph.release()
+        with graph_check.loop_mode(True, 1, polled=False):
+            dt.match_prepared(cfg, intrinsics, ref, cur, init)
+        match = next(m for m in irls_graph._matches.values() if m.exec is not None)
+        heads = [g.census()["head"] for g in match.levels]
+        census = {"plain": {"glue_nodes": sum(plain.values()), "glue": plain},
+                  "kernels": {"glue_nodes": sum(match.census()["glue"].values()),
+                              "glue": match.census()["glue"],
+                              "head_memcpy": sum(h.get("memcpy", 0) for h in heads),
+                              "heads": heads}}
+        irls_graph.release()
+        require(census["kernels"]["glue_nodes"] <= 8 and census["kernels"]["head_memcpy"] == 0,
+                f"phase 21 B = {streams}: the match graph's glue {census['kernels']}")
+        row["census"] = census
+        rows[streams] = row
+    one = rows[1]
+    print("phase 21:", json.dumps({"by_streams": list(rows.values())}), flush=True)
+    return {"max_gap_ulps": max(r["max_gap_ulps"] for r in rows.values()),
+            "ms": one["device_ms"], "plain_ms": one["plain_device_ms"],
+            "wrapper_ms": one["wrapper_ms"], "bound_ms": one["bound_ms"],
+            "bound_by": one["bound_by"], "by_streams": list(rows.values())}
+
+
 def check_copy_and_probe():
     """Phase 10: the copy kernel against ``clone()``, then the gather probe
     (whose ``pcopy`` variant is the copy kernel's main path).  Returns the
@@ -3516,6 +3697,11 @@ def main() -> int:
     step_row = check_step_kernels(cfg, TUM_FR1, frames, phase14["records_sha256"])
     elapsed("phase 20")
 
+    # phase 21: the glue kernels against the plain glue, their times, and the
+    # match graph's nodes with each
+    glue_row = check_match_glue(cfg, TUM_FR1, frames)
+    elapsed("phase 21")
+
     # phase 10: the copy kernel and the gather probe
     copy_row = check_copy_and_probe()
     sharded_kernel_counts = count_sharded_kernels(cfg, TUM_FR1, frames)
@@ -3656,6 +3842,14 @@ def main() -> int:
         "entry": "dvo_irls_step_head, dvo_irls_step_tail",
         "launches": sum(STEP_BY_PHASE.values()), "launches_by_phase": dict(STEP_BY_PHASE),
         **step_row, "library_ms": None,
+    })
+    # the glue kernels (a match's setup, links and result row on the card);
+    # kernels of the port that replace no Pallas kernel
+    kernels.append({
+        "name": "match_glue", "route": "cuda", "source": KERNEL_SOURCE, "replaces": GLUE_REPLACES,
+        "entry": "dvo_match_setup, dvo_match_link, dvo_match_result",
+        "launches": sum(GLUE_BY_PHASE.values()), "launches_by_phase": dict(GLUE_BY_PHASE),
+        **glue_row, "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

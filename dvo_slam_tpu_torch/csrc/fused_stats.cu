@@ -1272,6 +1272,166 @@ __global__ void __launch_bounds__(32) step_tail_kernel(const StepTailArgs S) {
   static_cast<int*>(S.out[kN])[b] = n;
 }
 
+// ---------------------------------------------------------------------------
+// A match's glue (models/dense_tracker's match_start, next_start,
+// level_stats, match_result and flatten_result): the glue kernels.  They
+// replace no Pallas kernel: the reference leaves this glue to XLA around its
+// levels' while loops; captured op by op into the card's match graph it was
+// some 356 dependent nodes a match (the setup, a link between two levels, the
+// result row), each about a microsecond of card time that waits on the last.
+// Now each part is one kernel node that writes the graph's static buffers in
+// place.
+//  * match_setup_kernel: the first level's start values x = log_se3(guess),
+//    T = I, initial = guess, precision = I, with guess = inverse(init) for a
+//    warm start and I without one.
+//  * match_link_kernel: the next level's start values from a level's final
+//    carry: x = log_se3(inc_applied), then T, initial and precision as they
+//    are.
+//  * match_result_kernel: the flat float32 row [B, 53 + 4 levels]: the pose
+//    inverse(T), the information A * INFORMATION_SCALE, -ll plus mu
+//    |log_se3(initial)|^2 with smoothing, then each level's selected pixels,
+//    valid constraints, iterations and termination.  Block (l, b) counts
+//    level l's selected pixels of stream b (refpack row 6 != 0: an exact
+//    integer reduction, so its order does not matter) and writes the level's
+//    four counts; block (0, b) also writes the stream's first 53 words.
+// What bounds them: latency for the setup and the link (a few hundred
+// dependent float32 operations a stream, one warp a stream as in the step
+// kernels, its first lane computing); for the result, the selection rows
+// read once (0.4 MB a stream at levels 3-1 of a 640x480 frame), one block a
+// stream and level.  Arithmetic: the step kernels' (the same exp, log and
+// inverse, the same fixed order of the small products), so the glue parts
+// from the plain glue by a few ulps only where cuBLAS orders a product
+// otherwise; torch.sum over six terms adds ((q0 + q4) + q2) + ((q1 + q5) + q3),
+// as PyTorch's warp reduction does.
+
+constexpr int kGlueMaxLevels = 8;
+constexpr int kCountThreads = 512;
+constexpr int kRowBase = 53;  // dense_tracker.FLAT_BASE: T (16), information (36), nll
+
+__device__ __forceinline__ void identity4(float T[16]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) T[k] = k % 5 == 0 ? 1.0f : 0.0f;
+}
+
+// Setup, one warp per stream (see above): init [B, 16] or null; x [B, 6],
+// T and initial [B, 16], precision [B, 4] out.
+__global__ void __launch_bounds__(32) match_setup_kernel(const float* __restrict__ init,
+                                                         float* x, float* T, float* initial,
+                                                         float* precision) {
+  if (threadIdx.x) return;
+  const size_t b = blockIdx.x;
+  float guess[16], xi[6], eye[16];
+  identity4(eye);
+  if (init != nullptr) {
+    float m[16];
+    load<16>(m, init + b * 16);
+    inverse_se3(m, guess);
+  } else {
+    identity4(guess);
+  }
+  log_se3(guess, xi);
+  store<6>(x + b * 6, xi);
+  store<16>(T + b * 16, eye);
+  store<16>(initial + b * 16, guess);
+  const float p[4] = {1.0f, 0.0f, 0.0f, 1.0f};
+  store<4>(precision + b * 4, p);
+}
+
+// Link, one warp per stream: the carry's inc_applied, T, initial [B, 16] and
+// precision [B, 4] in; the next level's x [B, 6], T, initial, precision out.
+// Lane 0 takes the log while the other lanes copy the 36 words.
+__global__ void __launch_bounds__(32) match_link_kernel(
+    const float* __restrict__ inc_applied, const float* __restrict__ T,
+    const float* __restrict__ initial, const float* __restrict__ precision, float* x_out,
+    float* T_out, float* initial_out, float* precision_out) {
+  const size_t b = blockIdx.x;
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    float m[16], xi[6];
+    load<16>(m, inc_applied + b * 16);
+    log_se3(m, xi);
+    store<6>(x_out + b * 6, xi);
+  }
+  for (int k = lane; k < 36; k += 32) {
+    if (k < 16) T_out[b * 16 + k] = T[b * 16 + k];
+    else if (k < 32) initial_out[b * 16 + k - 16] = initial[b * 16 + k - 16];
+    else precision_out[b * 4 + k - 32] = precision[b * 4 + k - 32];
+  }
+}
+
+struct MatchResultArgs {
+  // the last level's final carry: T, initial [B, 16], A [B, 36], ll [B]
+  const float* T;
+  const float* initial;
+  const float* A;
+  const float* ll;
+  // each level's final n, iteration, termination [B] (int32) and its
+  // refpack's selection row: stream b's N words at selected + b * sel_stride
+  const int* n[kGlueMaxLevels];
+  const int* iteration[kGlueMaxLevels];
+  const int* termination[kGlueMaxLevels];
+  const float* selected[kGlueMaxLevels];
+  long long sel_stride[kGlueMaxLevels];
+  int pixels[kGlueMaxLevels];
+  int levels, smoothing;
+  float mu, info_scale;
+  float* row;  // [B, 53 + 4 levels]
+};
+
+// The stream's first 53 words of the row.
+__device__ void write_row_base(const MatchResultArgs& R, size_t b, float* out) {
+  float T[16], T_inv[16];
+  load<16>(T, R.T + b * 16);
+  inverse_se3(T, T_inv);
+  store<16>(out, T_inv);
+#pragma unroll
+  for (int k = 0; k < 36; ++k) out[16 + k] = R.A[b * 36 + k] * R.info_scale;
+  float prior = 0.0f;
+  if (R.smoothing) {
+    float m[16], xi[6], q[6];
+    load<16>(m, R.initial + b * 16);
+    log_se3(m, xi);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) q[k] = xi[k] * xi[k];
+    prior = R.mu * (((q[0] + q[4]) + q[2]) + ((q[1] + q[5]) + q[3]));
+  }
+  out[52] = -R.ll[b] + prior;
+}
+
+// Result, block (l, b) of kCountThreads threads (see above).
+__global__ void __launch_bounds__(kCountThreads) match_result_kernel(const MatchResultArgs R) {
+  const int l = blockIdx.x;
+  const size_t b = blockIdx.y;
+  float* out = R.row + b * (kRowBase + 4 * R.levels);
+  if (l == 0 && threadIdx.x == 32) write_row_base(R, b, out);  // beside warp 0's counting
+  const float* sel = R.selected[l] + b * R.sel_stride[l];
+  const int n = R.pixels[l];
+  int count = 0;
+  if ((reinterpret_cast<size_t>(sel) & 15) == 0 && n % 4 == 0) {
+    const float4* sel4 = reinterpret_cast<const float4*>(sel);
+    for (int i = threadIdx.x; i < n / 4; i += kCountThreads) {
+      const float4 v = sel4[i];
+      count += (v.x != 0.0f) + (v.y != 0.0f) + (v.z != 0.0f) + (v.w != 0.0f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += kCountThreads) count += sel[i] != 0.0f;
+  }
+  __shared__ int warps[kCountThreads / 32];
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) count += __shfl_down_sync(0xffffffffu, count, offset);
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = count;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kCountThreads / 32; ++w) total += warps[w];
+    float* counts = out + kRowBase + 4 * l;
+    counts[0] = (float)total;
+    counts[1] = (float)R.n[l][b];
+    counts[2] = (float)R.iteration[l][b];
+    counts[3] = (float)R.termination[l][b];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1479,6 +1639,69 @@ int dvo_irls_step_tail(void* const* pointers, const long long* eval_strides, int
   S.mu = mu;
   S.precision = precision;
   step_tail_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(S);
+  return (int)cudaGetLastError();
+}
+
+// The most levels dvo_match_result takes.
+int dvo_match_glue_max_levels() { return kGlueMaxLevels; }
+
+// A match's setup for B streams: init [B, 4, 4] (the warm start, result
+// space) or null (the identity); x [B, 6], T and initial [B, 4, 4],
+// precision [B, 2, 2] out; float32, contiguous.  One launch.
+int dvo_match_setup(const float* init, int batch, float* x, float* T, float* initial,
+                    float* precision, void* stream) {
+  if (bad_shape(1, batch)) return (int)cudaErrorInvalidValue;
+  match_setup_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(init, x, T, initial,
+                                                                         precision);
+  return (int)cudaGetLastError();
+}
+
+// The link between two levels of B streams: a level's final inc_applied, T,
+// initial [B, 4, 4] and precision [B, 2, 2] in; the next level's start
+// values x [B, 6], T, initial, precision out; float32, contiguous.  One
+// launch.
+int dvo_match_link(const float* inc_applied, const float* T, const float* initial,
+                   const float* precision, int batch, float* x_out, float* T_out,
+                   float* initial_out, float* precision_out, void* stream) {
+  if (bad_shape(1, batch)) return (int)cudaErrorInvalidValue;
+  match_link_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      inc_applied, T, initial, precision, x_out, T_out, initial_out, precision_out);
+  return (int)cudaGetLastError();
+}
+
+// A match's result row for B streams.  pointers: the last level's final T
+// [B, 4, 4], initial [B, 4, 4], A [B, 6, 6] and ll [B] (float32), then for
+// each level, coarse to fine, its final n, iteration and termination [B]
+// (int32) and its refpack's selection row of stream 0 (float32; stream b's at
+// sel_strides[l] * b words, pixels[l] words each).  smoothing: the prior's
+// term with weight mu; info_scale: INFORMATION_SCALE as float32.  row: [B, 53
+// + 4 levels] float32, contiguous.  One launch.
+int dvo_match_result(void* const* pointers, const long long* sel_strides, const int* pixels,
+                     int levels, int batch, int smoothing, float mu, float info_scale,
+                     float* row, void* stream) {
+  if (bad_shape(1, batch) || levels < 1 || levels > kGlueMaxLevels)
+    return (int)cudaErrorInvalidValue;
+  MatchResultArgs R = {};
+  int p = 0;
+  R.T = static_cast<const float*>(pointers[p++]);
+  R.initial = static_cast<const float*>(pointers[p++]);
+  R.A = static_cast<const float*>(pointers[p++]);
+  R.ll = static_cast<const float*>(pointers[p++]);
+  for (int l = 0; l < levels; ++l) {
+    R.n[l] = static_cast<const int*>(pointers[p++]);
+    R.iteration[l] = static_cast<const int*>(pointers[p++]);
+    R.termination[l] = static_cast<const int*>(pointers[p++]);
+    R.selected[l] = static_cast<const float*>(pointers[p++]);
+    R.sel_stride[l] = sel_strides[l];
+    if (pixels[l] < 1) return (int)cudaErrorInvalidValue;
+    R.pixels[l] = pixels[l];
+  }
+  R.levels = levels;
+  R.smoothing = smoothing;
+  R.mu = mu;
+  R.info_scale = info_scale;
+  R.row = row;
+  match_result_kernel<<<dim3(levels, batch), kCountThreads, 0, static_cast<cudaStream_t>(stream)>>>(R);
   return (int)cudaGetLastError();
 }
 

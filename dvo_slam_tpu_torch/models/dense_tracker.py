@@ -45,8 +45,15 @@ On the card a tracker step of a float32 carry is, besides its evaluation,
 two hand-written kernels (``ops/irls_step``, ``_fused_step``): the head
 (the trial pose, where the evaluation reads it) and the tail (prior,
 solve, termination, accept/revert), which writes the carry in place of the
-loop's state, so a tail chunk is four kernel launches and no copy.  The
-CPU's and float64's steps are ``_step``, the kernels' plain version.
+loop's state, so a tail chunk is four kernel launches and no copy; a
+level's first step writes the loop's state buffers too, so a head chunk is
+four launches and no copy.  The CPU's and float64's steps are ``_step``,
+the kernels' plain version.  Where the steps take the kernels, so does the
+match's glue around its levels: three kernels
+(``ops/match_glue``) for the start values, the links between levels and
+the result row, one launch each, where the CPU and float64 run the plain
+functions ``match_start``, ``next_start``, ``level_stats``,
+``match_result`` and ``flatten_result``.
 
 Lockstep batching: prepared frames whose artifacts carry a leading stream
 axis [B, ...] (``prepare_frame`` on batched pyramids) align B independent
@@ -67,7 +74,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..config import InfluenceFunction, ScaleEstimator, TrackerConfig
-from ..ops import fused_kernels, irls_step, least_squares, robust, se3
+from ..ops import fused_kernels, irls_step, least_squares, match_glue, robust, se3
 from ..ops.camera import Intrinsics
 from ..ops.interp import build_quad_table_cm
 from ..ops.pyramid import (
@@ -533,19 +540,20 @@ def fused_step_applies(x: torch.Tensor) -> bool:
 
 
 def _fused_step(cfg: TrackerConfig, evaluate, c: Optional[_Carry], trace, first: bool,
-                freeze: bool, start=None) -> _Carry:
+                freeze: bool, start=None, into: Optional[_Carry] = None) -> _Carry:
     """``_step`` on the card, with ``_chunk``'s freeze and trace row: the
     head kernel (the trial pose), ``evaluate``, and the tail kernel, which
     writes the new carry in place of ``c`` (the loop's state) and the
     iteration's row into ``trace`` (the loop's buffers) where there is one.
     With ``start`` (a level's four start values) in place of ``c`` the step
     is the level's first, from its initial carry (``_initial_carry``'s, made
-    by the tail kernel), into new buffers.  Returns the new carry."""
+    by the tail kernel), into ``into`` (the loop's state buffers) or new
+    buffers.  Returns the new carry."""
     x, T, initial, precision = start if c is None else (c.x, c.T, c.initial, c.precision)
     inc, T_new, initial_new = irls_step.step_head_cuda(x, T, initial)
     evaluation = evaluate(T_new, precision, first)
-    out = c
-    if c is None:
+    out = c if c is not None else into
+    if out is None:
         batch = tuple(x.shape[:-1])
         out = _Carry(*(torch.empty(batch + shape, dtype=dtype, device=x.device)
                        for shape, dtype in irls_step.CARRY))
@@ -557,14 +565,16 @@ def _fused_step(cfg: TrackerConfig, evaluate, c: Optional[_Carry], trace, first:
 
 
 def _chunk(cfg: TrackerConfig, evaluate, carry: Optional[_Carry], trace, steps: int,
-           first: bool, consts: Optional[_Constants], fused: bool = False, start=None):
+           first: bool, consts: Optional[_Constants], fused: bool = False, start=None,
+           into: Optional[_Carry] = None):
     """``steps`` IRLS steps from ``carry`` (the first with ``first``), each
     frozen where the carry is already done: a step past ``done`` leaves the
     carry, its iteration count and the trace as they were.  An active
     step writes its trace row at its stream's iteration.  Returns (carry,
     trace).  With ``fused`` the steps are ``_fused_step``'s, which write in
     place of ``carry`` and ``trace`` (the loop's state), or start a level
-    from its four start values ``start`` in place of a ``carry`` (None).
+    from its four start values ``start`` in place of a ``carry`` (None),
+    into ``into`` where it is given (the loop's state buffers).
 
     A chunk of one step of one stream has nothing to freeze: the loop runs
     it only from a carry that is not done (it reads ``done`` after every
@@ -574,7 +584,7 @@ def _chunk(cfg: TrackerConfig, evaluate, carry: Optional[_Carry], trace, steps: 
     if fused:
         for k in range(steps):
             carry = _fused_step(cfg, evaluate, carry, trace, first and k == 0, freeze,
-                                start if k == 0 else None)
+                                start if k == 0 else None, into if k == 0 else None)
         return carry, trace
     for k in range(steps):
         stepped, row = _step(cfg, evaluate, carry, first and k == 0, consts)
@@ -648,6 +658,9 @@ _COUNTERS = (
     (compute_residuals, "calls"),
     (irls_step.step_head_cuda, "launches"),
     (irls_step.step_tail_cuda, "launches"),
+    (match_glue.setup_cuda, "launches"),
+    (match_glue.link_cuda, "launches"),
+    (match_glue.result_cuda, "launches"),
 )
 _TAIL_LAUNCHES = _COUNTERS.index((irls_step.step_tail_cuda, "launches"))
 _CARRY_FIELDS = len(_Carry._fields)
@@ -681,24 +694,30 @@ def _level_program(cfg: TrackerConfig, make_evaluate, level_inputs: int, collect
     start values), as ``irls_graph`` captures it: ``program(static, state)``
     starts the level (``state`` None: the head) or continues it (the
     tail), in place of ``state`` where the steps are the card's step
-    kernels (``fused_step_applies``)."""
+    kernels (``fused_step_applies``); such a head writes the loop's state
+    buffers in place too where ``irls_graph`` hands them over (``into``)."""
 
-    def program(static, state):
+    def program(static, state, into=None):
         evaluate = make_evaluate(static[:level_inputs])
         x, T, initial, precision = static[level_inputs:]
         # the step kernels make the initial carry themselves and read no constant
         kernels = fused_step_applies(x)
         consts = None if kernels else _constants(cfg, x)
-        start = None
+        start = out = None
         if state is None:
             carry = None if kernels else _initial_carry(x, T, initial, precision, consts)
             start = (x, T, initial, precision) if kernels else None
-            trace = _empty_trace(cfg, x) if collect_stats else None
+            if kernels and into is not None:
+                out = _Carry(*into[:_CARRY_FIELDS])
+                trace = (IterationStats(*(t.zero_() for t in into[_CARRY_FIELDS:]))
+                         if collect_stats else None)
+            else:
+                trace = _empty_trace(cfg, x) if collect_stats else None
         else:
             carry = _Carry(*state[:_CARRY_FIELDS])
             trace = IterationStats(*state[_CARRY_FIELDS:]) if collect_stats else None
         carry, trace = _chunk(cfg, evaluate, carry, trace, chunk, state is None, consts,
-                              fused=kernels, start=start)
+                              fused=kernels, start=start, into=out)
         return tuple(carry) + (tuple(trace) if collect_stats else ())
 
     return program
@@ -763,8 +782,25 @@ def ref_artifacts(prepared: PreparedFrame) -> PreparedFrame:
 
 # the flat result row: 16 (T) + 36 (information) + 1 (nll), then 4 per solved
 # level (valid pixels, valid constraints, iterations, termination), float32
-FLAT_BASE = 53
+FLAT_BASE = match_glue.ROW_BASE
 _SELECTED = 6  # the refpack's row of the selection mask
+
+
+def _glue_link(final: _Carry, out=None):
+    """``next_start`` as the glue kernel, into ``out`` (static buffers) or
+    new tensors."""
+    return match_glue.link_cuda(final.inc_applied, final.T, final.initial, final.precision, out)
+
+
+def _glue_result(cfg: TrackerConfig, finals: Sequence[_Carry], refpacks, out=None):
+    """The glue kernel's result row of a match's final carries and refpacks
+    (``level_stats``, ``match_result`` and ``flatten_result`` in one
+    launch), into ``out`` or a new tensor."""
+    last = finals[-1]
+    return match_glue.result_cuda(
+        (last.T, last.initial, last.A, last.ll),
+        [((f.n, f.iteration, f.termination), refpack) for f, refpack in zip(finals, refpacks)],
+        smoothing=cfg.use_estimate_smoothing, mu=cfg.mu, info_scale=INFORMATION_SCALE, out=out)
 
 
 def match_start(initial, batch: tuple, dtype, device):
@@ -930,16 +966,19 @@ def _match_per_level(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFr
     refpack0 = ref.refpack[cfg.first_level]
     dtype, device = refpack0.dtype, refpack0.device
     batch = tuple(refpack0.shape[:-2])
+    kernels = fused_step_applies(refpack0)
     if device.type == "cuda":
         irls_graph.match_counts.per_level += 1
+        irls_graph.match_counts.levels += cfg.first_level - cfg.last_level + 1
     with timers.span("dvo.match.setup"):
         initial = (None if initial_transformation is None
                    else torch.as_tensor(initial_transformation, device=device).to(dtype))
-        x, T, initial, precision = match_start(initial, batch, dtype, device)
+        x, T, initial, precision = (match_glue.setup_cuda(initial, batch, device) if kernels
+                                    else match_start(initial, batch, dtype, device))
 
     stats = []
     iteration_stats = []
-    final = None
+    finals = []
     for level in range(cfg.first_level, cfg.last_level - 1, -1):
         final, level_out, trace = _match_level(
             cfg,
@@ -955,12 +994,18 @@ def _match_per_level(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFr
             accel=cur.accel[level],
         )
         stats.append(level_out)
+        finals.append(final)
         if collect_iteration_stats:
             iteration_stats.append(trace)
         with timers.span("dvo.level.out"):
-            x, T, initial, precision = next_start(final)
+            if level > cfg.last_level:
+                x, T, initial, precision = _glue_link(final) if kernels else next_start(final)
 
     with timers.span("dvo.match.result"):
+        if kernels:
+            refpacks = [ref.refpack[level] for level in range(cfg.first_level,
+                                                              cfg.last_level - 1, -1)]
+            return result_from_row(_glue_result(cfg, finals, refpacks), iteration_stats)
         return match_result(cfg, final, stats, iteration_stats)
 
 
@@ -968,7 +1013,8 @@ def _match_graph(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFrame,
                  cur: PreparedFrame, initial, collect_iteration_stats: bool, out: str):
     """The match as one launch of its match graph, keyed by its levels'
     keys, the batch, whether a warm start is given and
-    ``use_estimate_smoothing`` (built at the key's first use).  The host
+    ``use_estimate_smoothing`` (built at the key's first use); its glue is
+    the glue kernels (``ops/match_glue``).  The host
     copies each level's per-frame inputs and the warm start into the static
     buffers, launches, and returns (``out``) the result row on the host
     ("host": waits once), a copy of it on the card ("row"), or a
@@ -994,10 +1040,15 @@ def _match_graph(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFrame,
     key = ("match", tuple(keys), batch, initial is None, cfg.use_estimate_smoothing)
     at = _refpack_index(backend)
 
-    def result(states, statics):
+    def setup(init, out=None):
+        return match_glue.setup_cuda(init, batch, device, out)
+
+    def link(state, out=None):
+        return _glue_link(_Carry(*state[:_CARRY_FIELDS]), out)
+
+    def result(states, statics, out=None):
         finals = [_Carry(*state[:_CARRY_FIELDS]) for state in states]
-        stats = [level_stats(static[at], final) for static, final in zip(statics, finals)]
-        return flatten_result(match_result(cfg, finals[-1], stats))
+        return _glue_result(cfg, finals, [static[at] for static in statics], out)
 
     levels = [irls_graph.graphs_for(k, device) for k in keys]
     with irls_graph.holding(levels):
@@ -1006,19 +1057,19 @@ def _match_graph(cfg: TrackerConfig, intrinsics: Intrinsics, ref: PreparedFrame,
             match.build(
                 inputs,
                 None if initial is None else torch.as_tensor(initial, device=device).to(dtype),
-                lambda init: match_start(init, batch, dtype, device), programs,
-                lambda state: next_start(_Carry(*state[:_CARRY_FIELDS])), result, _COUNTERS,
-                _DONE)
+                setup, programs, link, result, _COUNTERS, _DONE)
         with timers.span("dvo.level.copy_in"):
             for graphs, level_inputs in zip(levels, inputs):
                 graphs.load(level_inputs)
             if initial is not None:
                 match.load_initial(initial)
-        # whether the levels' tail captures hold the step kernels (their
-        # launch counts moved there)
+        # whether the levels' tail captures hold the step kernels, and the
+        # glue captures the glue kernels (their launch counts moved there)
         fused_tail = all(g.deltas[1][_TAIL_LAUNCHES] for g in levels)
+        glue = any(match.glue_deltas)
         with timers.span("dvo.match.graph"), (
-                timers.span("dvo.match.fused_tail") if fused_tail else contextlib.nullcontext()):
+                timers.span("dvo.match.fused_tail") if fused_tail else contextlib.nullcontext()), (
+                timers.span("dvo.match.glue_kernels") if glue else contextlib.nullcontext()):
             with timers.span("dvo.level.graph", device=True):
                 match.launch()
         with timers.span("dvo.match.result"):

@@ -12,8 +12,11 @@ captures two graphs over one set of static buffers:
     constant of the graph);
   * the *tail*: K steps from the carry buffers, ``first = False``.
 
-Each graph's last ops copy the new state into the state buffers (a tail
-whose program wrote them in place copies nothing), so the chunks chain.
+Each graph's last ops copy the new state into the state buffers, so the
+chunks chain; a program that writes them in place copies nothing: a tail
+that continues the state it was given, and a head that writes the state
+buffers it is handed (``program(static, None, into=state)``; a program
+may ignore ``into``).
 This module owns how a device loop runs: ``loop_form`` chooses the form up
 front, from the device, the switches ``CUDA_GRAPHS`` and ``WHILE_GRAPHS``
 and the loop's process group, and ``run_loop`` runs a loop's chunk program
@@ -47,9 +50,11 @@ each level its head -> ``set_while`` -> WHILE { tail -> ``set_while`` }
 over that level key's captures and ``runs``, then a captured link that
 writes the next level's start values into its static start buffers, and
 after the last level a captured result (one flat row) and a copy of that
-row to pinned host memory.  So a match is one launch and one host wait.  A
-match graph lives as long as every one of its level keys: dropping or
-evicting a key destroys the match graphs built on it.
+row to pinned host memory.  On the card each glue capture is one of the
+glue kernels (``ops/match_glue``), which writes the static buffers in
+place.  So a match is one launch and one host wait.  A match graph lives
+as long as every one of its level keys: dropping or evicting a key
+destroys the match graphs built on it.
 
 Launch counts: a capture launches nothing, so the counts that it moves
 are taken back and added once per executed chunk instead: by the host per
@@ -138,9 +143,10 @@ _generation = [0]  # process groups started by parallel.distributed.initialize
 # (counted on the card, one per head and one per tail chunk; up to date
 # after ``fold_counts``)
 while_counts = types.SimpleNamespace(launches=0, set_while=0)
-# the match graphs' counts: ``launches``, the match graphs launched, and
-# ``per_level``, the matches on the card that ran level by level instead
-match_counts = types.SimpleNamespace(launches=0, per_level=0)
+# the match graphs' counts: ``launches``, the match graphs launched,
+# ``per_level``, the matches on the card that ran level by level instead,
+# and ``levels``, the level solves of both kinds of match
+match_counts = types.SimpleNamespace(launches=0, per_level=0, levels=0)
 _matches: "Dict[tuple, MatchGraph]" = {}  # (device index,) + match key -> its graph
 _dropped_tallies = []  # the tallies of dropped keys, until the next fold_counts
 _group_forms: "Dict[tuple, GroupForm]" = {}  # group_key -> the group's probed form
@@ -216,9 +222,11 @@ def run_loop(form: str, program: Callable, inputs: Sequence[torch.Tensor], key: 
              flag: int, read: Callable, counters=(), loop_on: bool = False,
              spans: bool = False) -> Tuple[torch.Tensor, ...]:
     """Run a device loop in ``form`` (``loop_form``) to its end and return
-    its final state.  ``program(static, state)`` is one chunk over the
-    loop's inputs, starting the loop where ``state`` is None (the head) and
-    continuing it from ``state`` otherwise (the tail).  The loop goes on
+    its final state.  ``program(static, state, into=None)`` is one chunk
+    over the loop's inputs, starting the loop where ``state`` is None (the
+    head; a graph's head is handed its state buffers as ``into``, which it
+    may write in place) and continuing it from ``state`` otherwise (the
+    tail).  The loop goes on
     while the host read ``read(state)`` equals ``loop_on`` and, in the
     while form, while one of the flags in ``state[flag]`` does (a stream's
     ``done`` False, or CG's ``active`` True).
@@ -476,14 +484,15 @@ class LevelGraphs:
         return {"head": node_census(self.head), "tail": node_census(self.tail)}
 
     def _capture(self, graph, program, state, counters, pool=None):
-        """Capture ``program(inputs, state)`` and the copy of its result
-        into the state buffers; returns the counter moves of one chunk."""
+        """Capture ``program(inputs, state)`` (a head's with ``into`` the
+        state buffers) and the copy of its result into the state buffers;
+        returns the counter moves of one chunk."""
         before = _read_counters(counters)
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
-            out = program(self.inputs, state)
+            out = program(self.inputs, state, into=self.state if state is None else None)
             for buf, t in zip(self.state, out):
-                if t is not buf:  # a program that continues a loop may write in place
+                if t is not buf:  # a program may write the state buffers in place
                     buf.copy_(t)
             del out
         except Exception as exc:
@@ -566,13 +575,12 @@ class _Tally:
         while_counts.set_while += sum(new)
 
 
-def _capture_into(graph, fn: Callable, outs: Sequence[torch.Tensor], pool=None):
-    """Capture ``fn()`` and the copy of its results into ``outs`` (static
-    buffers); a failure raises, naming the op."""
+def _capture_glue(graph, fn: Callable, pool=None):
+    """Capture ``fn()``, which writes a match graph's static buffers; a
+    failure raises, naming the op."""
     graph.capture_begin(pool=pool, capture_error_mode="thread_local")
     try:
-        for buf, t in zip(outs, fn()):
-            buf.copy_(t)
+        fn()
     except Exception as exc:
         try:
             graph.capture_end()
@@ -590,7 +598,8 @@ class MatchGraph:
     ``init`` (the warm start, or None), ``row`` (the result on the card),
     ``host`` (its pinned copy) and ``staging`` (a pinned warm start on its
     way to ``init``).  The caller holds every level's lock from the loads to
-    the last read of ``row`` or ``host``."""
+    the last read of ``row`` or ``host``.  The glue captures' launch counts
+    are added once per launch (``glue_deltas``)."""
 
     def __init__(self, key: tuple, device: torch.device, levels: Sequence[LevelGraphs]):
         self.key, self.device, self.levels = key, device, tuple(levels)
@@ -598,6 +607,7 @@ class MatchGraph:
         self.captures = ()  # setup, links, result (kept: the graph reads their pool)
         self.init = self.staging = self.row = self.host = None
         self.staged = self.fetched = None  # events: the warm start's copy, the row's
+        self.counters, self.glue_deltas = (), []
         self.nbytes = 0
 
     def build(self, frame_inputs, initial: Optional[torch.Tensor], setup: Callable,
@@ -606,13 +616,15 @@ class MatchGraph:
         """Warm up and capture, in the order the graph runs them, then build
         the graph.  ``frame_inputs[l]`` are level l's per-frame inputs (its
         static buffers then add the four start values); ``initial`` the warm
-        start on the card or None; ``setup(init) -> start``, the first
-        level's start values from the ``init`` buffer; ``programs[l]`` level
-        l's chunk (``LevelGraphs.run_level``'s); ``link(state) -> start``,
-        the next level's start values from a level's state; ``result(states,
-        inputs) -> row`` the flat result from the levels' states and static
-        inputs; ``state[flag]`` a level's ``done`` flags.  A refused build
-        raises with CUDA's text."""
+        start on the card or None; ``setup(init, out=None)``, the first
+        level's start values from the ``init`` buffer; ``programs[l]``
+        level l's chunk (``LevelGraphs.run_level``'s); ``link(state,
+        out=None)``, the next level's start values from a level's state;
+        ``result(states, inputs, out=None)`` the flat result from the
+        levels' states and static inputs; each of the three writes ``out``
+        (static buffers) in place where it is given (the captures), else
+        new tensors (the warm-up); ``state[flag]`` a level's ``done``
+        flags.  A refused build raises with CUDA's text."""
         with _lock:
             self._build(frame_inputs, initial, setup, programs, link, result, counters, flag)
 
@@ -645,22 +657,25 @@ class MatchGraph:
             with torch.cuda.stream(side):
                 side.synchronize()
                 reserved = torch.cuda.memory_reserved(self.device)
+                before = _read_counters(counters)
                 setup_graph = torch.cuda.CUDAGraph(keep_graph=True)
                 starts = [g.inputs[-4:] for g in self.levels]
-                _capture_into(setup_graph, lambda: setup(self.init), starts[0])
+                _capture_glue(setup_graph, lambda: setup(self.init, starts[0]))
                 pool = setup_graph.pool()
                 links = []
                 for level in range(len(self.levels) - 1):
                     links.append(torch.cuda.CUDAGraph(keep_graph=True))
-                    _capture_into(links[-1], functools.partial(link, self.levels[level].state),
-                                  starts[level + 1], pool)
+                    _capture_glue(links[-1], functools.partial(
+                        link, self.levels[level].state, starts[level + 1]), pool)
                 result_graph = torch.cuda.CUDAGraph(keep_graph=True)
-                _capture_into(result_graph, lambda: (result(
-                    [g.state for g in self.levels], [g.inputs for g in self.levels]),),
-                    (self.row,), pool)
+                _capture_glue(result_graph, lambda: result(
+                    [g.state for g in self.levels], [g.inputs for g in self.levels], self.row),
+                    pool)
+                glue = [a - b for a, b in zip(_read_counters(counters), before)]
                 pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
             default.wait_stream(side)
-        _set_counters(counters, saved)  # the glue launches no counted kernel
+        _set_counters(counters, saved)  # the launches add the glue's counts
+        self.counters, self.glue_deltas = tuple(counters), glue
         self.captures = (setup_graph, *links, result_graph)
         self.host = torch.empty(self.row.shape, dtype=self.row.dtype, pin_memory=True)
         if self.init is not None:
@@ -726,7 +741,23 @@ class MatchGraph:
                                    f"{exc}") from None
             self.fetched.record()
             match_counts.launches += 1
+            match_counts.levels += len(self.levels)
             while_counts.launches += len(self.levels)
+            _add_counters(self.counters, self.glue_deltas)
+
+    def census(self) -> Dict[str, Dict[str, int]]:
+        """The node types of the graph's parts outside its levels' loops:
+        ``glue`` (the setup, link and result captures, and the row's copy
+        to the host) and of each part alone (``setup``, ``link_<l>``,
+        ``result``); the levels' own are their ``LevelGraphs.census``."""
+        setup, *links, result = self.captures
+        parts = {"setup": node_census(setup), "result": node_census(result)}
+        parts.update({f"link_{l}": node_census(c) for l, c in enumerate(links)})
+        glue = {"memcpy": 1}
+        for part in parts.values():
+            for kind, n in part.items():
+                glue[kind] = glue.get(kind, 0) + n
+        return {"glue": glue, **parts}
 
     def host_row(self):
         """The result row as a NumPy array of its own (waits for the copy)."""

@@ -371,7 +371,7 @@ def solve_blocks_cg(
     static = edges + (L, stop2) + carry
     solve = len(edges)  # static[solve]: L; static[solve + 1]: stop2
 
-    def program(static, state):
+    def program(static, state, into=None):
         start = static[solve + 2:] if state is None else state
         return _cg_chunk(matvec_on(*static[:solve]), static[solve], start, chunk, iterations,
                          static[solve + 1])

@@ -172,7 +172,7 @@ def while_probe(device, group=None):
     inputs = tuple(t.to(device) for t in (refpack, quad, twist, torch.eye(2), limit))
     dof = 5.0
 
-    def program(static, state):
+    def program(static, state, into=None):
         refpack, quad, T, P, limit = static
         steps = torch.zeros_like(limit) if state is None else state[0]
         out = fused_kernels.warp_fused_partials(refpack, quad, PROBE_SHAPE, PROBE_INTRINSICS,

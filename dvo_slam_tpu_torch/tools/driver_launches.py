@@ -92,6 +92,7 @@ def reset_counts():
     dense_tracker.read_done.calls = 0
     irls_graph.while_counts.launches = irls_graph.while_counts.set_while = 0
     irls_graph.match_counts.launches = irls_graph.match_counts.per_level = 0
+    irls_graph.match_counts.levels = 0
 
 
 def lockstep_iterations(level_stats) -> int:

@@ -26,7 +26,10 @@ the eager loops, for ``tests_cuda/test_irls_graph_cuda.py``,
   * ``counts(level_stats, chunk)``: the loop's iterations, executed steps
     and the host-polled form's reads for levels' statistics at K =
     ``chunk`` (the while form reads none; ``dense_tracker.read_done.calls``
-    counts the reads a run made).
+    counts the reads a run made);
+  * ``plain_glue_census(cfg, initial, finals, refpacks)``: the nodes a
+    match's glue takes as captured PyTorch ops, beside the glue kernels'
+    handful (``irls_graph.MatchGraph.census``).
 """
 
 from __future__ import annotations
@@ -308,3 +311,36 @@ def set_while_check(device, batches=SET_WHILE_BATCHES, steps=SET_WHILE_STEPS) ->
                 torch.cuda.synchronize(device)
                 irls_graph.destroy_while(exec_)
     return rows
+
+
+def plain_glue_census(cfg, initial, finals, refpacks) -> dict:
+    """The nodes of a match's plain glue on the card, by type: the start
+    values (``match_start`` from the warm start ``initial`` or None), each
+    link (``next_start`` of the final carries but the last) and the result
+    row (``level_stats``, ``match_result``, ``flatten_result`` of every
+    level's carry and refpack), each copied into static buffers as a match
+    graph holds them, captured in one graph, with the row's copy to the
+    host (one node) added."""
+    refpack0 = refpacks[0]
+    batch, device = tuple(refpack0.shape[:-2]), refpack0.device
+
+    def glue(outs=None):
+        parts = [dense_tracker.match_start(initial, batch, torch.float32, device)]
+        parts += [dense_tracker.next_start(f) for f in finals[:-1]]
+        stats = [dense_tracker.level_stats(r, f) for r, f in zip(refpacks, finals)]
+        parts.append((dense_tracker.flatten_result(dense_tracker.match_result(
+            cfg, finals[-1], stats)),))
+        if outs is not None:
+            for bufs, part in zip(outs, parts):
+                for buf, t in zip(bufs, part):
+                    buf.copy_(t)
+        return parts
+
+    outs = [tuple(t.clone() for t in part) for part in glue()]  # the static buffers; warm
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        glue(outs)
+    census = irls_graph.node_census(graph)
+    census["memcpy"] = census.get("memcpy", 0) + 1
+    return census

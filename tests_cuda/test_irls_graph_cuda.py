@@ -201,7 +201,7 @@ graphs = irls_graph.graphs_for(("a chunk that reads the host",), device)
 graphs.load((torch.ones(4, device=device),))
 
 
-def program(static, state):
+def program(static, state, into=None):
     x = static[0] * 2.0
     if x.sum().item() > 0:  # a host read: not capturable
         x = x + 1.0
